@@ -1,0 +1,258 @@
+"""Configuration for the PyTorch/CUDA port of gdn-tpu.
+
+A field-for-field copy of the JAX package's ``gdn_tpu/config.py``
+dataclasses (same names, same defaults, same ``_exec_field`` metadata),
+so a config built for one package describes the same network in the
+other.  The rationale and the TPU measurements behind each default are
+documented there and are not repeated here; none of those numbers
+describe this port.
+
+What differs:
+
+- ``ModelConfig.compute_dtype`` returns a ``torch.dtype``.
+- Values the port does not run yet raise ``NotImplementedError`` at
+  construction, naming the ROADMAP item that will port them, instead
+  of being silently ignored.
+- The Pallas flags are kept for config compatibility only.  On a CUDA
+  device every GroupNorm+ELU site launches the hand-written kernel
+  (``kernels/groupnorm.py``) whatever ``use_pallas_gn`` says; on the
+  CPU the same sites run its plain PyTorch version.  The execution
+  fields ``gn_impl``, ``gn_analytic_vjp``, ``elu_outform_vjp``,
+  ``convgn_bt_tile`` and ``quant_min_channels`` select TPU/XLA
+  formulations or training-only backward paths and change nothing in
+  the port's forward.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+def _exec_field(default):
+    """Execution-strategy field: changes no trained parameter and
+    belongs to the current environment (see gdn_tpu/config.py)."""
+    return dataclasses.field(default=default, metadata={"execution": True})
+
+
+# (field, value the port runs, ROADMAP item that ports the others)
+_NOT_YET = (
+    ("upsample", "resize_conv", "Queue A item 3 (deconv UpBlock branch)"),
+    ("fusion", "concat", "Queue A item 3 (add FusionBlock)"),
+    ("norm", "group", "Queue A item 3 (norm='none' ConvBlock)"),
+    ("activation", "elu", "Queue A item 3 (non-ELU activations)"),
+    ("quant", "none", "Queue A item 11 (int8 PTQ)"),
+    ("multiscale_heads", False, "Queue A item 3 (multi-scale heads)"),
+    ("use_pallas_convgn", False, "Queue B item 3 (conv+GN+ELU kernels)"),
+    ("use_pallas_convgn_bt", False, "Queue B item 3 (conv+GN+ELU kernels)"),
+    ("use_pallas_convgn_s2", False, "Queue B item 3 (conv+GN+ELU kernels)"),
+    ("use_pallas_fusion", False,
+     "Queue B items 5-6 (fusion block and upsample kernels)"),
+    ("use_pallas_fusion_bt", False, "Queue B item 4 (batch-tiled fusion)"),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture of the two-stage guided depth network."""
+
+    image_size: Tuple[int, int] = (128, 416)
+    enc_channels: Tuple[int, ...] = (32, 64, 128, 256, 512)
+    dec_channels: Tuple[int, ...] = (256, 128, 64, 32, 16)
+    norm: str = "group"
+    group_norm_groups: int = 8
+    gn_impl: str = _exec_field("chanreduce")
+    gn_analytic_vjp: bool = _exec_field(True)
+    activation: str = "elu"
+    upsample: str = "resize_conv"
+    resize_conv_composed: bool = _exec_field(True)
+    deconv_gn: bool = False
+    deconv_init: str = "bilinear"
+    elu_outform_vjp: bool = _exec_field(True)
+    fusion: str = "concat"
+    multiscale_heads: bool = False
+    max_depth: float = 80.0
+    min_depth: float = 1e-3
+    dtype: str = _exec_field("bfloat16")
+    quant: str = _exec_field("none")
+    quant_min_channels: int = _exec_field(0)
+    use_pallas: bool = _exec_field(True)
+    use_pallas_fusion: bool = _exec_field(False)
+    use_pallas_gn: bool = _exec_field(False)
+    use_pallas_convgn: bool = _exec_field(False)
+    use_pallas_convgn_bt: bool = _exec_field(False)
+    convgn_bt_tile: int = _exec_field(8)
+    use_pallas_convgn_s2: bool = _exec_field(False)
+    use_pallas_fusion_bt: bool = _exec_field(False)
+
+    def __post_init__(self):
+        for name, supported, item in _NOT_YET:
+            value = getattr(self, name)
+            if value != supported:
+                raise NotImplementedError(
+                    f"ModelConfig.{name}={value!r} is not ported to "
+                    f"gdn_tpu_torch yet (only {supported!r}); see ROADMAP.md "
+                    f"{item}"
+                )
+        if self.dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"unknown dtype {self.dtype!r} (bfloat16|float32)")
+
+    @property
+    def num_scales(self) -> int:
+        return len(self.enc_channels)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss weights (ported with the training slice)."""
+
+    w_recon: float = 1.0
+    w_grad: float = 1.0
+    w_ssim: float = 0.5
+    w_latent: float = 0.1
+    ssim_window: int = 11
+    ssim_sigma: float = 1.5
+    ssim_precision: str = "default"
+    grad_scales: int = 4
+    w_scales: float = 0.5
+    use_pallas: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Data pipeline settings (ported with the data slice)."""
+
+    dataset: str = "kitti"  # "kitti" | "nyu" | "synthetic"
+    data_path: str = ""
+    train_list: str = "train.txt"
+    val_list: str = "val.txt"
+    batch_size: int = 32
+    num_workers: int = 4
+    loader: str = "native"
+    grain_workers: int = 0
+    train_wire: str = "auto"  # "auto" | "f32"
+    calib_dir: str = ""
+    random_flip: bool = True
+    random_crop: bool = True
+    color_jitter: bool = True
+    jitter_strength: float = 0.2
+    scale_range: Tuple[float, float] = (1.0, 1.15)
+    prefetch: int = 2
+    decode_cache: str = ""
+    device_cache: bool = False
+    device_cache_sharded: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer and loop settings (ported with the training slice)."""
+
+    mode: str = "DtoD"  # "DtoD" (stage 1) | "RtoD" (stage 2)
+    epochs: int = 50
+    lr: float = 1e-4
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    schedule: str = "step"
+    decay_epochs: int = 20
+    decay_gamma: float = 0.5
+    grad_clip: Optional[float] = None
+    warmup_steps: int = 0
+    grad_accum: int = 1
+    ema_decay: Optional[float] = None
+    flatten_optimizer: bool = False
+    remat: bool = False
+    remat_policy: str = "nothing_saveable"
+    freeze_decoder: bool = True
+    fused_guidance: bool = False
+    fused_guidance_vjp: bool = False
+    fused_encoders: bool = False
+    seed: int = 0
+    check_numerics: bool = False
+    log_every: int = 50
+    ckpt_dir: str = "checkpoints"
+    keep_ckpts: int = 3
+    async_ckpt: bool = True
+    steps_per_epoch: int = 1000
+    steps_per_call: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    cap: float = 80.0
+    crop: str = "garg"  # "garg" | "eigen" | "none"
+    median_scaling: bool = False
+    batch_size: int = 1
+    gt_wire: str = "f32"  # "f32" | "u16"
+    rgb_wire: str = "auto"  # "auto" | "f32"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device layout (ported with the parallel slice)."""
+
+    data_axis: str = "data"
+    num_devices: int = 0
+    spatial_devices: int = 1
+    model_devices: int = 1
+    fsdp: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+
+
+def kitti_config(**overrides) -> Config:
+    """KITTI 128x416, cap 80 m."""
+    model = ModelConfig(image_size=(128, 416), max_depth=80.0)
+    return _with(Config(model=model), **overrides)
+
+
+def nyu_config(**overrides) -> Config:
+    """NYU Depth v2 228x304, cap 10 m."""
+    model = ModelConfig(image_size=(228, 304), max_depth=10.0)
+    cfg = Config(
+        model=model,
+        data=DataConfig(dataset="nyu"),
+        eval=EvalConfig(cap=10.0, crop="none"),
+    )
+    return _with(cfg, **overrides)
+
+
+def _with(cfg: Config, **overrides) -> Config:
+    """Apply dotted overrides, e.g. _with(cfg, **{"model.dtype": "float32"})."""
+    for key, value in overrides.items():
+        parts = key.split(".")
+        if len(parts) == 1:
+            cfg = dataclasses.replace(cfg, **{parts[0]: value})
+        else:
+            sub = getattr(cfg, parts[0])
+            sub = dataclasses.replace(sub, **{parts[1]: value})
+            cfg = dataclasses.replace(cfg, **{parts[0]: sub})
+    return cfg
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks
+    for another.  Raises when CUDA is asked for and absent — the port
+    never moves to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU"
+        )
+    return dev

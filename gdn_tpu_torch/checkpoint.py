@@ -1,5 +1,6 @@
-"""Weights for the port: carried over from the JAX package, read from a
-``.pth``, or drawn at random from an explicit generator.
+"""Weights for the port: carried over from the JAX package, read from or
+written to a ``.pth``, drawn at random from an explicit generator, or
+moved from the stage-1 D-net's decoder into a stage-2 G-net.
 
 The port's module attributes follow the flax parameter paths and its
 conv kernels are OIHW, so its ``state_dict`` keys and layouts are
@@ -10,6 +11,7 @@ exactly those of ``gdn_tpu.checkpoint.params_to_torch`` (and of the
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -45,6 +47,36 @@ def load_pth(path: str) -> Dict[str, torch.Tensor]:
     if not isinstance(sd, dict):
         raise ValueError(f"{path}: expected a state_dict, got {type(sd)}")
     return {k: v.float() for k, v in sd.items()}
+
+
+def save_pth(state_dict: Dict[str, torch.Tensor], path: str) -> None:
+    """Write a state_dict as ``load_pth`` and ``scripts/serve_torch.py
+    --pth`` read it: fp32 CPU tensors under the port's (flax-path) keys,
+    the format of ``scripts/export_torch.py``."""
+    if os.path.dirname(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    sd = {k: v.detach().float().cpu().contiguous() for k, v in state_dict.items()}
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(sd, tmp)
+    os.replace(tmp, path)  # atomic: a reader never sees half a file
+
+
+def transfer_stage1_decoder(g_sd: Dict[str, torch.Tensor],
+                            d_sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A G-net state_dict whose ``decoder.*`` entries are copies of the
+    trained D-net's.  Raises when the two decoders differ in keys or
+    shapes instead of training a random decoder."""
+    def dec(sd):
+        return {k: v for k, v in sd.items() if k.startswith("decoder.")}
+
+    d_dec, g_dec = dec(d_sd), dec(g_sd)
+    d_shapes = {k: tuple(v.shape) for k, v in d_dec.items()}
+    g_shapes = {k: tuple(v.shape) for k, v in g_dec.items()}
+    if d_shapes != g_shapes:
+        raise ValueError(
+            "stage-1 decoder is not shape-compatible with the stage-2 "
+            f"decoder: {d_shapes} vs {g_shapes}")
+    return {**g_sd, **{k: v.detach().clone() for k, v in d_dec.items()}}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,

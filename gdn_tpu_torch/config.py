@@ -13,20 +13,26 @@ What differs:
 - Values the port does not run yet raise ``NotImplementedError`` at
   construction, naming the ROADMAP item that will port them, instead
   of being silently ignored.
-- The Pallas flags are kept for config compatibility only.  On a CUDA
-  device every GroupNorm+ELU site launches the hand-written kernel
+- The model's Pallas flags are kept for config compatibility.  On a
+  CUDA device every GroupNorm+ELU site launches the hand-written kernel
   (``kernels/groupnorm.py``) whatever ``use_pallas_gn`` says; on the
-  CPU the same sites run its plain PyTorch version.  The execution
-  fields ``gn_impl``, ``gn_analytic_vjp``, ``elu_outform_vjp``,
-  ``convgn_bt_tile`` and ``quant_min_channels`` select TPU/XLA
-  formulations or training-only backward paths and change nothing in
-  the port's forward.
+  CPU the same sites run its plain PyTorch form.  Either way the GN
+  backward is the analytic two-reduce one that ``gn_analytic_vjp``
+  selects in the JAX package.  The execution fields ``gn_impl``,
+  ``elu_outform_vjp``, ``convgn_bt_tile`` and ``quant_min_channels``
+  select TPU/XLA formulations and change nothing in the port.
+- ``LossConfig.use_pallas`` routes the loss: set, the fused route
+  (``kernels/fused_loss.py``: the CUDA kernels on the card, their plain
+  version on the CPU); unset, the unfused plain-PyTorch terms.
+  ``ssim_precision`` is checked and ignored: the port's SSIM is fp32.
+- ``TrainConfig.flatten_optimizer`` changes no math (it packs optax's
+  leaves on the TPU) and is accepted as a no-op.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -52,6 +58,38 @@ _NOT_YET = (
      "Queue B items 5-6 (fusion block and upsample kernels)"),
     ("use_pallas_fusion_bt", False, "Queue B item 4 (batch-tiled fusion)"),
 )
+_TRAIN_NOT_YET = (
+    ("grad_accum", 1, "Queue A item 5 (gradient accumulation)"),
+    ("remat", False, "Queue A item 5 (activation recomputation)"),
+    ("steps_per_call", 1, "Queue A item 12 (multistep)"),
+    ("fused_guidance", False, "Queue A item 12 (fused guidance)"),
+    ("fused_guidance_vjp", False, "Queue A item 12 (fused guidance)"),
+    ("fused_encoders", False, "Queue A item 12 (fused encoders)"),
+    ("check_numerics", False, "Queue A item 9 (utils.guards)"),
+)
+_MESH_NOT_YET = (
+    ("num_devices", (0, 1), "Queue A item 10 (parallel)"),
+    ("spatial_devices", (1,), "Queue A item 10 (parallel)"),
+    ("model_devices", (1,), "Queue A item 10 (parallel)"),
+    ("fsdp", (False,), "Queue A item 10 (parallel)"),
+)
+
+
+def _refuse(cls: str, table) -> Callable:
+    """A __post_init__ that raises NotImplementedError for each field of
+    ``table`` (field, value the port runs, ROADMAP item) set otherwise."""
+
+    def post_init(self):
+        for name, supported, item in table:
+            value = getattr(self, name)
+            ok = value in supported if isinstance(supported, tuple) else value == supported
+            if not ok:
+                raise NotImplementedError(
+                    f"{cls}.{name}={value!r} is not ported to gdn_tpu_torch "
+                    f"yet (only {supported!r}); see ROADMAP.md {item}"
+                )
+
+    return post_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,14 +126,7 @@ class ModelConfig:
     use_pallas_fusion_bt: bool = _exec_field(False)
 
     def __post_init__(self):
-        for name, supported, item in _NOT_YET:
-            value = getattr(self, name)
-            if value != supported:
-                raise NotImplementedError(
-                    f"ModelConfig.{name}={value!r} is not ported to "
-                    f"gdn_tpu_torch yet (only {supported!r}); see ROADMAP.md "
-                    f"{item}"
-                )
+        _refuse("ModelConfig", _NOT_YET)(self)
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown dtype {self.dtype!r} (bfloat16|float32)")
 
@@ -110,7 +141,7 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
-    """Loss weights (ported with the training slice)."""
+    """Loss weights and routing (losses.py)."""
 
     w_recon: float = 1.0
     w_grad: float = 1.0
@@ -126,7 +157,8 @@ class LossConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Data pipeline settings (ported with the data slice)."""
+    """Data pipeline settings (only the synthetic source is ported;
+    ROADMAP Queue A item 8)."""
 
     dataset: str = "kitti"  # "kitti" | "nyu" | "synthetic"
     data_path: str = ""
@@ -151,7 +183,7 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimizer and loop settings (ported with the training slice)."""
+    """Optimizer and loop settings (train/)."""
 
     mode: str = "DtoD"  # "DtoD" (stage 1) | "RtoD" (stage 2)
     epochs: int = 50
@@ -183,6 +215,8 @@ class TrainConfig:
     steps_per_epoch: int = 1000
     steps_per_call: int = 1
 
+    __post_init__ = _refuse("TrainConfig", _TRAIN_NOT_YET)
+
 
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
@@ -196,13 +230,16 @@ class EvalConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device layout (ported with the parallel slice)."""
+    """Device layout: one device until the parallel slice (ROADMAP
+    Queue A item 10); num_devices 0 means all, that is the one."""
 
     data_axis: str = "data"
     num_devices: int = 0
     spatial_devices: int = 1
     model_devices: int = 1
     fsdp: bool = False
+
+    __post_init__ = _refuse("MeshConfig", _MESH_NOT_YET)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,6 +12,15 @@ plain version (``ops/groupnorm.py::group_norm_elu_plain``) rounds the
 mean and inverse to the compute dtype first, like the JAX package's
 analytic form; in bf16 the two differ by a few bf16 ulps of the output
 (held to atol 0.05, the JAX suite's bound for the same pair).
+
+Gradient: where the input or the affine parameters require grad, the
+kernel runs inside ``_GroupNormELUKernel``, an autograd Function that
+keeps x and the fp32 per-(B, C) mean and inverse std folded from the
+kernel's partials, and whose backward is the JAX package's analytic
+two-reduce backward in plain PyTorch (``ops.groupnorm.gn_elu_backward``;
+on the TPU that backward is XLA, not a Pallas kernel).  Without grad
+(serving, the frozen D-net) the kernel is called directly and nothing
+is kept.  On the CPU every site runs ``group_norm_elu_analytic``.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ import ctypes
 import torch
 
 from gdn_tpu_torch.kernels import build
-from gdn_tpu_torch.ops.groupnorm import group_norm_elu_plain
+from gdn_tpu_torch.ops.groupnorm import gn_elu_backward, group_norm_elu_analytic
 
 # Elements one block of each launch covers; sets the chunk count.
 _BLOCK_ELEMS = 16384
@@ -58,25 +67,15 @@ def _check(x, scale, bias, groups):
         raise ValueError("x, scale and bias must lie on one device")
 
 
-def group_norm_elu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   groups: int, eps: float = 1e-6) -> torch.Tensor:
-    """GroupNorm + ELU of x (B, C, H, W), channels_last memory.
-
-    scale, bias: (C,).  Returns x's shape, dtype and memory format.  A
-    CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises."""
-    _check(x, scale, bias, groups)
-    if x.device.type == "cpu":
-        return group_norm_elu_plain(x, scale, bias, groups, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+def _launch(x, scale, bias, groups, eps):
+    """Run the kernel on channels_last CUDA x -> (out, partials)."""
     b, c, h, w = x.shape
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("x must be channels_last contiguous (NHWC memory)")
     if c > _MAX_C:
         raise ValueError(f"C={c} exceeds the kernel's limit of {_MAX_C}")
-    scale = scale.float().contiguous()
-    bias = bias.float().contiguous()
+    scale = scale.detach().float().contiguous()
+    bias = bias.detach().float().contiguous()
     vec = 16 // x.element_size()
     if c % vec or x.data_ptr() % 16:
         vec = 1
@@ -94,7 +93,58 @@ def group_norm_elu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"gn_elu_forward failed: cudaError {err}")
     group_norm_elu.launches += 1
-    return out
+    return out, partials
+
+
+def _stats_from_partials(partials, c, hw, eps):
+    """The kernel's (B, G, chunks, 2) partial sums -> fp32 (B, C) mean
+    and inverse std, folded as the kernel folds them (clamped var)."""
+    b, groups = partials.shape[:2]
+    cg = c // groups
+    s = partials.sum(2)  # (B, G, 2)
+    n = float(hw * cg)
+    mean = s[..., 0] / n
+    inv = torch.rsqrt(torch.clamp(s[..., 1] / n - mean * mean, min=0.0) + eps)
+    return mean.repeat_interleave(cg, 1), inv.repeat_interleave(cg, 1)
+
+
+class _GroupNormELUKernel(torch.autograd.Function):
+    """Kernel forward, analytic plain-PyTorch backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps):
+        out, partials = _launch(x, scale, bias, groups, eps)
+        mean_c, inv_c = _stats_from_partials(partials, x.shape[1],
+                                             x.shape[2] * x.shape[3], eps)
+        ctx.save_for_backward(x, mean_c, inv_c, scale, bias)
+        ctx.groups = groups
+        return out
+
+    @staticmethod
+    def backward(ctx, da):
+        x, mean_c, inv_c, scale, bias = ctx.saved_tensors
+        dt = x.dtype
+        yn = (x - mean_c.to(dt)[:, :, None, None]) * inv_c.to(dt)[:, :, None, None]
+        dy, dscale, dbias = gn_elu_backward(da, yn, inv_c, scale, bias, ctx.groups)
+        return dy, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None
+
+
+def group_norm_elu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   groups: int, eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm + ELU of x (B, C, H, W), channels_last memory.
+
+    scale, bias: (C,).  Returns x's shape, dtype and memory format,
+    differentiable in x, scale and bias.  A CPU tensor runs the plain
+    analytic form; a CUDA tensor launches the kernel or raises."""
+    _check(x, scale, bias, groups)
+    if x.device.type == "cpu":
+        return group_norm_elu_analytic(x, scale, bias, groups, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if torch.is_grad_enabled() and (
+            x.requires_grad or scale.requires_grad or bias.requires_grad):
+        return _GroupNormELUKernel.apply(x, scale, bias, groups, eps)
+    return _launch(x, scale, bias, groups, eps)[0]
 
 
 group_norm_elu.launches = 0

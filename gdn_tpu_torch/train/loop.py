@@ -1,0 +1,134 @@
+"""Epoch loops of both stages (port of ``gdn_tpu/train/loop.py``).
+
+``train_stage1`` trains the D-net on GT depth; ``train_stage2`` moves
+the stage-1 decoder into a fresh G-net, freezes it, and trains the rest
+with the guidance term from the frozen D-net.  Both run on CUDA unless
+the caller passes ``device="cpu"``.  Per-step scalars (loss terms,
+images/s with the first step left out) go through ``MetricLogger``;
+with ``cfg.train.ckpt_dir`` set, each epoch ends by writing
+``<ckpt_dir>/stage{1,2}.pth`` (``checkpoint.save_pth``).
+
+Not ported yet (ROADMAP Queue A items 5-7): validation and the eval
+protocol, orbax checkpoints, resume and preemption.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict, Iterable, Optional, Union
+
+import torch
+
+from gdn_tpu_torch import kernels
+from gdn_tpu_torch.checkpoint import init_params, save_pth, transfer_stage1_decoder
+from gdn_tpu_torch.config import Config, resolve_device
+from gdn_tpu_torch.models import DtoDNet, RtoDNet
+from gdn_tpu_torch.train.state import TrainState
+from gdn_tpu_torch.train.steps import make_stage1_step, make_stage2_step
+from gdn_tpu_torch.utils.logging import MetricLogger
+
+
+def _floats(terms: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The terms as floats, in one device-to-host copy (waits for the card)."""
+    keys = list(terms)
+    vals = torch.stack([terms[k].float() for k in keys]).tolist()
+    return dict(zip(keys, vals))
+
+
+def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
+                logger: MetricLogger, batch_size: int, log_every: int,
+                device: torch.device, extra_args=()) -> TrainState:
+    """Drive ``steps`` optimizer updates.  The clock restarts after the
+    first step, so its one-time costs (cuDNN's algorithm search, the
+    allocator's growth) stay out of ``imgs_per_sec``."""
+    t_start = time.perf_counter()
+    timed_from = 0
+    for i in range(steps):
+        batch = {k: torch.as_tensor(v).to(device, non_blocking=True)
+                 for k, v in next(data_iter).items()}
+        state, terms = step_fn(state, *extra_args, batch)
+        if i == 0:
+            _floats(terms)
+            t_start = time.perf_counter()
+            timed_from = 1
+        if (i + 1) % log_every == 0 or i == steps - 1:
+            vals = _floats(terms)
+            elapsed = max(time.perf_counter() - t_start, 1e-9)
+            timed = i + 1 - timed_from
+            log_kw = dict(step=state.step, **vals)
+            if timed > 0:
+                log_kw["imgs_per_sec"] = batch_size * timed / elapsed
+            logger.log(**log_kw)
+    return state
+
+
+def _net(cls, cfg: Config, sd: Dict[str, torch.Tensor], device) -> torch.nn.Module:
+    net = cls(cfg.model)
+    net.load_state_dict(sd, strict=True)
+    return net.to(device)
+
+
+def _prepare(device) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        kernels.load_all()  # build before the clock starts
+    return dev
+
+
+def _save(cfg: Config, state: TrainState, name: str) -> None:
+    if cfg.train.ckpt_dir:
+        save_pth(state.net.state_dict(), os.path.join(cfg.train.ckpt_dir, name))
+
+
+def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
+                 epochs: Optional[int] = None, state: Optional[TrainState] = None,
+                 logger: Optional[MetricLogger] = None, device=None) -> TrainState:
+    """D-net pretraining; returns the final TrainState.  Weights start
+    from ``init_params`` with seed cfg.train.seed unless ``state`` is
+    given."""
+    dev = _prepare(device)
+    if state is None:
+        gen = torch.Generator().manual_seed(cfg.train.seed)
+        net = _net(DtoDNet, cfg, init_params(cfg.model, gen, in_channels=1), dev)
+        state = TrainState(net, cfg.train, cfg.train.steps_per_epoch)
+    step_fn = make_stage1_step(cfg)
+    logger = logger or MetricLogger(prefix="stage1")
+    data_iter = iter(data_iter)
+    for _ in range(epochs if epochs is not None else cfg.train.epochs):
+        state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
+                            logger, cfg.data.batch_size, cfg.train.log_every, dev)
+        _save(cfg, state, "stage1.pth")
+    return state
+
+
+def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
+                 d_params: Union[Dict[str, torch.Tensor], torch.nn.Module],
+                 epochs: Optional[int] = None, state: Optional[TrainState] = None,
+                 logger: Optional[MetricLogger] = None, device=None) -> TrainState:
+    """Guided G-net training; returns the final TrainState.
+
+    ``d_params``: the trained stage-1 D-net, as its state_dict or as the
+    DtoDNet itself (on the device; it is frozen in place).  Unless
+    ``state`` is given, a fresh G-net (seed cfg.train.seed) takes its
+    decoder (``transfer_stage1_decoder``), frozen when
+    cfg.train.freeze_decoder.  The D-net runs without grad."""
+    dev = _prepare(device)
+    d_net = (d_params if isinstance(d_params, torch.nn.Module)
+             else _net(DtoDNet, cfg, d_params, dev)).requires_grad_(False)
+    if state is None:
+        gen = torch.Generator().manual_seed(cfg.train.seed)
+        g_sd = transfer_stage1_decoder(init_params(cfg.model, gen, in_channels=3),
+                                       d_net.state_dict())
+        state = TrainState(_net(RtoDNet, cfg, g_sd, dev), cfg.train,
+                           cfg.train.steps_per_epoch,
+                           freeze_decoder=cfg.train.freeze_decoder)
+    step_fn = make_stage2_step(cfg)
+    logger = logger or MetricLogger(prefix="stage2")
+    data_iter = iter(data_iter)
+    for _ in range(epochs if epochs is not None else cfg.train.epochs):
+        state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
+                            logger, cfg.data.batch_size, cfg.train.log_every, dev,
+                            extra_args=(d_net,))
+        _save(cfg, state, "stage2.pth")
+    return state

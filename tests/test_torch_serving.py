@@ -328,7 +328,8 @@ def test_serve_torch_cli_subprocess(tmp_path):
 
 def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "serve_torch.py")]
+             os.path.join(REPO, "scripts", "serve_torch.py"),
+             os.path.join(REPO, "scripts", "train_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "gdn_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -366,4 +367,4 @@ def test_port_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12
+    assert int(out.stdout.strip()) >= 20

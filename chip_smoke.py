@@ -7,8 +7,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 repository around this file.  Phases, each printed on its own lines:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    both kernel libraries from gdn_tpu_torch/csrc, one nvcc
-              each, started together;
+  2. build    the three kernel libraries from gdn_tpu_torch/csrc, one
+              nvcc each, started together;
   3. kernels  at every (B=8, C, H, W, groups) shape the KITTI serving
               forward gives the GroupNorm+ELU kernel, in bf16 and fp32:
               kernel vs its plain PyTorch version on the same tensors,
@@ -28,14 +28,31 @@ repository around this file.  Phases, each printed on its own lines:
   7. gn grad  GroupNorm+ELU gradients (x, scale, bias) through the
               kernel's autograd Function vs plain autograd, 3 serving
               shapes and the largest training one (32, 32, 128, 416);
-  8. train    train_stage1 then train_stage2, 21 steps each, full-width
+  8. train    train_stage1 then train_stage2, 6 steps each, full-width
               KITTI, bf16, B=32, synthetic data on the card: finite
               losses, moved encoders, a bit-identical frozen decoder and
               D-net, the launches per step; ms/step and images/s; a
               profile of one stage-2 step;
   9. vs CPU   one stage-2 step at B=2, fp32, TF32 off: loss terms and
               gradients against the same step on the CPU; the card's
-              bf16 loss terms against CPU fp32.
+              bf16 loss terms against CPU fp32;
+ 10. conv     the fused conv3x3+GroupNorm+ELU kernels (stride 1 per
+              image, stride 1, stride 2, two-input fusion) vs their plain
+              versions at every site of a KITTI net, B=8 and B=32, bf16
+              and fp32, and at ragged shapes: a, yn, inv; with device
+              times of the kernel, the plain version and the unfused
+              route (cuDNN conv [+ cat] + the GroupNorm+ELU kernel), and
+              the bound;
+ 11. conv grad  gradients through each fused entry point's autograd
+              Function vs autograd of its plain version, a shallow and a
+              deep site each;
+ 12. fused slice  serving with use_pallas_convgn_bt/_s2 and
+              use_pallas_fusion_bt on (6 GN+ELU, 5 + 5 + 5 fused launches
+              a batch), then with use_pallas_convgn alone (16 GN+ELU, 5
+              fused), each checked against the CPU;
+ 13. fused train  phase 8 with those flags on, 21 steps a stage, with
+              the launches per step asserted exactly;
+ 14. fused vs CPU  phase 9 with those flags on.
 
 Any failure ends the run with a nonzero exit.  The last lines are the
 kernels' JSON line, the nvidia-smi line, and
@@ -61,12 +78,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "smoke_out")  # gitignored
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 L2_BYTES = 50 * 2**20
 GN_FLOPS_PER_ELEM = 8  # sum, square-sum, center, scale, shift, ELU
 TOL = {torch.bfloat16: (0.05, 0.05), torch.float32: (1e-4, 1e-5)}  # rtol, atol
 BATCH = 8
 TRAIN_BATCH = 32  # DataConfig.batch_size
-TRAIN_STEPS = 21  # the host clock times steps 2-21
+TRAIN_STEPS = 6  # unfused configuration: the host clock times steps 2-6
+FUSED_TRAIN_STEPS = 21  # fused configuration: steps 2-21
+FUSED = {"model.use_pallas_convgn_bt": True, "model.use_pallas_convgn_s2": True,
+         "model.use_pallas_fusion_bt": True}
+FUSED_V1 = {"model.use_pallas_convgn": True}
+COUNTERS = ("group_norm_elu", "fused_loss_fwd", "fused_loss_bwd", "conv_gn_elu",
+            "conv_gn_elu_bt", "conv_gn_elu_s2", "fusion_bt")
 # Fused loss operation counts per pixel for an 11-tap window, the least
 # the algorithm needs: forward = 3 products + 5 moments x 2 passes x 11
 # taps x 2 + ~20 for the SSIM map + 16 for L1 and the two differences +
@@ -120,11 +144,21 @@ def _device_us(prof):
             and not getattr(e, "is_user_annotation", False)}
 
 
-def profiled(run, cpu=False, tries=3):
+class ProfilerShort(RuntimeError):
+    """torch.profiler recorded fewer kernel calls than were launched."""
+
+
+EVENT_TIMED = []  # what device_ms had to time with CUDA events instead
+
+
+def profiled(run, cpu=False, tries=4, min_calls=1):
     """(profiler, {kernel: (us, calls)}, wall s) of ``run()`` under
-    torch.profiler.  CUPTI has on the H100 handed back, rarely, a
-    session with no device rows at all; such a session is run again, up
-    to ``tries`` in all, and the run fails if every one came back empty."""
+    torch.profiler.  CUPTI has on the H100 handed back, now and then, a
+    session with no device rows at all, or with most of them missing,
+    sometimes several sessions in a row; a session with fewer than
+    ``min_calls`` kernel calls is run again after a pause, up to
+    ``tries`` in all, and ProfilerShort is raised if every one came back
+    short."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
@@ -136,15 +170,21 @@ def profiled(run, cpu=False, tries=3):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = _device_us(prof)
-        if kernels:
+        calls = sum(n for _, n in kernels.values())
+        if calls >= min_calls:
             return prof, kernels, wall
-        log(f"  (profiler session {attempt} of {tries} recorded no device time)")
-    raise RuntimeError(f"torch.profiler recorded no device time in {tries} sessions")
+        log(f"  (profiler session {attempt} of {tries} recorded {calls} kernel "
+            f"calls, fewer than the {min_calls} launched)")
+        time.sleep(0.5 * attempt)
+    raise ProfilerShort(f"torch.profiler came back short in {tries} sessions")
 
 
-def device_ms(fns, iters=20):
+def device_ms(fns, iters=20, what=""):
     """Mean device ms of one call, from the profiler: the sum of the
-    card's kernel times over a loop, whatever the host's pace."""
+    card's kernel times over a loop, whatever the host's pace.  Where
+    the profiler keeps coming back short, the call is timed with CUDA
+    events around the loop instead (an upper bound: it includes the gaps
+    between launches), and ``what`` is noted in EVENT_TIMED."""
     for f in fns[:3]:
         f()
     n = max(iters, len(fns))
@@ -153,7 +193,12 @@ def device_ms(fns, iters=20):
         for i in range(n):
             fns[i % len(fns)]()
 
-    _, kernels, _ = profiled(loop)
+    try:
+        _, kernels, _ = profiled(loop, min_calls=n)  # every call launches a kernel
+    except ProfilerShort:
+        EVENT_TIMED.append(what)
+        log(f"  (timing {what or 'this call'} with CUDA events instead)")
+        return cuda_ms(fns, iters)
     return sum(us for us, _ in kernels.values()) / 1e3 / n
 
 
@@ -277,45 +322,79 @@ def phase_kernels_train(cfg, gn):
     return rows
 
 
-def reset_counts():
+def _counted():
+    """{name in the kernels line: the wrapper that carries its count}."""
+    from gdn_tpu_torch.kernels import conv_gn_elu as ck
     from gdn_tpu_torch.kernels import fused_loss as fl
+    from gdn_tpu_torch.kernels import fusion_bt as fk
     from gdn_tpu_torch.kernels import groupnorm as gnk
 
-    gnk.group_norm_elu.launches = 0
-    fl.fused_loss_fwd.launches = 0
-    fl.fused_loss_bwd.launches = 0
+    fns = (gnk.group_norm_elu, fl.fused_loss_fwd, fl.fused_loss_bwd,
+           ck.fused_conv_gn_elu, ck.fused_conv_gn_elu_bt, ck.fused_conv_gn_elu_s2,
+           fk.fused_fusion_bt)
+    return dict(zip(COUNTERS, fns))
+
+
+def reset_counts():
+    for fn in _counted().values():
+        fn.launches = 0
 
 
 def read_counts():
-    from gdn_tpu_torch.kernels import fused_loss as fl
-    from gdn_tpu_torch.kernels import groupnorm as gnk
-
-    return {"group_norm_elu": gnk.group_norm_elu.launches,
-            "fused_loss_fwd": fl.fused_loss_fwd.launches,
-            "fused_loss_bwd": fl.fused_loss_bwd.launches}
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
-def phase_slice(cfg, sd, gn):
+def expect_counts(what, got, **want):
+    want = {name: want.get(name, 0) for name in COUNTERS}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def conv_sites(m):
+    """The 15 fused sites of one net, by entry point: stride-2 and
+    refine convs of each DownBlock as (Cin, Cout, H, W) of the input,
+    fusion sites as (Cx, Cl, Cout, H, W)."""
+    h, w = m.image_size
+    cin, sizes = m.enc_channels[0], [m.image_size]
+    s2, bt, fusion = [], [], []
+    for ch in m.enc_channels:
+        s2.append((cin, ch, h, w))
+        h, w = -(-h // 2), -(-w // 2)
+        bt.append((ch, ch, h, w))
+        sizes.append((h, w))
+        cin = ch
+    skips = [m.enc_channels[0], *m.enc_channels[:-1]]
+    n = len(skips)
+    for i, ch in enumerate(m.dec_channels):
+        fusion.append((ch, skips[n - 1 - i], ch, *sizes[n - 1 - i]))
+    return {"conv_gn_elu": bt, "conv_gn_elu_bt": bt, "conv_gn_elu_s2": s2,
+            "fusion_bt": fusion}
+
+
+def phase_slice(cfg, sd, per_batch, tag="serving", n_images=20, timed=True):
+    """Serve ``n_images`` through BatchedPredictor under ``cfg``; the
+    kernels must launch exactly ``per_batch`` times a batch; depth is
+    held against the same weights and flags on the CPU."""
     from gdn_tpu_torch.config import _with
     from gdn_tpu_torch.serving import BatchedPredictor
 
     h, w = cfg.model.image_size
-    images = np.random.default_rng(0).integers(0, 256, (20, h, w, 3), np.uint8)
+    images = np.random.default_rng(0).integers(0, 256, (n_images, h, w, 3), np.uint8)
     pred = BatchedPredictor(cfg, sd, batch_size=BATCH)
     pred.predict(images[:BATCH])  # warm-up: cuDNN algorithm search
     torch.cuda.synchronize()
     reset_counts()
     depth = pred.predict(images)
-    launches = read_counts()["group_norm_elu"]
+    counts = read_counts()
     batches = -(-len(images) // BATCH)
-    log(f"  20 images in {batches} batches: {launches} GN+ELU launches")
-    if depth.shape != (20, h, w):
+    log(f"  {n_images} images in {batches} batches: launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if depth.shape != (n_images, h, w):
         raise AssertionError(f"depth shape {depth.shape}")
     if not (np.isfinite(depth).all() and (depth > 0).all()
             and (depth <= cfg.model.max_depth).all()):
         raise AssertionError("depth not finite in (0, max_depth]")
-    if launches != len(gn_sites(cfg.model)) * batches:
-        raise AssertionError(f"{launches} launches, expected 21 x {batches}")
+    expect_counts(tag, counts, **{k: v * batches for k, v in per_batch.items()})
 
     # The same weights in fp32 on the CPU: the card's fp32 path (TF32
     # off) must agree to rtol 1e-4 / atol 1e-3 m, its bf16 path within
@@ -331,6 +410,12 @@ def phase_slice(cfg, sd, gn):
         f" card bf16 max|d| {d.max():.3g} m, mean {d.mean():.3g} m")
     if d.max() > 2.0 or d.mean() > 0.4:
         raise AssertionError("bf16 depth beyond the stated bound")
+    info = {"launches_per_batch": {k: v // batches for k, v in counts.items() if v},
+            "card_fp32_vs_cpu_max_m": float(np.abs(gpu32 - cpu).max()),
+            "card_bf16_vs_cpu_max_m": float(d.max()),
+            "card_bf16_vs_cpu_mean_m": float(d.mean())}
+    if not timed:
+        return pred, counts, info
 
     many = np.concatenate([images] * 4)[:64]
     times = []
@@ -342,31 +427,41 @@ def phase_slice(cfg, sd, gn):
     ms_batch = 1e3 * t / (len(many) // BATCH)
     log(f"  serving: {ms_batch:.2f} ms/batch of {BATCH}, "
         f"{len(many) / t:.1f} images/s (64 images, best of 3)")
-    profile = profile_serving(pred, many)
-    return pred, launches, {"ms_per_batch": ms_batch,
-                            "images_per_s": len(many) / t,
-                            "launches_per_batch": launches / batches,
-                            "profile": profile}
+    info.update(ms_per_batch=ms_batch, images_per_s=len(many) / t,
+                profile=profile_serving(pred, many, tag))
+    return pred, counts, info
 
 
-def profile_serving(pred, images):
+def profile_serving(pred, images, tag):
     """Where one serving call's time goes: the card's busy share of the
     wall time, and its kernels by device time (table in OUT)."""
-    prof, kernels, wall = profiled(lambda: pred.predict(images), cpu=True)
+    try:
+        prof, kernels, wall = profiled(lambda: pred.predict(images), cpu=True)
+    except ProfilerShort as e:
+        log(f"  profile of {tag}: not measured ({e})")
+        return None
     busy_ms = sum(us for us, _ in kernels.values()) / 1e3
-    gn_ms = sum(us for k, (us, _) in kernels.items()
-                if "gn_stats" in k or "gn_apply" in k) / 1e3
+
+    def named(*parts):
+        return sum(us for k, (us, _) in kernels.items()
+                   if any(part in k for part in parts)) / 1e3
+
+    gn_ms = named("gn_stats", "gn_apply")
+    conv_ms = named("conv3x3_stats", "gn_elu_apply")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     os.makedirs(OUT, exist_ok=True)
-    with open(os.path.join(OUT, "serving_profile.txt"), "w") as f:
+    with open(os.path.join(OUT, f"{tag}_profile.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=40))
     out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
            "idle_share": 1 - busy_ms / (wall * 1e3), "gn_elu_device_ms": gn_ms,
+           "fused_conv_device_ms": conv_ms,
+           "kernel_launches": sum(n for _, n in kernels.values()),
            "top_kernels_us": [(k[:90], us, n) for k, (us, n) in top]}
     log(f"  profile of {len(images)} images: wall {out['wall_ms']:.1f} ms, "
         f"device busy {busy_ms:.2f} ms (idle {out['idle_share']:.1%}), "
-        f"GN+ELU kernels {gn_ms:.3f} ms")
+        f"GN+ELU kernels {gn_ms:.3f} ms, fused conv kernels {conv_ms:.3f} ms, "
+        f"{out['kernel_launches']} launches")
     for k, us, n in out["top_kernels_us"]:
         log(f"    {us/1e3:8.3f} ms  x{n:<5d} {k}")
     return out
@@ -535,7 +630,10 @@ def phase_gn_grad():
     return rows
 
 
-def phase_train(cfg):
+def phase_train(cfg, steps, per_net, tag="train"):
+    """train_stage1 then train_stage2, ``steps`` each; ``per_net`` is
+    the model kernels' launches in one net's forward (stage 2 runs two
+    nets a step: the G-net under grad and the frozen D-net)."""
     from gdn_tpu_torch.checkpoint import init_params, load_pth
     from gdn_tpu_torch.config import _with
     from gdn_tpu_torch.data.synthetic import SyntheticDataset
@@ -543,17 +641,16 @@ def phase_train(cfg):
     from gdn_tpu_torch.train.loop import train_stage1, train_stage2
     from gdn_tpu_torch.utils.logging import MetricLogger
 
-    ckpt = os.path.join(OUT, "train")
-    cfg = _with(cfg, **{"train.steps_per_epoch": TRAIN_STEPS,
-                        "train.log_every": TRAIN_STEPS, "train.ckpt_dir": ckpt,
+    ckpt = os.path.join(OUT, tag)
+    cfg = _with(cfg, **{"train.steps_per_epoch": steps,
+                        "train.log_every": steps, "train.ckpt_dir": ckpt,
                         "data.batch_size": TRAIN_BATCH})
     h, w = cfg.model.image_size
     data = iter(SyntheticDataset(TRAIN_BATCH, h, w, cfg.model.max_depth, seed=0,
                                  device="cuda"))
-    sites = len(gn_sites(cfg.model))
     out, launches = {}, {}
     for stage in ("stage1", "stage2"):
-        jsonl = os.path.join(OUT, f"train_{stage}.jsonl")
+        jsonl = os.path.join(OUT, f"{tag}_{stage}.jsonl")
         if os.path.exists(jsonl):
             os.remove(jsonl)
         logger = MetricLogger(prefix=stage, jsonl_path=jsonl)
@@ -571,19 +668,19 @@ def phase_train(cfg):
         launches[stage] = counts = read_counts()
         logger.close()
         rec = [json.loads(line) for line in open(jsonl)][-1]
-        want = {"group_norm_elu": sites * (1 if stage == "stage1" else 2) * TRAIN_STEPS,
-                "fused_loss_fwd": TRAIN_STEPS, "fused_loss_bwd": TRAIN_STEPS}
-        if counts != want:
-            raise AssertionError(f"{stage} launches {counts}, expected {want}")
+        nets = 1 if stage == "stage1" else 2
+        expect_counts(f"{tag} {stage}", counts, fused_loss_fwd=steps, fused_loss_bwd=steps,
+                      **{k: v * nets * steps for k, v in per_net.items()})
         terms = {k: v for k, v in rec.items() if k not in ("t", "step", "imgs_per_sec")}
         if not all(np.isfinite(v) for v in terms.values()):
             raise AssertionError(f"{stage} loss not finite: {rec}")
         ips = rec["imgs_per_sec"]
         out[stage] = {"images_per_s": ips, "ms_per_step": 1e3 * TRAIN_BATCH / ips,
                       "last_terms": terms, "launches": counts}
-        log(f"  {stage}: {TRAIN_STEPS} steps, launches {counts}; "
+        log(f"  {stage}: {steps} steps, launches "
+            f"{ {k: v for k, v in counts.items() if v} }; "
             f"{out[stage]['ms_per_step']:.1f} ms/step, {ips:.1f} images/s "
-            f"(host clock, steps 2-{TRAIN_STEPS}); last terms "
+            f"(host clock, steps 2-{steps}); last terms "
             + " ".join(f"{k}={v:.4f}" for k, v in terms.items()))
 
     # encoders moved; the frozen decoder is stage 1's; the D-net untouched
@@ -600,21 +697,25 @@ def phase_train(cfg):
         if not torch.equal(v, d_before[k]):
             raise AssertionError(f"D-net changed at {k}")
     log("  encoders moved; frozen decoder and D-net bit-identical")
-    out["profile"] = profile_train_step(cfg, s2, d_net, next(data))
+    out["profile"] = profile_train_step(cfg, s2, d_net, next(data), tag)
     return out, launches, s1, s2, d_net
 
 
-def profile_train_step(cfg, state, d_net, batch):
+def profile_train_step(cfg, state, d_net, batch, tag):
     """One stage-2 step under torch.profiler: the card's busy share of
     the wall time and its kernels by device time (table in OUT)."""
     from gdn_tpu_torch.train.steps import make_stage2_step
 
     step = make_stage2_step(cfg)
     step(state, d_net, batch)
-    prof, kernels, wall = profiled(lambda: step(state, d_net, batch), cpu=True)
+    try:
+        prof, kernels, wall = profiled(lambda: step(state, d_net, batch), cpu=True)
+    except ProfilerShort as e:
+        log(f"  profile of {tag}: not measured ({e})")
+        return None
     busy_ms = sum(us for us, _ in kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    with open(os.path.join(OUT, "training_profile.txt"), "w") as f:
+    with open(os.path.join(OUT, f"{tag}_profile.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=50))
     out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
@@ -686,6 +787,269 @@ def phase_vs_cpu(cfg, s2, d_net):
     return out
 
 
+RAGGED = {  # (B, channels..., H, W): odd sizes at stride 2, ragged channels
+    "conv_gn_elu": [(3, 24, 40, 9, 11)],
+    "conv_gn_elu_bt": [(3, 24, 40, 9, 11), (2, 5, 6, 7, 5)],
+    "conv_gn_elu_s2": [(2, 64, 128, 57, 76), (3, 16, 32, 29, 37), (2, 5, 6, 7, 5)],
+    "fusion_bt": [(2, 48, 20, 12, 9, 7), (3, 16, 32, 16, 29, 37)],
+}
+
+
+def _conv_case(name, shape, dtype, copies, gen):
+    """Inputs of one fused site and its three routes on them: the kernel
+    (with residuals; ``serve`` is the no-grad entry point that stores a
+    alone), the plain version, and the unfused route the port offers
+    (cuDNN conv [+ cat] + the GroupNorm+ELU kernel)."""
+    from gdn_tpu_torch.kernels import conv_gn_elu as ck
+    from gdn_tpu_torch.kernels import fusion_bt as fk
+    from gdn_tpu_torch.kernels.groupnorm import group_norm_elu
+    from gdn_tpu_torch.ops.conv import conv_same
+    from gdn_tpu_torch.ops.groupnorm import pick_groups
+
+    cl = torch.channels_last
+    tap = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    b, *chans, h, w = shape
+    cout, cins = chans[-1], chans[:-1]
+    stride = 2 if name == "conv_gn_elu_s2" else 1
+    g = pick_groups(cout, 8)
+
+    def act(c):
+        return [torch.randn((b, c, h, w), device="cuda", generator=gen).to(dtype)
+                .contiguous(memory_format=cl) for _ in range(copies)]
+
+    xs = [act(c) for c in cins]  # one list of copies per input
+    k = torch.randn((cout, sum(cins), 3, 3), device="cuda", generator=gen) * (
+        2.0 / (9 * sum(cins))) ** 0.5
+    ks = torch.split(k, cins, dim=1)
+    scale = torch.rand(cout, device="cuda", generator=gen) + 0.5
+    bias = torch.randn(cout, device="cuda", generator=gen) * 0.1
+    kd = k.to(dtype)
+    if name == "fusion_bt":
+        def kernel(x, lat):
+            return fk._fusion_bt_all(x, lat, *ks, scale, bias, g, 1e-6, tap)
+
+        def serve(x, lat):
+            return fk.fused_fusion_bt(x, lat, *ks, scale, bias, g, 1e-6, tap)
+
+        def plain(x, lat):
+            return fk.fusion_bt_plain(x, lat, *ks, scale, bias, g, 1e-6, tap)
+
+        def library(x, lat):
+            return group_norm_elu(conv_same(torch.cat([x, lat], 1), kd), scale, bias, g)
+    else:
+        out_dtype = torch.float32 if name == "conv_gn_elu" else None
+        if name == "conv_gn_elu":
+            def kernel(x):
+                return (ck.fused_conv_gn_elu(x, k, scale, bias, g, 1e-6, tap), None, None)
+            serve = None
+        else:
+            entry, full = {
+                "conv_gn_elu_bt": (ck.fused_conv_gn_elu_bt, ck._conv_gn_elu_bt_all),
+                "conv_gn_elu_s2": (ck.fused_conv_gn_elu_s2, ck._conv_gn_elu_s2_all),
+            }[name]
+
+            def kernel(x):
+                return full(x, k, scale, bias, g, 1e-6, tap)
+
+            def serve(x):
+                return entry(x, k, scale, bias, g, 1e-6, tap)
+
+        def plain(x):
+            return ck.conv_gn_elu_plain(x, k, scale, bias, g, 1e-6, stride, tap, out_dtype)
+
+        def library(x):
+            return group_norm_elu(conv_same(x, kd, stride), scale, bias, g)
+    ho, wo = -(-h // stride), -(-w // stride)
+    item = torch.finfo(dtype).bits // 8
+    out_item = 4 if name == "conv_gn_elu" else item
+    flops = 18 * sum(cins) * cout * ho * wo * b
+    in_bytes = b * sum(cins) * h * w * item + k.numel() * 4 + 2 * cout * 4
+    out_elems = b * cout * ho * wo
+    ins = list(zip(*xs))  # one tuple of inputs per copy
+    return dict(kernel=kernel, serve=serve, plain=plain, library=library, ins=ins,
+                flops=flops, in_bytes=in_bytes, a_bytes=out_elems * out_item,
+                res_bytes=out_elems * out_item + b * cout * 4)
+
+
+def phase_conv_kernels(cfg):
+    """Every fused entry point vs its plain version, with times.
+
+    Tolerance: fp32 rtol 1e-4 / atol 1e-5 (the JAX suite's for these
+    kernels against their reference); bf16 0.05 + 0.05 |ref| on a and yn
+    as phase 3 (one bf16 rounding of an O(1) value is up to 0.0156; the
+    kernel and cuDNN sum the taps in other orders, so a value near a
+    rounding boundary may land on either side), inv (fp32 in both) at
+    the fp32 tolerance.  The bound is the larger of the flops at the
+    card's peak for the tap dtype (dense bf16 tensor rate; fp32 FMA
+    rate for fp32 taps) and the bytes (inputs and weights read once, a
+    and, where stored, yn and inv written once) at the memory rate."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sites = conv_sites(cfg.model)
+    for name in ("conv_gn_elu", "conv_gn_elu_bt", "conv_gn_elu_s2", "fusion_bt"):
+        cases = [((b, *site), True) for b in (BATCH, TRAIN_BATCH) for site in sites[name]]
+        cases += [(shape, False) for shape in RAGGED[name]]
+        for shape, main in cases:
+            for dtype in (torch.bfloat16, torch.float32):
+                b = shape[0]
+                probe = _conv_case(name, shape, dtype, 1, gen)
+                nbytes = probe["in_bytes"] + probe["res_bytes"]
+                copies = min(4, max(1, -(-2 * L2_BYTES // nbytes))) if main else 1
+                case = probe if copies == 1 else _conv_case(name, shape, dtype, copies, gen)
+                del probe
+                got = case["kernel"](*case["ins"][0])
+                torch.cuda.synchronize()
+                want = case["plain"](*case["ins"][0])
+                what = f"{name} {shape} {dtype}"
+                errs = {}
+                for part, g_, w_ in zip(("a", "yn", "inv"), got, want):
+                    if g_ is None:
+                        continue
+                    exact = part == "inv" or name == "conv_gn_elu"  # fp32 in both
+                    tol = TOL[torch.float32 if exact else dtype]
+                    errs[part] = check_tol(g_, w_, *tol, f"{what} {part}")
+                row = {"kernel": name, "shape": list(shape), "dtype": str(dtype),
+                       "main": main, "max_abs_err": errs}
+                line = f"  {what}: max|k-p| " + " ".join(
+                    f"{k} {v:.3g}" for k, v in errs.items())
+                if main:
+                    # B=32 is training: a, yn and inv stored; B=8 is
+                    # serving: a alone (the per-image kernel never stores
+                    # residuals).
+                    train = b == TRAIN_BATCH and case["serve"] is not None
+                    timed = case["kernel"] if train or case["serve"] is None else case["serve"]
+                    out_bytes = case["res_bytes"] if train else case["a_bytes"]
+                    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+                    t_ops = case["flops"] / peak
+                    t_bytes = (case["in_bytes"] + out_bytes) / HBM_BYTES_PER_S
+                    row.update(
+                        residuals=train, flops=case["flops"],
+                        bytes=case["in_bytes"] + out_bytes,
+                        bound_ms=1e3 * max(t_ops, t_bytes),
+                        bound_by="operations" if t_ops >= t_bytes else "bytes",
+                        **{key: device_ms([lambda i=i: fn(*i) for i in case["ins"]], 10,
+                                          f"{what} {key}")
+                           for key, fn in (("ms", timed), ("plain_ms", case["plain"]),
+                                           ("library_ms", case["library"]))})
+                    row["tflops"] = case["flops"] / row["ms"] / 1e9
+                    line += (f"  device us: kernel {row['ms']*1e3:.1f} "
+                             f"({row['tflops']:.1f} TFLOP/s) plain {row['plain_ms']*1e3:.1f}"
+                             f" unfused {row['library_ms']*1e3:.1f} bound "
+                             f"{row['bound_ms']*1e3:.2f} ({row['bound_by']})")
+                rows.append(row)
+                log(line)
+                del case, got, want
+    return rows
+
+
+def phase_conv_grad():
+    """Gradients in every tensor input through each fused entry point's
+    autograd Function vs autograd of its plain version, on the card, at
+    a shallow and a deep site each.  fp32: rtol 1e-3 (the JAX suite's
+    gradient bound for these kernels) with an absolute floor of 1e-5 of
+    the gradient's largest magnitude (the weight gradients sum B*H*W
+    terms in other orders; the suite's atol 1e-5 is for gradients of
+    O(1)).  bf16: within 2% of the gradient's largest magnitude, as
+    phase 7 (the analytic chain rounds to bf16 where the plain graph
+    stays fp32)."""
+    from gdn_tpu_torch.kernels import conv_gn_elu as ck
+    from gdn_tpu_torch.kernels import fusion_bt as fk
+    from gdn_tpu_torch.ops.groupnorm import pick_groups
+
+    cl = torch.channels_last
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = {
+        "conv_gn_elu": [(BATCH, 32, 32, 64, 208), (BATCH, 512, 512, 4, 13)],
+        "conv_gn_elu_bt": [(TRAIN_BATCH, 32, 32, 64, 208), (TRAIN_BATCH, 512, 512, 4, 13)],
+        "conv_gn_elu_s2": [(TRAIN_BATCH, 32, 32, 128, 416), (TRAIN_BATCH, 256, 512, 8, 26)],
+        "fusion_bt": [(TRAIN_BATCH, 16, 32, 16, 128, 416), (TRAIN_BATCH, 256, 256, 256, 8, 26)],
+    }
+    rows = []
+    for name, shapes in cases.items():
+        for shape in shapes:
+            for dtype in (torch.bfloat16, torch.float32):
+                tap = "bfloat16" if dtype == torch.bfloat16 else "float32"
+                b, *chans, h, w = shape
+                cout, cins = chans[-1], chans[:-1]
+                g = pick_groups(cout, 8)
+                stride = 2 if name == "conv_gn_elu_s2" else 1
+                acts = [torch.randn((b, c, h, w), device="cuda", generator=gen).to(dtype)
+                        .contiguous(memory_format=cl) for c in cins]
+                ks = [torch.randn((cout, c, 3, 3), device="cuda", generator=gen)
+                      * (2.0 / (9 * sum(cins))) ** 0.5 for c in cins]
+                scale = torch.rand(cout, device="cuda", generator=gen) + 0.5
+                bias = torch.randn(cout, device="cuda", generator=gen) * 0.1
+                tensors = [*acts, *ks, scale, bias]
+                if name == "fusion_bt":
+                    fused = lambda *t: fk.fused_fusion_bt(*t, g, 1e-6, tap)
+                    plain = lambda *t: fk.fusion_bt_plain(*t, g, 1e-6, tap)[0]
+                else:
+                    entry = {"conv_gn_elu": ck.fused_conv_gn_elu,
+                             "conv_gn_elu_bt": ck.fused_conv_gn_elu_bt,
+                             "conv_gn_elu_s2": ck.fused_conv_gn_elu_s2}[name]
+                    out_dtype = torch.float32 if name == "conv_gn_elu" else None
+                    fused = lambda *t: entry(*t, g, 1e-6, tap)
+                    plain = lambda *t: ck.conv_gn_elu_plain(*t, g, 1e-6, stride, tap,
+                                                            out_dtype)[0]
+                grads, da = [], None
+                for fn in (fused, plain):
+                    leaves = [t.clone().requires_grad_(True) for t in tensors]
+                    out = fn(*leaves)
+                    if out.grad_fn is None:
+                        raise AssertionError(f"{name} output has no grad_fn")
+                    if da is None:
+                        da = torch.randn(out.shape, device="cuda", generator=gen).to(
+                            out.dtype).contiguous(memory_format=cl)
+                    grads.append(torch.autograd.grad(out, leaves, da))
+                    del out, leaves
+                torch.cuda.synchronize()
+                what = f"{name} grad {shape} {dtype}"
+                names = [f"d{n}" for n in (["x", "lat", "wx", "wl"] if len(cins) == 2
+                                           else ["x", "w"])] + ["dscale", "dbias"]
+                errs, refs = [], []
+                for n, got, want in zip(names, *grads):
+                    top = want.float().abs().max().item()
+                    if dtype == torch.float32:
+                        errs.append(check_tol(got, want, 1e-3, 1e-5 * top, f"{what} {n}"))
+                    else:
+                        errs.append(check_tol(got, want, 0.0, 0.02 * top, f"{what} {n}"))
+                    refs.append(top)
+                rows.append({"kernel": name, "shape": list(shape), "dtype": str(dtype),
+                             "grads": names, "max_abs_err": errs, "max_abs_ref": refs})
+                log(f"  {what}: max|k-p| / max|p| " + " ".join(
+                    f"{n} {e / r:.2g}" for n, e, r in zip(names, errs, refs)))
+                del grads, tensors, acts
+    return rows
+
+
+def _family_entry(name, line, rows, launches):
+    """One fused conv entry point's object of the kernels line: its five
+    sites of a net summed at the batch its main path runs in bf16 (B=8
+    serving for the per-image kernel, B=32 training for the others; the
+    B=8 sums are in chip_smoke.json)."""
+    batch = BATCH if name == "conv_gn_elu" else TRAIN_BATCH
+    mine = [r for r in rows if r["kernel"] == name and r["main"]]
+    picked = [r for r in mine if r["shape"][0] == batch
+              and r["dtype"] == str(torch.bfloat16)]
+    bound = {by: sum(r["bound_ms"] for r in picked if r["bound_by"] == by)
+             for by in ("operations", "bytes")}
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "gdn_tpu_torch/csrc/conv_gn_elu.cu",
+        "replaces": line,
+        "launches": launches,
+        "max_abs_err": max(max(r["max_abs_err"].values()) for r in mine
+                           if r["dtype"] == str(torch.bfloat16)),
+        "max_abs_err_fp32": max(max(r["max_abs_err"].values()) for r in mine
+                                if r["dtype"] == str(torch.float32)),
+        **{k: sum(r[k] for r in picked)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "bound_by": max(bound, key=bound.get),
+        "shape": f"5 sites of a net, B={batch}, bf16",
+    }
+
+
 def main():
     log("== 1. device")
     if not torch.cuda.is_available():
@@ -708,11 +1072,14 @@ def main():
     log("== 2. build")
     t0 = time.perf_counter()
     port_kernels.load_all()
-    log(f"  group_norm_elu and fused_loss built and loaded in "
+    log(f"  group_norm_elu, fused_loss and conv_gn_elu built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
     cfg = kitti_config(**{"model.use_pallas_gn": True})
+    cfg_fused = kitti_config(**{"model.use_pallas_gn": True, **FUSED})
+    cfg_v1 = kitti_config(**{"model.use_pallas_gn": True, **FUSED_V1})
     gn = gnk.group_norm_elu
+    n_gn = len(gn_sites(cfg.model))
     log("== 3. kernels vs plain (B=8, KITTI serving shapes)")
     rows = phase_kernels(cfg, gn)
     log(f"   and at the training batch (B={TRAIN_BATCH}, bf16, every site)")
@@ -720,10 +1087,11 @@ def main():
 
     log("== 4. slice: BatchedPredictor, full-width KITTI G-net, bf16")
     sd = init_params(cfg.model, torch.Generator().manual_seed(0))
-    pred, launches, serving = phase_slice(cfg, sd, gn)
+    pred, serving_counts, serving = phase_slice(cfg, sd, {"group_norm_elu": n_gn})
 
     log("== 5. server")
     phase_server(cfg, pred)
+    del pred
 
     log("== 6. fused loss kernels vs plain")
     loss_rows = phase_loss()
@@ -733,16 +1101,44 @@ def main():
 
     log(f"== 8. training: stage 1 then stage 2, full-width KITTI, bf16, "
         f"B={TRAIN_BATCH}")
-    training, train_launches, _, s2, d_net = phase_train(cfg)
+    training, train_launches, _, s2, d_net = phase_train(
+        cfg, TRAIN_STEPS, {"group_norm_elu": n_gn}, "training")
 
     log("== 9. one stage-2 step, card vs CPU, B=2")
     vs_cpu = phase_vs_cpu(cfg, s2, d_net)
+    del s2, d_net
+
+    log("== 10. fused conv3x3+GroupNorm+ELU kernels vs plain")
+    conv_rows = phase_conv_kernels(cfg)
+
+    log("== 11. gradients through the fused conv entry points")
+    conv_grad_rows = phase_conv_grad()
+
+    log("== 12. slice with the fused kernels: serving, full width, bf16")
+    fused_per_net = {"group_norm_elu": 6, "conv_gn_elu_bt": 5, "conv_gn_elu_s2": 5,
+                     "fusion_bt": 5}
+    _, fused_counts, serving_fused = phase_slice(cfg_fused, sd, fused_per_net,
+                                                 "serving_fused", 16)
+    log("   and with use_pallas_convgn alone (the per-image entry point)")
+    _, v1_counts, serving_v1 = phase_slice(
+        cfg_v1, sd, {"group_norm_elu": 16, "conv_gn_elu": 5}, "serving_v1", 8,
+        timed=False)
+
+    log(f"== 13. training with the fused kernels: stage 1 then stage 2, "
+        f"B={TRAIN_BATCH}, bf16")
+    training_fused, fused_train_launches, _, s2, d_net = phase_train(
+        cfg_fused, FUSED_TRAIN_STEPS, fused_per_net, "training_fused")
+
+    log("== 14. one stage-2 step with the fused kernels, card vs CPU, B=2")
+    vs_cpu_fused = phase_vs_cpu(cfg_fused, s2, d_net)
 
     main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
     per_fwd = {k: sum(r[k] * r["sites"] for r in main_rows)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     main_loss = loss_rows[0]
-    path_launches = {"serving": {"group_norm_elu": launches}, **train_launches}
+    path_launches = {"serving": serving_counts, **train_launches,
+                     "serving_fused": fused_counts, "serving_v1": v1_counts,
+                     **{f"{k}_fused": v for k, v in fused_train_launches.items()}}
 
     def total(name):
         return sum(c.get(name, 0) for c in path_launches.values())
@@ -771,14 +1167,27 @@ def main():
             "bound_by": "operations",
             "library_ms": None,  # no single PyTorch call computes this function
         })
+    for name, line in (("conv_gn_elu", "gdn_tpu/kernels/conv_gn_elu.py:109"),
+                       ("conv_gn_elu_bt", "gdn_tpu/kernels/conv_gn_elu.py:356"),
+                       ("conv_gn_elu_s2", "gdn_tpu/kernels/conv_gn_elu.py:679"),
+                       ("fusion_bt", "gdn_tpu/kernels/fusion_bt.py:226")):
+        kernels.append(_family_entry(name, line, conv_rows, total(name)))
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} was not launched on any main path")
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "torch": torch.__version__,
                    "per_shape": rows, "per_shape_train": train_rows,
                    "serving": serving, "loss": loss_rows,
                    "gn_grad": gn_grad_rows, "training": training,
-                   "vs_cpu": vs_cpu, "launches": path_launches,
+                   "vs_cpu": vs_cpu, "conv": conv_rows, "conv_grad": conv_grad_rows,
+                   "serving_fused": serving_fused, "serving_v1": serving_v1,
+                   "training_fused": training_fused, "vs_cpu_fused": vs_cpu_fused,
+                   "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
                    "kernels": kernels}, f, indent=1)
+    if EVENT_TIMED:
+        log(f"timed with CUDA events, the profiler having come back short: {EVENT_TIMED}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

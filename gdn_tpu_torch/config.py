@@ -13,14 +13,22 @@ What differs:
 - Values the port does not run yet raise ``NotImplementedError`` at
   construction, naming the ROADMAP item that will port them, instead
   of being silently ignored.
-- The model's Pallas flags are kept for config compatibility.  On a
-  CUDA device every GroupNorm+ELU site launches the hand-written kernel
-  (``kernels/groupnorm.py``) whatever ``use_pallas_gn`` says; on the
-  CPU the same sites run its plain PyTorch form.  Either way the GN
-  backward is the analytic two-reduce one that ``gn_analytic_vjp``
-  selects in the JAX package.  The execution fields ``gn_impl``,
-  ``elu_outform_vjp``, ``convgn_bt_tile`` and ``quant_min_channels``
-  select TPU/XLA formulations and change nothing in the port.
+- The model's Pallas flags keep their names and route to the port's
+  CUDA kernels.  ``use_pallas_convgn_s2``, ``use_pallas_convgn_bt`` and
+  ``use_pallas_convgn`` send the 3x3 ConvBlocks (stride 2; stride 1;
+  stride 1, tried in that order as in the JAX package) and
+  ``use_pallas_fusion_bt`` the FusionBlocks to the fused
+  conv3x3+GroupNorm+ELU kernels (``kernels/conv_gn_elu.py``,
+  ``kernels/fusion_bt.py``); ``use_pallas=False`` turns all four off;
+  ``use_pallas_fusion`` is still refused.  Every GroupNorm+ELU site
+  that stays unfused launches the GroupNorm+ELU kernel
+  (``kernels/groupnorm.py``) on a CUDA device whatever ``use_pallas_gn``
+  says.  On the CPU each site runs its kernel's plain PyTorch form.
+  Either way the GN backward is the analytic two-reduce one that
+  ``gn_analytic_vjp`` selects in the JAX package.  The execution fields
+  ``gn_impl``, ``elu_outform_vjp``, ``convgn_bt_tile`` and
+  ``quant_min_channels`` select TPU/XLA formulations and change nothing
+  in the port.
 - ``LossConfig.use_pallas`` routes the loss: set, the fused route
   (``kernels/fused_loss.py``: the CUDA kernels on the card, their plain
   version on the CPU); unset, the unfused plain-PyTorch terms.
@@ -51,12 +59,8 @@ _NOT_YET = (
     ("activation", "elu", "Queue A item 3 (non-ELU activations)"),
     ("quant", "none", "Queue A item 11 (int8 PTQ)"),
     ("multiscale_heads", False, "Queue A item 3 (multi-scale heads)"),
-    ("use_pallas_convgn", False, "Queue B item 3 (conv+GN+ELU kernels)"),
-    ("use_pallas_convgn_bt", False, "Queue B item 3 (conv+GN+ELU kernels)"),
-    ("use_pallas_convgn_s2", False, "Queue B item 3 (conv+GN+ELU kernels)"),
     ("use_pallas_fusion", False,
      "Queue B items 5-6 (fusion block and upsample kernels)"),
-    ("use_pallas_fusion_bt", False, "Queue B item 4 (batch-tiled fusion)"),
 )
 _TRAIN_NOT_YET = (
     ("grad_accum", 1, "Queue A item 5 (gradient accumulation)"),
@@ -280,6 +284,31 @@ def _with(cfg: Config, **overrides) -> Config:
             sub = dataclasses.replace(sub, **{parts[1]: value})
             cfg = dataclasses.replace(cfg, **{parts[0]: sub})
     return cfg
+
+
+# ModelConfig flags that route 3x3 conv sites to the fused
+# conv3x3+GroupNorm+ELU kernels; the scripts take each as --model.<flag>.
+FUSED_KERNEL_FLAGS = (
+    "use_pallas_convgn", "use_pallas_convgn_bt", "use_pallas_convgn_s2",
+    "use_pallas_fusion_bt",
+)
+
+
+def add_fused_kernel_flags(parser) -> None:
+    """Add ``--model.<flag>`` for each of FUSED_KERNEL_FLAGS to an
+    argparse parser."""
+    for flag in FUSED_KERNEL_FLAGS:
+        parser.add_argument(
+            f"--model.{flag}", action="store_true",
+            help=f"set ModelConfig.{flag}: route its conv sites to the fused "
+                 "conv3x3+GroupNorm+ELU kernel")
+
+
+def fused_kernel_overrides(args) -> dict:
+    """The dotted config overrides of the ``--model.<flag>`` options set
+    in parsed ``args``."""
+    return {f"model.{flag}": True for flag in FUSED_KERNEL_FLAGS
+            if getattr(args, f"model.{flag}")}
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,0 +1,446 @@
+// Fused conv3x3 + GroupNorm + ELU forward for Hopper (sm_90a), plain C
+// interface for ctypes.  One source behind four entry points.
+//
+// Replaces the TPU kernels (each the pl.pallas_call at the line given)
+//   gdn_tpu/kernels/conv_gn_elu.py:109  fused_conv_gn_elu     (stride 1, fp32 out)
+//   gdn_tpu/kernels/conv_gn_elu.py:356  fused_conv_gn_elu_bt  (stride 1, a/yn/inv)
+//   gdn_tpu/kernels/conv_gn_elu.py:679  fused_conv_gn_elu_s2  (stride 2, a/yn/inv)
+//   gdn_tpu/kernels/fusion_bt.py:226    fused_fusion_bt       (two inputs, concat
+//                                                              never built)
+// which all compute: 3x3 SAME convolution with fp32 accumulation of
+// inputs and weights rounded to the tap dtype -> per-(image, group) mean
+// and variance of the fp32 accumulator (single pass, clamped at 0) ->
+// yn = (acc - mean) * inv -> a = ELU(yn * scale + bias), stored once.
+//
+// What bounds it: a site does 18 * Cin * Cout flops per output pixel
+// against (Cin * s^2 + Cout [+ Cout for yn]) * itemsize bytes.  In bf16
+// that is ~100 flops a byte at the 32-channel sites, ~190 at 64 channels
+// and 380-1500 from 128 channels up; the card's line is ~295 (989 TFLOP/s
+// dense bf16 over 3.35 TB/s), so the shallow, large sites are bound by
+// memory and the deep ones by the tensor cores.  This first version does
+// not use the tensor cores: it is a register-tiled implicit GEMM on the
+// fp32 FMA units (67 TFLOP/s peak), chosen because one code path is exact
+// for both tap dtypes (a bf16 x bf16 product is exact in fp32).  Its
+// distance from the bound is therefore large at every site and is
+// written down in PERF.md; mma.sync/wgmma on the bf16 path, and a
+// cluster or grid sync in place of the scratch round trip below, are the
+// follow-up.
+//
+// Design: two launches, as group_norm_elu.cu.  The TPU kernels hold T
+// whole images in VMEM for the conv, the statistics and the epilogue;
+// here an image's output is spread over many blocks that run in no
+// order, so the statistics cross blocks:
+//   1. conv3x3_stats<T, BM, BN>: grid (m tiles, Cout tiles, B).  A block
+//      owns BM consecutive output pixels of ONE image and BN output
+//      channels.  K runs over (source, tap, 16 input channels): the
+//      im2col rows are gathered straight from NHWC x (and, for the
+//      fusion, from the lateral through its own weight half - no
+//      concatenated tensor exists), padding and ragged edges masked to
+//      zero, staged transposed in shared memory beside the weight slab;
+//      each thread accumulates a 4x4 register tile.  The next K step's
+//      global loads are issued before the current step's FMAs.  The block
+//      writes its fp32 tile to the scratch y and, reduced in a fixed
+//      order through shared memory, per-channel (sum, sum of squares)
+//      partials (B, m tiles, Cout, 2).  No atomics: deterministic.
+//   2. gn_elu_apply<TO, V>: grid (row chunks, B).  Each block folds its
+//      image's partials into per-group mean and inverse std (one warp per
+//      group, fixed order), then normalizes its rows of y in fp32 and
+//      stores a (and yn, when asked) in the output dtype; chunk 0 also
+//      stores inv (B, Cout).
+// y stays fp32 between the launches, so the result is "fp32 until the one
+// store" as on the TPU; the price is one fp32 round trip of the output
+// map (mostly through the 50 MB L2 at the deep sites).
+//
+// Layout: x (B, H, W, Cx) and lat (B, H, W, Cl) dense NHWC, fp32 or bf16;
+// weights fp32 (9, Cs, Cout) per source, tap-major, values already
+// rounded to the tap dtype by the wrapper; scale, bias fp32 (Cout,).
+// No width is assumed to be a power of two or a multiple of anything:
+// 4-wide vector loads are used where a channel count is a multiple of 4
+// and scalar masked loads otherwise.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int BK = 16;  // input channels per K step
+constexpr int TM = 4;   // output pixels per thread
+constexpr int TN = 4;   // output channels per thread
+constexpr int kMaxC = 1024;
+
+struct ConvArgs {
+  const void* x;
+  const void* lat;  // null for one input
+  const float* wx;  // (9, cx, cout)
+  const float* wl;  // (9, cl, cout) or null
+  float* y;         // (B, ho*wo, cout)
+  float* partials;  // (B, mtiles, cout, 2)
+  int h, w, cx, cl, cout, ho, wo, stride, pad_top, pad_left, round_bf16;
+};
+
+__device__ __forceinline__ float round_to_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Channels c..c+3 of the pixel at px (cs channels), zero beyond cs.
+__device__ __forceinline__ void load4(const float* px, int c, int cs, bool vec,
+                                      float (&out)[4]) {
+  if (vec) {
+    const float4 v = *reinterpret_cast<const float4*>(px + c);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = (c + j < cs) ? px[c + j] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* px, int c, int cs, bool vec,
+                                      float (&out)[4]) {
+  if (vec) {
+    const uint2 u = *reinterpret_cast<const uint2*>(px + c);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    out[0] = lo.x; out[1] = lo.y; out[2] = hi.x; out[3] = hi.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = (c + j < cs) ? __bfloat162float(px[c + j]) : 0.f;
+  }
+}
+
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(kThreads) conv3x3_stats(ConvArgs p) {
+  constexpr int TX = BN / TN;       // threads along the channels
+  constexpr int TY = BM / TM;       // threads along the pixels
+  constexpr int A_ITEMS = BM / 64;  // (pixel, 4 channels) loads per thread and K step
+  constexpr int B_ITEMS = BK * BN / 4;  // float4 loads of the weight slab (<= kThreads)
+  static_assert(TX * TY == kThreads, "tile does not match the block");
+  static_assert(BM % 64 == 0 && B_ITEMS <= kThreads, "loader does not cover the tile");
+  __shared__ __align__(16) float As[BK][BM];  // im2col slab, transposed
+  __shared__ __align__(16) float Bs[BK][BN];  // weight slab
+  __shared__ float red1[TY * BN];
+  __shared__ float red2[TY * BN];
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int m_total = p.ho * p.wo;
+  const bool vecw = (p.cout & 3) == 0;
+
+  // This thread's im2col rows: pixel (tid / 4 + 64 i), channels 4 (tid % 4)...
+  const int kq = tid & 3;
+  int hi0[A_ITEMS], wi0[A_ITEMS];
+#pragma unroll
+  for (int i = 0; i < A_ITEMS; ++i) {
+    const int m = m0 + (tid >> 2) + i * 64;
+    if (m < m_total) {
+      const int oy = m / p.wo;
+      hi0[i] = oy * p.stride - p.pad_top;
+      wi0[i] = (m - oy * p.wo) * p.stride - p.pad_left;
+    } else {
+      hi0[i] = -(1 << 20);  // never inside the image: the row stays zero
+      wi0[i] = 0;
+    }
+  }
+  // ... and its float4 of the weight slab.
+  const int kb = tid / (BN / 4);
+  const int nq = tid - kb * (BN / 4);
+
+  const int nx = (p.cx + BK - 1) / BK;
+  const int nl = (p.cl + BK - 1) / BK;
+  const int chunks = 9 * (nx + nl);
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  float areg[A_ITEMS][4];
+  float breg[4] = {0.f, 0.f, 0.f, 0.f};
+
+  const int tx = tid % TX, ty = tid / TX;
+
+  for (int chunk = 0; chunk <= chunks; ++chunk) {
+    if (chunk > 0) {  // stage the slabs fetched in the last iteration
+#pragma unroll
+      for (int i = 0; i < A_ITEMS; ++i) {
+        const int ml = (tid >> 2) + i * 64;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) As[kq * 4 + j][ml] = areg[i][j];
+      }
+      if (tid < B_ITEMS)
+        *reinterpret_cast<float4*>(&Bs[kb][nq * 4]) =
+            make_float4(breg[0], breg[1], breg[2], breg[3]);
+      __syncthreads();
+    }
+    if (chunk < chunks) {  // fetch this K step: (source, tap, 16 channels)
+      const T* src;
+      const float* wsrc;
+      int cs, rest = chunk, per;
+      if (chunk < 9 * nx) {
+        src = static_cast<const T*>(p.x); wsrc = p.wx; cs = p.cx; per = nx;
+      } else {
+        src = static_cast<const T*>(p.lat); wsrc = p.wl; cs = p.cl; per = nl;
+        rest -= 9 * nx;
+      }
+      const int tap = rest / per;
+      const int c0 = (rest - tap * per) * BK;
+      const int ky = tap / 3, kx = tap - ky * 3;
+      const int c = c0 + kq * 4;
+      const bool vec = (cs & 3) == 0;
+#pragma unroll
+      for (int i = 0; i < A_ITEMS; ++i) {
+        const int hi = hi0[i] + ky, wi = wi0[i] + kx;
+        if (hi >= 0 && hi < p.h && wi >= 0 && wi < p.w && c < cs) {
+          const T* px = src + (((size_t)b * p.h + hi) * p.w + wi) * cs;
+          load4(px, c, cs, vec, areg[i]);
+          if (p.round_bf16) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) areg[i][j] = round_to_bf16(areg[i][j]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) areg[i][j] = 0.f;
+        }
+      }
+      if (tid < B_ITEMS) {
+        const int kc = c0 + kb;
+        const int n = n0 + nq * 4;
+        if (kc < cs && n < p.cout) {
+          const float* wr = wsrc + ((size_t)tap * cs + kc) * p.cout;
+          load4(wr, n, p.cout, vecw, breg);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) breg[j] = 0.f;
+        }
+      }
+    }
+    if (chunk > 0) {
+#pragma unroll
+      for (int k = 0; k < BK; ++k) {
+        const float4 av = *reinterpret_cast<const float4*>(&As[k][ty * TM]);
+        const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tx * TN]);
+        const float a[4] = {av.x, av.y, av.z, av.w};
+        const float w[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+
+  // The fp32 tile to the scratch.  Rows beyond the image and channels
+  // beyond Cout hold exact zeros (their slabs were zero) and are skipped.
+  const int n = n0 + tx * TN;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty * TM + i;
+    if (m >= m_total || n >= p.cout) continue;
+    float* dst = p.y + ((size_t)b * m_total + m) * p.cout + n;
+    if (vecw) {
+      *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        if (n + j < p.cout) dst[j] = acc[i][j];
+    }
+  }
+  // Per-channel sums over the block's pixels, fixed order.
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      s1 += acc[i][j];
+      s2 += acc[i][j] * acc[i][j];
+    }
+    red1[ty * BN + tx * TN + j] = s1;
+    red2[ty * BN + tx * TN + j] = s2;
+  }
+  __syncthreads();
+  if (tid < BN && n0 + tid < p.cout) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int r = 0; r < TY; ++r) {
+      s1 += red1[r * BN + tid];
+      s2 += red2[r * BN + tid];
+    }
+    float* dst = p.partials +
+                 ((((size_t)b * gridDim.x + blockIdx.x) * p.cout) + n0 + tid) * 2;
+    dst[0] = s1;
+    dst[1] = s2;
+  }
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+template <typename TO, int V>
+__global__ void __launch_bounds__(kThreads)
+gn_elu_apply(const float* __restrict__ y, const float* __restrict__ partials,
+             const float* __restrict__ scale, const float* __restrict__ bias,
+             TO* __restrict__ a_out, TO* __restrict__ yn_out, float* __restrict__ inv_out,
+             int m_total, int cout, int groups, int mtiles, int rows_per_chunk, float eps) {
+  __shared__ float mean_g[kMaxC];
+  __shared__ float inv_g[kMaxC];
+  __shared__ float mean_c[kMaxC];
+  __shared__ float inv_c[kMaxC];
+  __shared__ float sc_c[kMaxC];
+  __shared__ float bi_c[kMaxC];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int cg = cout / groups;
+  const float count = (float)m_total * (float)cg;
+  // Fold the image's partials: one warp per group, lanes over (tile,
+  // channel of the group), then a butterfly: the same order every time.
+  for (int g = warp; g < groups; g += kThreads / 32) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int idx = lane; idx < mtiles * cg; idx += 32) {
+      const int t = idx / cg, j = idx - t * cg;
+      const float* src = partials + ((((size_t)b * mtiles + t) * cout) + g * cg + j) * 2;
+      t1 += src[0];
+      t2 += src[1];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      t1 += __shfl_xor_sync(0xffffffffu, t1, off);
+      t2 += __shfl_xor_sync(0xffffffffu, t2, off);
+    }
+    if (lane == 0) {
+      const float mean = t1 / count;
+      // clamp: cancellation can dip below zero and rsqrt would give NaN
+      const float var = fmaxf(t2 / count - mean * mean, 0.f);
+      mean_g[g] = mean;
+      inv_g[g] = rsqrtf(var + eps);
+    }
+  }
+  __syncthreads();
+  for (int ch = tid; ch < cout; ch += kThreads) {
+    mean_c[ch] = mean_g[ch / cg];
+    inv_c[ch] = inv_g[ch / cg];
+    sc_c[ch] = scale[ch];
+    bi_c[ch] = bias[ch];
+    if (blockIdx.x == 0 && inv_out != nullptr) inv_out[(size_t)b * cout + ch] = inv_g[ch / cg];
+  }
+  __syncthreads();
+  const int r0 = blockIdx.x * rows_per_chunk;
+  const int r1 = min(r0 + rows_per_chunk, m_total);
+  const int per_row = cout / V;
+  const size_t base = (size_t)b * m_total * cout;
+  for (int e = r0 * per_row + tid; e < r1 * per_row; e += kThreads) {
+    const int c0 = (e % per_row) * V;
+    const size_t off = base + (size_t)e * V;
+    const Pack<float, V> in = *reinterpret_cast<const Pack<float, V>*>(y + off);
+    Pack<TO, V> qa, qn;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float yn = (in.v[i] - mean_c[c0 + i]) * inv_c[c0 + i];
+      const float z = yn * sc_c[c0 + i] + bi_c[c0 + i];
+      qa.v[i] = from_f32<TO>(z > 0.f ? z : expm1f(z));
+      qn.v[i] = from_f32<TO>(yn);
+    }
+    *reinterpret_cast<Pack<TO, V>*>(a_out + off) = qa;
+    if (yn_out != nullptr) *reinterpret_cast<Pack<TO, V>*>(yn_out + off) = qn;
+  }
+}
+
+template <typename T, int BM, int BN>
+cudaError_t launch_conv(const ConvArgs& p, int batch, int mtiles, cudaStream_t stream) {
+  dim3 grid(mtiles, (p.cout + BN - 1) / BN, batch);
+  conv3x3_stats<T, BM, BN><<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_conv_bm(const ConvArgs& p, int batch, int bm, int mtiles,
+                           cudaStream_t stream) {
+  if (bm == 64) return launch_conv<T, 64, 64>(p, batch, mtiles, stream);
+  if (bm == 128) return launch_conv<T, 128, 32>(p, batch, mtiles, stream);
+  if (bm == 256) return launch_conv<T, 256, 16>(p, batch, mtiles, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename TO>
+cudaError_t launch_apply(const float* y, const float* partials, const float* scale,
+                         const float* bias, void* a, void* yn, float* inv, int batch,
+                         int m_total, int cout, int groups, int mtiles, int rows_per_chunk,
+                         float eps, cudaStream_t stream) {
+  dim3 grid((m_total + rows_per_chunk - 1) / rows_per_chunk, batch);
+  if ((cout & 3) == 0)
+    gn_elu_apply<TO, 4><<<grid, kThreads, 0, stream>>>(
+        y, partials, scale, bias, static_cast<TO*>(a), static_cast<TO*>(yn), inv, m_total,
+        cout, groups, mtiles, rows_per_chunk, eps);
+  else
+    gn_elu_apply<TO, 1><<<grid, kThreads, 0, stream>>>(
+        y, partials, scale, bias, static_cast<TO*>(a), static_cast<TO*>(yn), inv, m_total,
+        cout, groups, mtiles, rows_per_chunk, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x (B, H, W, cx) and lat (B, H, W, cl; null and cl = 0 for one input) in
+// in_dtype; wx (9, cx, cout), wl (9, cl, cout) fp32; scale, bias fp32 (cout).
+// y (B, ho*wo, cout) and partials (B, mtiles, cout, 2) are fp32 scratch with
+// mtiles = ceil(ho*wo / bm), bm one of 64 (64 channels a block), 128 (32)
+// or 256 (16).  a and yn (null to skip) are (B, ho, wo, cout) in out_dtype,
+// inv (null to skip) is fp32 (B, cout).  dtypes: 0 = float32, 1 = bfloat16.
+// round_bf16 rounds fp32 inputs to bf16 as they are read.  Returns a
+// cudaError_t.
+extern "C" int conv_gn_elu_forward(const void* x, const void* lat, const void* wx,
+                                   const void* wl, const void* scale, const void* bias,
+                                   void* y, void* partials, void* a, void* yn, void* inv,
+                                   int batch, int h, int w, int cx, int cl, int cout, int ho,
+                                   int wo, int stride, int pad_top, int pad_left, int groups,
+                                   float eps, int in_dtype, int out_dtype, int round_bf16,
+                                   int bm, int rows_per_chunk, void* stream) {
+  if (cout > kMaxC || groups < 1 || cout % groups != 0 || batch < 1 || cx < 1 || cl < 0 ||
+      (cl > 0 && (lat == nullptr || wl == nullptr)) || rows_per_chunk < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ConvArgs p;
+  p.x = x;
+  p.lat = lat;
+  p.wx = static_cast<const float*>(wx);
+  p.wl = static_cast<const float*>(wl);
+  p.y = static_cast<float*>(y);
+  p.partials = static_cast<float*>(partials);
+  p.h = h; p.w = w; p.cx = cx; p.cl = cl; p.cout = cout; p.ho = ho; p.wo = wo;
+  p.stride = stride; p.pad_top = pad_top; p.pad_left = pad_left;
+  p.round_bf16 = (in_dtype == 0) ? round_bf16 : 0;
+  const int m_total = ho * wo;
+  if (bm < 1) return (int)cudaErrorInvalidValue;
+  const int mtiles = (m_total + bm - 1) / bm;
+  cudaError_t err;
+  if (in_dtype == 0)
+    err = launch_conv_bm<float>(p, batch, bm, mtiles, st);
+  else if (in_dtype == 1)
+    err = launch_conv_bm<__nv_bfloat16>(p, batch, bm, mtiles, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  float* iv = static_cast<float*>(inv);
+  if (out_dtype == 0)
+    err = launch_apply<float>(p.y, p.partials, sc, bi, a, yn, iv, batch, m_total, cout,
+                              groups, mtiles, rows_per_chunk, eps, st);
+  else if (out_dtype == 1)
+    err = launch_apply<__nv_bfloat16>(p.y, p.partials, sc, bi, a, yn, iv, batch, m_total,
+                                      cout, groups, mtiles, rows_per_chunk, eps, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)err;
+}

@@ -1,0 +1,318 @@
+"""Fused conv3x3 + GroupNorm + ELU: wrappers of the hand-written CUDA
+kernels, and their plain PyTorch version.
+
+Replaces three TPU kernels of ``gdn_tpu/kernels/conv_gn_elu.py``:
+``fused_conv_gn_elu`` (per image, fp32 out, backward by recompute),
+``fused_conv_gn_elu_bt`` (stride 1) and ``fused_conv_gn_elu_s2``
+(stride 2), the last two emitting the residuals ``(a, yn, inv)`` of an
+analytic backward.  ``kernels/fusion_bt.py`` drives the same kernels
+with two inputs.  The CUDA source (``csrc/conv_gn_elu.cu``) says what
+bounds the kernels and what its two launches do about it.
+
+The function: SAME 3x3 convolution of x and the weights, both rounded
+to the tap dtype, accumulated in fp32; per-(image, group) single-pass
+moments of that fp32 accumulator, the variance clamped at 0;
+``yn = (acc - mean) * inv``, ``a = ELU(yn * scale + bias)``; fp32 until
+the one store.  ``conv_gn_elu_plain`` is the same function through
+``F.conv2d``; the CPU path and the card's smoke check use it (on the
+card with ``torch.backends.cudnn.allow_tf32 = False``).
+
+Layout, as everywhere in the port: x is (B, Cin, H, W) in channels_last
+memory (NHWC, the JAX package's layout), weights are OIHW fp32.  Where
+the TPU entry points take ``batch_tile`` and ``interpret``, these take
+nothing: a CUDA block owns a tile of one image whatever the batch.
+
+Where the gates differ from the TPU's: none of "channels % 128",
+"W % pack factor", "even H" or a VMEM fit applies.  Any Cin, any
+Cout <= 1024 divisible by ``groups``, any H and W (odd sizes at stride
+2 included, with XLA's SAME padding) run the kernel.
+
+Gradients: under grad every entry point runs inside an autograd
+Function.  bt and s2 keep ``(x, w, scale, a, yn, inv)`` and their
+backward is the JAX package's ``_analytic_bwd``: ELU' from the output,
+the two-reduce GroupNorm backward (``ops.groupnorm.gn_elu_backward``),
+then the standard convolution input and weight gradients (cuDNN; on the
+TPU they are XLA's, outside any Pallas kernel).  ``fused_conv_gn_elu``
+keeps its inputs and differentiates the plain version again, as the TPU
+kernel does with its reference.  A CPU tensor runs the plain version
+inside the same Functions; a CUDA tensor launches the kernels or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from gdn_tpu_torch.kernels import build
+from gdn_tpu_torch.ops.conv import CL, conv_same, conv_same_backward, same_pads
+from gdn_tpu_torch.ops.groupnorm import _chanreduce_stats, gn_elu_backward
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TAPS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_MAX_C = 1024
+# Elements one block of the normalize launch covers; sets its chunk count.
+_APPLY_ELEMS = 16384
+
+Residuals = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernels' library, argtypes set."""
+    lib = build.load("conv_gn_elu")
+    fn = lib.conv_gn_elu_forward
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 11 + [i] * 12 + [ctypes.c_float] + [i] * 5 + [p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def block_rows(cout: int) -> int:
+    """Output pixels one block of the conv launch owns (as the CUDA
+    source's tiles: 256 x 16, 128 x 32 or 64 x 64 pixels x channels)."""
+    return 256 if cout <= 16 else 128 if cout <= 32 else 64
+
+
+def pack_weight(w: torch.Tensor, tap: torch.dtype) -> torch.Tensor:
+    """OIHW (Cout, Cs, 3, 3) -> the kernel's fp32 (9, Cs, Cout), tap
+    major, values rounded to the tap dtype."""
+    cout, cs = w.shape[:2]
+    return (w.detach().to(tap).float().permute(2, 3, 1, 0).contiguous()
+            .view(9, cs, cout))
+
+
+def _check(x, lat, wx, wl, scale, bias, groups, tap_dtype):
+    if tap_dtype not in _TAPS:
+        raise ValueError(f"unknown tap_dtype {tap_dtype!r} (float32|bfloat16)")
+    pairs = [("x", x, "w", wx)] + ([("lat", lat, "wl", wl)] if lat is not None else [])
+    cout = wx.shape[0]
+    for xn, v, wn, k in pairs:
+        if v.dim() != 4 or k.dim() != 4:
+            raise ValueError(f"{xn} must be (B, C, H, W) and {wn} (Cout, C, 3, 3), got "
+                             f"{tuple(v.shape)}, {tuple(k.shape)}")
+        if tuple(k.shape) != (cout, v.shape[1], 3, 3):
+            raise ValueError(f"{wn} must be ({cout}, {v.shape[1]}, 3, 3), got "
+                             f"{tuple(k.shape)}")
+        if v.dtype not in _DTYPES:
+            raise TypeError(f"{xn} dtype {v.dtype} not supported (float32|bfloat16)")
+        if v.device != x.device or k.device != x.device:
+            raise ValueError("inputs and weights must lie on one device")
+    if lat is not None and (lat.shape[0] != x.shape[0] or lat.shape[2:] != x.shape[2:]
+                            or lat.dtype != x.dtype):
+        raise ValueError(f"lat {tuple(lat.shape)} {lat.dtype} does not match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if groups < 1 or cout % groups:
+        raise ValueError(f"Cout={cout} is not divisible by groups={groups}")
+    if tuple(scale.shape) != (cout,) or tuple(bias.shape) != (cout,):
+        raise ValueError(f"scale/bias must be ({cout},), got {tuple(scale.shape)}, "
+                         f"{tuple(bias.shape)}")
+    if scale.device != x.device or bias.device != x.device:
+        raise ValueError("x, scale and bias must lie on one device")
+
+
+def conv_gn_elu_plain(x, w, scale, bias, groups: int = 8, eps: float = 1e-6,
+                      stride: int = 1, tap_dtype: str = "float32",
+                      out_dtype: Optional[torch.dtype] = None,
+                      lat=None, wl=None) -> Residuals:
+    """Plain version of every kernel of the family -> (a, yn, inv): a and
+    yn (B, Cout, Ho, Wo) in ``out_dtype`` (x's by default), inv (B, Cout)
+    fp32.  Differentiable by autograd in every tensor argument."""
+    tap = _TAPS[tap_dtype]
+
+    def conv(v, k):
+        return conv_same(v.to(tap).float(), k.to(tap).float(), stride)
+
+    y = conv(x, w)
+    if lat is not None:
+        y = y + conv(lat, wl)
+    mean_c, inv_c = _chanreduce_stats(y, groups, eps)
+    yn = (y - mean_c[:, :, None, None]) * inv_c[:, :, None, None]
+    a = F.elu(yn * scale.float()[:, None, None] + bias.float()[:, None, None])
+    out_dtype = out_dtype or x.dtype
+    return (a.to(out_dtype).contiguous(memory_format=CL),
+            yn.to(out_dtype).contiguous(memory_format=CL), inv_c)
+
+
+def _launch(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
+            tap_dtype, out_dtype, residuals: bool) -> Residuals:
+    """Run the kernels on CUDA tensors; adds one to ``counter.launches``."""
+    b, cx, h, w = x.shape
+    cout = wx.shape[0]
+    if cout > _MAX_C:
+        raise ValueError(f"Cout={cout} exceeds the kernel's limit of {_MAX_C}")
+    for name, v in (("x", x), ("lat", lat)):
+        if v is None:
+            continue
+        if not v.is_contiguous(memory_format=CL):
+            raise ValueError(f"{name} must be channels_last contiguous (NHWC memory)")
+        if v.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    tap = _TAPS[tap_dtype]
+    ho, wo = -(-h // stride), -(-w // stride)
+    m = ho * wo
+    bm = block_rows(cout)
+    mtiles = -(-m // bm)
+    dev = x.device
+    wxp = pack_weight(wx, tap)
+    wlp = pack_weight(wl, tap) if lat is not None else None
+    scale32 = scale.detach().float().contiguous()
+    bias32 = bias.detach().float().contiguous()
+    y = torch.empty((b, m, cout), dtype=torch.float32, device=dev)
+    partials = torch.empty((b, mtiles, cout, 2), dtype=torch.float32, device=dev)
+    a = torch.empty((b, cout, ho, wo), dtype=out_dtype, device=dev, memory_format=CL)
+    yn = torch.empty_like(a) if residuals else None
+    inv = torch.empty((b, cout), dtype=torch.float32, device=dev) if residuals else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = load().conv_gn_elu_forward(
+        ptr(x), ptr(lat), ptr(wxp), ptr(wlp), ptr(scale32), ptr(bias32), ptr(y),
+        ptr(partials), ptr(a), ptr(yn), ptr(inv),
+        b, h, w, cx, 0 if lat is None else lat.shape[1], cout, ho, wo, stride,
+        same_pads(h, 3, stride)[0], same_pads(w, 3, stride)[0], groups, float(eps),
+        _DTYPES[x.dtype], _DTYPES[out_dtype],
+        int(tap == torch.bfloat16 and x.dtype == torch.float32), bm,
+        max(1, _APPLY_ELEMS // cout), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"conv_gn_elu_forward failed: cudaError {err}")
+    counter.launches += 1
+    return a, yn, inv
+
+
+def forward_all(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
+                tap_dtype, out_dtype, residuals: bool) -> Residuals:
+    """(a, yn, inv) of checked arguments: the plain version for CPU
+    tensors, the kernels for CUDA tensors (or an error)."""
+    if x.device.type == "cpu":
+        return conv_gn_elu_plain(x, wx, scale, bias, groups, eps, stride, tap_dtype,
+                                 out_dtype, lat, wl)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _launch(counter, x, lat, wx, wl, scale, bias, groups, eps, stride,
+                   tap_dtype, out_dtype, residuals)
+
+
+class FusedConvGNELUAnalytic(torch.autograd.Function):
+    """Forward by ``forward_all`` with residuals; analytic backward (the
+    JAX package's ``_analytic_bwd`` / ``_fb_bwd``).  ``lat``/``wl`` are
+    None for one input."""
+
+    @staticmethod
+    def forward(ctx, counter, x, lat, wx, wl, scale, bias, groups, eps, stride,
+                tap_dtype):
+        a, yn, inv = forward_all(counter, x, lat, wx, wl, scale, bias, groups, eps,
+                                 stride, tap_dtype, x.dtype, True)
+        ctx.save_for_backward(x, lat, wx, wl, scale, a, yn, inv)
+        ctx.groups, ctx.stride = groups, stride
+        return a
+
+    @staticmethod
+    def backward(ctx, da):
+        x, lat, wx, wl, scale, a, yn, inv = ctx.saved_tensors
+        dt = yn.dtype
+        dy, dscale, dbias = gn_elu_backward(da, yn, inv, scale, None, ctx.groups, a=a)
+        need = ctx.needs_input_grad
+        dx, dwx = conv_same_backward(dy, x, wx.to(dt), ctx.stride, need[1], need[3])
+        dlat = dwl = None
+        if lat is not None:
+            dlat, dwl = conv_same_backward(dy, lat, wl.to(dt), 1, need[2], need[4])
+            dwl = None if dwl is None else dwl.to(wl.dtype)
+        dwx = None if dwx is None else dwx.to(wx.dtype)
+        return (None, dx, dlat, dwx, dwl, dscale.to(scale.dtype),
+                dbias.to(scale.dtype), None, None, None, None)
+
+
+class _FusedConvGNELURecompute(torch.autograd.Function):
+    """``fused_conv_gn_elu``: forward by ``forward_all``, fp32 out, no
+    residuals; the backward differentiates the plain version on the
+    saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias, groups, eps, tap_dtype):
+        a, _, _ = forward_all(fused_conv_gn_elu, x, None, w, None, scale, bias, groups,
+                              eps, 1, tap_dtype, torch.float32, False)
+        ctx.save_for_backward(x, w, scale, bias)
+        ctx.args = (groups, eps, 1, tap_dtype, torch.float32)
+        return a
+
+    @staticmethod
+    def backward(ctx, da):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = conv_gn_elu_plain(*ins, *ctx.args)[0]
+            grads = torch.autograd.grad(out, ins, da)
+        return (*grads, None, None, None)
+
+
+def needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def fused_conv_gn_elu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, groups: int = 8, eps: float = 1e-6,
+                      tap_dtype: str = "float32") -> torch.Tensor:
+    """Fused conv3x3 (stride 1, SAME) + GroupNorm + ELU.
+
+    x (B, Cin, H, W) channels_last, fp32 or bf16; w (Cout, Cin, 3, 3);
+    scale, bias (Cout,).  Returns (B, Cout, H, W) float32."""
+    _check(x, None, w, None, scale, bias, groups, tap_dtype)
+    if needs_grad(x, w, scale, bias):
+        return _FusedConvGNELURecompute.apply(x, w, scale, bias, groups, eps, tap_dtype)
+    return forward_all(fused_conv_gn_elu, x, None, w, None, scale, bias, groups, eps,
+                       1, tap_dtype, torch.float32, False)[0]
+
+
+def _analytic_entry(counter, x, w, scale, bias, groups, eps, stride, tap_dtype):
+    _check(x, None, w, None, scale, bias, groups, tap_dtype)
+    if needs_grad(x, w, scale, bias):
+        return FusedConvGNELUAnalytic.apply(counter, x, None, w, None, scale, bias,
+                                            groups, eps, stride, tap_dtype)
+    return forward_all(counter, x, None, w, None, scale, bias, groups, eps, stride,
+                       tap_dtype, x.dtype, False)[0]
+
+
+def fused_conv_gn_elu_bt(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor, groups: int = 8, eps: float = 1e-6,
+                         tap_dtype: str = "bfloat16") -> torch.Tensor:
+    """Fused conv3x3 (stride 1, SAME) + GroupNorm + ELU with the analytic
+    backward.  Arguments as ``fused_conv_gn_elu``; returns (B, Cout, H, W)
+    in x's dtype."""
+    return _analytic_entry(fused_conv_gn_elu_bt, x, w, scale, bias, groups, eps, 1,
+                           tap_dtype)
+
+
+def fused_conv_gn_elu_s2(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor, groups: int = 8, eps: float = 1e-6,
+                         tap_dtype: str = "bfloat16") -> torch.Tensor:
+    """Fused conv3x3 (stride 2, XLA's SAME padding) + GroupNorm + ELU with
+    the analytic backward.  Returns (B, Cout, ceil(H/2), ceil(W/2)) in
+    x's dtype; H and W may be odd."""
+    return _analytic_entry(fused_conv_gn_elu_s2, x, w, scale, bias, groups, eps, 2,
+                           tap_dtype)
+
+
+def _conv_gn_elu_bt_all(x, w, scale, bias, groups=8, eps=1e-6,
+                        tap_dtype="bfloat16") -> Residuals:
+    """``fused_conv_gn_elu_bt``'s forward with its residuals (a, yn, inv)."""
+    _check(x, None, w, None, scale, bias, groups, tap_dtype)
+    return forward_all(fused_conv_gn_elu_bt, x, None, w, None, scale, bias, groups, eps,
+                       1, tap_dtype, x.dtype, True)
+
+
+def _conv_gn_elu_s2_all(x, w, scale, bias, groups=8, eps=1e-6,
+                        tap_dtype="bfloat16") -> Residuals:
+    """``fused_conv_gn_elu_s2``'s forward with its residuals (a, yn, inv)."""
+    _check(x, None, w, None, scale, bias, groups, tap_dtype)
+    return forward_all(fused_conv_gn_elu_s2, x, None, w, None, scale, bias, groups, eps,
+                       2, tap_dtype, x.dtype, True)
+
+
+fused_conv_gn_elu.launches = 0
+fused_conv_gn_elu_bt.launches = 0
+fused_conv_gn_elu_s2.launches = 0

@@ -12,27 +12,34 @@ Attribute names follow the flax parameter paths (``Conv_0.kernel``,
 stored OIHW, so a state_dict from ``gdn_tpu.checkpoint.params_to_torch``
 loads with ``strict=True`` and no key map.
 
-Every GroupNorm+ELU site calls ``kernels.groupnorm.group_norm_elu``;
-convolutions go to ``torch.nn.functional`` (cuDNN on the card), as the
-JAX package leaves them to XLA.
+Every GroupNorm+ELU site calls ``kernels.groupnorm.group_norm_elu``
+after a convolution from ``torch.nn.functional`` (cuDNN on the card, as
+the JAX package leaves it to XLA), unless the config sends it to a
+fused conv3x3+GroupNorm+ELU kernel: the 3x3 ConvBlocks by
+``use_pallas_convgn_s2`` / ``use_pallas_convgn_bt`` /
+``use_pallas_convgn`` (the JAX package's precedence) and the
+FusionBlocks by ``use_pallas_fusion_bt``.  The 7x7 stem and the
+UpBlock's up-conv always take the unfused route.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from gdn_tpu_torch.config import ModelConfig
+from gdn_tpu_torch.kernels.conv_gn_elu import (
+    fused_conv_gn_elu, fused_conv_gn_elu_bt, fused_conv_gn_elu_s2,
+)
+from gdn_tpu_torch.kernels.fusion_bt import fused_fusion_bt
 from gdn_tpu_torch.kernels.groupnorm import group_norm_elu
+from gdn_tpu_torch.ops.conv import CL, conv_same
 from gdn_tpu_torch.ops.groupnorm import pick_groups
 from gdn_tpu_torch.ops.resize import composed_resize_conv2x, resize_bilinear
 
 GN_EPS = 1e-6
-CL = torch.channels_last
 
 
 def _param(*shape, fill: Optional[float] = None) -> nn.Parameter:
@@ -40,27 +47,6 @@ def _param(*shape, fill: Optional[float] = None) -> nn.Parameter:
     if fill is not None:
         t.fill_(fill)
     return nn.Parameter(t)
-
-
-def conv_same(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
-              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """XLA "SAME" convolution of NCHW x with an OIHW kernel.
-
-    XLA pads total = max((ceil(n/s) - 1)*s + k - n, 0) with the extra
-    row/column at the bottom/right: asymmetric at stride 2 (e.g. (0, 1)
-    for n=128, k=3), which torch's symmetric ``padding=`` cannot say.
-    """
-    kh, kw = kernel.shape[2], kernel.shape[3]
-
-    def pads(n, k):
-        total = max((math.ceil(n / stride) - 1) * stride + k - n, 0)
-        return total // 2, total - total // 2
-
-    (t, b), (l, r) = pads(x.shape[2], kh), pads(x.shape[3], kw)
-    kernel = kernel.contiguous(memory_format=CL)
-    if t == b and l == r:
-        return F.conv2d(x, kernel, bias, stride, padding=(t, l))
-    return F.conv2d(F.pad(x, (l, r, t, b)), kernel, bias, stride)
 
 
 def gn_elu(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -86,16 +72,37 @@ class ConvBlock(nn.Module):
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  stride: int = 1, cfg: ModelConfig = ModelConfig()):
         super().__init__()
-        self.cfg, self.stride = cfg, stride
+        self.cfg, self.stride, self.kernel_size = cfg, stride, kernel
         self.groups = pick_groups(features, cfg.group_norm_groups)
         self.Conv_0 = _ConvKernel(cin, features, kernel)
         self.gn_scale = _param(features, fill=1.0)
         self.gn_bias = _param(features, fill=0.0)
 
+    def _fused(self):
+        """The fused kernel this block's config and shape select, in the
+        JAX package's order (s2, then bt, then the per-image one), or
+        None for the conv + GroupNorm+ELU route."""
+        c = self.cfg
+        if not c.use_pallas or self.kernel_size != 3:
+            return None
+        if self.stride == 2:
+            return fused_conv_gn_elu_s2 if c.use_pallas_convgn_s2 else None
+        if self.stride != 1:
+            return None
+        if c.use_pallas_convgn_bt:
+            return fused_conv_gn_elu_bt
+        return fused_conv_gn_elu if c.use_pallas_convgn else None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.cfg.compute_dtype
+        c = self.cfg
+        dt = c.compute_dtype
+        fused = self._fused()
+        if fused is not None:
+            out = fused(x.to(dt).contiguous(memory_format=CL), self.Conv_0.kernel,
+                        self.gn_scale, self.gn_bias, self.groups, GN_EPS, c.dtype)
+            return out.to(dt)
         y = conv_same(x.to(dt), self.Conv_0.kernel.to(dt), self.stride)
-        return gn_elu(y, self.gn_scale, self.gn_bias, self.groups, self.cfg)
+        return gn_elu(y, self.gn_scale, self.gn_bias, self.groups, c)
 
 
 class DownBlock(nn.Module):
@@ -123,7 +130,15 @@ class FusionBlock(nn.Module):
         self.bias = _param(features, fill=0.0)
 
     def forward(self, x: torch.Tensor, lateral: torch.Tensor) -> torch.Tensor:
-        dt = self.cfg.compute_dtype
+        c = self.cfg
+        dt = c.compute_dtype
+        if c.use_pallas and c.use_pallas_fusion_bt:
+            cx = x.shape[1]
+            return fused_fusion_bt(
+                x.to(dt).contiguous(memory_format=CL),
+                lateral.to(dt).contiguous(memory_format=CL),
+                self.kernel[:, :cx], self.kernel[:, cx:], self.scale, self.bias,
+                self.groups, GN_EPS, c.dtype)
         full = torch.cat([x, lateral.to(x.dtype)], dim=1).to(dt)
         y = conv_same(full, self.kernel.to(dt))
         return gn_elu(y, self.scale, self.bias, self.groups, self.cfg)

@@ -108,19 +108,27 @@ def group_norm_elu_plain(
 
 
 def gn_elu_backward(da: torch.Tensor, yn: torch.Tensor, inv_c: torch.Tensor,
-                    scale: torch.Tensor, bias: torch.Tensor, groups: int):
+                    scale: torch.Tensor, bias: torch.Tensor, groups: int,
+                    a: Optional[torch.Tensor] = None):
     """Analytic backward of GroupNorm + ELU (port of the JAX package's
     ``_gn_elu_bwd``): from the normalized input yn (compute dtype) and
     the fp32 (B, C) inverse std, two full-tensor reduces give dy, dscale
     and dbias.  Elementwise math in the compute dtype, sums in fp32.
-    Differs from autograd only where the variance clamp is active."""
+    Differs from autograd only where the variance clamp is active.
+
+    With the forward's output ``a`` given, ELU' is taken from it alone
+    (a > 0 -> 1, else a + 1: exact), as the JAX package's fused conv
+    kernels do, and ``bias`` is not read."""
     b, c, h, w = yn.shape
     cg = c // groups
     dt = yn.dtype
     sc = scale.to(dt)[:, None, None]
-    z = yn * sc + bias.to(dt)[:, None, None]
-    # ELU'(z) = 1 for z > 0 else exp(z); exp(min(z, 0)) cannot overflow
-    dz = torch.where(z > 0, da, da * torch.exp(torch.clamp(z, max=0)))
+    if a is not None:
+        dz = torch.where(a > 0, da, da * (a + 1.0))
+    else:
+        z = yn * sc + bias.to(dt)[:, None, None]
+        # ELU'(z) = 1 for z > 0 else exp(z); exp(min(z, 0)) cannot overflow
+        dz = torch.where(z > 0, da, da * torch.exp(torch.clamp(z, max=0)))
     s_dz = dz.sum(dim=(2, 3), dtype=torch.float32)  # (B, C)
     s_dzyn = (dz * yn).sum(dim=(2, 3), dtype=torch.float32)
     n = h * w * cg

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from gdn_tpu_torch.config import Config, resolve_device
-from gdn_tpu_torch.kernels import groupnorm as gn_kernel
+from gdn_tpu_torch import kernels
 from gdn_tpu_torch.models import RtoDNet
 
 
@@ -38,8 +38,8 @@ class BatchedPredictor:
 
     Pins (batch_size, H, W, 3), pads the final partial batch, strips the
     padding from the results.  Runs on ``device`` ("cuda" unless the
-    caller asks for the CPU); on CUDA the GroupNorm+ELU kernel is built
-    and loaded here, before any worker thread calls ``predict``.
+    caller asks for the CPU); on CUDA the port's kernel libraries are
+    built and loaded here, before any worker thread calls ``predict``.
     """
 
     # Batches dispatched ahead of the device-to-host fetch: enough to
@@ -53,7 +53,7 @@ class BatchedPredictor:
         self.batch_size = batch_size
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            gn_kernel.load()
+            kernels.load_all()
         net = RtoDNet(cfg.model)
         net.load_state_dict(state_dict, strict=True)
         self.net = net.to(self.device).eval()

@@ -9,6 +9,9 @@ written by scripts/export_torch.py, or are drawn at random from seed 0.
 Examples:
   python scripts/serve_torch.py --pth gdn_stage2.pth --port 8500
   python scripts/serve_torch.py --init_random --port 0
+  python scripts/serve_torch.py --init_random --model.use_pallas_convgn_bt \
+      --model.use_pallas_convgn_s2 --model.use_pallas_fusion_bt
+          # the 3x3 conv sites through the fused conv+GroupNorm+ELU kernels
 
   curl -s -X POST --data-binary @img.png \
       "http://127.0.0.1:8500/predict?format=color" > depth.png
@@ -21,7 +24,9 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def parse_args(argv=None):
+    from gdn_tpu_torch.config import add_fused_kernel_flags
+
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--dataset", choices=["kitti", "nyu"], default="kitti")
@@ -46,16 +51,27 @@ def main():
     p.add_argument("--wire", choices=["f32", "u16"], default="f32",
                    help="device fetch format: f32 meters, or u16 "
                         "depth*256 counts (half the D2H bytes)")
-    args = p.parse_args()
+    add_fused_kernel_flags(p)
+    return p.parse_args(argv)
+
+
+def build_config(args):
+    from gdn_tpu_torch.config import fused_kernel_overrides, kitti_config, nyu_config
+
+    preset = kitti_config if args.dataset == "kitti" else nyu_config
+    return preset(**{"model.use_pallas_gn": True, "model.dtype": args.dtype,
+                     **fused_kernel_overrides(args)})
+
+
+def main():
+    args = parse_args()
 
     import torch
 
     from gdn_tpu_torch import checkpoint as ckpt
-    from gdn_tpu_torch.config import kitti_config, nyu_config
     from gdn_tpu_torch.server import DepthServer
 
-    preset = kitti_config if args.dataset == "kitti" else nyu_config
-    cfg = preset(**{"model.use_pallas_gn": True, "model.dtype": args.dtype})
+    cfg = build_config(args)
     if args.init_random:
         sd = ckpt.init_params(cfg.model, torch.Generator().manual_seed(0))
     else:

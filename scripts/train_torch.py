@@ -18,6 +18,10 @@ Examples:
   python scripts/train_torch.py --mode DtoD --dataset synthetic --device cpu \\
       --dtype float32 --height 32 --width 64 --batch_size 2 \\
       --epochs 1 --steps_per_epoch 3       # CPU smoke run
+  python scripts/train_torch.py --mode DtoD --dataset synthetic \\
+      --model.use_pallas_convgn_bt --model.use_pallas_convgn_s2 \\
+      --model.use_pallas_fusion_bt --epochs 1 --steps_per_epoch 50
+          # the 3x3 conv sites through the fused conv+GroupNorm+ELU kernels
 """
 
 import argparse
@@ -27,7 +31,9 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def parse_args(argv=None):
+    from gdn_tpu_torch.config import add_fused_kernel_flags
+
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--mode", choices=["DtoD", "RtoD"], default="DtoD",
@@ -52,18 +58,17 @@ def main():
     p.add_argument("--ckpt_dir", type=str, default="checkpoints")
     p.add_argument("--stage1_pth", type=str, default="",
                    help="RtoD: the stage-1 .pth (default <ckpt_dir>/stage1.pth)")
-    args = p.parse_args()
+    add_fused_kernel_flags(p)
+    args = p.parse_args(argv)
     if args.dataset != "synthetic":
         p.error(f"--dataset {args.dataset}: the real-data loaders are not "
                 "ported yet (ROADMAP.md Queue A item 8); use --dataset synthetic")
+    return args
 
-    from gdn_tpu_torch import checkpoint as ckpt
-    from gdn_tpu_torch.config import kitti_config, resolve_device
-    from gdn_tpu_torch.data.synthetic import SyntheticDataset
-    from gdn_tpu_torch.train.loop import train_stage1, train_stage2
-    from gdn_tpu_torch.utils.logging import MetricLogger
 
-    device = resolve_device(args.device)
+def build_config(args):
+    from gdn_tpu_torch.config import fused_kernel_overrides, kitti_config
+
     over = {
         "model.use_pallas_gn": True, "model.dtype": args.dtype,
         "data.dataset": args.dataset, "data.batch_size": args.batch_size,
@@ -71,11 +76,25 @@ def main():
         "train.lr": args.lr, "train.seed": args.seed,
         "train.steps_per_epoch": args.steps_per_epoch,
         "train.log_every": args.log_every, "train.ckpt_dir": args.ckpt_dir,
+        **fused_kernel_overrides(args),
     }
     if args.height or args.width:
         h0, w0 = kitti_config().model.image_size
         over["model.image_size"] = (args.height or h0, args.width or w0)
-    cfg = kitti_config(**over)
+    return kitti_config(**over)
+
+
+def main():
+    args = parse_args()
+
+    from gdn_tpu_torch import checkpoint as ckpt
+    from gdn_tpu_torch.config import resolve_device
+    from gdn_tpu_torch.data.synthetic import SyntheticDataset
+    from gdn_tpu_torch.train.loop import train_stage1, train_stage2
+    from gdn_tpu_torch.utils.logging import MetricLogger
+
+    device = resolve_device(args.device)
+    cfg = build_config(args)
     h, w = cfg.model.image_size
     data = SyntheticDataset(args.batch_size, h, w, cfg.model.max_depth,
                             seed=args.seed, device=device)

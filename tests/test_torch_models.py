@@ -35,10 +35,15 @@ from gdn_tpu_torch.models import DtoDNet, RtoDNet
 from gdn_tpu_torch.models import blocks as tb
 
 SMALL = dict(enc_channels=(8, 16), dec_channels=(16, 8), use_pallas_gn=True)
+# every 3x3 conv site on the fused conv3x3+GroupNorm+ELU route ...
+FUSED = dict(use_pallas_convgn_bt=True, use_pallas_convgn_s2=True,
+             use_pallas_fusion_bt=True)
+# ... or only the stride-1 ConvBlocks, through the per-image entry point
+FUSED_V1 = dict(use_pallas_convgn=True)
 
 
-def _cfgs(hw, dtype="float32"):
-    kw = dict(SMALL, image_size=hw, dtype=dtype)
+def _cfgs(hw, dtype="float32", **flags):
+    kw = dict(SMALL, image_size=hw, dtype=dtype, **flags)
     return jcfg.ModelConfig(**kw), tcfg.ModelConfig(**kw)
 
 
@@ -106,9 +111,7 @@ def test_preset_configs_match_jax():
 @pytest.mark.parametrize("field,value", [
     ("upsample", "deconv"), ("fusion", "add"), ("norm", "none"),
     ("quant", "int8"), ("multiscale_heads", True), ("activation", "relu"),
-    ("use_pallas_convgn", True), ("use_pallas_convgn_bt", True),
-    ("use_pallas_convgn_s2", True), ("use_pallas_fusion", True),
-    ("use_pallas_fusion_bt", True),
+    ("use_pallas_fusion", True),
 ])
 def test_unported_values_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -205,8 +208,8 @@ def test_depth_head_matches_flax():
 
 # -------------------------------------------------------------- whole nets
 
-def _whole(hw, dtype, jnet, tnet, channels, seed):
-    jc, tc = _cfgs(hw, dtype)
+def _whole(hw, dtype, jnet, tnet, channels, seed, **flags):
+    jc, tc = _cfgs(hw, dtype, **flags)
     x = np.random.default_rng(seed).uniform(
         0, 1, size=(2, *hw, channels)).astype(np.float32)
     p = _net_params(hw, channels)
@@ -246,3 +249,107 @@ def test_dtod_fp32_matches_flax():
     _, want, got = _whole((30, 38), "float32", JDtoD, DtoDNet, 1, 7)
     np.testing.assert_allclose(got["depth"].numpy(), np.asarray(want["depth"]),
                                rtol=1e-4, atol=1e-3)
+
+
+# ------------------------------------------- the fused conv+GN+ELU routes
+
+@pytest.mark.parametrize("flag", tcfg.FUSED_KERNEL_FLAGS)
+def test_fused_kernel_flags_are_accepted(flag):
+    assert getattr(tcfg.ModelConfig(**{flag: True}), flag) is True
+
+
+@pytest.mark.parametrize("flags", [FUSED, FUSED_V1], ids=["bt_s2_fusion", "v1"])
+@pytest.mark.parametrize("hw", [(32, 64), (30, 38)])
+@pytest.mark.parametrize("channels", [3, 1], ids=["rtod", "dtod"])
+def test_fused_nets_fp32_match_flax(channels, hw, flags):
+    """Both nets with the fused flags on against flax ``apply`` with the
+    same flags (on the CPU flax takes its XLA route: the same function),
+    at the whole-net tolerance of the unfused route."""
+    jnet, tnet = (JRtoD, RtoDNet) if channels == 3 else (JDtoD, DtoDNet)
+    _, want, got = _whole(hw, "float32", jnet, tnet, channels, 8, **flags)
+    np.testing.assert_allclose(got["depth"].numpy(), np.asarray(want["depth"]),
+                               rtol=1e-4, atol=1e-3)
+    for key in ("dec_feats", "skips"):
+        for g, w in zip(got[key], want[key]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("flags", [FUSED, FUSED_V1], ids=["bt_s2_fusion", "v1"])
+@pytest.mark.parametrize("hw", [(32, 64), (30, 38)])
+def test_fused_flags_on_match_flags_off(hw, flags, monkeypatch):
+    """Flags on against flags off in the port, same weights: the same
+    depth and the same gradients, through the fused entry points (their
+    call counts say so)."""
+    from gdn_tpu_torch.kernels import conv_gn_elu as ck, fusion_bt as fk
+
+    calls = {}
+    for mod, names in ((ck, ("fused_conv_gn_elu", "fused_conv_gn_elu_bt",
+                             "fused_conv_gn_elu_s2")), (fk, ("fused_fusion_bt",))):
+        for name in names:
+            def counted(*a, _f=getattr(mod, name), _n=name, **k):
+                calls[_n] = calls.get(_n, 0) + 1
+                return _f(*a, **k)
+            monkeypatch.setattr(tb, name, counted)
+    params = _net_params(hw, 3)
+    x = torch.from_numpy(np.random.default_rng(9).uniform(
+        0, 1, size=(2, *hw, 3)).astype(np.float32))
+    res = []
+    for fl in ({}, flags):
+        _, tc = _cfgs(hw, **fl)
+        net = _port(RtoDNet(tc), params)
+        depth = net(x)["depth"]
+        depth.square().mean().backward()
+        res.append((depth.detach(), {k: p.grad for k, p in net.named_parameters()}))
+        if not fl:
+            assert calls == {}
+    want = ({"fused_conv_gn_elu_bt": 2, "fused_conv_gn_elu_s2": 2, "fused_fusion_bt": 2}
+            if flags is FUSED else {"fused_conv_gn_elu": 2})
+    assert calls == want
+    np.testing.assert_allclose(res[1][0].numpy(), res[0][0].numpy(), rtol=1e-4, atol=1e-3)
+    for k, g in res[0][1].items():
+        scale = g.abs().max().item()
+        np.testing.assert_allclose(res[1][1][k].numpy(), g.numpy(), rtol=1e-3,
+                                   atol=1e-4 * scale, err_msg=k)
+
+
+def test_use_pallas_off_turns_the_fused_routes_off(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("fused entry point called with use_pallas=False")
+
+    for name in ("fused_conv_gn_elu", "fused_conv_gn_elu_bt", "fused_conv_gn_elu_s2",
+                 "fused_fusion_bt"):
+        monkeypatch.setattr(tb, name, boom)
+    _, tc = _cfgs((32, 64), use_pallas=False, **FUSED, **FUSED_V1)
+    net = _port(RtoDNet(tc), _net_params((32, 64), 3))
+    with torch.inference_mode():
+        assert torch.isfinite(net(torch.rand(1, 32, 64, 3))["depth"]).all()
+
+
+def test_fused_flags_add_no_parameter():
+    """A state_dict from ``params_to_torch`` still loads strict=True."""
+    _, tc = _cfgs((32, 64), **FUSED, **FUSED_V1)
+    theirs = params_to_torch(_net_params((32, 64), 3))
+    sd = {k: torch.from_numpy(v.copy()) for k, v in theirs.items()}
+    net = RtoDNet(tc)
+    net.load_state_dict(sd, strict=True)
+    _, plain = _cfgs((32, 64))
+    assert list(net.state_dict()) == list(RtoDNet(plain).state_dict())
+
+
+def test_serve_script_fused_flags_reach_the_config():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", "serve_torch.py")
+    spec = importlib.util.spec_from_file_location("serve_torch_script", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    flags = [f"--model.{f}" for f in tcfg.FUSED_KERNEL_FLAGS]
+    cfg = script.build_config(script.parse_args(["--init_random", "--dataset", "nyu",
+                                                 "--dtype", "float32", *flags]))
+    assert all(getattr(cfg.model, f) for f in tcfg.FUSED_KERNEL_FLAGS)
+    assert cfg.model.image_size == (228, 304) and cfg.model.dtype == "float32"
+    off = script.build_config(script.parse_args(["--init_random"])).model
+    assert not any(getattr(off, f) for f in tcfg.FUSED_KERNEL_FLAGS)
+    assert off.use_pallas_gn

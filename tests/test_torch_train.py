@@ -13,6 +13,7 @@
   ``scripts/train_torch.py`` at tiny sizes on the CPU.
 """
 
+import importlib.util
 import io
 import json
 import os
@@ -47,6 +48,8 @@ N_STEPS = 10
 HW = (16, 32)
 SMALL = dict(image_size=HW, enc_channels=(8, 16), dec_channels=(16, 8),
              dtype="float32", use_pallas_gn=True)
+FUSED = dict(use_pallas_convgn_bt=True, use_pallas_convgn_s2=True,
+             use_pallas_fusion_bt=True)
 
 
 # ------------------------------------------------------------- optimizer
@@ -137,12 +140,12 @@ def test_ema_update():
 
 # --------------------------------------------------------- training parity
 
-def _cfgs():
+def _cfgs(model=SMALL):
     train = dict(lr=1e-3, steps_per_epoch=N_STEPS, ckpt_dir="")
     data = dict(dataset="synthetic", batch_size=4)
-    j = jcfg.Config(model=jcfg.ModelConfig(**SMALL), train=jcfg.TrainConfig(**train),
+    j = jcfg.Config(model=jcfg.ModelConfig(**model), train=jcfg.TrainConfig(**train),
                     data=jcfg.DataConfig(**data))
-    t = tcfg.Config(model=tcfg.ModelConfig(**SMALL), train=tcfg.TrainConfig(**train),
+    t = tcfg.Config(model=tcfg.ModelConfig(**model), train=tcfg.TrainConfig(**train),
                     data=tcfg.DataConfig(**data))
     return j, t
 
@@ -173,9 +176,10 @@ def _compare(jax_traj, port_traj):
                                        err_msg=f"step {t} term {k}")
 
 
-@pytest.fixture(scope="module")
-def parity():
-    jc, tc = _cfgs()
+def _run_parity(model):
+    """Stage 1, the decoder transfer, then stage 2, N_STEPS each, in the
+    JAX package and in the port from the same weights and batches."""
+    jc, tc = _cfgs(model)
     h, w = HW
     # stage 1
     js = jstate.create_state(JDtoD(cfg=jc.model), (1, h, w, 1), jc.train, N_STEPS)
@@ -212,6 +216,20 @@ def parity():
                 g_init=g_init)
 
 
+@pytest.fixture(scope="module")
+def parity():
+    return _run_parity(SMALL)
+
+
+@pytest.fixture(scope="module")
+def parity_fused():
+    """The same run with every 3x3 conv site on the fused
+    conv3x3+GroupNorm+ELU route: in the port the kernels' plain versions
+    inside their autograd Functions (analytic backward); in the JAX
+    package, on the CPU, the XLA route of the same function."""
+    return _run_parity(dict(SMALL, **FUSED))
+
+
 def test_stage1_training_parity(parity):
     _compare(*parity["s1"])
     assert parity["s1"][1][-1]["total"] < parity["s1"][1][0]["total"]
@@ -229,6 +247,34 @@ def test_stage2_freezes_decoder_and_dnet(parity):
         assert torch.equal(v, parity["d_sd"][k]), k
     moved = parity["g_net"].encoder.stem.Conv_0.kernel.detach()
     assert not torch.equal(moved, parity["g_init"]["encoder.stem.Conv_0.kernel"])
+
+
+def test_stage1_training_parity_fused(parity_fused):
+    _compare(*parity_fused["s1"])
+    assert parity_fused["s1"][1][-1]["total"] < parity_fused["s1"][1][0]["total"]
+
+
+def test_stage2_training_parity_fused(parity_fused):
+    _compare(*parity_fused["s2"])
+    assert "latent" in parity_fused["s2"][1][0]
+
+
+def test_stage2_freezes_decoder_and_dnet_fused(parity_fused):
+    p = parity_fused
+    for k, v in p["g_net"].decoder.state_dict().items():
+        assert torch.equal(v, p["g_dec"][k]), k
+    for k, v in p["d_net"].state_dict().items():
+        assert torch.equal(v, p["d_sd"][k]), k
+    for k in ("encoder.stem.Conv_0.kernel", "encoder.down1.ConvBlock_0.Conv_0.kernel",
+              "encoder.down0.ConvBlock_1.gn_scale"):
+        assert not torch.equal(p["g_net"].state_dict()[k], p["g_init"][k]), k
+
+
+def test_fused_trajectory_follows_unfused(parity, parity_fused):
+    """Flags on against flags off in the port: the same function, so the
+    same losses to the parity bound at every step of both stages."""
+    for stage in ("s1", "s2"):
+        _compare(parity[stage][1], parity_fused[stage][1])
 
 
 def test_transfer_refuses_mismatched_decoder():
@@ -346,6 +392,27 @@ def test_train_script_both_stages_on_cpu(tmp_path):
     g_sd = load_pth(str(tmp_path / "stage2.pth"))
     cfg = tcfg.kitti_config(**{"model.image_size": (16, 32), "model.use_pallas_gn": True})
     RtoDNet(cfg.model).load_state_dict(g_sd, strict=True)
+
+
+def test_train_script_fused_flags_reach_the_config(tmp_path):
+    common = ["--dataset", "synthetic", "--device", "cpu", "--dtype", "float32",
+              "--height", "16", "--width", "32", "--batch_size", "1", "--epochs", "1",
+              "--steps_per_epoch", "1", "--log_every", "1", "--ckpt_dir", str(tmp_path)]
+    flags = [f"--model.{f}" for f in tcfg.FUSED_KERNEL_FLAGS]
+    spec = importlib.util.spec_from_file_location(
+        "train_torch_script", os.path.join(REPO, "scripts", "train_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    model = script.build_config(script.parse_args(common + flags)).model
+    assert all(getattr(model, f) for f in tcfg.FUSED_KERNEL_FLAGS)
+    off = script.build_config(script.parse_args(common)).model
+    assert not any(getattr(off, f) for f in tcfg.FUSED_KERNEL_FLAGS)
+    # and the script trains a step of each stage with them on
+    one = _script("--mode", "DtoD", *common, *flags[1:])
+    assert one.returncode == 0, one.stderr
+    two = _script("--mode", "RtoD", *common, *flags[1:])
+    assert two.returncode == 0, two.stderr
+    assert "[stage2] step=1" in two.stdout
 
 
 def test_train_script_refuses_cpu_fallback_and_real_data(tmp_path):

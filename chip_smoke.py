@@ -8,7 +8,8 @@ repository around this file.  Phases, each printed on its own lines:
 
   1. device   the card's name and power limit (nvidia-smi);
   2. build    the three kernel libraries from gdn_tpu_torch/csrc, one
-              nvcc each, started together;
+              nvcc each, started together (conv_gn_elu holds the whole
+              fused conv family, the upsample entry point included);
   3. kernels  at every (B=8, C, H, W, groups) shape the KITTI serving
               forward gives the GroupNorm+ELU kernel, in bf16 and fp32:
               kernel vs its plain PyTorch version on the same tensors,
@@ -52,13 +53,31 @@ repository around this file.  Phases, each printed on its own lines:
               fused), each checked against the CPU;
  13. fused train  phase 8 with those flags on, 21 steps a stage, with
               the launches per step asserted exactly;
- 14. fused vs CPU  phase 9 with those flags on.
+ 14. fused vs CPU  phase 9 with those flags on;
+ 15. upsample, fusion block  the two entry points behind
+              use_pallas_fusion (bilinear 2x + conv3x3 + GroupNorm + ELU;
+              two-input conv3x3 + GroupNorm + ELU per image, both fp32
+              out) vs their plain versions at their five sites of a KITTI
+              net each, B=8 and B=32, bf16 and fp32, and at ragged shapes
+              (H = 1, W = 1, odd W, 2W not a multiple of 8, Cin 5 and 48,
+              Cout 6 and 40), with the times and bounds of phase 10 (the
+              unfused routes: the composed transposed conv, or cat + cuDNN
+              conv, + the GroupNorm+ELU kernel);
+ 16. their gradients  through each autograd Function vs autograd of the
+              fp32 reference, a shallow and a deep site each;
+ 17. fusion slice  serving with use_pallas_fusion on (11 GN+ELU, 5
+              upsample, 5 fusion-block launches a batch), then one pass
+              with every fused flag on (1 GN+ELU, 5 s2, 5 bt, 5 fusion_bt,
+              5 upsample, no fusion-block), each checked against the CPU;
+ 18. fusion train  phase 8 with use_pallas_fusion on, 6 steps a stage,
+              launches per step asserted exactly;
+ 19. fusion vs CPU  phase 9 with use_pallas_fusion on.
 
 Any failure ends the run with a nonzero exit.  The last lines are the
 kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape numbers also go to smoke_out/chip_smoke.json, the profiles to
-smoke_out/serving_profile.txt and smoke_out/training_profile.txt.
+smoke_out/{serving,training}{,_fused,_fusion}_profile.txt.
 """
 
 import io
@@ -89,8 +108,10 @@ FUSED_TRAIN_STEPS = 21  # fused configuration: steps 2-21
 FUSED = {"model.use_pallas_convgn_bt": True, "model.use_pallas_convgn_s2": True,
          "model.use_pallas_fusion_bt": True}
 FUSED_V1 = {"model.use_pallas_convgn": True}
+FUSION = {"model.use_pallas_fusion": True}
 COUNTERS = ("group_norm_elu", "fused_loss_fwd", "fused_loss_bwd", "conv_gn_elu",
-            "conv_gn_elu_bt", "conv_gn_elu_s2", "fusion_bt")
+            "conv_gn_elu_bt", "conv_gn_elu_s2", "fusion_bt", "fusion_block", "upsample")
+FP32_OUT = ("conv_gn_elu", "fusion_block", "upsample")  # store fp32 a, no residuals
 # Fused loss operation counts per pixel for an 11-tap window, the least
 # the algorithm needs: forward = 3 products + 5 moments x 2 passes x 11
 # taps x 2 + ~20 for the SSIM map + 16 for L1 and the two differences +
@@ -326,12 +347,14 @@ def _counted():
     """{name in the kernels line: the wrapper that carries its count}."""
     from gdn_tpu_torch.kernels import conv_gn_elu as ck
     from gdn_tpu_torch.kernels import fused_loss as fl
+    from gdn_tpu_torch.kernels import fusion_block as fb
     from gdn_tpu_torch.kernels import fusion_bt as fk
     from gdn_tpu_torch.kernels import groupnorm as gnk
+    from gdn_tpu_torch.kernels import upsample as uk
 
     fns = (gnk.group_norm_elu, fl.fused_loss_fwd, fl.fused_loss_bwd,
            ck.fused_conv_gn_elu, ck.fused_conv_gn_elu_bt, ck.fused_conv_gn_elu_s2,
-           fk.fused_fusion_bt)
+           fk.fused_fusion_bt, fb.fused_fusion_block, uk.fused_upsample_conv)
     return dict(zip(COUNTERS, fns))
 
 
@@ -351,12 +374,12 @@ def expect_counts(what, got, **want):
 
 
 def conv_sites(m):
-    """The 15 fused sites of one net, by entry point: stride-2 and
-    refine convs of each DownBlock as (Cin, Cout, H, W) of the input,
-    fusion sites as (Cx, Cl, Cout, H, W)."""
+    """The 20 fused sites of one net, by entry point: stride-2 and
+    refine convs of each DownBlock and the UpBlock up-convs as (Cin,
+    Cout, H, W) of the input, fusion sites as (Cx, Cl, Cout, H, W)."""
     h, w = m.image_size
     cin, sizes = m.enc_channels[0], [m.image_size]
-    s2, bt, fusion = [], [], []
+    s2, bt, fusion, up = [], [], [], []
     for ch in m.enc_channels:
         s2.append((cin, ch, h, w))
         h, w = -(-h // 2), -(-w // 2)
@@ -367,8 +390,10 @@ def conv_sites(m):
     n = len(skips)
     for i, ch in enumerate(m.dec_channels):
         fusion.append((ch, skips[n - 1 - i], ch, *sizes[n - 1 - i]))
+        up.append((cin, ch, *sizes[n - i]))
+        cin = ch
     return {"conv_gn_elu": bt, "conv_gn_elu_bt": bt, "conv_gn_elu_s2": s2,
-            "fusion_bt": fusion}
+            "fusion_bt": fusion, "fusion_block": fusion, "upsample": up}
 
 
 def phase_slice(cfg, sd, per_batch, tag="serving", n_images=20, timed=True):
@@ -792,6 +817,9 @@ RAGGED = {  # (B, channels..., H, W): odd sizes at stride 2, ragged channels
     "conv_gn_elu_bt": [(3, 24, 40, 9, 11), (2, 5, 6, 7, 5)],
     "conv_gn_elu_s2": [(2, 64, 128, 57, 76), (3, 16, 32, 29, 37), (2, 5, 6, 7, 5)],
     "fusion_bt": [(2, 48, 20, 12, 9, 7), (3, 16, 32, 16, 29, 37)],
+    "fusion_block": [(2, 48, 20, 12, 9, 7), (3, 16, 32, 16, 29, 37), (2, 5, 3, 6, 1, 13)],
+    # H = 1; odd W with 2W % 8 != 0, Cin 48, Cout 40; Cin 5, Cout 6; W = 1
+    "upsample": [(2, 32, 16, 1, 7), (3, 48, 40, 4, 13), (2, 5, 6, 3, 5), (2, 16, 8, 5, 1)],
 }
 
 
@@ -799,12 +827,16 @@ def _conv_case(name, shape, dtype, copies, gen):
     """Inputs of one fused site and its three routes on them: the kernel
     (with residuals; ``serve`` is the no-grad entry point that stores a
     alone), the plain version, and the unfused route the port offers
-    (cuDNN conv [+ cat] + the GroupNorm+ELU kernel)."""
+    (cuDNN conv [+ cat] + the GroupNorm+ELU kernel; for the upsample the
+    composed transposed conv in front of it)."""
     from gdn_tpu_torch.kernels import conv_gn_elu as ck
+    from gdn_tpu_torch.kernels import fusion_block as fb
     from gdn_tpu_torch.kernels import fusion_bt as fk
+    from gdn_tpu_torch.kernels import upsample as uk
     from gdn_tpu_torch.kernels.groupnorm import group_norm_elu
     from gdn_tpu_torch.ops.conv import conv_same
     from gdn_tpu_torch.ops.groupnorm import pick_groups
+    from gdn_tpu_torch.ops.resize import composed_resize_conv2x
 
     cl = torch.channels_last
     tap = "bfloat16" if dtype == torch.bfloat16 else "float32"
@@ -824,18 +856,42 @@ def _conv_case(name, shape, dtype, copies, gen):
     scale = torch.rand(cout, device="cuda", generator=gen) + 0.5
     bias = torch.randn(cout, device="cuda", generator=gen) * 0.1
     kd = k.to(dtype)
-    if name == "fusion_bt":
-        def kernel(x, lat):
-            return fk._fusion_bt_all(x, lat, *ks, scale, bias, g, 1e-6, tap)
-
-        def serve(x, lat):
-            return fk.fused_fusion_bt(x, lat, *ks, scale, bias, g, 1e-6, tap)
-
-        def plain(x, lat):
-            return fk.fusion_bt_plain(x, lat, *ks, scale, bias, g, 1e-6, tap)
-
+    if name in ("fusion_bt", "fusion_block"):
         def library(x, lat):
             return group_norm_elu(conv_same(torch.cat([x, lat], 1), kd), scale, bias, g)
+
+        if name == "fusion_bt":
+            def kernel(x, lat):
+                return fk._fusion_bt_all(x, lat, *ks, scale, bias, g, 1e-6, tap)
+
+            def serve(x, lat):
+                return fk.fused_fusion_bt(x, lat, *ks, scale, bias, g, 1e-6, tap)
+
+            def plain(x, lat):
+                return fk.fusion_bt_plain(x, lat, *ks, scale, bias, g, 1e-6, tap)
+        else:
+            serve = None
+
+            def kernel(x, lat):
+                return (fb.fused_fusion_block(x, lat, *ks, scale, bias, g, 1e-6, tap),
+                        None, None)
+
+            def plain(x, lat):
+                return (fb.fusion_block_plain(x, lat, *ks, scale, bias, g, 1e-6, tap),
+                        None, None)
+    elif name == "upsample":
+        serve = None
+        kcl = kd.contiguous(memory_format=cl)
+
+        def kernel(x):
+            return (uk.fused_upsample_conv(x, k, scale, bias, g, 1e-6, tap), None, None)
+
+        def plain(x):
+            return (uk.upsample_conv_plain(x, k, scale, bias, g, 1e-6, tap), None, None)
+
+        def library(x):
+            y = composed_resize_conv2x(x, kcl).contiguous(memory_format=cl)
+            return group_norm_elu(y, scale, bias, g)
     else:
         out_dtype = torch.float32 if name == "conv_gn_elu" else None
         if name == "conv_gn_elu":
@@ -859,9 +915,9 @@ def _conv_case(name, shape, dtype, copies, gen):
 
         def library(x):
             return group_norm_elu(conv_same(x, kd, stride), scale, bias, g)
-    ho, wo = -(-h // stride), -(-w // stride)
+    ho, wo = (2 * h, 2 * w) if name == "upsample" else (-(-h // stride), -(-w // stride))
     item = torch.finfo(dtype).bits // 8
-    out_item = 4 if name == "conv_gn_elu" else item
+    out_item = 4 if name in FP32_OUT else item
     flops = 18 * sum(cins) * cout * ho * wo * b
     in_bytes = b * sum(cins) * h * w * item + k.numel() * 4 + 2 * cout * 4
     out_elems = b * cout * ho * wo
@@ -871,22 +927,25 @@ def _conv_case(name, shape, dtype, copies, gen):
                 res_bytes=out_elems * out_item + b * cout * 4)
 
 
-def phase_conv_kernels(cfg):
-    """Every fused entry point vs its plain version, with times.
+def phase_conv_kernels(cfg, names):
+    """The fused entry points ``names`` vs their plain versions, with times.
 
     Tolerance: fp32 rtol 1e-4 / atol 1e-5 (the JAX suite's for these
     kernels against their reference); bf16 0.05 + 0.05 |ref| on a and yn
     as phase 3 (one bf16 rounding of an O(1) value is up to 0.0156; the
     kernel and cuDNN sum the taps in other orders, so a value near a
-    rounding boundary may land on either side), inv (fp32 in both) at
-    the fp32 tolerance.  The bound is the larger of the flops at the
+    rounding boundary may land on either side), inv (fp32 in both) and
+    the fp32 a of the per-image, fusion-block and upsample entry points
+    (the same bf16 taps on both sides: the upsample's plain version blends
+    in the kernel's order, and the kernel pins each rounding) at the fp32
+    tolerance.  The bound is the larger of the flops at the
     card's peak for the tap dtype (dense bf16 tensor rate; fp32 FMA
     rate for fp32 taps) and the bytes (inputs and weights read once, a
     and, where stored, yn and inv written once) at the memory rate."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(5)
     sites = conv_sites(cfg.model)
-    for name in ("conv_gn_elu", "conv_gn_elu_bt", "conv_gn_elu_s2", "fusion_bt"):
+    for name in names:
         cases = [((b, *site), True) for b in (BATCH, TRAIN_BATCH) for site in sites[name]]
         cases += [(shape, False) for shape in RAGGED[name]]
         for shape, main in cases:
@@ -905,7 +964,7 @@ def phase_conv_kernels(cfg):
                 for part, g_, w_ in zip(("a", "yn", "inv"), got, want):
                     if g_ is None:
                         continue
-                    exact = part == "inv" or name == "conv_gn_elu"  # fp32 in both
+                    exact = part == "inv" or name in FP32_OUT  # fp32 in both
                     tol = TOL[torch.float32 if exact else dtype]
                     errs[part] = check_tol(g_, w_, *tol, f"{what} {part}")
                 row = {"kernel": name, "shape": list(shape), "dtype": str(dtype),
@@ -942,10 +1001,24 @@ def phase_conv_kernels(cfg):
     return rows
 
 
-def phase_conv_grad():
+CONV_GRAD_CASES = {
+    "conv_gn_elu": [(BATCH, 32, 32, 64, 208), (BATCH, 512, 512, 4, 13)],
+    "conv_gn_elu_bt": [(TRAIN_BATCH, 32, 32, 64, 208), (TRAIN_BATCH, 512, 512, 4, 13)],
+    "conv_gn_elu_s2": [(TRAIN_BATCH, 32, 32, 128, 416), (TRAIN_BATCH, 256, 512, 8, 26)],
+    "fusion_bt": [(TRAIN_BATCH, 16, 32, 16, 128, 416), (TRAIN_BATCH, 256, 256, 256, 8, 26)],
+}
+FUSION_GRAD_CASES = {
+    "fusion_block": CONV_GRAD_CASES["fusion_bt"],
+    "upsample": [(TRAIN_BATCH, 32, 16, 64, 208), (TRAIN_BATCH, 512, 256, 4, 13)],
+}
+
+
+def phase_conv_grad(cases):
     """Gradients in every tensor input through each fused entry point's
-    autograd Function vs autograd of its plain version, on the card, at
-    a shallow and a deep site each.  fp32: rtol 1e-3 (the JAX suite's
+    autograd Function vs autograd of its plain version (for the fp32-out
+    entry points, whose backward is the VJP of the fp32 reference
+    whatever the taps: of the plain version with fp32 taps), on the
+    card, at a shallow and a deep site each.  fp32: rtol 1e-3 (the JAX suite's
     gradient bound for these kernels) with an absolute floor of 1e-5 of
     the gradient's largest magnitude (the weight gradients sum B*H*W
     terms in other orders; the suite's atol 1e-5 is for gradients of
@@ -953,22 +1026,19 @@ def phase_conv_grad():
     phase 7 (the analytic chain rounds to bf16 where the plain graph
     stays fp32)."""
     from gdn_tpu_torch.kernels import conv_gn_elu as ck
+    from gdn_tpu_torch.kernels import fusion_block as fb
     from gdn_tpu_torch.kernels import fusion_bt as fk
+    from gdn_tpu_torch.kernels import upsample as uk
     from gdn_tpu_torch.ops.groupnorm import pick_groups
 
     cl = torch.channels_last
     gen = torch.Generator(device="cuda").manual_seed(6)
-    cases = {
-        "conv_gn_elu": [(BATCH, 32, 32, 64, 208), (BATCH, 512, 512, 4, 13)],
-        "conv_gn_elu_bt": [(TRAIN_BATCH, 32, 32, 64, 208), (TRAIN_BATCH, 512, 512, 4, 13)],
-        "conv_gn_elu_s2": [(TRAIN_BATCH, 32, 32, 128, 416), (TRAIN_BATCH, 256, 512, 8, 26)],
-        "fusion_bt": [(TRAIN_BATCH, 16, 32, 16, 128, 416), (TRAIN_BATCH, 256, 256, 256, 8, 26)],
-    }
     rows = []
     for name, shapes in cases.items():
         for shape in shapes:
             for dtype in (torch.bfloat16, torch.float32):
                 tap = "bfloat16" if dtype == torch.bfloat16 else "float32"
+                ref_tap = "float32" if name in FP32_OUT else tap
                 b, *chans, h, w = shape
                 cout, cins = chans[-1], chans[:-1]
                 g = pick_groups(cout, 8)
@@ -983,13 +1053,19 @@ def phase_conv_grad():
                 if name == "fusion_bt":
                     fused = lambda *t: fk.fused_fusion_bt(*t, g, 1e-6, tap)
                     plain = lambda *t: fk.fusion_bt_plain(*t, g, 1e-6, tap)[0]
+                elif name == "fusion_block":
+                    fused = lambda *t: fb.fused_fusion_block(*t, g, 1e-6, tap)
+                    plain = lambda *t: fb.fusion_block_plain(*t, g, 1e-6, ref_tap)
+                elif name == "upsample":
+                    fused = lambda *t: uk.fused_upsample_conv(*t, g, 1e-6, tap)
+                    plain = lambda *t: uk.upsample_conv_plain(*t, g, 1e-6, ref_tap)
                 else:
                     entry = {"conv_gn_elu": ck.fused_conv_gn_elu,
                              "conv_gn_elu_bt": ck.fused_conv_gn_elu_bt,
                              "conv_gn_elu_s2": ck.fused_conv_gn_elu_s2}[name]
                     out_dtype = torch.float32 if name == "conv_gn_elu" else None
                     fused = lambda *t: entry(*t, g, 1e-6, tap)
-                    plain = lambda *t: ck.conv_gn_elu_plain(*t, g, 1e-6, stride, tap,
+                    plain = lambda *t: ck.conv_gn_elu_plain(*t, g, 1e-6, stride, ref_tap,
                                                             out_dtype)[0]
                 grads, da = [], None
                 for fn in (fused, plain):
@@ -1028,6 +1104,8 @@ def _family_entry(name, line, rows, launches):
     serving for the per-image kernel, B=32 training for the others; the
     B=8 sums are in chip_smoke.json)."""
     batch = BATCH if name == "conv_gn_elu" else TRAIN_BATCH
+    # (fusion_block and upsample run in serving at B=8 and in training
+    # at B=32; their line takes the training batch like bt, s2, fusion_bt)
     mine = [r for r in rows if r["kernel"] == name and r["main"]]
     picked = [r for r in mine if r["shape"][0] == batch
               and r["dtype"] == str(torch.bfloat16)]
@@ -1072,12 +1150,15 @@ def main():
     log("== 2. build")
     t0 = time.perf_counter()
     port_kernels.load_all()
-    log(f"  group_norm_elu, fused_loss and conv_gn_elu built and loaded in "
+    log(f"  group_norm_elu, fused_loss and conv_gn_elu (the fused conv family: six "
+        f"entry points, upsample included) built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
     cfg = kitti_config(**{"model.use_pallas_gn": True})
     cfg_fused = kitti_config(**{"model.use_pallas_gn": True, **FUSED})
     cfg_v1 = kitti_config(**{"model.use_pallas_gn": True, **FUSED_V1})
+    cfg_fusion = kitti_config(**{"model.use_pallas_gn": True, **FUSION})
+    cfg_all = kitti_config(**{"model.use_pallas_gn": True, **FUSED, **FUSION})
     gn = gnk.group_norm_elu
     n_gn = len(gn_sites(cfg.model))
     log("== 3. kernels vs plain (B=8, KITTI serving shapes)")
@@ -1109,10 +1190,11 @@ def main():
     del s2, d_net
 
     log("== 10. fused conv3x3+GroupNorm+ELU kernels vs plain")
-    conv_rows = phase_conv_kernels(cfg)
+    conv_rows = phase_conv_kernels(
+        cfg, ("conv_gn_elu", "conv_gn_elu_bt", "conv_gn_elu_s2", "fusion_bt"))
 
     log("== 11. gradients through the fused conv entry points")
-    conv_grad_rows = phase_conv_grad()
+    conv_grad_rows = phase_conv_grad(CONV_GRAD_CASES)
 
     log("== 12. slice with the fused kernels: serving, full width, bf16")
     fused_per_net = {"group_norm_elu": 6, "conv_gn_elu_bt": 5, "conv_gn_elu_s2": 5,
@@ -1131,6 +1213,30 @@ def main():
 
     log("== 14. one stage-2 step with the fused kernels, card vs CPU, B=2")
     vs_cpu_fused = phase_vs_cpu(cfg_fused, s2, d_net)
+    del s2, d_net
+
+    log("== 15. upsample and fusion-block kernels vs plain")
+    conv_rows += phase_conv_kernels(cfg, ("fusion_block", "upsample"))
+
+    log("== 16. gradients through the upsample and fusion-block entry points")
+    conv_grad_rows += phase_conv_grad(FUSION_GRAD_CASES)
+
+    log("== 17. slice with use_pallas_fusion: serving, full width, bf16")
+    fusion_per_net = {"group_norm_elu": n_gn - 10, "upsample": 5, "fusion_block": 5}
+    _, fusion_counts, serving_fusion = phase_slice(cfg_fusion, sd, fusion_per_net,
+                                                   "serving_fusion", 16)
+    log("   and with every fused flag on (no GroupNorm site but the stem unfused)")
+    _, all_counts, serving_all = phase_slice(
+        cfg_all, sd, {"group_norm_elu": 1, "conv_gn_elu_s2": 5, "conv_gn_elu_bt": 5,
+                      "fusion_bt": 5, "upsample": 5}, "serving_all", 8, timed=False)
+
+    log(f"== 18. training with use_pallas_fusion: stage 1 then stage 2, "
+        f"B={TRAIN_BATCH}, bf16")
+    training_fusion, fusion_train_launches, _, s2, d_net = phase_train(
+        cfg_fusion, TRAIN_STEPS, fusion_per_net, "training_fusion")
+
+    log("== 19. one stage-2 step with use_pallas_fusion, card vs CPU, B=2")
+    vs_cpu_fusion = phase_vs_cpu(cfg_fusion, s2, d_net)
 
     main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
     per_fwd = {k: sum(r[k] * r["sites"] for r in main_rows)
@@ -1138,7 +1244,9 @@ def main():
     main_loss = loss_rows[0]
     path_launches = {"serving": serving_counts, **train_launches,
                      "serving_fused": fused_counts, "serving_v1": v1_counts,
-                     **{f"{k}_fused": v for k, v in fused_train_launches.items()}}
+                     **{f"{k}_fused": v for k, v in fused_train_launches.items()},
+                     "serving_fusion": fusion_counts, "serving_all": all_counts,
+                     **{f"{k}_fusion": v for k, v in fusion_train_launches.items()}}
 
     def total(name):
         return sum(c.get(name, 0) for c in path_launches.values())
@@ -1170,7 +1278,9 @@ def main():
     for name, line in (("conv_gn_elu", "gdn_tpu/kernels/conv_gn_elu.py:109"),
                        ("conv_gn_elu_bt", "gdn_tpu/kernels/conv_gn_elu.py:356"),
                        ("conv_gn_elu_s2", "gdn_tpu/kernels/conv_gn_elu.py:679"),
-                       ("fusion_bt", "gdn_tpu/kernels/fusion_bt.py:226")):
+                       ("fusion_bt", "gdn_tpu/kernels/fusion_bt.py:226"),
+                       ("fusion_block", "gdn_tpu/kernels/fusion_block.py:235"),
+                       ("upsample", "gdn_tpu/kernels/upsample.py:148")):
         kernels.append(_family_entry(name, line, conv_rows, total(name)))
     for k in kernels:
         if k["launches"] < 1:
@@ -1184,6 +1294,8 @@ def main():
                    "vs_cpu": vs_cpu, "conv": conv_rows, "conv_grad": conv_grad_rows,
                    "serving_fused": serving_fused, "serving_v1": serving_v1,
                    "training_fused": training_fused, "vs_cpu_fused": vs_cpu_fused,
+                   "serving_fusion": serving_fusion, "serving_all": serving_all,
+                   "training_fusion": training_fusion, "vs_cpu_fusion": vs_cpu_fusion,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
                    "kernels": kernels}, f, indent=1)
     if EVENT_TIMED:

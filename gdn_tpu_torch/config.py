@@ -19,11 +19,14 @@ What differs:
   stride 1, tried in that order as in the JAX package) and
   ``use_pallas_fusion_bt`` the FusionBlocks to the fused
   conv3x3+GroupNorm+ELU kernels (``kernels/conv_gn_elu.py``,
-  ``kernels/fusion_bt.py``); ``use_pallas=False`` turns all four off;
-  ``use_pallas_fusion`` is still refused.  Every GroupNorm+ELU site
-  that stays unfused launches the GroupNorm+ELU kernel
-  (``kernels/groupnorm.py``) on a CUDA device whatever ``use_pallas_gn``
-  says.  On the CPU each site runs its kernel's plain PyTorch form.
+  ``kernels/fusion_bt.py``); ``use_pallas_fusion`` sends the UpBlock
+  up-convs at an exact 2x target to the upsample kernel
+  (``kernels/upsample.py``) and the FusionBlocks that
+  ``use_pallas_fusion_bt`` has not taken to the per-image fusion kernel
+  (``kernels/fusion_block.py``); ``use_pallas=False`` turns all five
+  off.  Every GroupNorm+ELU site that stays unfused launches the
+  GroupNorm+ELU kernel (``kernels/groupnorm.py``) on a CUDA device
+  whatever ``use_pallas_gn`` says.  On the CPU each site runs its kernel's plain PyTorch form.
   Either way the GN backward is the analytic two-reduce one that
   ``gn_analytic_vjp`` selects in the JAX package.  The execution fields
   ``gn_impl``, ``elu_outform_vjp``, ``convgn_bt_tile`` and
@@ -59,8 +62,6 @@ _NOT_YET = (
     ("activation", "elu", "Queue A item 3 (non-ELU activations)"),
     ("quant", "none", "Queue A item 11 (int8 PTQ)"),
     ("multiscale_heads", False, "Queue A item 3 (multi-scale heads)"),
-    ("use_pallas_fusion", False,
-     "Queue B items 5-6 (fusion block and upsample kernels)"),
 )
 _TRAIN_NOT_YET = (
     ("grad_accum", 1, "Queue A item 5 (gradient accumulation)"),
@@ -287,10 +288,12 @@ def _with(cfg: Config, **overrides) -> Config:
 
 
 # ModelConfig flags that route 3x3 conv sites to the fused
-# conv3x3+GroupNorm+ELU kernels; the scripts take each as --model.<flag>.
+# conv3x3+GroupNorm+ELU kernels (use_pallas_fusion: the UpBlock up-convs
+# with their upsample, and the FusionBlocks); the scripts take each as
+# --model.<flag>.
 FUSED_KERNEL_FLAGS = (
     "use_pallas_convgn", "use_pallas_convgn_bt", "use_pallas_convgn_s2",
-    "use_pallas_fusion_bt",
+    "use_pallas_fusion_bt", "use_pallas_fusion",
 )
 
 

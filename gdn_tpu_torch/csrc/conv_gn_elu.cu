@@ -1,5 +1,5 @@
 // Fused conv3x3 + GroupNorm + ELU forward for Hopper (sm_90a), plain C
-// interface for ctypes.  One source behind four entry points.
+// interface for ctypes.  One source behind six entry points.
 //
 // Replaces the TPU kernels (each the pl.pallas_call at the line given)
 //   gdn_tpu/kernels/conv_gn_elu.py:109  fused_conv_gn_elu     (stride 1, fp32 out)
@@ -7,10 +7,26 @@
 //   gdn_tpu/kernels/conv_gn_elu.py:679  fused_conv_gn_elu_s2  (stride 2, a/yn/inv)
 //   gdn_tpu/kernels/fusion_bt.py:226    fused_fusion_bt       (two inputs, concat
 //                                                              never built)
+//   gdn_tpu/kernels/fusion_block.py:235 fused_fusion_block    (two inputs, fp32 out)
+//   gdn_tpu/kernels/upsample.py:148     fused_upsample_conv   (bilinear 2x of x in
+//                                                              front, fp32 out)
 // which all compute: 3x3 SAME convolution with fp32 accumulation of
 // inputs and weights rounded to the tap dtype -> per-(image, group) mean
 // and variance of the fp32 accumulator (single pass, clamped at 0) ->
 // yn = (acc - mean) * inv -> a = ELU(yn * scale + bias), stored once.
+//
+// The upsample entry point convolves U = the exact-2x bilinear upsample
+// of x (half-pixel centers, edge clamp), four times the size of x, and
+// U is never stored anywhere: conv3x3_stats<..., UP = true> makes each
+// element of an im2col row as it is gathered, a 4-point blend of x in
+// fp32 (rows first, then columns, as the TPU kernel: 0.25 of the far
+// neighbour, 0.75 of the near one), rounded to the tap dtype.  Where the
+// clamp and the zero border meet: a tap position outside [0, 2H) x
+// [0, 2W) is the convolution's zero padding and reads nothing; inside,
+// the far neighbour's index is clamped into the image, so U's outermost
+// rows and columns blend a pixel with itself.  Each x element is read up
+// to 36 times (9 taps x 4 blends), from L1/L2; device memory sees x once
+// and the fp32 output once.
 //
 // What bounds it: a site does 18 * Cin * Cout flops per output pixel
 // against (Cin * s^2 + Cout [+ Cout for yn]) * itemsize bytes.  In bf16
@@ -79,9 +95,17 @@ struct ConvArgs {
   float* partials;  // (B, mtiles, cout, 2)
   int h, w, cx, cl, cout, ho, wo, stride, pad_top, pad_left, round_bf16;
 };
+// h, w are x's; with the upsample in front the convolution runs over the
+// (2h, 2w) map U and ho = 2h, wo = 2w, stride 1, pads 1.
 
 __device__ __forceinline__ float round_to_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// 0.25 far + 0.75 near, each product and the sum rounded on its own (no
+// contraction into an fma), so U is bit for bit the plain version's.
+__device__ __forceinline__ float blend(float far, float near) {
+  return __fadd_rn(__fmul_rn(0.25f, far), __fmul_rn(0.75f, near));
 }
 
 // Channels c..c+3 of the pixel at px (cs channels), zero beyond cs.
@@ -109,7 +133,7 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* px, int c, int cs, bo
   }
 }
 
-template <typename T, int BM, int BN>
+template <typename T, int BM, int BN, bool UP>
 __global__ void __launch_bounds__(kThreads) conv3x3_stats(ConvArgs p) {
   constexpr int TX = BN / TN;       // threads along the channels
   constexpr int TY = BM / TM;       // threads along the pixels
@@ -193,7 +217,32 @@ __global__ void __launch_bounds__(kThreads) conv3x3_stats(ConvArgs p) {
 #pragma unroll
       for (int i = 0; i < A_ITEMS; ++i) {
         const int hi = hi0[i] + ky, wi = wi0[i] + kx;
-        if (hi >= 0 && hi < p.h && wi >= 0 && wi < p.w && c < cs) {
+        if (UP) {
+          // (hi, wi) is a position in U.  Near source pixel (hi/2, wi/2);
+          // the far one lies before it at an even position, after it at
+          // an odd one, clamped into the image.
+          if (hi >= 0 && hi < 2 * p.h && wi >= 0 && wi < 2 * p.w && c < cs) {
+            const int rn = hi >> 1, cn = wi >> 1;
+            const int rf = (hi & 1) ? min(rn + 1, p.h - 1) : max(rn - 1, 0);
+            const int cf = (wi & 1) ? min(cn + 1, p.w - 1) : max(cn - 1, 0);
+            const T* img = src + (size_t)b * p.h * p.w * cs;
+            float nn[4], fn[4], nf[4], ff[4];  // (row, column): near / far
+            load4(img + ((size_t)rn * p.w + cn) * cs, c, cs, vec, nn);
+            load4(img + ((size_t)rf * p.w + cn) * cs, c, cs, vec, fn);
+            load4(img + ((size_t)rn * p.w + cf) * cs, c, cs, vec, nf);
+            load4(img + ((size_t)rf * p.w + cf) * cs, c, cs, vec, ff);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float vn = blend(fn[j], nn[j]);  // rows, near column
+              const float vf = blend(ff[j], nf[j]);  // rows, far column
+              const float u = blend(vf, vn);         // columns
+              areg[i][j] = p.round_bf16 ? round_to_bf16(u) : u;
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) areg[i][j] = 0.f;
+          }
+        } else if (hi >= 0 && hi < p.h && wi >= 0 && wi < p.w && c < cs) {
           const T* px = src + (((size_t)b * p.h + hi) * p.w + wi) * cs;
           load4(px, c, cs, vec, areg[i]);
           if (p.round_bf16) {
@@ -357,18 +406,22 @@ gn_elu_apply(const float* __restrict__ y, const float* __restrict__ partials,
 }
 
 template <typename T, int BM, int BN>
-cudaError_t launch_conv(const ConvArgs& p, int batch, int mtiles, cudaStream_t stream) {
+cudaError_t launch_conv(const ConvArgs& p, int batch, int mtiles, bool upsample,
+                        cudaStream_t stream) {
   dim3 grid(mtiles, (p.cout + BN - 1) / BN, batch);
-  conv3x3_stats<T, BM, BN><<<grid, kThreads, 0, stream>>>(p);
+  if (upsample)
+    conv3x3_stats<T, BM, BN, true><<<grid, kThreads, 0, stream>>>(p);
+  else
+    conv3x3_stats<T, BM, BN, false><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_conv_bm(const ConvArgs& p, int batch, int bm, int mtiles,
+cudaError_t launch_conv_bm(const ConvArgs& p, int batch, int bm, int mtiles, bool upsample,
                            cudaStream_t stream) {
-  if (bm == 64) return launch_conv<T, 64, 64>(p, batch, mtiles, stream);
-  if (bm == 128) return launch_conv<T, 128, 32>(p, batch, mtiles, stream);
-  if (bm == 256) return launch_conv<T, 256, 16>(p, batch, mtiles, stream);
+  if (bm == 64) return launch_conv<T, 64, 64>(p, batch, mtiles, upsample, stream);
+  if (bm == 128) return launch_conv<T, 128, 32>(p, batch, mtiles, upsample, stream);
+  if (bm == 256) return launch_conv<T, 256, 16>(p, batch, mtiles, upsample, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -397,15 +450,20 @@ cudaError_t launch_apply(const float* y, const float* partials, const float* sca
 // mtiles = ceil(ho*wo / bm), bm one of 64 (64 channels a block), 128 (32)
 // or 256 (16).  a and yn (null to skip) are (B, ho, wo, cout) in out_dtype,
 // inv (null to skip) is fp32 (B, cout).  dtypes: 0 = float32, 1 = bfloat16.
-// round_bf16 rounds fp32 inputs to bf16 as they are read.  Returns a
-// cudaError_t.
+// round_bf16 rounds fp32 inputs to bf16 as they are read.  upsample = 1
+// puts the bilinear 2x of x in front of the convolution (one input,
+// stride 1, ho = 2h, wo = 2w, pads 1; round_bf16 then rounds the blended
+// values, whatever in_dtype is).  Returns a cudaError_t.
 extern "C" int conv_gn_elu_forward(const void* x, const void* lat, const void* wx,
                                    const void* wl, const void* scale, const void* bias,
                                    void* y, void* partials, void* a, void* yn, void* inv,
                                    int batch, int h, int w, int cx, int cl, int cout, int ho,
                                    int wo, int stride, int pad_top, int pad_left, int groups,
                                    float eps, int in_dtype, int out_dtype, int round_bf16,
-                                   int bm, int rows_per_chunk, void* stream) {
+                                   int bm, int rows_per_chunk, int upsample, void* stream) {
+  if (upsample && (cl != 0 || stride != 1 || ho != 2 * h || wo != 2 * w || pad_top != 1 ||
+                   pad_left != 1))
+    return (int)cudaErrorInvalidValue;
   if (cout > kMaxC || groups < 1 || cout % groups != 0 || batch < 1 || cx < 1 || cl < 0 ||
       (cl > 0 && (lat == nullptr || wl == nullptr)) || rows_per_chunk < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
@@ -419,15 +477,15 @@ extern "C" int conv_gn_elu_forward(const void* x, const void* lat, const void* w
   p.partials = static_cast<float*>(partials);
   p.h = h; p.w = w; p.cx = cx; p.cl = cl; p.cout = cout; p.ho = ho; p.wo = wo;
   p.stride = stride; p.pad_top = pad_top; p.pad_left = pad_left;
-  p.round_bf16 = (in_dtype == 0) ? round_bf16 : 0;
+  p.round_bf16 = (in_dtype == 0 || upsample) ? round_bf16 : 0;
   const int m_total = ho * wo;
   if (bm < 1) return (int)cudaErrorInvalidValue;
   const int mtiles = (m_total + bm - 1) / bm;
   cudaError_t err;
   if (in_dtype == 0)
-    err = launch_conv_bm<float>(p, batch, bm, mtiles, st);
+    err = launch_conv_bm<float>(p, batch, bm, mtiles, upsample != 0, st);
   else if (in_dtype == 1)
-    err = launch_conv_bm<__nv_bfloat16>(p, batch, bm, mtiles, st);
+    err = launch_conv_bm<__nv_bfloat16>(p, batch, bm, mtiles, upsample != 0, st);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

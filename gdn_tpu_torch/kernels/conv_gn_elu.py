@@ -5,9 +5,11 @@ Replaces three TPU kernels of ``gdn_tpu/kernels/conv_gn_elu.py``:
 ``fused_conv_gn_elu`` (per image, fp32 out, backward by recompute),
 ``fused_conv_gn_elu_bt`` (stride 1) and ``fused_conv_gn_elu_s2``
 (stride 2), the last two emitting the residuals ``(a, yn, inv)`` of an
-analytic backward.  ``kernels/fusion_bt.py`` drives the same kernels
-with two inputs.  The CUDA source (``csrc/conv_gn_elu.cu``) says what
-bounds the kernels and what its two launches do about it.
+analytic backward.  ``kernels/fusion_bt.py`` and
+``kernels/fusion_block.py`` drive the same kernels with two inputs,
+``kernels/upsample.py`` with the bilinear 2x of x in front.  The CUDA
+source (``csrc/conv_gn_elu.cu``) says what bounds the kernels and what
+its two launches do about it.
 
 The function: SAME 3x3 convolution of x and the weights, both rounded
 to the tap dtype, accumulated in fp32; per-(image, group) single-pass
@@ -33,9 +35,12 @@ backward is the JAX package's ``_analytic_bwd``: ELU' from the output,
 the two-reduce GroupNorm backward (``ops.groupnorm.gn_elu_backward``),
 then the standard convolution input and weight gradients (cuDNN; on the
 TPU they are XLA's, outside any Pallas kernel).  ``fused_conv_gn_elu``
-keeps its inputs and differentiates the plain version again, as the TPU
-kernel does with its reference.  A CPU tensor runs the plain version
-inside the same Functions; a CUDA tensor launches the kernels or raises.
+(and the fusion-block and upsample entry points) keep their inputs and
+their backward is the VJP of the fp32 reference on them, as the TPU
+kernels': whatever the tap dtype, the gradients are taken at the
+unrounded inputs, in fp32 (``FusedRecompute``).  A CPU tensor runs the
+plain version inside the same Functions; a CUDA tensor launches the
+kernels or raises.
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ def load() -> ctypes.CDLL:
     fn = lib.conv_gn_elu_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 12 + [ctypes.c_float] + [i] * 5 + [p]
+        fn.argtypes = [p] * 11 + [i] * 12 + [ctypes.c_float] + [i] * 6 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -137,8 +142,10 @@ def conv_gn_elu_plain(x, w, scale, bias, groups: int = 8, eps: float = 1e-6,
 
 
 def _launch(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
-            tap_dtype, out_dtype, residuals: bool) -> Residuals:
-    """Run the kernels on CUDA tensors; adds one to ``counter.launches``."""
+            tap_dtype, out_dtype, residuals: bool, upsample: bool = False) -> Residuals:
+    """Run the kernels on CUDA tensors; adds one to ``counter.launches``.
+    ``upsample`` convolves the bilinear 2x of x (one input, stride 1),
+    which the kernel blends as it gathers and never stores."""
     b, cx, h, w = x.shape
     cout = wx.shape[0]
     if cout > _MAX_C:
@@ -151,7 +158,11 @@ def _launch(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
         if v.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     tap = _TAPS[tap_dtype]
-    ho, wo = -(-h // stride), -(-w // stride)
+    if upsample:
+        ho, wo, pad_top, pad_left = 2 * h, 2 * w, 1, 1
+    else:
+        ho, wo = -(-h // stride), -(-w // stride)
+        pad_top, pad_left = same_pads(h, 3, stride)[0], same_pads(w, 3, stride)[0]
     m = ho * wo
     bm = block_rows(cout)
     mtiles = -(-m // bm)
@@ -173,10 +184,10 @@ def _launch(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
         ptr(x), ptr(lat), ptr(wxp), ptr(wlp), ptr(scale32), ptr(bias32), ptr(y),
         ptr(partials), ptr(a), ptr(yn), ptr(inv),
         b, h, w, cx, 0 if lat is None else lat.shape[1], cout, ho, wo, stride,
-        same_pads(h, 3, stride)[0], same_pads(w, 3, stride)[0], groups, float(eps),
-        _DTYPES[x.dtype], _DTYPES[out_dtype],
-        int(tap == torch.bfloat16 and x.dtype == torch.float32), bm,
-        max(1, _APPLY_ELEMS // cout), torch.cuda.current_stream(dev).cuda_stream,
+        pad_top, pad_left, groups, float(eps), _DTYPES[x.dtype], _DTYPES[out_dtype],
+        int(tap == torch.bfloat16 and (upsample or x.dtype == torch.float32)), bm,
+        max(1, _APPLY_ELEMS // cout), int(upsample),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"conv_gn_elu_forward failed: cudaError {err}")
@@ -227,26 +238,29 @@ class FusedConvGNELUAnalytic(torch.autograd.Function):
                 dbias.to(scale.dtype), None, None, None, None)
 
 
-class _FusedConvGNELURecompute(torch.autograd.Function):
-    """``fused_conv_gn_elu``: forward by ``forward_all``, fp32 out, no
-    residuals; the backward differentiates the plain version on the
-    saved inputs."""
+class FusedRecompute(torch.autograd.Function):
+    """The fp32-out entry points without residuals (``fused_conv_gn_elu``,
+    ``fused_fusion_block``, ``fused_upsample_conv``): ``forward(*tensors)``
+    is the kernel (or, on the CPU, its plain version) at the tap dtype;
+    the backward is the VJP of ``reference(*tensors)``, the same function
+    in fp32 on the saved, unrounded inputs, as the JAX package's
+    ``custom_vjp``s.  An input that needs no gradient (a frozen weight)
+    gets none computed."""
 
     @staticmethod
-    def forward(ctx, x, w, scale, bias, groups, eps, tap_dtype):
-        a, _, _ = forward_all(fused_conv_gn_elu, x, None, w, None, scale, bias, groups,
-                              eps, 1, tap_dtype, torch.float32, False)
-        ctx.save_for_backward(x, w, scale, bias)
-        ctx.args = (groups, eps, 1, tap_dtype, torch.float32)
-        return a
+    def forward(ctx, forward, reference, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.reference = reference
+        return forward(*tensors)
 
     @staticmethod
     def backward(ctx, da):
+        need = ctx.needs_input_grad[2:]
         with torch.enable_grad():
-            ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-            out = conv_gn_elu_plain(*ins, *ctx.args)[0]
-            grads = torch.autograd.grad(out, ins, da)
-        return (*grads, None, None, None)
+            ins = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            out = ctx.reference(*ins)
+            grads = iter(torch.autograd.grad(out, [t for t, n in zip(ins, need) if n], da))
+        return (None, None, *[next(grads) if n else None for n in need])
 
 
 def needs_grad(*tensors) -> bool:
@@ -262,10 +276,18 @@ def fused_conv_gn_elu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     x (B, Cin, H, W) channels_last, fp32 or bf16; w (Cout, Cin, 3, 3);
     scale, bias (Cout,).  Returns (B, Cout, H, W) float32."""
     _check(x, None, w, None, scale, bias, groups, tap_dtype)
+
+    def forward(x, w, scale, bias):
+        return forward_all(fused_conv_gn_elu, x, None, w, None, scale, bias, groups, eps,
+                           1, tap_dtype, torch.float32, False)[0]
+
+    def reference(x, w, scale, bias):
+        return conv_gn_elu_plain(x, w, scale, bias, groups, eps, 1, "float32",
+                                 torch.float32)[0]
+
     if needs_grad(x, w, scale, bias):
-        return _FusedConvGNELURecompute.apply(x, w, scale, bias, groups, eps, tap_dtype)
-    return forward_all(fused_conv_gn_elu, x, None, w, None, scale, bias, groups, eps,
-                       1, tap_dtype, torch.float32, False)[0]
+        return FusedRecompute.apply(forward, reference, x, w, scale, bias)
+    return forward(x, w, scale, bias)
 
 
 def _analytic_entry(counter, x, w, scale, bias, groups, eps, stride, tap_dtype):

@@ -17,9 +17,11 @@ after a convolution from ``torch.nn.functional`` (cuDNN on the card, as
 the JAX package leaves it to XLA), unless the config sends it to a
 fused conv3x3+GroupNorm+ELU kernel: the 3x3 ConvBlocks by
 ``use_pallas_convgn_s2`` / ``use_pallas_convgn_bt`` /
-``use_pallas_convgn`` (the JAX package's precedence) and the
-FusionBlocks by ``use_pallas_fusion_bt``.  The 7x7 stem and the
-UpBlock's up-conv always take the unfused route.
+``use_pallas_convgn`` (the JAX package's precedence), the FusionBlocks
+by ``use_pallas_fusion_bt`` and then ``use_pallas_fusion``, and the
+UpBlock's up-conv, at an exact 2x target, by ``use_pallas_fusion`` (the
+upsample kernel: bilinear 2x + conv3x3 + GroupNorm + ELU).  The 7x7 stem
+always takes the unfused route.
 """
 
 from __future__ import annotations
@@ -33,8 +35,10 @@ from gdn_tpu_torch.config import ModelConfig
 from gdn_tpu_torch.kernels.conv_gn_elu import (
     fused_conv_gn_elu, fused_conv_gn_elu_bt, fused_conv_gn_elu_s2,
 )
+from gdn_tpu_torch.kernels.fusion_block import fused_fusion_block
 from gdn_tpu_torch.kernels.fusion_bt import fused_fusion_bt
 from gdn_tpu_torch.kernels.groupnorm import group_norm_elu
+from gdn_tpu_torch.kernels.upsample import fused_upsample_conv
 from gdn_tpu_torch.ops.conv import CL, conv_same
 from gdn_tpu_torch.ops.groupnorm import pick_groups
 from gdn_tpu_torch.ops.resize import composed_resize_conv2x, resize_bilinear
@@ -118,7 +122,11 @@ class DownBlock(nn.Module):
 
 
 class FusionBlock(nn.Module):
-    """Concat fusion: concat(x, lateral) -> conv3x3 -> GroupNorm -> ELU."""
+    """Concat fusion: concat(x, lateral) -> conv3x3 -> GroupNorm -> ELU.
+
+    ``use_pallas_fusion_bt`` sends it to ``fused_fusion_bt``, else
+    ``use_pallas_fusion`` to ``fused_fusion_block`` (the JAX package's
+    order); neither builds the concatenated tensor."""
 
     def __init__(self, cx: int, cl: int, features: int,
                  cfg: ModelConfig = ModelConfig()):
@@ -132,13 +140,19 @@ class FusionBlock(nn.Module):
     def forward(self, x: torch.Tensor, lateral: torch.Tensor) -> torch.Tensor:
         c = self.cfg
         dt = c.compute_dtype
+        fused = None
         if c.use_pallas and c.use_pallas_fusion_bt:
+            fused = fused_fusion_bt
+        elif c.use_pallas and c.use_pallas_fusion:
+            fused = fused_fusion_block
+        if fused is not None:
             cx = x.shape[1]
-            return fused_fusion_bt(
+            out = fused(
                 x.to(dt).contiguous(memory_format=CL),
                 lateral.to(dt).contiguous(memory_format=CL),
                 self.kernel[:, :cx], self.kernel[:, cx:], self.scale, self.bias,
                 self.groups, GN_EPS, c.dtype)
+            return out.to(dt)
         full = torch.cat([x, lateral.to(x.dtype)], dim=1).to(dt)
         y = conv_same(full, self.kernel.to(dt))
         return gn_elu(y, self.scale, self.bias, self.groups, self.cfg)
@@ -148,9 +162,11 @@ class UpBlock(nn.Module):
     """One decoder scale: bilinear upsample to an exact target size,
     conv3x3 -> GroupNorm -> ELU, then concat fusion of the lateral.
 
-    At an exact 2x target with H, W >= 2 (and ``resize_conv_composed``)
-    the upsample and conv run as one composed transposed conv
-    (ops/resize.py); otherwise resize (in the compute dtype) then conv.
+    At an exact 2x target ``use_pallas_fusion`` sends upsample, conv,
+    GroupNorm and ELU to the upsample kernel as one call.  Otherwise, at
+    an exact 2x target with H, W >= 2 (and ``resize_conv_composed``) the
+    upsample and conv run as one composed transposed conv (ops/resize.py);
+    otherwise resize (in the compute dtype) then conv.
     """
 
     def __init__(self, cin: int, features: int, lateral_channels: int,
@@ -168,13 +184,18 @@ class UpBlock(nn.Module):
         c = self.cfg
         dt = c.compute_dtype
         h, w = x.shape[2], x.shape[3]
-        k = self.up_kernel.to(dt)
-        if (c.resize_conv_composed and tuple(target_hw) == (2 * h, 2 * w)
-                and h >= 2 and w >= 2):
-            y = composed_resize_conv2x(x.to(dt), k.contiguous(memory_format=CL))
+        exact2x = tuple(target_hw) == (2 * h, 2 * w)
+        if c.use_pallas and c.use_pallas_fusion and exact2x:
+            x = fused_upsample_conv(
+                x.to(dt).contiguous(memory_format=CL), self.up_kernel, self.up_scale,
+                self.up_bias, self.groups, GN_EPS, c.dtype).to(dt)
         else:
-            y = conv_same(resize_bilinear(x.to(dt), target_hw, precise=False), k)
-        x = gn_elu(y, self.up_scale, self.up_bias, self.groups, c)
+            k = self.up_kernel.to(dt)
+            if c.resize_conv_composed and exact2x and h >= 2 and w >= 2:
+                y = composed_resize_conv2x(x.to(dt), k.contiguous(memory_format=CL))
+            else:
+                y = conv_same(resize_bilinear(x.to(dt), target_hw, precise=False), k)
+            x = gn_elu(y, self.up_scale, self.up_bias, self.groups, c)
         if lateral is not None:
             x = self.fuse(x, lateral)
         return x

@@ -69,6 +69,15 @@ def _up_h(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([c0, c1], dim=4).reshape(b, c, h, 2 * w)
 
 
+def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """Exact-2x bilinear upsample (half-pixel centers, edge clamp) of
+    (B, C, H, W) by shifted blends, rows first and then columns: equal to
+    ``resize_bilinear(x, (2H, 2W))`` up to the last bit's rounding, and
+    the very arithmetic of the upsample kernel (kernels/upsample.py).
+    H or W may be 1."""
+    return _up_h(_up_v(x))
+
+
 def composed_resize_conv2x(x: torch.Tensor, k3: torch.Tensor) -> torch.Tensor:
     """``conv3x3_SAME(resize_bilinear(x, 2x))`` without materializing the
     2x-resized tensor; exact everywhere, including the boundary.

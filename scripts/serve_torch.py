@@ -12,6 +12,9 @@ Examples:
   python scripts/serve_torch.py --init_random --model.use_pallas_convgn_bt \
       --model.use_pallas_convgn_s2 --model.use_pallas_fusion_bt
           # the 3x3 conv sites through the fused conv+GroupNorm+ELU kernels
+  python scripts/serve_torch.py --init_random --model.use_pallas_fusion
+          # the UpBlock up-convs through the upsample kernel and the
+          # FusionBlocks through the per-image fusion kernel
 
   curl -s -X POST --data-binary @img.png \
       "http://127.0.0.1:8500/predict?format=color" > depth.png

@@ -22,6 +22,10 @@ Examples:
       --model.use_pallas_convgn_bt --model.use_pallas_convgn_s2 \\
       --model.use_pallas_fusion_bt --epochs 1 --steps_per_epoch 50
           # the 3x3 conv sites through the fused conv+GroupNorm+ELU kernels
+  python scripts/train_torch.py --mode DtoD --dataset synthetic \\
+      --model.use_pallas_fusion --epochs 1 --steps_per_epoch 50
+          # the UpBlock up-convs through the upsample kernel and the
+          # FusionBlocks through the per-image fusion kernel
 """
 
 import argparse

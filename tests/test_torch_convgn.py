@@ -92,16 +92,17 @@ def _cos(shape):
     return np.cos(np.arange(int(np.prod(shape)), dtype=np.float32)).reshape(shape)
 
 
-def _compare(j_fn, t_fn, arrays):
-    """Forward and the gradients of sum(o * cos(arange)) in every input,
-    the JAX function on NHWC arrays against the port's on its layout."""
+def _compare(j_fn, t_fn, arrays, fwd=FWD):
+    """Forward (at ``fwd``) and the gradients of sum(o * cos(arange)) in
+    every input (at GRAD), the JAX function on NHWC arrays against the
+    port's on its layout."""
     j_in = [jnp.asarray(a) for a in arrays]
     want = np.asarray(j_fn(*j_in))
     cos = _cos(want.shape)
     t_in = [_to_torch(a) for a in arrays]
     out = t_fn(*t_in)
     assert out.is_contiguous(memory_format=torch.channels_last)
-    np.testing.assert_allclose(_from_torch(out, want), want, **FWD)
+    np.testing.assert_allclose(_from_torch(out, want), want, **fwd)
     j_grads = jax.grad(lambda *a: jnp.sum(j_fn(*a) * cos),
                        argnums=tuple(range(len(arrays))))(*j_in)
     loss = (out.permute(0, 2, 3, 1) * torch.from_numpy(cos)).sum()
@@ -124,6 +125,16 @@ def test_fused_conv_gn_elu_matches_jax_kernel():
              lambda *a: tk.fused_conv_gn_elu(*a, 4, EPS, "float32"), arrays)
     out = tk.fused_conv_gn_elu(*[_to_torch(a, torch.bfloat16) for a in arrays], 4)
     assert out.dtype == torch.float32  # fp32 out whatever x's dtype
+
+
+def test_fused_conv_gn_elu_bf16_taps_gradients_match_jax_kernel():
+    """bf16 taps on fp32 inputs: the forward rounds x and w to bf16, the
+    backward does not.  The JAX kernel's VJP is that of its fp32
+    reference on the unrounded inputs, so the gradients agree at the fp32
+    bound although the forwards agree only at the bf16 one."""
+    _compare(lambda *a: jk.fused_conv_gn_elu(*a, 4, EPS, True, "bfloat16"),
+             lambda *a: tk.fused_conv_gn_elu(*a, 4, EPS, "bfloat16"),
+             _data(12, 2, 10, 14, 16, 16), fwd=BF16)
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout,groups,t", BT_SHAPES)

@@ -40,6 +40,8 @@ FUSED = dict(use_pallas_convgn_bt=True, use_pallas_convgn_s2=True,
              use_pallas_fusion_bt=True)
 # ... or only the stride-1 ConvBlocks, through the per-image entry point
 FUSED_V1 = dict(use_pallas_convgn=True)
+# every fused flag: no GroupNorm site but the 7x7 stem stays unfused
+FUSED_ALL = dict(FUSED, use_pallas_fusion=True)
 
 
 def _cfgs(hw, dtype="float32", **flags):
@@ -111,7 +113,6 @@ def test_preset_configs_match_jax():
 @pytest.mark.parametrize("field,value", [
     ("upsample", "deconv"), ("fusion", "add"), ("norm", "none"),
     ("quant", "int8"), ("multiscale_heads", True), ("activation", "relu"),
-    ("use_pallas_fusion", True),
 ])
 def test_unported_values_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -310,6 +311,23 @@ def test_fused_flags_on_match_flags_off(hw, flags, monkeypatch):
         scale = g.abs().max().item()
         np.testing.assert_allclose(res[1][1][k].numpy(), g.numpy(), rtol=1e-3,
                                    atol=1e-4 * scale, err_msg=k)
+
+
+@pytest.mark.parametrize("channels", [3, 1], ids=["rtod", "dtod"])
+def test_every_fused_flag_on_matches_flax_and_leaves_the_stem_alone(channels, monkeypatch):
+    """All fused flags together: the up-convs join the fused sites
+    (use_pallas_fusion), the FusionBlocks stay with fused_fusion_bt, and
+    only the stem calls the GroupNorm+ELU wrapper."""
+    gn_calls = []
+    monkeypatch.setattr(tb, "group_norm_elu",
+                        lambda y, *a, _f=tb.group_norm_elu: gn_calls.append(y.shape[1])
+                        or _f(y, *a))
+    monkeypatch.setattr(tb, "fused_fusion_block", None)  # must not be reached
+    jnet, tnet = (JRtoD, RtoDNet) if channels == 3 else (JDtoD, DtoDNet)
+    _, want, got = _whole((32, 64), "float32", jnet, tnet, channels, 10, **FUSED_ALL)
+    assert gn_calls == [SMALL["enc_channels"][0]]
+    np.testing.assert_allclose(got["depth"].numpy(), np.asarray(want["depth"]),
+                               rtol=1e-4, atol=1e-3)
 
 
 def test_use_pallas_off_turns_the_fused_routes_off(monkeypatch):

@@ -50,6 +50,7 @@ SMALL = dict(image_size=HW, enc_channels=(8, 16), dec_channels=(16, 8),
              dtype="float32", use_pallas_gn=True)
 FUSED = dict(use_pallas_convgn_bt=True, use_pallas_convgn_s2=True,
              use_pallas_fusion_bt=True)
+FUSION = dict(use_pallas_fusion=True)
 
 
 # ------------------------------------------------------------- optimizer
@@ -275,6 +276,43 @@ def test_fused_trajectory_follows_unfused(parity, parity_fused):
     same losses to the parity bound at every step of both stages."""
     for stage in ("s1", "s2"):
         _compare(parity[stage][1], parity_fused[stage][1])
+
+
+@pytest.fixture(scope="module")
+def parity_fusion():
+    """The same run with use_pallas_fusion: the UpBlock up-convs through
+    the upsample entry point and the FusionBlocks through the per-image
+    fusion one (on the CPU their plain versions, inside the Function
+    whose backward is the VJP of the fp32 reference); in the JAX package,
+    on the CPU, the XLA route of the same function."""
+    return _run_parity(dict(SMALL, **FUSION))
+
+
+def test_stage1_training_parity_fusion(parity_fusion):
+    _compare(*parity_fusion["s1"])
+    assert parity_fusion["s1"][1][-1]["total"] < parity_fusion["s1"][1][0]["total"]
+
+
+def test_stage2_training_parity_fusion(parity_fusion):
+    _compare(*parity_fusion["s2"])
+    assert "latent" in parity_fusion["s2"][1][0]
+
+
+def test_stage2_freezes_decoder_and_dnet_fusion(parity_fusion):
+    p = parity_fusion
+    for k, v in p["g_net"].decoder.state_dict().items():
+        assert torch.equal(v, p["g_dec"][k]), k
+    for k, v in p["d_net"].state_dict().items():
+        assert torch.equal(v, p["d_sd"][k]), k
+    for k in ("encoder.stem.Conv_0.kernel", "encoder.down1.ConvBlock_0.Conv_0.kernel"):
+        assert not torch.equal(p["g_net"].state_dict()[k], p["g_init"][k]), k
+
+
+def test_fusion_trajectory_follows_unfused(parity, parity_fusion):
+    """use_pallas_fusion on against off in the port: the same function,
+    so the same losses to the parity bound at every step of both stages."""
+    for stage in ("s1", "s2"):
+        _compare(parity[stage][1], parity_fusion[stage][1])
 
 
 def test_transfer_refuses_mismatched_decoder():

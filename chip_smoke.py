@@ -10,6 +10,9 @@ repository around this file.  Phases, each printed on its own lines:
   2. build    the three kernel libraries from gdn_tpu_torch/csrc, one
               nvcc each, started together (conv_gn_elu holds the whole
               fused conv family, the upsample entry point included);
+              then the count of HMMA (tensor-core) instructions in the
+              SASS of every conv3x3_stats_tc instantiation (cuobjdump),
+              which must not be zero;
   3. kernels  at every (B=8, C, H, W, groups) shape the KITTI serving
               forward gives the GroupNorm+ELU kernel, in bf16 and fp32:
               kernel vs its plain PyTorch version on the same tensors,
@@ -43,7 +46,12 @@ repository around this file.  Phases, each printed on its own lines:
               and fp32, and at ragged shapes: a, yn, inv; with device
               times of the kernel, the plain version and the unfused
               route (cuDNN conv [+ cat] + the GroupNorm+ELU kernel), and
-              the bound;
+              the bound.  The two stride-1 entry points, whose bf16 taps
+              run the tensor-core K loop: also fp32 inputs under bf16
+              taps at every site and ragged shape, and at every site the
+              FMA K loop's time on the same inputs in the same call
+              (their route before the tensor-core kernel, launched
+              through the wrapper's route argument, not counted);
  11. conv grad  gradients through each fused entry point's autograd
               Function vs autograd of its plain version, a shallow and a
               deep site each;
@@ -83,10 +91,12 @@ smoke_out/{serving,training}{,_fused,_fusion}_profile.txt.
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -112,6 +122,8 @@ FUSION = {"model.use_pallas_fusion": True}
 COUNTERS = ("group_norm_elu", "fused_loss_fwd", "fused_loss_bwd", "conv_gn_elu",
             "conv_gn_elu_bt", "conv_gn_elu_s2", "fusion_bt", "fusion_block", "upsample")
 FP32_OUT = ("conv_gn_elu", "fusion_block", "upsample")  # store fp32 a, no residuals
+TC_ENTRIES = ("conv_gn_elu", "conv_gn_elu_bt")  # bf16 taps: the tensor-core K loop
+FMA_TIMING = types.SimpleNamespace(launches=0)  # counter of the FMA comparison launches
 # Fused loss operation counts per pixel for an 11-tap window, the least
 # the algorithm needs: forward = 3 products + 5 moments x 2 passes x 11
 # taps x 2 + ~20 for the SSIM map + 16 for L1 and the two differences +
@@ -221,6 +233,25 @@ def device_ms(fns, iters=20, what=""):
         log(f"  (timing {what or 'this call'} with CUDA events instead)")
         return cuda_ms(fns, iters)
     return sum(us for us, _ in kernels.values()) / 1e3 / n
+
+
+def sass_hmma():
+    """{conv3x3_stats_tc instantiation: HMMA instructions in its SASS}
+    of the built conv_gn_elu library, from ``cuobjdump -sass``."""
+    from gdn_tpu_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", build.target("conv_gn_elu")],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if "conv3x3_stats_tc" in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def gn_sites(m):
@@ -823,12 +854,14 @@ RAGGED = {  # (B, channels..., H, W): odd sizes at stride 2, ragged channels
 }
 
 
-def _conv_case(name, shape, dtype, copies, gen):
+def _conv_case(name, shape, dtype, copies, gen, tap=None):
     """Inputs of one fused site and its three routes on them: the kernel
     (with residuals; ``serve`` is the no-grad entry point that stores a
     alone), the plain version, and the unfused route the port offers
     (cuDNN conv [+ cat] + the GroupNorm+ELU kernel; for the upsample the
-    composed transposed conv in front of it)."""
+    composed transposed conv in front of it); for the two stride-1 entry
+    points also ``fma(residuals)``, the same launch through the FMA K
+    loop.  ``tap`` is the tap dtype, x's by default."""
     from gdn_tpu_torch.kernels import conv_gn_elu as ck
     from gdn_tpu_torch.kernels import fusion_block as fb
     from gdn_tpu_torch.kernels import fusion_bt as fk
@@ -839,7 +872,7 @@ def _conv_case(name, shape, dtype, copies, gen):
     from gdn_tpu_torch.ops.resize import composed_resize_conv2x
 
     cl = torch.channels_last
-    tap = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    tap = tap or ("bfloat16" if dtype == torch.bfloat16 else "float32")
     b, *chans, h, w = shape
     cout, cins = chans[-1], chans[:-1]
     stride = 2 if name == "conv_gn_elu_s2" else 1
@@ -915,6 +948,11 @@ def _conv_case(name, shape, dtype, copies, gen):
 
         def library(x):
             return group_norm_elu(conv_same(x, kd, stride), scale, bias, g)
+    fma = None
+    if name in TC_ENTRIES:
+        def fma(residuals):
+            return lambda x: ck._launch(FMA_TIMING, x, None, k, None, scale, bias, g, 1e-6,
+                                        1, tap, out_dtype or dtype, residuals, route="fma")
     ho, wo = (2 * h, 2 * w) if name == "upsample" else (-(-h // stride), -(-w // stride))
     item = torch.finfo(dtype).bits // 8
     out_item = 4 if name in FP32_OUT else item
@@ -922,7 +960,7 @@ def _conv_case(name, shape, dtype, copies, gen):
     in_bytes = b * sum(cins) * h * w * item + k.numel() * 4 + 2 * cout * 4
     out_elems = b * cout * ho * wo
     ins = list(zip(*xs))  # one tuple of inputs per copy
-    return dict(kernel=kernel, serve=serve, plain=plain, library=library, ins=ins,
+    return dict(kernel=kernel, serve=serve, plain=plain, library=library, ins=ins, fma=fma,
                 flops=flops, in_bytes=in_bytes, a_bytes=out_elems * out_item,
                 res_bytes=out_elems * out_item + b * cout * 4)
 
@@ -938,7 +976,9 @@ def phase_conv_kernels(cfg, names):
     the fp32 a of the per-image, fusion-block and upsample entry points
     (the same bf16 taps on both sides: the upsample's plain version blends
     in the kernel's order, and the kernel pins each rounding) at the fp32
-    tolerance.  The bound is the larger of the flops at the
+    tolerance; so are a and yn of the stride-1 entry points with fp32
+    inputs under bf16 taps (both sides round the inputs to bf16 and sum
+    exact products in fp32).  The bound is the larger of the flops at the
     card's peak for the tap dtype (dense bf16 tensor rate; fp32 FMA
     rate for fp32 taps) and the bytes (inputs and weights read once, a
     and, where stored, yn and inv written once) at the memory rate."""
@@ -948,18 +988,23 @@ def phase_conv_kernels(cfg, names):
     for name in names:
         cases = [((b, *site), True) for b in (BATCH, TRAIN_BATCH) for site in sites[name]]
         cases += [(shape, False) for shape in RAGGED[name]]
-        for shape, main in cases:
-            for dtype in (torch.bfloat16, torch.float32):
+        runs = [(torch.bfloat16, "bfloat16"), (torch.float32, "float32")]
+        if name in TC_ENTRIES:  # fp32 inputs, rounded to bf16 as the kernel gathers them
+            runs.append((torch.float32, "bfloat16"))
+        for shape, site in cases:
+            for dtype, tap in runs:
                 b = shape[0]
-                probe = _conv_case(name, shape, dtype, 1, gen)
+                main = site and tap == ("bfloat16" if dtype == torch.bfloat16 else "float32")
+                probe = _conv_case(name, shape, dtype, 1, gen, tap)
                 nbytes = probe["in_bytes"] + probe["res_bytes"]
                 copies = min(4, max(1, -(-2 * L2_BYTES // nbytes))) if main else 1
-                case = probe if copies == 1 else _conv_case(name, shape, dtype, copies, gen)
+                case = (probe if copies == 1
+                        else _conv_case(name, shape, dtype, copies, gen, tap))
                 del probe
                 got = case["kernel"](*case["ins"][0])
                 torch.cuda.synchronize()
                 want = case["plain"](*case["ins"][0])
-                what = f"{name} {shape} {dtype}"
+                what = f"{name} {shape} {dtype} taps {tap}"
                 errs = {}
                 for part, g_, w_ in zip(("a", "yn", "inv"), got, want):
                     if g_ is None:
@@ -968,7 +1013,7 @@ def phase_conv_kernels(cfg, names):
                     tol = TOL[torch.float32 if exact else dtype]
                     errs[part] = check_tol(g_, w_, *tol, f"{what} {part}")
                 row = {"kernel": name, "shape": list(shape), "dtype": str(dtype),
-                       "main": main, "max_abs_err": errs}
+                       "tap": tap, "main": main, "max_abs_err": errs}
                 line = f"  {what}: max|k-p| " + " ".join(
                     f"{k} {v:.3g}" for k, v in errs.items())
                 if main:
@@ -995,6 +1040,13 @@ def phase_conv_kernels(cfg, names):
                              f"({row['tflops']:.1f} TFLOP/s) plain {row['plain_ms']*1e3:.1f}"
                              f" unfused {row['library_ms']*1e3:.1f} bound "
                              f"{row['bound_ms']*1e3:.2f} ({row['bound_by']})")
+                    if case["fma"] is not None and tap == "bfloat16":
+                        fma = case["fma"](train)
+                        row["fma_ms"] = device_ms([lambda i=i: fma(*i) for i in case["ins"]],
+                                                  10, f"{what} fma_ms")
+                        row["fma_tflops"] = case["flops"] / row["fma_ms"] / 1e9
+                        line += (f"; FMA K loop {row['fma_ms']*1e3:.1f} "
+                                 f"({row['fma_tflops']:.1f} TFLOP/s, same call)")
                 rows.append(row)
                 log(line)
                 del case, got, want
@@ -1098,11 +1150,14 @@ def phase_conv_grad(cases):
     return rows
 
 
-def _family_entry(name, line, rows, launches):
+def _family_entry(name, line, rows, launches, hmma):
     """One fused conv entry point's object of the kernels line: its five
     sites of a net summed at the batch its main path runs in bf16 (B=8
     serving for the per-image kernel, B=32 training for the others; the
-    B=8 sums are in chip_smoke.json)."""
+    B=8 sums are in chip_smoke.json).  The two tensor-core entry points
+    add the FMA K loop's time on the same inputs (``fma_ms``), the error
+    with fp32 inputs under bf16 taps, and the HMMA count of their
+    kernel's SASS."""
     batch = BATCH if name == "conv_gn_elu" else TRAIN_BATCH
     # (fusion_block and upsample run in serving at B=8 and in training
     # at B=32; their line takes the training batch like bt, s2, fusion_bt)
@@ -1111,6 +1166,14 @@ def _family_entry(name, line, rows, launches):
               and r["dtype"] == str(torch.bfloat16)]
     bound = {by: sum(r["bound_ms"] for r in picked if r["bound_by"] == by)
              for by in ("operations", "bytes")}
+    tc = {}
+    if name in TC_ENTRIES:
+        tc = {"k_loop": "tensor cores (mma.sync bf16, fp32 sums)",
+              "fma_ms": sum(r["fma_ms"] for r in picked),
+              "max_abs_err_fp32_in_bf16_taps": max(
+                  max(r["max_abs_err"].values()) for r in rows if r["kernel"] == name
+                  and r["tap"] == "bfloat16" and r["dtype"] == str(torch.float32)),
+              "sass_hmma": hmma}
     return {
         "name": name,
         "route": "cuda",
@@ -1125,6 +1188,7 @@ def _family_entry(name, line, rows, launches):
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         "bound_by": max(bound, key=bound.get),
         "shape": f"5 sites of a net, B={batch}, bf16",
+        **tc,
     }
 
 
@@ -1153,6 +1217,13 @@ def main():
     log(f"  group_norm_elu, fused_loss and conv_gn_elu (the fused conv family: six "
         f"entry points, upsample included) built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
+    hmma_by_fn = sass_hmma()
+    hmma = sum(hmma_by_fn.values())
+    log(f"  SASS: {hmma} HMMA instructions in {len(hmma_by_fn)} instantiations of "
+        f"conv3x3_stats_tc (per instantiation {min(hmma_by_fn.values(), default=0)}"
+        f"-{max(hmma_by_fn.values(), default=0)})")
+    if not hmma_by_fn or min(hmma_by_fn.values()) == 0:
+        raise AssertionError(f"conv3x3_stats_tc without tensor-core instructions: {hmma_by_fn}")
 
     cfg = kitti_config(**{"model.use_pallas_gn": True})
     cfg_fused = kitti_config(**{"model.use_pallas_gn": True, **FUSED})
@@ -1281,7 +1352,7 @@ def main():
                        ("fusion_bt", "gdn_tpu/kernels/fusion_bt.py:226"),
                        ("fusion_block", "gdn_tpu/kernels/fusion_block.py:235"),
                        ("upsample", "gdn_tpu/kernels/upsample.py:148")):
-        kernels.append(_family_entry(name, line, conv_rows, total(name)))
+        kernels.append(_family_entry(name, line, conv_rows, total(name), hmma))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on any main path")
@@ -1297,6 +1368,7 @@ def main():
                    "serving_fusion": serving_fusion, "serving_all": serving_all,
                    "training_fusion": training_fusion, "vs_cpu_fusion": vs_cpu_fusion,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
+                   "sass_hmma": hmma_by_fn,
                    "kernels": kernels}, f, indent=1)
     if EVENT_TIMED:
         log(f"timed with CUDA events, the profiler having come back short: {EVENT_TIMED}")

@@ -33,14 +33,34 @@
 // that is ~100 flops a byte at the 32-channel sites, ~190 at 64 channels
 // and 380-1500 from 128 channels up; the card's line is ~295 (989 TFLOP/s
 // dense bf16 over 3.35 TB/s), so the shallow, large sites are bound by
-// memory and the deep ones by the tensor cores.  This first version does
-// not use the tensor cores: it is a register-tiled implicit GEMM on the
-// fp32 FMA units (67 TFLOP/s peak), chosen because one code path is exact
-// for both tap dtypes (a bf16 x bf16 product is exact in fp32).  Its
-// distance from the bound is therefore large at every site and is
-// written down in PERF.md; mma.sync/wgmma on the bf16 path, and a
-// cluster or grid sync in place of the scratch round trip below, are the
-// follow-up.
+// memory and the deep ones by the tensor cores.
+//
+// Two K loops fill launch 1:
+//   conv3x3_stats<T, BM, BN, UP>: a register-tiled implicit GEMM on the
+//     fp32 FMA units (67 TFLOP/s peak), exact for both tap dtypes (a
+//     bf16 x bf16 product is exact in fp32).  It serves fp32 taps
+//     everywhere, and the stride-2, two-input and upsample entry points
+//     with any taps.
+//   conv3x3_stats_tc<T, BM, BN, BK, ASYNC>: the tensor-core kernel of the
+//     stride-1, one-input entry points with bf16 taps, which replaces
+//       gdn_tpu/kernels/conv_gn_elu.py:109  fused_conv_gn_elu
+//       gdn_tpu/kernels/conv_gn_elu.py:356  fused_conv_gn_elu_bt
+//     as the TPU kernels convolve on the MXU: bf16 x bf16 products,
+//     fp32 sums (mma.sync m16n8k16, operands from shared memory by
+//     ldmatrix).  Operands stay bf16 in shared memory: the A tile is BM
+//     output pixels of one image x BK input channels of one tap (BK = 64
+//     where Cin % 64 == 0, else 32), the B tile BN output channels x the
+//     same channels of the bf16 K-major weights (Cout, 9 * Cin_p), Cin_p =
+//     Cin rounded up to 8.  A ring of three or four stages is filled by
+//     16-byte cp.async copies (8 channels of one pixel each; a tap in the
+//     SAME padding copies zero bytes, which zero-fills the slot); fp32 x
+//     (rounded to bf16 as gathered) and Cin % 8 != 0 (no 16-byte
+//     alignment) load through registers into the same layout (ASYNC =
+//     false).  Tile rows are XOR-swizzled so that neither ldmatrix nor the
+//     copies meet bank conflicts.  Per site
+//     its bound is the bytes at the 32- and 64-channel sites (~100 and
+//     ~190 flops a byte against the card's ~295) and the tensor cores
+//     from 128 channels up.
 //
 // Design: two launches, as group_norm_elu.cu.  The TPU kernels hold T
 // whole images in VMEM for the conv, the statistics and the epilogue;
@@ -65,11 +85,19 @@
 //      stores inv (B, Cout).
 // y stays fp32 between the launches, so the result is "fp32 until the one
 // store" as on the TPU; the price is one fp32 round trip of the output
-// map (mostly through the 50 MB L2 at the deep sites).
+// map (mostly through the 50 MB L2 at the deep sites): 8 bytes an output
+// element on top of the 2-6 the bound counts (bf16 a; + yn; fp32 a).  At
+// the five stride-1 sites of a net at B=32 that is ~210 MB of the ~370 the
+// tensor-core kernel moves, against ~160 MB in the bound, and once the K
+// loop is on the tensor cores it sets the pace at the shallow sites.
+// conv3x3_stats_tc keeps the contract of conv3x3_stats (the scratch y, the
+// partials, one gn_elu_apply after it), so the two K loops share launch 2.
 //
 // Layout: x (B, H, W, Cx) and lat (B, H, W, Cl) dense NHWC, fp32 or bf16;
-// weights fp32 (9, Cs, Cout) per source, tap-major, values already
-// rounded to the tap dtype by the wrapper; scale, bias fp32 (Cout,).
+// weights of the FMA kernel fp32 (9, Cs, Cout) per source, tap-major,
+// values already rounded to the tap dtype by the wrapper; of the
+// tensor-core kernel bf16 (Cout, 9 * Cin_p), k = (3 ky + kx) Cin_p + c,
+// zero beyond Cin; scale, bias fp32 (Cout,).
 // No width is assumed to be a power of two or a multiple of anything:
 // 4-wide vector loads are used where a channel count is a multiple of 4
 // and scalar masked loads otherwise.
@@ -405,6 +433,304 @@ gn_elu_apply(const float* __restrict__ y, const float* __restrict__ partials,
   }
 }
 
+// ---- the tensor-core K loop (stride 1, one input, bf16 taps) ----
+
+// A K step is BK input channels of one tap: 64 where Cin % 64 == 0 and the
+// copies are asynchronous (half the barriers and stage switches a flop;
+// 64-row tiles only), else 32.  The cp.async ring holds four stages of 32,
+// three of 64.
+__host__ __device__ constexpr int tc_stages(int bk) { return bk == 64 ? 3 : 4; }
+
+// Warps: 2 along M (BM / 2 pixels each) x BN / WN along N, WN = 32 output
+// channels a warp (16 when BN = 32): 128 threads, 256 at BN = 128.  At
+// most 128 registers a thread (512 threads an SM in the launch bounds), so
+// that two 128 x 128 blocks share an SM where one alone left the tensor
+// cores waiting on its barriers.
+__host__ __device__ constexpr int tc_wn(int bn) { return bn >= 64 ? 32 : 16; }
+__host__ __device__ constexpr int tc_threads(int bn) { return 64 * (bn / tc_wn(bn)); }
+
+struct TcArgs {
+  const void* x;             // (B, H, W, cin) NHWC, bf16 or fp32
+  const __nv_bfloat16* wk;   // (cout, 9 * cin_p), K-major
+  float* y;                  // (B, H*W, cout)
+  float* partials;           // (B, mtiles, cout, 2)
+  int h, w, cin, cin_p, cout;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte piece `chunk` (0..BK/8-1) of tile row `row`, rows
+// of BK bf16.  BK = 32: rows of 64 bytes, two to a 128-byte line of the 32
+// banks, XOR with (row / 2) % 4; BK = 64: one row a line, XOR with row % 8.
+// Either way the 8 rows of one ldmatrix phase, and the pieces that 8
+// threads copy, land on 8 distinct 16-byte bank groups.
+template <int BK>
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  if constexpr (BK == 64) return row * 128 + ((chunk ^ (row & 7)) << 4);
+  return row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 products summed in fp32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Channels c..c+7 of the pixel at px as 8 bf16 (rounded to nearest even),
+// zero where !valid or beyond cin: the gather of the register path.
+template <typename T>
+__device__ __forceinline__ uint4 gather8(const T* px, int c, int cin, bool valid) {
+  float f[8];
+  if (!valid) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = 0.f;
+  } else if (sizeof(T) == 4 && (cin & 3) == 0 && c + 8 <= cin) {  // fp32, 16-byte aligned
+    const float4 lo = *reinterpret_cast<const float4*>(px + c);
+    const float4 hi = *reinterpret_cast<const float4*>(px + c + 4);
+    f[0] = lo.x; f[1] = lo.y; f[2] = lo.z; f[3] = lo.w;
+    f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = (c + j < cin) ? to_f32(px[c + j]) : 0.f;
+  }
+  uint4 out;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+    o[j] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  return out;
+}
+
+// Launch 1 on the tensor cores.  grid (m tiles, Cout tiles, B); a block owns
+// BM output pixels of ONE image x BN output channels and walks K = (tap,
+// BK input channels).  Same outputs as conv3x3_stats: the fp32 tile to y,
+// per-channel (sum, sum of squares) over the block's pixels to partials.
+template <typename T, int BM, int BN, int BK, bool ASYNC>
+__global__ void __launch_bounds__(tc_threads(BN), 512 / tc_threads(BN))
+    conv3x3_stats_tc(TcArgs p) {
+  constexpr int THREADS = tc_threads(BN);
+  constexpr int WN = tc_wn(BN), WARPS_N = BN / WN, WM = BM / 2;
+  constexpr int MT = WM / 16, NT = WN / 8;  // mma tiles of a warp
+  constexpr int PIECES = BK / 8;            // 16-byte pieces of a tile row
+  constexpr int A_IT = BM * PIECES / THREADS;  // pieces a thread copies
+  constexpr int B_IT = BN * PIECES / THREADS;
+  constexpr int STAGES = tc_stages(BK);
+  constexpr int A_BYTES = BM * BK * 2;
+  constexpr int STAGE = (BM + BN) * BK * 2;
+  static_assert(A_IT >= 1 && B_IT >= 1 && NT % 2 == 0 && MT >= 1, "tile");
+  static_assert(BK == 32 || (BK == 64 && ASYNC), "K step");
+  static_assert(2 * WARPS_N * 32 == THREADS, "warps");
+  static_assert(THREADS >= BN, "the statistics' last step takes a thread a channel");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warp_m = warp & 1, warp_n = warp >> 1;
+  const int b = blockIdx.z, m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int m_total = p.h * p.w;
+  const T* xb = static_cast<const T*>(p.x) + (size_t)b * m_total * p.cin;
+
+  // This thread's pieces: tile rows (tid / PIECES + i * THREADS / PIECES),
+  // piece tid % PIECES.
+  const int piece = tid % PIECES;
+  int a_oy[A_IT], a_ox[A_IT];
+#pragma unroll
+  for (int i = 0; i < A_IT; ++i) {
+    const int m = m0 + tid / PIECES + i * (THREADS / PIECES);
+    a_oy[i] = m < m_total ? m / p.w : -(1 << 20);  // never inside: the row stays zero
+    a_ox[i] = m < m_total ? m - (m / p.w) * p.w : 0;
+  }
+  const __nv_bfloat16* b_src[B_IT];
+  bool b_ok[B_IT];
+#pragma unroll
+  for (int i = 0; i < B_IT; ++i) {
+    const int n = n0 + tid / PIECES + i * (THREADS / PIECES);
+    b_ok[i] = n < p.cout;
+    b_src[i] = p.wk + (size_t)(b_ok[i] ? n : 0) * 9 * p.cin_p;
+  }
+
+  const int nc = (p.cin + BK - 1) / BK;
+  const int kchunks = 9 * nc;
+
+  auto load = [&](int stage, int kc) {
+    const int tap = kc / nc;
+    const int c = (kc - tap * nc) * BK + piece * 8;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    const uint32_t sa = s0 + stage * STAGE;
+#pragma unroll
+    for (int i = 0; i < A_IT; ++i) {
+      const int row = tid / PIECES + i * (THREADS / PIECES);
+      const int hi = a_oy[i] + dy, wi = a_ox[i] + dx;
+      const bool ok = hi >= 0 && hi < p.h && wi >= 0 && wi < p.w && c < p.cin;
+      const T* px = xb + ((size_t)(ok ? hi : 0) * p.w + (ok ? wi : 0)) * p.cin;
+      if constexpr (ASYNC)
+        cp_async16(sa + swz<BK>(row, piece), ok ? px + c : xb, ok);
+      else
+        *reinterpret_cast<uint4*>(smem + stage * STAGE + swz<BK>(row, piece)) =
+            gather8(px, c, p.cin, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < B_IT; ++i) {
+      const int row = tid / PIECES + i * (THREADS / PIECES);
+      const bool ok = b_ok[i] && c < p.cin_p;
+      cp_async16(sa + A_BYTES + swz<BK>(row, piece), ok ? b_src[i] + tap * p.cin_p + c : p.wk,
+                 ok);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < kchunks) load(s, s);
+    cp_async_commit();
+  }
+  for (int kc = 0; kc < kchunks; ++kc) {
+    cp_async_wait<STAGES - 2>();  // chunk kc has landed (this thread's copies)
+    __syncthreads();              // ... everyone's; and stage (kc - 1) is free
+    const int next = kc + STAGES - 1;
+    if (next < kchunks) load(next % STAGES, next);
+    cp_async_commit();
+    const uint32_t sa = s0 + (kc % STAGES) * STAGE, sb = sa + A_BYTES;
+    // The chunk's BK products of each output are summed on the tensor
+    // cores from zero, then added to acc in IEEE fp32: the tensor cores'
+    // own fp32 sums then never run over more than BK / 16 products of 16,
+    // and a 4608-deep K loop stays as close to cuDNN's fp32 result as the
+    // FMA kernel (a single chain of mma over all of K missed the fp32
+    // tolerance at the 512-channel site).
+    float part[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) part[i][j][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t af[MT][4], bfr[NT / 2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x4(sa + swz<BK>(warp_m * WM + mt * 16 + (lane & 15), kk * 2 + (lane >> 4)),
+                    af[mt]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np)
+        ldmatrix_x4(sb + swz<BK>(warp_n * WN + np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                             kk * 2 + ((lane >> 3) & 1)),
+                    bfr[np]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_bf16(part[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2],
+                   bfr[nt >> 1][(nt & 1) * 2 + 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r];
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the statistics reuse it
+
+  // The fp32 tile to the scratch.  Thread (g, t) holds rows g and g + 8 of
+  // each 16-row tile, columns 2t and 2t + 1 of each 8-column tile.  Rows
+  // beyond the image and channels beyond Cout are exact zeros (their
+  // operands were zero) and are not stored.
+  const int g = lane >> 2, t = lane & 3;
+  const bool even = (p.cout & 1) == 0;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = m0 + warp_m * WM + mt * 16 + g + half * 8;
+        const int n = n0 + warp_n * WN + nt * 8 + 2 * t;
+        if (m >= m_total || n >= p.cout) continue;
+        float* dst = p.y + ((size_t)b * m_total + m) * p.cout + n;
+        const float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
+        if (even) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          dst[0] = v0;
+          if (n + 1 < p.cout) dst[1] = v1;
+        }
+      }
+
+  // Per-channel sums, in a fixed order: a thread's rows, then the lanes
+  // that share its columns (xor 4, 8, 16), then the two warps along M.
+  float* red = reinterpret_cast<float*>(smem);  // [2][BN][2]
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float lo = acc[mt][nt][j], hi = acc[mt][nt][2 + j];
+        s1 += lo;
+        s2 += lo * lo;
+        s1 += hi;
+        s2 += hi * hi;
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+      }
+      if (g == 0) {
+        const int col = warp_n * WN + nt * 8 + 2 * t + j;
+        red[(warp_m * BN + col) * 2] = s1;
+        red[(warp_m * BN + col) * 2 + 1] = s2;
+      }
+    }
+  __syncthreads();
+  if (tid < BN && n0 + tid < p.cout) {
+    float* dst = p.partials + ((((size_t)b * gridDim.x + blockIdx.x) * p.cout) + n0 + tid) * 2;
+    dst[0] = red[tid * 2] + red[(BN + tid) * 2];
+    dst[1] = red[tid * 2 + 1] + red[(BN + tid) * 2 + 1];
+  }
+}
+
 template <typename T, int BM, int BN>
 cudaError_t launch_conv(const ConvArgs& p, int batch, int mtiles, bool upsample,
                         cudaStream_t stream) {
@@ -440,6 +766,40 @@ cudaError_t launch_apply(const float* y, const float* partials, const float* sca
         y, partials, scale, bias, static_cast<TO*>(a), static_cast<TO*>(yn), inv, m_total,
         cout, groups, mtiles, rows_per_chunk, eps);
   return cudaGetLastError();
+}
+
+template <typename T, int BM, int BN, int BK, bool ASYNC>
+cudaError_t launch_tc(const TcArgs& p, int batch, cudaStream_t stream) {
+  constexpr int smem = tc_stages(BK) * (BM + BN) * BK * 2;  // up to 96 KB: dynamic
+  static bool ready = false;  // one attribute call per instantiation
+  if (!ready) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(conv3x3_stats_tc<T, BM, BN, BK, ASYNC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  dim3 grid((p.h * p.w + BM - 1) / BM, (p.cout + BN - 1) / BN, batch);
+  conv3x3_stats_tc<T, BM, BN, BK, ASYNC><<<grid, tc_threads(BN), smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int BM, int BK, bool ASYNC>
+cudaError_t launch_tc_bn(const TcArgs& p, int batch, int bn, cudaStream_t stream) {
+  if (bn == 32) return launch_tc<T, BM, 32, BK, ASYNC>(p, batch, stream);
+  if (bn == 64) return launch_tc<T, BM, 64, BK, ASYNC>(p, batch, stream);
+  if (bn == 128) return launch_tc<T, BM, 128, BK, ASYNC>(p, batch, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The 64-channel K step runs 64-row tiles only: with 128 rows it spills
+// under the 128-register cap.
+template <typename T, int BK, bool ASYNC>
+cudaError_t launch_tc_tile(const TcArgs& p, int batch, int bm, int bn, cudaStream_t stream) {
+  if (bm == 64) return launch_tc_bn<T, 64, BK, ASYNC>(p, batch, bn, stream);
+  if constexpr (BK == 32)
+    if (bm == 128) return launch_tc_bn<T, 128, BK, ASYNC>(p, batch, bn, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -495,6 +855,58 @@ extern "C" int conv_gn_elu_forward(const void* x, const void* lat, const void* w
   if (out_dtype == 0)
     err = launch_apply<float>(p.y, p.partials, sc, bi, a, yn, iv, batch, m_total, cout,
                               groups, mtiles, rows_per_chunk, eps, st);
+  else if (out_dtype == 1)
+    err = launch_apply<__nv_bfloat16>(p.y, p.partials, sc, bi, a, yn, iv, batch, m_total,
+                                      cout, groups, mtiles, rows_per_chunk, eps, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// The tensor-core route: stride 1, SAME, one input, bf16 taps.  x (B, H, W,
+// cin) in in_dtype (fp32 is rounded to bf16 as gathered); wk bf16 (cout,
+// 9 * cin_p), cin_p = cin rounded up to 8, K-major, zero beyond cin; scale,
+// bias fp32 (cout).  y (B, H*W, cout) and partials (B, mtiles, cout, 2) are
+// fp32 scratch with mtiles = ceil(H*W / bm); (bm, bn) is one of {64, 128} x
+// {32, 64, 128}, bm = 64 where bf16 x has cin % 64 == 0.  a, yn, inv as conv_gn_elu_forward.  Two inputs, stride 2,
+// the upsample and fp32 taps have no argument here: they take
+// conv_gn_elu_forward.  Returns a cudaError_t.
+extern "C" int conv_gn_elu_forward_tc(const void* x, const void* wk, const void* scale,
+                                      const void* bias, void* y, void* partials, void* a,
+                                      void* yn, void* inv, int batch, int h, int w, int cin,
+                                      int cout, int groups, float eps, int in_dtype,
+                                      int out_dtype, int bm, int bn, int rows_per_chunk,
+                                      void* stream) {
+  if (cout < 1 || cout > kMaxC || groups < 1 || cout % groups != 0 || batch < 1 ||
+      batch > 65535 || cin < 1 || h < 1 || w < 1 || rows_per_chunk < 1 ||
+      (bm != 64 && bm != 128) || (bn != 32 && bn != 64 && bn != 128))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  TcArgs p;
+  p.x = x;
+  p.wk = static_cast<const __nv_bfloat16*>(wk);
+  p.y = static_cast<float*>(y);
+  p.partials = static_cast<float*>(partials);
+  p.h = h; p.w = w; p.cin = cin; p.cin_p = (cin + 7) / 8 * 8; p.cout = cout;
+  cudaError_t err;
+  if (in_dtype == 1 && cin % 64 == 0)
+    err = launch_tc_tile<__nv_bfloat16, 64, true>(p, batch, bm, bn, st);
+  else if (in_dtype == 1 && cin % 8 == 0)
+    err = launch_tc_tile<__nv_bfloat16, 32, true>(p, batch, bm, bn, st);
+  else if (in_dtype == 1)
+    err = launch_tc_tile<__nv_bfloat16, 32, false>(p, batch, bm, bn, st);
+  else if (in_dtype == 0)
+    err = launch_tc_tile<float, 32, false>(p, batch, bm, bn, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  const int m_total = h * w, mtiles = (m_total + bm - 1) / bm;
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  float* iv = static_cast<float*>(inv);
+  if (out_dtype == 0)
+    err = launch_apply<float>(p.y, p.partials, sc, bi, a, yn, iv, batch, m_total, cout, groups,
+                              mtiles, rows_per_chunk, eps, st);
   else if (out_dtype == 1)
     err = launch_apply<__nv_bfloat16>(p.y, p.partials, sc, bi, a, yn, iv, batch, m_total,
                                       cout, groups, mtiles, rows_per_chunk, eps, st);

@@ -45,7 +45,8 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> str:
+def target(name: str) -> str:
+    """Path of csrc/<name>.cu's library, keyed by the source's hash."""
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     return os.path.join(BUILD, f"lib{name}-{digest}.so")
@@ -74,7 +75,7 @@ def build_all(names: Iterable[str]) -> None:
     """Build the missing libraries of ``names``, one nvcc each, all
     started together; raises the first failure after all have ended."""
     with _lock:
-        targets = [(n, _target(n)) for n in names]
+        targets = [(n, target(n)) for n in names]
         jobs = [_start(n, out) for n, out in targets if not os.path.exists(out)]
         errors = []
         for job in jobs:
@@ -92,5 +93,5 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all((name,))
         with _lock:
-            lib = _libs.setdefault(name, ctypes.CDLL(_target(name)))
+            lib = _libs.setdefault(name, ctypes.CDLL(target(name)))
     return lib

@@ -11,6 +11,13 @@ analytic backward.  ``kernels/fusion_bt.py`` and
 source (``csrc/conv_gn_elu.cu``) says what bounds the kernels and what
 its two launches do about it.
 
+Two K loops stand behind the entry points (``kernel_route``):
+``fused_conv_gn_elu`` and ``fused_conv_gn_elu_bt`` with bf16 taps take
+the tensor-core kernel (``mma.sync`` on bf16 operands, fp32 sums, as the
+TPU kernels on the MXU; tile from ``tc_tile``, weights from
+``pack_weight_tc``); fp32 taps, which are exact fp32 in the JAX
+reference, and the other four entry points take the FMA kernel.
+
 The function: SAME 3x3 convolution of x and the weights, both rounded
 to the tap dtype, accumulated in fp32; per-(image, group) single-pass
 moments of that fp32 accumulator, the variance clamped at 0;
@@ -67,26 +74,88 @@ Residuals = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' library, argtypes set."""
     lib = build.load("conv_gn_elu")
-    fn = lib.conv_gn_elu_forward
+    fn, tc = lib.conv_gn_elu_forward, lib.conv_gn_elu_forward_tc
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 12 + [ctypes.c_float] + [i] * 6 + [p]
-        fn.restype = ctypes.c_int
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 11 + [i] * 12 + [f] + [i] * 6 + [p]
+        tc.argtypes = [p] * 9 + [i] * 6 + [f] + [i] * 5 + [p]
+        fn.restype = tc.restype = ctypes.c_int
     return lib
 
 
 def block_rows(cout: int) -> int:
-    """Output pixels one block of the conv launch owns (as the CUDA
-    source's tiles: 256 x 16, 128 x 32 or 64 x 64 pixels x channels)."""
+    """Output pixels one block of the FMA kernel's conv launch owns (as
+    the CUDA source's tiles: 256 x 16, 128 x 32 or 64 x 64 pixels x
+    channels)."""
     return 256 if cout <= 16 else 128 if cout <= 32 else 64
 
 
 def pack_weight(w: torch.Tensor, tap: torch.dtype) -> torch.Tensor:
-    """OIHW (Cout, Cs, 3, 3) -> the kernel's fp32 (9, Cs, Cout), tap
+    """OIHW (Cout, Cs, 3, 3) -> the FMA kernel's fp32 (9, Cs, Cout), tap
     major, values rounded to the tap dtype."""
     cout, cs = w.shape[:2]
     return (w.detach().to(tap).float().permute(2, 3, 1, 0).contiguous()
             .view(9, cs, cout))
+
+
+def pack_weight_tc(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (Cout, Cin, 3, 3) -> the tensor-core kernel's bf16 (Cout,
+    9 * Cin_p), K-major: column (3 ky + kx) * Cin_p + c, Cin_p = Cin
+    rounded up to 8 (the pad columns zero, so every 16-byte copy of 8
+    channels is aligned), values rounded to bf16."""
+    cout, cin = w.shape[:2]
+    wk = w.detach().permute(0, 2, 3, 1)  # (Cout, 3, 3, Cin)
+    if cin % 8:
+        wk = F.pad(wk, (0, -cin % 8))
+    # one cast-and-transpose kernel on the card
+    return wk.to(torch.bfloat16, memory_format=torch.contiguous_format).view(cout, -1)
+
+
+SMS = 132  # streaming multiprocessors of an H100
+TC_TILES = tuple((bm, bn) for bm in (64, 128) for bn in (32, 64, 128))
+
+
+def tc_tile(b: int, m: int, cin: int, cout: int) -> Tuple[int, int]:
+    """(BM, BN) of the tensor-core kernel for ``b`` images of ``m``
+    output pixels, ``cin`` input and ``cout`` output channels.  Where
+    Cin % 64 == 0 the kernel takes 64 channels a K step, and only 64-row
+    tiles (128 rows spill at that step).  Padded rows and columns are
+    tensor-core work thrown away (a 128-row tile over the 52 pixels of a
+    4x13 map wastes 59% of it), so only tiles that pad the output map at
+    most 10% more than the tightest one are taken; of those, the largest
+    (BN <= Cout where Cout allows) whose grid fills one wave of the
+    card's SMs, ties to the less padded, then the taller.  Where none
+    fills a wave, the one with the most blocks."""
+    fits = [t for t in TC_TILES if t[1] <= max(32, cout) and (cin % 64 or t[0] == 64)]
+
+    def blocks(t):
+        return b * -(-m // t[0]) * -(-cout // t[1])
+
+    def padded(t):
+        return -(-m // t[0]) * t[0] * -(-cout // t[1]) * t[1]
+
+    tight = min(padded(t) for t in fits)
+    fits = [t for t in fits if padded(t) <= 1.1 * tight]
+    full = [t for t in fits if blocks(t) >= SMS]
+    if full:
+        return min(full, key=lambda t: (-t[0] * t[1], padded(t), -t[0]))
+    return min(fits, key=lambda t: (-blocks(t), padded(t), -t[0] * t[1]))
+
+
+def apply_rows(b: int, m: int, cout: int) -> int:
+    """Output rows one block of the normalize launch covers: at most
+    ``_APPLY_ELEMS`` elements, and few enough rows that the grid holds
+    two waves of blocks (each block folds its image's partials first,
+    and at the deep sites a few large blocks left most SMs idle)."""
+    return max(1, min(_APPLY_ELEMS // cout, b * m // (2 * SMS)))
+
+
+def kernel_route(counter: Callable, tap_dtype: str) -> str:
+    """Which K loop an entry point's launch runs: "tc" (tensor cores) for
+    the two stride-1, one-input entry points with bf16 taps, "fma" for
+    fp32 taps and for every other entry point."""
+    tc_entries = (fused_conv_gn_elu, fused_conv_gn_elu_bt)
+    return "tc" if tap_dtype == "bfloat16" and counter in tc_entries else "fma"
 
 
 def _check(x, lat, wx, wl, scale, bias, groups, tap_dtype):
@@ -142,10 +211,20 @@ def conv_gn_elu_plain(x, w, scale, bias, groups: int = 8, eps: float = 1e-6,
 
 
 def _launch(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
-            tap_dtype, out_dtype, residuals: bool, upsample: bool = False) -> Residuals:
+            tap_dtype, out_dtype, residuals: bool, upsample: bool = False,
+            route: Optional[str] = None) -> Residuals:
     """Run the kernels on CUDA tensors; adds one to ``counter.launches``.
     ``upsample`` convolves the bilinear 2x of x (one input, stride 1),
-    which the kernel blends as it gathers and never stores."""
+    which the kernel blends as it gathers and never stores.  ``route``
+    ("tc" or "fma") overrides ``kernel_route``: the smoke check times the
+    FMA kernel beside the tensor-core one with it."""
+    route = route or kernel_route(counter, tap_dtype)
+    if route not in ("tc", "fma"):
+        raise ValueError(f"unknown route {route!r} (tc|fma)")
+    if route == "tc" and (lat is not None or stride != 1 or upsample
+                          or tap_dtype != "bfloat16"):
+        raise ValueError("the tensor-core kernel takes one input, stride 1, no "
+                         "upsample and bf16 taps")
     b, cx, h, w = x.shape
     cout = wx.shape[0]
     if cout > _MAX_C:
@@ -164,11 +243,9 @@ def _launch(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
         ho, wo = -(-h // stride), -(-w // stride)
         pad_top, pad_left = same_pads(h, 3, stride)[0], same_pads(w, 3, stride)[0]
     m = ho * wo
-    bm = block_rows(cout)
+    bm, bn = tc_tile(b, m, cx, cout) if route == "tc" else (block_rows(cout), None)
     mtiles = -(-m // bm)
     dev = x.device
-    wxp = pack_weight(wx, tap)
-    wlp = pack_weight(wl, tap) if lat is not None else None
     scale32 = scale.detach().float().contiguous()
     bias32 = bias.detach().float().contiguous()
     y = torch.empty((b, m, cout), dtype=torch.float32, device=dev)
@@ -180,17 +257,26 @@ def _launch(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = load().conv_gn_elu_forward(
-        ptr(x), ptr(lat), ptr(wxp), ptr(wlp), ptr(scale32), ptr(bias32), ptr(y),
-        ptr(partials), ptr(a), ptr(yn), ptr(inv),
-        b, h, w, cx, 0 if lat is None else lat.shape[1], cout, ho, wo, stride,
-        pad_top, pad_left, groups, float(eps), _DTYPES[x.dtype], _DTYPES[out_dtype],
-        int(tap == torch.bfloat16 and (upsample or x.dtype == torch.float32)), bm,
-        max(1, _APPLY_ELEMS // cout), int(upsample),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows_per_chunk = apply_rows(b, m, cout)
+    if route == "tc":
+        wk = pack_weight_tc(wx)
+        err = load().conv_gn_elu_forward_tc(
+            ptr(x), ptr(wk), ptr(scale32), ptr(bias32), ptr(y), ptr(partials), ptr(a),
+            ptr(yn), ptr(inv), b, h, w, cx, cout, groups, float(eps), _DTYPES[x.dtype],
+            _DTYPES[out_dtype], bm, bn, rows_per_chunk, stream)
+    else:
+        wxp = pack_weight(wx, tap)
+        wlp = pack_weight(wl, tap) if lat is not None else None
+        err = load().conv_gn_elu_forward(
+            ptr(x), ptr(lat), ptr(wxp), ptr(wlp), ptr(scale32), ptr(bias32), ptr(y),
+            ptr(partials), ptr(a), ptr(yn), ptr(inv),
+            b, h, w, cx, 0 if lat is None else lat.shape[1], cout, ho, wo, stride,
+            pad_top, pad_left, groups, float(eps), _DTYPES[x.dtype], _DTYPES[out_dtype],
+            int(tap == torch.bfloat16 and (upsample or x.dtype == torch.float32)), bm,
+            rows_per_chunk, int(upsample), stream)
     if err != 0:
-        raise RuntimeError(f"conv_gn_elu_forward failed: cudaError {err}")
+        raise RuntimeError(f"conv_gn_elu_forward ({route}) failed: cudaError {err}")
     counter.launches += 1
     return a, yn, inv
 

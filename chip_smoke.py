@@ -46,12 +46,13 @@ repository around this file.  Phases, each printed on its own lines:
               and fp32, and at ragged shapes: a, yn, inv; with device
               times of the kernel, the plain version and the unfused
               route (cuDNN conv [+ cat] + the GroupNorm+ELU kernel), and
-              the bound.  The two stride-1 entry points, whose bf16 taps
-              run the tensor-core K loop: also fp32 inputs under bf16
-              taps at every site and ragged shape, and at every site the
-              FMA K loop's time on the same inputs in the same call
-              (their route before the tensor-core kernel, launched
-              through the wrapper's route argument, not counted);
+              the bound.  The three stride-1 entry points of this phase
+              (per image, bt, fusion_bt), whose bf16 taps run the
+              tensor-core K loop: also fp32 inputs under bf16 taps at
+              every site and ragged shape, and at every site the FMA K
+              loop's time on the same inputs in the same call (their
+              route before the tensor-core kernel, launched through the
+              wrapper's route argument, not counted);
  11. conv grad  gradients through each fused entry point's autograd
               Function vs autograd of its plain version, a shallow and a
               deep site each;
@@ -68,9 +69,11 @@ repository around this file.  Phases, each printed on its own lines:
               out) vs their plain versions at their five sites of a KITTI
               net each, B=8 and B=32, bf16 and fp32, and at ragged shapes
               (H = 1, W = 1, odd W, 2W not a multiple of 8, Cin 5 and 48,
-              Cout 6 and 40), with the times and bounds of phase 10 (the
-              unfused routes: the composed transposed conv, or cat + cuDNN
-              conv, + the GroupNorm+ELU kernel);
+              Cout 6 and 40, Cx 12), with the times and bounds of phase
+              10 (the unfused routes: the composed transposed conv, or cat
+              + cuDNN conv, + the GroupNorm+ELU kernel); the fusion block
+              (tensor-core K loop with bf16 taps) also with fp32 inputs
+              under bf16 taps and beside the FMA K loop, as phase 10;
  16. their gradients  through each autograd Function vs autograd of the
               fp32 reference, a shallow and a deep site each;
  17. fusion slice  serving with use_pallas_fusion on (11 GN+ELU, 5
@@ -122,7 +125,8 @@ FUSION = {"model.use_pallas_fusion": True}
 COUNTERS = ("group_norm_elu", "fused_loss_fwd", "fused_loss_bwd", "conv_gn_elu",
             "conv_gn_elu_bt", "conv_gn_elu_s2", "fusion_bt", "fusion_block", "upsample")
 FP32_OUT = ("conv_gn_elu", "fusion_block", "upsample")  # store fp32 a, no residuals
-TC_ENTRIES = ("conv_gn_elu", "conv_gn_elu_bt")  # bf16 taps: the tensor-core K loop
+# bf16 taps: the tensor-core K loop (the four stride-1 entry points)
+TC_ENTRIES = ("conv_gn_elu", "conv_gn_elu_bt", "fusion_bt", "fusion_block")
 FMA_TIMING = types.SimpleNamespace(launches=0)  # counter of the FMA comparison launches
 # Fused loss operation counts per pixel for an 11-tap window, the least
 # the algorithm needs: forward = 3 products + 5 moments x 2 passes x 11
@@ -847,8 +851,10 @@ RAGGED = {  # (B, channels..., H, W): odd sizes at stride 2, ragged channels
     "conv_gn_elu": [(3, 24, 40, 9, 11)],
     "conv_gn_elu_bt": [(3, 24, 40, 9, 11), (2, 5, 6, 7, 5)],
     "conv_gn_elu_s2": [(2, 64, 128, 57, 76), (3, 16, 32, 29, 37), (2, 5, 6, 7, 5)],
-    "fusion_bt": [(2, 48, 20, 12, 9, 7), (3, 16, 32, 16, 29, 37)],
-    "fusion_block": [(2, 48, 20, 12, 9, 7), (3, 16, 32, 16, 29, 37), (2, 5, 3, 6, 1, 13)],
+    # Cl 20 and Cx 12 (register path), Cx 16 + Cl 32 -> 16 (the BN = 16 tile)
+    "fusion_bt": [(2, 48, 20, 12, 9, 7), (3, 16, 32, 16, 29, 37), (2, 12, 16, 24, 9, 7)],
+    "fusion_block": [(2, 48, 20, 12, 9, 7), (3, 16, 32, 16, 29, 37), (2, 5, 3, 6, 1, 13),
+                     (2, 12, 16, 24, 9, 7)],
     # H = 1; odd W with 2W % 8 != 0, Cin 48, Cout 40; Cin 5, Cout 6; W = 1
     "upsample": [(2, 32, 16, 1, 7), (3, 48, 40, 4, 13), (2, 5, 6, 3, 5), (2, 16, 8, 5, 1)],
 }
@@ -859,7 +865,7 @@ def _conv_case(name, shape, dtype, copies, gen, tap=None):
     (with residuals; ``serve`` is the no-grad entry point that stores a
     alone), the plain version, and the unfused route the port offers
     (cuDNN conv [+ cat] + the GroupNorm+ELU kernel; for the upsample the
-    composed transposed conv in front of it); for the two stride-1 entry
+    composed transposed conv in front of it); for the four stride-1 entry
     points also ``fma(residuals)``, the same launch through the FMA K
     loop.  ``tap`` is the tap dtype, x's by default."""
     from gdn_tpu_torch.kernels import conv_gn_elu as ck
@@ -877,6 +883,7 @@ def _conv_case(name, shape, dtype, copies, gen, tap=None):
     cout, cins = chans[-1], chans[:-1]
     stride = 2 if name == "conv_gn_elu_s2" else 1
     g = pick_groups(cout, 8)
+    out_dtype = torch.float32 if name in FP32_OUT else dtype
 
     def act(c):
         return [torch.randn((b, c, h, w), device="cuda", generator=gen).to(dtype)
@@ -926,7 +933,6 @@ def _conv_case(name, shape, dtype, copies, gen, tap=None):
             y = composed_resize_conv2x(x, kcl).contiguous(memory_format=cl)
             return group_norm_elu(y, scale, bias, g)
     else:
-        out_dtype = torch.float32 if name == "conv_gn_elu" else None
         if name == "conv_gn_elu":
             def kernel(x):
                 return (ck.fused_conv_gn_elu(x, k, scale, bias, g, 1e-6, tap), None, None)
@@ -950,9 +956,12 @@ def _conv_case(name, shape, dtype, copies, gen, tap=None):
             return group_norm_elu(conv_same(x, kd, stride), scale, bias, g)
     fma = None
     if name in TC_ENTRIES:
+        wx, wl = ks if len(cins) == 2 else (k, None)
+
         def fma(residuals):
-            return lambda x: ck._launch(FMA_TIMING, x, None, k, None, scale, bias, g, 1e-6,
-                                        1, tap, out_dtype or dtype, residuals, route="fma")
+            return lambda x, lat=None: ck._launch(FMA_TIMING, x, lat, wx, wl, scale, bias, g,
+                                                  1e-6, 1, tap, out_dtype, residuals,
+                                                  route="fma")
     ho, wo = (2 * h, 2 * w) if name == "upsample" else (-(-h // stride), -(-w // stride))
     item = torch.finfo(dtype).bits // 8
     out_item = 4 if name in FP32_OUT else item
@@ -1154,7 +1163,7 @@ def _family_entry(name, line, rows, launches, hmma):
     """One fused conv entry point's object of the kernels line: its five
     sites of a net summed at the batch its main path runs in bf16 (B=8
     serving for the per-image kernel, B=32 training for the others; the
-    B=8 sums are in chip_smoke.json).  The two tensor-core entry points
+    B=8 sums are in chip_smoke.json).  The four tensor-core entry points
     add the FMA K loop's time on the same inputs (``fma_ms``), the error
     with fp32 inputs under bf16 taps, and the HMMA count of their
     kernel's SASS."""

@@ -39,25 +39,29 @@
 //   conv3x3_stats<T, BM, BN, UP>: a register-tiled implicit GEMM on the
 //     fp32 FMA units (67 TFLOP/s peak), exact for both tap dtypes (a
 //     bf16 x bf16 product is exact in fp32).  It serves fp32 taps
-//     everywhere, and the stride-2, two-input and upsample entry points
-//     with any taps.
+//     everywhere, and the stride-2 and upsample entry points with any
+//     taps.
 //   conv3x3_stats_tc<T, BM, BN, BK, ASYNC>: the tensor-core kernel of the
-//     stride-1, one-input entry points with bf16 taps, which replaces
+//     four stride-1 entry points with bf16 taps, which replaces
 //       gdn_tpu/kernels/conv_gn_elu.py:109  fused_conv_gn_elu
 //       gdn_tpu/kernels/conv_gn_elu.py:356  fused_conv_gn_elu_bt
+//       gdn_tpu/kernels/fusion_bt.py:226    fused_fusion_bt
+//       gdn_tpu/kernels/fusion_block.py:235 fused_fusion_block
 //     as the TPU kernels convolve on the MXU: bf16 x bf16 products,
 //     fp32 sums (mma.sync m16n8k16, operands from shared memory by
 //     ldmatrix).  Operands stay bf16 in shared memory: the A tile is BM
-//     output pixels of one image x BK input channels of one tap (BK = 64
-//     where Cin % 64 == 0, else 32), the B tile BN output channels x the
-//     same channels of the bf16 K-major weights (Cout, 9 * Cin_p), Cin_p =
-//     Cin rounded up to 8.  A ring of three or four stages is filled by
-//     16-byte cp.async copies (8 channels of one pixel each; a tap in the
-//     SAME padding copies zero bytes, which zero-fills the slot); fp32 x
-//     (rounded to bf16 as gathered) and Cin % 8 != 0 (no 16-byte
-//     alignment) load through registers into the same layout (ASYNC =
-//     false).  Tile rows are XOR-swizzled so that neither ldmatrix nor the
-//     copies meet bank conflicts.  Per site
+//     output pixels of one image x BK columns of the flattened K axis
+//     (tap, then x's channels and the lateral's, each rounded up to 8:
+//     the concatenated activation is never built, its columns are
+//     gathered from the two sources), the B tile BN output channels x the
+//     same columns of the bf16 K-major weights (Cout, 9 * (Cx_p + Cl_p)),
+//     packed from the two weight halves.  A ring of three or four stages
+//     is filled by 16-byte cp.async copies (8 channels of one pixel each;
+//     a tap in the SAME padding copies zero bytes, which zero-fills the
+//     slot); fp32 inputs (rounded to bf16 as gathered) and a channel
+//     count % 8 != 0 (no 16-byte alignment) load through registers into
+//     the same layout (ASYNC = false).  Tile rows are XOR-swizzled so
+//     that neither ldmatrix nor the copies meet bank conflicts.  Per site
 //     its bound is the bytes at the 32- and 64-channel sites (~100 and
 //     ~190 flops a byte against the card's ~295) and the tensor cores
 //     from 128 channels up.
@@ -96,14 +100,16 @@
 // Layout: x (B, H, W, Cx) and lat (B, H, W, Cl) dense NHWC, fp32 or bf16;
 // weights of the FMA kernel fp32 (9, Cs, Cout) per source, tap-major,
 // values already rounded to the tap dtype by the wrapper; of the
-// tensor-core kernel bf16 (Cout, 9 * Cin_p), k = (3 ky + kx) Cin_p + c,
-// zero beyond Cin; scale, bias fp32 (Cout,).
+// tensor-core kernel bf16 (Cout, 9 * (Cx_p + Cl_p)), k = (3 ky + kx)
+// (Cx_p + Cl_p) + c, x's channels then the lateral's, zero in each one's
+// padding; scale, bias fp32 (Cout,).
 // No width is assumed to be a power of two or a multiple of anything:
 // 4-wide vector loads are used where a channel count is a multiple of 4
 // and scalar masked loads otherwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -433,28 +439,39 @@ gn_elu_apply(const float* __restrict__ y, const float* __restrict__ partials,
   }
 }
 
-// ---- the tensor-core K loop (stride 1, one input, bf16 taps) ----
+// ---- the tensor-core K loop (stride 1, one or two inputs, bf16 taps) ----
 
-// A K step is BK input channels of one tap: 64 where Cin % 64 == 0 and the
-// copies are asynchronous (half the barriers and stage switches a flop;
-// 64-row tiles only), else 32.  The cp.async ring holds four stages of 32,
-// three of 64.
+// K is one flattened axis of 9 * kc_p columns, k = tap * kc_p + c, where a
+// tap's kc_p = cx_p + cl_p columns are x's channels rounded up to 8, then
+// the lateral's (none for one input).  A K step is BK consecutive columns:
+// 64 where kc_p % 64 == 0 and the copies are asynchronous (half the
+// barriers and stage switches a flop; 64-row tiles only), else 32.  A
+// step may straddle two taps or both sources: each 16-byte piece (8
+// columns) lies in one tap of one source and resolves its own.  Only the
+// last step runs past K (zero-filled): 9 * 48 = 432 columns take 14 steps
+// of 32, against 18 for a step per (tap, 32 channels).  The cp.async ring
+// holds four stages of 32, three of 64.
 __host__ __device__ constexpr int tc_stages(int bk) { return bk == 64 ? 3 : 4; }
 
-// Warps: 2 along M (BM / 2 pixels each) x BN / WN along N, WN = 32 output
-// channels a warp (16 when BN = 32): 128 threads, 256 at BN = 128.  At
-// most 128 registers a thread (512 threads an SM in the launch bounds), so
-// that two 128 x 128 blocks share an SM where one alone left the tensor
-// cores waiting on its barriers.
+// Warps: WARPS_M along M (BM / WARPS_M pixels each) x BN / WN along N, WN =
+// 32 output channels a warp (16 when BN <= 32), WARPS_M = 2 (4 for the BN =
+// 16 tile of Cout <= 16, which keeps four warps a block): 128 threads, 256
+// at BN = 128.  At most 128 registers a thread (512 threads an SM in the
+// launch bounds), so that two 128 x 128 blocks share an SM where one alone
+// left the tensor cores waiting on its barriers.
 __host__ __device__ constexpr int tc_wn(int bn) { return bn >= 64 ? 32 : 16; }
-__host__ __device__ constexpr int tc_threads(int bn) { return 64 * (bn / tc_wn(bn)); }
+__host__ __device__ constexpr int tc_warps_m(int bn) { return bn == 16 ? 4 : 2; }
+__host__ __device__ constexpr int tc_threads(int bn) {
+  return 32 * tc_warps_m(bn) * (bn / tc_wn(bn));
+}
 
 struct TcArgs {
-  const void* x;             // (B, H, W, cin) NHWC, bf16 or fp32
-  const __nv_bfloat16* wk;   // (cout, 9 * cin_p), K-major
+  const void* x;             // (B, H, W, cx) NHWC, bf16 or fp32
+  const void* lat;           // (B, H, W, cl), x's dtype; x itself when cl = 0
+  const __nv_bfloat16* wk;   // (cout, 9 * (cx_p + cl_p)), K-major
   float* y;                  // (B, H*W, cout)
   float* partials;           // (B, mtiles, cout, 2)
-  int h, w, cin, cin_p, cout;
+  int h, w, cx, cl, cx_p, cl_p, cout;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -472,10 +489,17 @@ __device__ __forceinline__ uint32_t swz(int row, int chunk) {
   return row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4);
 }
 
+// L1 = true caches the line in L1 as well (.ca), else L2 only (.cg).
+template <bool L1 = false>
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
+  if constexpr (L1)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -533,79 +557,94 @@ __device__ __forceinline__ uint4 gather8(const T* px, int c, int cin, bool valid
 }
 
 // Launch 1 on the tensor cores.  grid (m tiles, Cout tiles, B); a block owns
-// BM output pixels of ONE image x BN output channels and walks K = (tap,
-// BK input channels).  Same outputs as conv3x3_stats: the fp32 tile to y,
-// per-channel (sum, sum of squares) over the block's pixels to partials.
+// BM output pixels of ONE image x BN output channels and walks the
+// flattened K axis BK columns at a time.  Same outputs as conv3x3_stats:
+// the fp32 tile to y, per-channel (sum, sum of squares) over the block's
+// pixels to partials.
 template <typename T, int BM, int BN, int BK, bool ASYNC>
 __global__ void __launch_bounds__(tc_threads(BN), 512 / tc_threads(BN))
     conv3x3_stats_tc(TcArgs p) {
   constexpr int THREADS = tc_threads(BN);
-  constexpr int WN = tc_wn(BN), WARPS_N = BN / WN, WM = BM / 2;
+  constexpr int WN = tc_wn(BN), WARPS_M = tc_warps_m(BN), WARPS_N = BN / WN;
+  constexpr int WM = BM / WARPS_M;
   constexpr int MT = WM / 16, NT = WN / 8;  // mma tiles of a warp
   constexpr int PIECES = BK / 8;            // 16-byte pieces of a tile row
-  constexpr int A_IT = BM * PIECES / THREADS;  // pieces a thread copies
-  constexpr int B_IT = BN * PIECES / THREADS;
+  constexpr int ROWS = THREADS / PIECES;    // tile rows one pass of the copies covers
+  constexpr int A_IT = BM / ROWS;           // pieces a thread copies
+  constexpr int B_IT = (BN + ROWS - 1) / ROWS;  // BN = 16 at BK = 32: half a pass
   constexpr int STAGES = tc_stages(BK);
   constexpr int A_BYTES = BM * BK * 2;
   constexpr int STAGE = (BM + BN) * BK * 2;
-  static_assert(A_IT >= 1 && B_IT >= 1 && NT % 2 == 0 && MT >= 1, "tile");
+  static_assert(BM % ROWS == 0 && A_IT >= 1 && (BN % ROWS == 0 || BN < ROWS), "copies");
+  static_assert(NT % 2 == 0 && MT >= 1 && WM % 16 == 0, "tile");
   static_assert(BK == 32 || (BK == 64 && ASYNC), "K step");
-  static_assert(2 * WARPS_N * 32 == THREADS, "warps");
+  static_assert(WARPS_M * WARPS_N * 32 == THREADS, "warps");
   static_assert(THREADS >= BN, "the statistics' last step takes a thread a channel");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s0 = smem_u32(smem);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp & 1, warp_n = warp >> 1;
+  const int warp_m = warp % WARPS_M, warp_n = warp / WARPS_M;
   const int b = blockIdx.z, m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int m_total = p.h * p.w;
-  const T* xb = static_cast<const T*>(p.x) + (size_t)b * m_total * p.cin;
+  const T* xb = static_cast<const T*>(p.x) + (size_t)b * m_total * p.cx;
+  const T* lb = static_cast<const T*>(p.lat) + (size_t)b * m_total * p.cl;
+  const int kc_p = p.cx_p + p.cl_p;  // K columns a tap
+  const int k_total = 9 * kc_p;
+  const int kchunks = (k_total + BK - 1) / BK;
 
-  // This thread's pieces: tile rows (tid / PIECES + i * THREADS / PIECES),
-  // piece tid % PIECES.
+  // This thread's pieces: tile rows (tid / PIECES + i * ROWS), piece
+  // tid % PIECES.  Registers are the scarce resource (128 a thread): a
+  // row's output pixel is kept as one word, (oy << 16) + ox (H < 2^15, W <
+  // 2^16; oy = -2^15 past the image, never inside: the row stays zero), and
+  // the weight rows as one pointer and a mask.
   const int piece = tid % PIECES;
-  int a_oy[A_IT], a_ox[A_IT];
+  int a_pos[A_IT];
 #pragma unroll
   for (int i = 0; i < A_IT; ++i) {
-    const int m = m0 + tid / PIECES + i * (THREADS / PIECES);
-    a_oy[i] = m < m_total ? m / p.w : -(1 << 20);  // never inside: the row stays zero
-    a_ox[i] = m < m_total ? m - (m / p.w) * p.w : 0;
+    const int m = m0 + tid / PIECES + i * ROWS;
+    a_pos[i] = m < m_total ? (m / p.w) * 65536 + m % p.w : INT_MIN;
   }
-  const __nv_bfloat16* b_src[B_IT];
-  bool b_ok[B_IT];
+  const __nv_bfloat16* b_row = p.wk + (size_t)min(n0 + tid / PIECES, p.cout - 1) * k_total;
+  unsigned b_ok = 0;
 #pragma unroll
   for (int i = 0; i < B_IT; ++i) {
-    const int n = n0 + tid / PIECES + i * (THREADS / PIECES);
-    b_ok[i] = n < p.cout;
-    b_src[i] = p.wk + (size_t)(b_ok[i] ? n : 0) * 9 * p.cin_p;
+    const int row = tid / PIECES + i * ROWS;
+    b_ok |= (row < BN && n0 + row < p.cout) ? 1u << i : 0u;
   }
 
-  const int nc = (p.cin + BK - 1) / BK;
-  const int kchunks = 9 * nc;
-
   auto load = [&](int stage, int kc) {
-    const int tap = kc / nc;
-    const int c = (kc - tap * nc) * BK + piece * 8;
+    // This thread's 8 columns: tap, source, channel; past K it copies zeros.
+    const int k = kc * BK + piece * 8;
+    const int tap = k / kc_p;
+    const bool in_k = tap < 9;
+    const bool second = k - tap * kc_p >= p.cx_p;
+    const int c = k - tap * kc_p - (second ? p.cx_p : 0);
+    const int cs = second ? p.cl : p.cx;
+    const T* src = second ? lb : xb;
     const int dy = tap / 3 - 1, dx = tap % 3 - 1;
     const uint32_t sa = s0 + stage * STAGE;
 #pragma unroll
     for (int i = 0; i < A_IT; ++i) {
-      const int row = tid / PIECES + i * (THREADS / PIECES);
-      const int hi = a_oy[i] + dy, wi = a_ox[i] + dx;
-      const bool ok = hi >= 0 && hi < p.h && wi >= 0 && wi < p.w && c < p.cin;
-      const T* px = xb + ((size_t)(ok ? hi : 0) * p.w + (ok ? wi : 0)) * p.cin;
+      const int row = tid / PIECES + i * ROWS;
+      const int hi = (a_pos[i] >> 16) + dy, wi = (a_pos[i] & 0xffff) + dx;
+      const bool ok = in_k && hi >= 0 && hi < p.h && wi >= 0 && wi < p.w;
+      const T* px = src + ((size_t)(ok ? hi : 0) * p.w + (ok ? wi : 0)) * cs;
+      // At BN = 16 each gathered byte feeds few products and the nine
+      // taps' re-reads of a pixel set the pace: they may hit L1 there.
       if constexpr (ASYNC)
-        cp_async16(sa + swz<BK>(row, piece), ok ? px + c : xb, ok);
+        cp_async16<BN == 16>(sa + swz<BK>(row, piece), ok ? px + c : xb, ok);
       else
         *reinterpret_cast<uint4*>(smem + stage * STAGE + swz<BK>(row, piece)) =
-            gather8(px, c, p.cin, ok);
+            gather8(px, c, cs, ok);
     }
 #pragma unroll
     for (int i = 0; i < B_IT; ++i) {
-      const int row = tid / PIECES + i * (THREADS / PIECES);
-      const bool ok = b_ok[i] && c < p.cin_p;
-      cp_async16(sa + A_BYTES + swz<BK>(row, piece), ok ? b_src[i] + tap * p.cin_p + c : p.wk,
-                 ok);
+      const int row = tid / PIECES + i * ROWS;
+      if (BN < ROWS && row >= BN) continue;
+      const bool ok = (b_ok >> i & 1u) && in_k;
+      cp_async16(sa + A_BYTES + swz<BK>(row, piece),
+                 ok ? b_row + (size_t)i * ROWS * k_total + k : p.wk, ok);
     }
   };
 
@@ -697,8 +736,8 @@ __global__ void __launch_bounds__(tc_threads(BN), 512 / tc_threads(BN))
       }
 
   // Per-channel sums, in a fixed order: a thread's rows, then the lanes
-  // that share its columns (xor 4, 8, 16), then the two warps along M.
-  float* red = reinterpret_cast<float*>(smem);  // [2][BN][2]
+  // that share its columns (xor 4, 8, 16), then the warps along M.
+  float* red = reinterpret_cast<float*>(smem);  // [WARPS_M][BN][2]
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -725,9 +764,15 @@ __global__ void __launch_bounds__(tc_threads(BN), 512 / tc_threads(BN))
     }
   __syncthreads();
   if (tid < BN && n0 + tid < p.cout) {
+    float s1 = red[tid * 2], s2 = red[tid * 2 + 1];
+#pragma unroll
+    for (int wm = 1; wm < WARPS_M; ++wm) {
+      s1 += red[(wm * BN + tid) * 2];
+      s2 += red[(wm * BN + tid) * 2 + 1];
+    }
     float* dst = p.partials + ((((size_t)b * gridDim.x + blockIdx.x) * p.cout) + n0 + tid) * 2;
-    dst[0] = red[tid * 2] + red[(BN + tid) * 2];
-    dst[1] = red[tid * 2 + 1] + red[(BN + tid) * 2 + 1];
+    dst[0] = s1;
+    dst[1] = s2;
   }
 }
 
@@ -784,11 +829,16 @@ cudaError_t launch_tc(const TcArgs& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The register path's 128-row tiles stop at BN = 32: wider ones spill
+// under the 128-register cap (its gather holds 8 floats a piece).
 template <typename T, int BM, int BK, bool ASYNC>
 cudaError_t launch_tc_bn(const TcArgs& p, int batch, int bn, cudaStream_t stream) {
+  if (bn == 16) return launch_tc<T, BM, 16, BK, ASYNC>(p, batch, stream);
   if (bn == 32) return launch_tc<T, BM, 32, BK, ASYNC>(p, batch, stream);
-  if (bn == 64) return launch_tc<T, BM, 64, BK, ASYNC>(p, batch, stream);
-  if (bn == 128) return launch_tc<T, BM, 128, BK, ASYNC>(p, batch, stream);
+  if constexpr (ASYNC || BM == 64) {
+    if (bn == 64) return launch_tc<T, BM, 64, BK, ASYNC>(p, batch, stream);
+    if (bn == 128) return launch_tc<T, BM, 128, BK, ASYNC>(p, batch, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -863,35 +913,47 @@ extern "C" int conv_gn_elu_forward(const void* x, const void* lat, const void* w
   return (int)err;
 }
 
-// The tensor-core route: stride 1, SAME, one input, bf16 taps.  x (B, H, W,
-// cin) in in_dtype (fp32 is rounded to bf16 as gathered); wk bf16 (cout,
-// 9 * cin_p), cin_p = cin rounded up to 8, K-major, zero beyond cin; scale,
-// bias fp32 (cout).  y (B, H*W, cout) and partials (B, mtiles, cout, 2) are
-// fp32 scratch with mtiles = ceil(H*W / bm); (bm, bn) is one of {64, 128} x
-// {32, 64, 128}, bm = 64 where bf16 x has cin % 64 == 0.  a, yn, inv as conv_gn_elu_forward.  Two inputs, stride 2,
-// the upsample and fp32 taps have no argument here: they take
+// The tensor-core route: stride 1, SAME, bf16 taps, one input or two.  x
+// (B, H, W, cx) and lat (B, H, W, cl; null and cl = 0 for one input) in
+// in_dtype (fp32 is rounded to bf16 as gathered); wk bf16 (cout, 9 * (cx_p +
+// cl_p)), cx_p and cl_p = cx and cl rounded up to 8, K-major: column tap *
+// (cx_p + cl_p) + c holds wx's channel c below cx_p, wl's channel c - cx_p
+// above, zero in the padding; scale, bias fp32 (cout).  y (B, H*W, cout) and
+// partials (B, mtiles, cout, 2) are fp32 scratch with mtiles = ceil(H*W /
+// bm); (bm, bn) is one of {64, 128} x {16, 32, 64, 128}, bm = 64 where
+// cx_p + cl_p is a multiple of 64, and bn <= 32 at bm = 128 where an input
+// takes the register path (fp32, or cx or cl % 8 != 0).  a, yn, inv as
+// conv_gn_elu_forward.
+// Stride 2, the upsample and fp32 taps have no argument here: they take
 // conv_gn_elu_forward.  Returns a cudaError_t.
-extern "C" int conv_gn_elu_forward_tc(const void* x, const void* wk, const void* scale,
-                                      const void* bias, void* y, void* partials, void* a,
-                                      void* yn, void* inv, int batch, int h, int w, int cin,
-                                      int cout, int groups, float eps, int in_dtype,
-                                      int out_dtype, int bm, int bn, int rows_per_chunk,
-                                      void* stream) {
+extern "C" int conv_gn_elu_forward_tc(const void* x, const void* lat, const void* wk,
+                                      const void* scale, const void* bias, void* y,
+                                      void* partials, void* a, void* yn, void* inv, int batch,
+                                      int h, int w, int cx, int cl, int cout, int groups,
+                                      float eps, int in_dtype, int out_dtype, int bm, int bn,
+                                      int rows_per_chunk, void* stream) {
   if (cout < 1 || cout > kMaxC || groups < 1 || cout % groups != 0 || batch < 1 ||
-      batch > 65535 || cin < 1 || h < 1 || w < 1 || rows_per_chunk < 1 ||
-      (bm != 64 && bm != 128) || (bn != 32 && bn != 64 && bn != 128))
+      batch > 65535 || cx < 1 || cl < 0 || (cl > 0) != (lat != nullptr) || h < 1 ||
+      h >= 32768 || w < 1 || w >= 65536 ||
+      rows_per_chunk < 1 || (bm != 64 && bm != 128) ||
+      (bn != 16 && bn != 32 && bn != 64 && bn != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   TcArgs p;
   p.x = x;
+  p.lat = cl > 0 ? lat : x;
   p.wk = static_cast<const __nv_bfloat16*>(wk);
   p.y = static_cast<float*>(y);
   p.partials = static_cast<float*>(partials);
-  p.h = h; p.w = w; p.cin = cin; p.cin_p = (cin + 7) / 8 * 8; p.cout = cout;
+  p.h = h; p.w = w; p.cx = cx; p.cl = cl; p.cout = cout;
+  p.cx_p = (cx + 7) / 8 * 8;
+  p.cl_p = (cl + 7) / 8 * 8;
+  // cp.async needs every 8 channels of a pixel 16-byte aligned in both sources
+  const bool aligned = cx % 8 == 0 && cl % 8 == 0;
   cudaError_t err;
-  if (in_dtype == 1 && cin % 64 == 0)
+  if (in_dtype == 1 && aligned && (p.cx_p + p.cl_p) % 64 == 0)
     err = launch_tc_tile<__nv_bfloat16, 64, true>(p, batch, bm, bn, st);
-  else if (in_dtype == 1 && cin % 8 == 0)
+  else if (in_dtype == 1 && aligned)
     err = launch_tc_tile<__nv_bfloat16, 32, true>(p, batch, bm, bn, st);
   else if (in_dtype == 1)
     err = launch_tc_tile<__nv_bfloat16, 32, false>(p, batch, bm, bn, st);

@@ -11,12 +11,14 @@ analytic backward.  ``kernels/fusion_bt.py`` and
 source (``csrc/conv_gn_elu.cu``) says what bounds the kernels and what
 its two launches do about it.
 
-Two K loops stand behind the entry points (``kernel_route``):
-``fused_conv_gn_elu`` and ``fused_conv_gn_elu_bt`` with bf16 taps take
-the tensor-core kernel (``mma.sync`` on bf16 operands, fp32 sums, as the
-TPU kernels on the MXU; tile from ``tc_tile``, weights from
-``pack_weight_tc``); fp32 taps, which are exact fp32 in the JAX
-reference, and the other four entry points take the FMA kernel.
+Two K loops stand behind the entry points (``kernel_route``): the four
+stride-1 entry points (``fused_conv_gn_elu``, ``fused_conv_gn_elu_bt``
+and the two-input ``fused_fusion_bt`` and ``fused_fusion_block``) with
+bf16 taps take the tensor-core kernel (``mma.sync`` on bf16 operands,
+fp32 sums, as the TPU kernels on the MXU; tile from ``tc_tile``, weights
+from ``pack_weight_tc``); fp32 taps, which are exact fp32 in the JAX
+reference, and the stride-2 and upsample entry points take the FMA
+kernel.
 
 The function: SAME 3x3 convolution of x and the weights, both rounded
 to the tap dtype, accumulated in fp32; per-(image, group) single-pass
@@ -78,7 +80,7 @@ def load() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p] * 11 + [i] * 12 + [f] + [i] * 6 + [p]
-        tc.argtypes = [p] * 9 + [i] * 6 + [f] + [i] * 5 + [p]
+        tc.argtypes = [p] * 10 + [i] * 7 + [f] + [i] * 5 + [p]
         fn.restype = tc.restype = ctypes.c_int
     return lib
 
@@ -98,35 +100,58 @@ def pack_weight(w: torch.Tensor, tap: torch.dtype) -> torch.Tensor:
             .view(9, cs, cout))
 
 
-def pack_weight_tc(w: torch.Tensor) -> torch.Tensor:
-    """OIHW (Cout, Cin, 3, 3) -> the tensor-core kernel's bf16 (Cout,
-    9 * Cin_p), K-major: column (3 ky + kx) * Cin_p + c, Cin_p = Cin
-    rounded up to 8 (the pad columns zero, so every 16-byte copy of 8
-    channels is aligned), values rounded to bf16."""
-    cout, cin = w.shape[:2]
-    wk = w.detach().permute(0, 2, 3, 1)  # (Cout, 3, 3, Cin)
-    if cin % 8:
-        wk = F.pad(wk, (0, -cin % 8))
-    # one cast-and-transpose kernel on the card
-    return wk.to(torch.bfloat16, memory_format=torch.contiguous_format).view(cout, -1)
+def pad8(c: int) -> int:
+    """A channel count rounded up to 8: one 16-byte copy of bf16."""
+    return -(-c // 8) * 8
+
+
+def pack_weight_tc(w: torch.Tensor, wl: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """OIHW (Cout, Cx, 3, 3) and, for two inputs, the lateral's half wl
+    (Cout, Cl, 3, 3) -> the tensor-core kernel's bf16 (Cout, 9 * (Cx_p +
+    Cl_p)), K-major: column (3 ky + kx) * (Cx_p + Cl_p) + c holds w's
+    channel c below Cx_p and wl's channel c - Cx_p above, Cx_p and Cl_p
+    the channel counts rounded up to 8 (the pad columns zero, so every
+    16-byte copy of 8 channels is aligned and lies in one source), values
+    rounded to bf16.  The halves may be strided slices of one kernel;
+    each takes one cast-and-transpose copy on the card."""
+    halves = [w] if wl is None else [w, wl]
+    cout = w.shape[0]
+    wk = torch.empty((cout, 3, 3, sum(pad8(h.shape[1]) for h in halves)),
+                     dtype=torch.bfloat16, device=w.device)
+    c0 = 0
+    for h in halves:
+        cs = h.shape[1]
+        wk[..., c0:c0 + cs].copy_(h.detach().permute(0, 2, 3, 1))
+        if cs % 8:
+            wk[..., c0 + cs:c0 + pad8(cs)].zero_()
+        c0 += pad8(cs)
+    return wk.view(cout, -1)
 
 
 SMS = 132  # streaming multiprocessors of an H100
-TC_TILES = tuple((bm, bn) for bm in (64, 128) for bn in (32, 64, 128))
+TC_TILES = tuple((bm, bn) for bm in (64, 128) for bn in (16, 32, 64, 128))
 
 
-def tc_tile(b: int, m: int, cin: int, cout: int) -> Tuple[int, int]:
+def tc_tile(b: int, m: int, cin: int, cout: int,
+            gather: bool = False) -> Tuple[int, int]:
     """(BM, BN) of the tensor-core kernel for ``b`` images of ``m``
-    output pixels, ``cin`` input and ``cout`` output channels.  Where
-    Cin % 64 == 0 the kernel takes 64 channels a K step, and only 64-row
-    tiles (128 rows spill at that step).  Padded rows and columns are
-    tensor-core work thrown away (a 128-row tile over the 52 pixels of a
-    4x13 map wastes 59% of it), so only tiles that pad the output map at
-    most 10% more than the tightest one are taken; of those, the largest
-    (BN <= Cout where Cout allows) whose grid fills one wave of the
-    card's SMs, ties to the less padded, then the taller.  Where none
-    fills a wave, the one with the most blocks."""
-    fits = [t for t in TC_TILES if t[1] <= max(32, cout) and (cin % 64 or t[0] == 64)]
+    output pixels, ``cin`` K columns a tap (Cx_p + Cl_p: the input
+    channels, each source's rounded up to 8) and ``cout`` output
+    channels.  Where Cin % 64 == 0 the kernel takes 64 columns a K step,
+    and only 64-row tiles (128 rows spill at that step); so do the
+    register path's (``gather``: fp32 inputs, or a channel count % 8 !=
+    0) tiles wider than 32 channels.  BN = 16 serves
+    Cout <= 16 alone, so a deep site never trades its tile for thinner
+    blocks.  Padded rows and columns are tensor-core work thrown away (a
+    128-row tile over the 52 pixels of a 4x13 map wastes 59% of it), so
+    only tiles that pad the output map at most 10% more than the
+    tightest one are taken; of those, the largest (BN <= Cout where Cout
+    allows) whose grid fills one wave of the card's SMs, ties to the
+    less padded, then the taller.  Where none fills a wave, the one with
+    the most blocks."""
+    narrow = 16 if cout <= 16 else 32
+    fits = [t for t in TC_TILES if narrow <= t[1] <= max(narrow, cout)
+            and (t[0] == 64 or (cin % 64 and not (gather and t[1] > 32)))]
 
     def blocks(t):
         return b * -(-m // t[0]) * -(-cout // t[1])
@@ -152,9 +177,14 @@ def apply_rows(b: int, m: int, cout: int) -> int:
 
 def kernel_route(counter: Callable, tap_dtype: str) -> str:
     """Which K loop an entry point's launch runs: "tc" (tensor cores) for
-    the two stride-1, one-input entry points with bf16 taps, "fma" for
-    fp32 taps and for every other entry point."""
-    tc_entries = (fused_conv_gn_elu, fused_conv_gn_elu_bt)
+    the four stride-1 entry points (one input or two) with bf16 taps,
+    "fma" for fp32 taps and for the stride-2 and upsample entry points."""
+    # the two-input modules import this one
+    from gdn_tpu_torch.kernels.fusion_block import fused_fusion_block
+    from gdn_tpu_torch.kernels.fusion_bt import fused_fusion_bt
+
+    tc_entries = (fused_conv_gn_elu, fused_conv_gn_elu_bt, fused_fusion_bt,
+                  fused_fusion_block)
     return "tc" if tap_dtype == "bfloat16" and counter in tc_entries else "fma"
 
 
@@ -221,11 +251,11 @@ def _launch(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
     route = route or kernel_route(counter, tap_dtype)
     if route not in ("tc", "fma"):
         raise ValueError(f"unknown route {route!r} (tc|fma)")
-    if route == "tc" and (lat is not None or stride != 1 or upsample
-                          or tap_dtype != "bfloat16"):
-        raise ValueError("the tensor-core kernel takes one input, stride 1, no "
-                         "upsample and bf16 taps")
+    if route == "tc" and (stride != 1 or upsample or tap_dtype != "bfloat16"):
+        raise ValueError("the tensor-core kernel takes stride 1, no upsample and "
+                         "bf16 taps")
     b, cx, h, w = x.shape
+    cl = 0 if lat is None else lat.shape[1]
     cout = wx.shape[0]
     if cout > _MAX_C:
         raise ValueError(f"Cout={cout} exceeds the kernel's limit of {_MAX_C}")
@@ -243,7 +273,9 @@ def _launch(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
         ho, wo = -(-h // stride), -(-w // stride)
         pad_top, pad_left = same_pads(h, 3, stride)[0], same_pads(w, 3, stride)[0]
     m = ho * wo
-    bm, bn = tc_tile(b, m, cx, cout) if route == "tc" else (block_rows(cout), None)
+    gather = x.dtype != torch.bfloat16 or cx % 8 != 0 or cl % 8 != 0  # register path
+    bm, bn = (tc_tile(b, m, pad8(cx) + pad8(cl), cout, gather) if route == "tc"
+              else (block_rows(cout), None))
     mtiles = -(-m // bm)
     dev = x.device
     scale32 = scale.detach().float().contiguous()
@@ -260,18 +292,18 @@ def _launch(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows_per_chunk = apply_rows(b, m, cout)
     if route == "tc":
-        wk = pack_weight_tc(wx)
+        wk = pack_weight_tc(wx, wl if lat is not None else None)
         err = load().conv_gn_elu_forward_tc(
-            ptr(x), ptr(wk), ptr(scale32), ptr(bias32), ptr(y), ptr(partials), ptr(a),
-            ptr(yn), ptr(inv), b, h, w, cx, cout, groups, float(eps), _DTYPES[x.dtype],
-            _DTYPES[out_dtype], bm, bn, rows_per_chunk, stream)
+            ptr(x), ptr(lat), ptr(wk), ptr(scale32), ptr(bias32), ptr(y), ptr(partials),
+            ptr(a), ptr(yn), ptr(inv), b, h, w, cx, cl, cout, groups, float(eps),
+            _DTYPES[x.dtype], _DTYPES[out_dtype], bm, bn, rows_per_chunk, stream)
     else:
         wxp = pack_weight(wx, tap)
         wlp = pack_weight(wl, tap) if lat is not None else None
         err = load().conv_gn_elu_forward(
             ptr(x), ptr(lat), ptr(wxp), ptr(wlp), ptr(scale32), ptr(bias32), ptr(y),
             ptr(partials), ptr(a), ptr(yn), ptr(inv),
-            b, h, w, cx, 0 if lat is None else lat.shape[1], cout, ho, wo, stride,
+            b, h, w, cx, cl, cout, ho, wo, stride,
             pad_top, pad_left, groups, float(eps), _DTYPES[x.dtype], _DTYPES[out_dtype],
             int(tap == torch.bfloat16 and (upsample or x.dtype == torch.float32)), bm,
             rows_per_chunk, int(upsample), stream)

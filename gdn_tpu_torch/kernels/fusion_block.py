@@ -5,8 +5,9 @@ Replaces the TPU kernel
 ``gdn_tpu/kernels/fusion_block.py::fused_fusion_block``.  It is to
 ``fused_fusion_bt`` (``kernels/fusion_bt.py``) what ``fused_conv_gn_elu``
 is to ``fused_conv_gn_elu_bt``: the same CUDA kernels
-(``csrc/conv_gn_elu.cu``, the K loop over x through ``wx`` and then the
-lateral through ``wl``), here with an fp32 store and no residuals, and a
+(``csrc/conv_gn_elu.cu``: the tensor-core K loop with bf16 taps, the FMA
+one with fp32 taps, both over x and then the lateral, no concat built),
+here with an fp32 store and no residuals, and a
 backward that keeps the inputs and takes the VJP of the fp32 reference
 on them (``FusedRecompute``) instead of the analytic one.  The TPU
 kernel's lane and spatial padding and its VMEM gate have no counterpart:

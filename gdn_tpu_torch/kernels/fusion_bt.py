@@ -3,10 +3,12 @@ with the concatenated tensor never built.
 
 Replaces the TPU kernel ``gdn_tpu/kernels/fusion_bt.py::fused_fusion_bt``.
 The CUDA kernels are those of ``kernels/conv_gn_elu.py``
-(``csrc/conv_gn_elu.cu``): the convolution's K loop walks x's channels
-through ``wx`` and then the lateral's through ``wl``, the two halves of
-the concat conv's kernel, so neither the (Cx+Cl)-channel activation nor
-a concatenated weight exists in device memory.  No gate on channel
+(``csrc/conv_gn_elu.cu``): with bf16 taps the tensor-core K loop, whose
+K columns a tap are x's channels and then the lateral's, gathered from
+the two tensors against one bf16 pack of ``wx`` and ``wl``; with fp32
+taps the FMA K loop, which walks x's channels through ``wx`` and then
+the lateral's through ``wl``.  Either way the (Cx+Cl)-channel
+activation never exists in device memory.  No gate on channel
 counts or sizes: the (16+32) -> 16 site at 128x416, which the TPU
 kernel's VMEM gate refuses, runs the kernel too.
 

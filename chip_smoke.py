@@ -11,7 +11,8 @@ repository around this file.  Phases, each printed on its own lines:
               nvcc each, started together (conv_gn_elu holds the whole
               fused conv family, the upsample entry point included);
               then the count of HMMA (tensor-core) instructions in the
-              SASS of every conv3x3_stats_tc instantiation (cuobjdump),
+              SASS of every instantiation of the tensor-core kernels
+              (conv3x3_stats_tc and conv3x3_stats_tc_up; cuobjdump),
               which must not be zero;
   3. kernels  at every (B=8, C, H, W, groups) shape the KITTI serving
               forward gives the GroupNorm+ELU kernel, in bf16 and fp32:
@@ -46,13 +47,12 @@ repository around this file.  Phases, each printed on its own lines:
               and fp32, and at ragged shapes: a, yn, inv; with device
               times of the kernel, the plain version and the unfused
               route (cuDNN conv [+ cat] + the GroupNorm+ELU kernel), and
-              the bound.  The three stride-1 entry points of this phase
-              (per image, bt, fusion_bt), whose bf16 taps run the
-              tensor-core K loop: also fp32 inputs under bf16 taps at
+              the bound.  Every entry point, whose bf16 taps run the
+              tensor-core K loops: also fp32 inputs under bf16 taps at
               every site and ragged shape, and at every site the FMA K
-              loop's time on the same inputs in the same call (their
-              route before the tensor-core kernel, launched through the
-              wrapper's route argument, not counted);
+              loop's time on the same inputs in the same call (the
+              route of fp32 taps, launched through the wrapper's route
+              argument, not counted);
  11. conv grad  gradients through each fused entry point's autograd
               Function vs autograd of its plain version, a shallow and a
               deep site each;
@@ -71,9 +71,10 @@ repository around this file.  Phases, each printed on its own lines:
               (H = 1, W = 1, odd W, 2W not a multiple of 8, Cin 5 and 48,
               Cout 6 and 40, Cx 12), with the times and bounds of phase
               10 (the unfused routes: the composed transposed conv, or cat
-              + cuDNN conv, + the GroupNorm+ELU kernel); the fusion block
-              (tensor-core K loop with bf16 taps) also with fp32 inputs
-              under bf16 taps and beside the FMA K loop, as phase 10;
+              + cuDNN conv, + the GroupNorm+ELU kernel; for the upsample
+              also resize_bilinear + cuDNN conv, the uncomposed route),
+              also with fp32 inputs under bf16 taps and beside the FMA K
+              loop, as phase 10;
  16. their gradients  through each autograd Function vs autograd of the
               fp32 reference, a shallow and a deep site each;
  17. fusion slice  serving with use_pallas_fusion on (11 GN+ELU, 5
@@ -125,8 +126,6 @@ FUSION = {"model.use_pallas_fusion": True}
 COUNTERS = ("group_norm_elu", "fused_loss_fwd", "fused_loss_bwd", "conv_gn_elu",
             "conv_gn_elu_bt", "conv_gn_elu_s2", "fusion_bt", "fusion_block", "upsample")
 FP32_OUT = ("conv_gn_elu", "fusion_block", "upsample")  # store fp32 a, no residuals
-# bf16 taps: the tensor-core K loop (the four stride-1 entry points)
-TC_ENTRIES = ("conv_gn_elu", "conv_gn_elu_bt", "fusion_bt", "fusion_block")
 FMA_TIMING = types.SimpleNamespace(launches=0)  # counter of the FMA comparison launches
 # Fused loss operation counts per pixel for an 11-tap window, the least
 # the algorithm needs: forward = 3 products + 5 moments x 2 passes x 11
@@ -240,8 +239,9 @@ def device_ms(fns, iters=20, what=""):
 
 
 def sass_hmma():
-    """{conv3x3_stats_tc instantiation: HMMA instructions in its SASS}
-    of the built conv_gn_elu library, from ``cuobjdump -sass``."""
+    """{tensor-core kernel instantiation (conv3x3_stats_tc and
+    conv3x3_stats_tc_up): HMMA instructions in its SASS} of the built
+    conv_gn_elu library, from ``cuobjdump -sass``."""
     from gdn_tpu_torch.kernels import build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -865,9 +865,11 @@ def _conv_case(name, shape, dtype, copies, gen, tap=None):
     (with residuals; ``serve`` is the no-grad entry point that stores a
     alone), the plain version, and the unfused route the port offers
     (cuDNN conv [+ cat] + the GroupNorm+ELU kernel; for the upsample the
-    composed transposed conv in front of it); for the four stride-1 entry
-    points also ``fma(residuals)``, the same launch through the FMA K
-    loop.  ``tap`` is the tap dtype, x's by default."""
+    composed transposed conv in front of it, and in
+    ``library_uncomposed`` resize_bilinear + cuDNN conv, the
+    ``resize_conv_composed=False`` route); and ``fma(residuals)``, the
+    same launch through the FMA K loop.  ``tap`` is the tap dtype, x's by
+    default."""
     from gdn_tpu_torch.kernels import conv_gn_elu as ck
     from gdn_tpu_torch.kernels import fusion_block as fb
     from gdn_tpu_torch.kernels import fusion_bt as fk
@@ -875,10 +877,11 @@ def _conv_case(name, shape, dtype, copies, gen, tap=None):
     from gdn_tpu_torch.kernels.groupnorm import group_norm_elu
     from gdn_tpu_torch.ops.conv import conv_same
     from gdn_tpu_torch.ops.groupnorm import pick_groups
-    from gdn_tpu_torch.ops.resize import composed_resize_conv2x
+    from gdn_tpu_torch.ops.resize import composed_resize_conv2x, resize_bilinear
 
     cl = torch.channels_last
     tap = tap or ("bfloat16" if dtype == torch.bfloat16 else "float32")
+    library_uncomposed = None
     b, *chans, h, w = shape
     cout, cins = chans[-1], chans[:-1]
     stride = 2 if name == "conv_gn_elu_s2" else 1
@@ -923,6 +926,10 @@ def _conv_case(name, shape, dtype, copies, gen, tap=None):
         serve = None
         kcl = kd.contiguous(memory_format=cl)
 
+        def library_uncomposed(x):  # resize_conv_composed=False
+            y = conv_same(resize_bilinear(x, (2 * h, 2 * w), precise=False), kd)
+            return group_norm_elu(y, scale, bias, g)
+
         def kernel(x):
             return (uk.fused_upsample_conv(x, k, scale, bias, g, 1e-6, tap), None, None)
 
@@ -954,24 +961,33 @@ def _conv_case(name, shape, dtype, copies, gen, tap=None):
 
         def library(x):
             return group_norm_elu(conv_same(x, kd, stride), scale, bias, g)
-    fma = None
-    if name in TC_ENTRIES:
-        wx, wl = ks if len(cins) == 2 else (k, None)
+    wx, wl = ks if len(cins) == 2 else (k, None)
 
-        def fma(residuals):
-            return lambda x, lat=None: ck._launch(FMA_TIMING, x, lat, wx, wl, scale, bias, g,
-                                                  1e-6, 1, tap, out_dtype, residuals,
-                                                  route="fma")
-    ho, wo = (2 * h, 2 * w) if name == "upsample" else (-(-h // stride), -(-w // stride))
-    item = torch.finfo(dtype).bits // 8
-    out_item = 4 if name in FP32_OUT else item
-    flops = 18 * sum(cins) * cout * ho * wo * b
-    in_bytes = b * sum(cins) * h * w * item + k.numel() * 4 + 2 * cout * 4
-    out_elems = b * cout * ho * wo
+    def fma(residuals):
+        return lambda x, lat=None: ck._launch(FMA_TIMING, x, lat, wx, wl, scale, bias, g,
+                                              1e-6, stride, tap, out_dtype, residuals,
+                                              upsample=name == "upsample", route="fma")
     ins = list(zip(*xs))  # one tuple of inputs per copy
     return dict(kernel=kernel, serve=serve, plain=plain, library=library, ins=ins, fma=fma,
-                flops=flops, in_bytes=in_bytes, a_bytes=out_elems * out_item,
-                res_bytes=out_elems * out_item + b * cout * 4)
+                library_uncomposed=library_uncomposed)
+
+
+def conv_work(name, shape, item, residuals):
+    """(flops, bytes) of one call of fused entry point ``name`` on input
+    ``shape`` (B, channels..., H, W), as in ``conv_sites`` and RAGGED,
+    ``item`` bytes an input element: 18 Cin Cout Ho Wo B flops; the
+    inputs read once, the fp32 weights, scale and bias, and ``a`` (fp32
+    for the fp32-out entry points, else x's dtype) written once, with
+    ``residuals`` also ``yn`` (as ``a``) and the fp32 ``inv``."""
+    b, *chans, h, w = shape
+    cout, cin = chans[-1], sum(chans[:-1])
+    stride = 2 if name == "conv_gn_elu_s2" else 1
+    ho, wo = (2 * h, 2 * w) if name == "upsample" else (-(-h // stride), -(-w // stride))
+    out_item = 4 if name in FP32_OUT else item
+    out = b * cout * ho * wo * out_item
+    in_bytes = b * cin * h * w * item + 9 * cin * cout * 4 + 2 * cout * 4
+    out_bytes = out + (out + b * cout * 4 if residuals else 0)
+    return 18 * cin * cout * ho * wo * b, in_bytes + out_bytes
 
 
 def phase_conv_kernels(cfg, names):
@@ -985,31 +1001,31 @@ def phase_conv_kernels(cfg, names):
     the fp32 a of the per-image, fusion-block and upsample entry points
     (the same bf16 taps on both sides: the upsample's plain version blends
     in the kernel's order, and the kernel pins each rounding) at the fp32
-    tolerance; so are a and yn of the stride-1 entry points with fp32
-    inputs under bf16 taps (both sides round the inputs to bf16 and sum
-    exact products in fp32).  The bound is the larger of the flops at the
-    card's peak for the tap dtype (dense bf16 tensor rate; fp32 FMA
-    rate for fp32 taps) and the bytes (inputs and weights read once, a
-    and, where stored, yn and inv written once) at the memory rate."""
+    tolerance; so are a and yn with fp32 inputs under bf16 taps (both
+    sides round the inputs, or the upsample's blend, to bf16 and sum
+    exact products in fp32).  The bound is the larger of the flops at
+    the card's peak for the tap dtype (dense bf16 tensor rate; fp32 FMA
+    rate for fp32 taps) and the bytes (``conv_work``) at the memory
+    rate.  With bf16 taps the FMA K loop runs on the same inputs in the
+    same call (``fma_ms``), and for the upsample also the uncomposed
+    route (``library_uncomposed_ms``)."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(5)
     sites = conv_sites(cfg.model)
     for name in names:
         cases = [((b, *site), True) for b in (BATCH, TRAIN_BATCH) for site in sites[name]]
         cases += [(shape, False) for shape in RAGGED[name]]
-        runs = [(torch.bfloat16, "bfloat16"), (torch.float32, "float32")]
-        if name in TC_ENTRIES:  # fp32 inputs, rounded to bf16 as the kernel gathers them
-            runs.append((torch.float32, "bfloat16"))
+        # fp32 inputs under bf16 taps: rounded to bf16 as the kernel gathers them
+        runs = [(torch.bfloat16, "bfloat16"), (torch.float32, "float32"),
+                (torch.float32, "bfloat16")]
         for shape, site in cases:
             for dtype, tap in runs:
                 b = shape[0]
                 main = site and tap == ("bfloat16" if dtype == torch.bfloat16 else "float32")
-                probe = _conv_case(name, shape, dtype, 1, gen, tap)
-                nbytes = probe["in_bytes"] + probe["res_bytes"]
+                item = torch.finfo(dtype).bits // 8
+                nbytes = conv_work(name, shape, item, True)[1]
                 copies = min(4, max(1, -(-2 * L2_BYTES // nbytes))) if main else 1
-                case = (probe if copies == 1
-                        else _conv_case(name, shape, dtype, copies, gen, tap))
-                del probe
+                case = _conv_case(name, shape, dtype, copies, gen, tap)
                 got = case["kernel"](*case["ins"][0])
                 torch.cuda.synchronize()
                 want = case["plain"](*case["ins"][0])
@@ -1031,29 +1047,31 @@ def phase_conv_kernels(cfg, names):
                     # residuals).
                     train = b == TRAIN_BATCH and case["serve"] is not None
                     timed = case["kernel"] if train or case["serve"] is None else case["serve"]
-                    out_bytes = case["res_bytes"] if train else case["a_bytes"]
+                    flops, nbytes = conv_work(name, shape, item, train)
                     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-                    t_ops = case["flops"] / peak
-                    t_bytes = (case["in_bytes"] + out_bytes) / HBM_BYTES_PER_S
+                    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+                    routes = [("ms", timed), ("plain_ms", case["plain"]),
+                              ("library_ms", case["library"])]
+                    if case["library_uncomposed"] is not None:
+                        routes.append(("library_uncomposed_ms", case["library_uncomposed"]))
                     row.update(
-                        residuals=train, flops=case["flops"],
-                        bytes=case["in_bytes"] + out_bytes,
+                        residuals=train, flops=flops, bytes=nbytes,
                         bound_ms=1e3 * max(t_ops, t_bytes),
                         bound_by="operations" if t_ops >= t_bytes else "bytes",
                         **{key: device_ms([lambda i=i: fn(*i) for i in case["ins"]], 10,
-                                          f"{what} {key}")
-                           for key, fn in (("ms", timed), ("plain_ms", case["plain"]),
-                                           ("library_ms", case["library"]))})
-                    row["tflops"] = case["flops"] / row["ms"] / 1e9
+                                          f"{what} {key}") for key, fn in routes})
+                    row["tflops"] = flops / row["ms"] / 1e9
                     line += (f"  device us: kernel {row['ms']*1e3:.1f} "
                              f"({row['tflops']:.1f} TFLOP/s) plain {row['plain_ms']*1e3:.1f}"
                              f" unfused {row['library_ms']*1e3:.1f} bound "
                              f"{row['bound_ms']*1e3:.2f} ({row['bound_by']})")
-                    if case["fma"] is not None and tap == "bfloat16":
+                    if "library_uncomposed_ms" in row:
+                        line += f" uncomposed {row['library_uncomposed_ms']*1e3:.1f}"
+                    if tap == "bfloat16":
                         fma = case["fma"](train)
                         row["fma_ms"] = device_ms([lambda i=i: fma(*i) for i in case["ins"]],
                                                   10, f"{what} fma_ms")
-                        row["fma_tflops"] = case["flops"] / row["fma_ms"] / 1e9
+                        row["fma_tflops"] = flops / row["fma_ms"] / 1e9
                         line += (f"; FMA K loop {row['fma_ms']*1e3:.1f} "
                                  f"({row['fma_tflops']:.1f} TFLOP/s, same call)")
                 rows.append(row)
@@ -1163,10 +1181,10 @@ def _family_entry(name, line, rows, launches, hmma):
     """One fused conv entry point's object of the kernels line: its five
     sites of a net summed at the batch its main path runs in bf16 (B=8
     serving for the per-image kernel, B=32 training for the others; the
-    B=8 sums are in chip_smoke.json).  The four tensor-core entry points
-    add the FMA K loop's time on the same inputs (``fma_ms``), the error
-    with fp32 inputs under bf16 taps, and the HMMA count of their
-    kernel's SASS."""
+    B=8 sums are in chip_smoke.json), with the FMA K loop's time on the
+    same inputs (``fma_ms``), the error with fp32 inputs under bf16 taps,
+    the HMMA count of the tensor-core kernels' SASS and, for the
+    upsample, the uncomposed library route beside the composed one."""
     batch = BATCH if name == "conv_gn_elu" else TRAIN_BATCH
     # (fusion_block and upsample run in serving at B=8 and in training
     # at B=32; their line takes the training batch like bt, s2, fusion_bt)
@@ -1175,14 +1193,9 @@ def _family_entry(name, line, rows, launches, hmma):
               and r["dtype"] == str(torch.bfloat16)]
     bound = {by: sum(r["bound_ms"] for r in picked if r["bound_by"] == by)
              for by in ("operations", "bytes")}
-    tc = {}
-    if name in TC_ENTRIES:
-        tc = {"k_loop": "tensor cores (mma.sync bf16, fp32 sums)",
-              "fma_ms": sum(r["fma_ms"] for r in picked),
-              "max_abs_err_fp32_in_bf16_taps": max(
-                  max(r["max_abs_err"].values()) for r in rows if r["kernel"] == name
-                  and r["tap"] == "bfloat16" and r["dtype"] == str(torch.float32)),
-              "sass_hmma": hmma}
+    sums = ["ms", "plain_ms", "library_ms", "bound_ms", "fma_ms"]
+    if name == "upsample":
+        sums.append("library_uncomposed_ms")
     return {
         "name": name,
         "route": "cuda",
@@ -1193,11 +1206,14 @@ def _family_entry(name, line, rows, launches, hmma):
                            if r["dtype"] == str(torch.bfloat16)),
         "max_abs_err_fp32": max(max(r["max_abs_err"].values()) for r in mine
                                 if r["dtype"] == str(torch.float32)),
-        **{k: sum(r[k] for r in picked)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        **{k: sum(r[k] for r in picked) for k in sums},
         "bound_by": max(bound, key=bound.get),
         "shape": f"5 sites of a net, B={batch}, bf16",
-        **tc,
+        "k_loop": "tensor cores (mma.sync bf16, fp32 sums)",
+        "max_abs_err_fp32_in_bf16_taps": max(
+            max(r["max_abs_err"].values()) for r in rows if r["kernel"] == name
+            and r["tap"] == "bfloat16" and r["dtype"] == str(torch.float32)),
+        "sass_hmma": hmma,
     }
 
 
@@ -1229,7 +1245,7 @@ def main():
     hmma_by_fn = sass_hmma()
     hmma = sum(hmma_by_fn.values())
     log(f"  SASS: {hmma} HMMA instructions in {len(hmma_by_fn)} instantiations of "
-        f"conv3x3_stats_tc (per instantiation {min(hmma_by_fn.values(), default=0)}"
+        f"conv3x3_stats_tc{{,_up}} (per instantiation {min(hmma_by_fn.values(), default=0)}"
         f"-{max(hmma_by_fn.values(), default=0)})")
     if not hmma_by_fn or min(hmma_by_fn.values()) == 0:
         raise AssertionError(f"conv3x3_stats_tc without tensor-core instructions: {hmma_by_fn}")

@@ -11,14 +11,17 @@ analytic backward.  ``kernels/fusion_bt.py`` and
 source (``csrc/conv_gn_elu.cu``) says what bounds the kernels and what
 its two launches do about it.
 
-Two K loops stand behind the entry points (``kernel_route``): the four
-stride-1 entry points (``fused_conv_gn_elu``, ``fused_conv_gn_elu_bt``
-and the two-input ``fused_fusion_bt`` and ``fused_fusion_block``) with
-bf16 taps take the tensor-core kernel (``mma.sync`` on bf16 operands,
-fp32 sums, as the TPU kernels on the MXU; tile from ``tc_tile``, weights
-from ``pack_weight_tc``); fp32 taps, which are exact fp32 in the JAX
-reference, and the stride-2 and upsample entry points take the FMA
-kernel.
+Two K loops stand behind the entry points (``kernel_route``): all six
+with bf16 taps take the tensor cores (``mma.sync`` on bf16 operands,
+fp32 sums, as the TPU kernels on the MXU): the stride-1 and stride-2
+ones (``fused_conv_gn_elu``, ``fused_conv_gn_elu_bt``,
+``fused_conv_gn_elu_s2`` and the two-input ``fused_fusion_bt`` and
+``fused_fusion_block``) through ``conv3x3_stats_tc`` (tile from
+``tc_tile``, weights from ``pack_weight_tc``), ``fused_upsample_conv``
+through ``conv3x3_stats_tc_up``, which blends a halo tile of the
+upsampled map in shared memory once a channel chunk (tile from
+``up_tile``, weights from ``pack_weight_up``).  fp32 taps, which are
+exact fp32 in the JAX reference, take the FMA kernel.
 
 The function: SAME 3x3 convolution of x and the weights, both rounded
 to the tap dtype, accumulated in fp32; per-(image, group) single-pass
@@ -80,7 +83,7 @@ def load() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p] * 11 + [i] * 12 + [f] + [i] * 6 + [p]
-        tc.argtypes = [p] * 10 + [i] * 7 + [f] + [i] * 5 + [p]
+        tc.argtypes = [p] * 10 + [i] * 12 + [f] + [i] * 6 + [p]
         fn.restype = tc.restype = ctypes.c_int
     return lib
 
@@ -128,8 +131,47 @@ def pack_weight_tc(w: torch.Tensor, wl: Optional[torch.Tensor] = None) -> torch.
     return wk.view(cout, -1)
 
 
+UP_CHUNK = 32  # input channels a K step of the upsample kernel (one tap)
+UP_TW = 16  # U columns of the upsample kernel's tile (BM / 16 rows)
+
+
+def pack_weight_up(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (Cout, Cin, 3, 3) -> the upsample kernel's bf16 (Cout, 9 *
+    Cin_p), Cin_p = Cin rounded up to 32, channel chunk outer and tap
+    inner: column (chunk * 9 + 3 ky + kx) * 32 + c holds w's channel
+    chunk * 32 + c (zero past Cin), values rounded to bf16."""
+    cout, cin = w.shape[:2]
+    cin_p = -(-cin // UP_CHUNK) * UP_CHUNK
+    wk = F.pad(w.detach().to(torch.bfloat16), (0, 0, 0, 0, 0, cin_p - cin))
+    return (wk.view(cout, cin_p // UP_CHUNK, UP_CHUNK, 9).permute(0, 1, 3, 2)
+            .reshape(cout, 9 * cin_p))
+
+
 SMS = 132  # streaming multiprocessors of an H100
 TC_TILES = tuple((bm, bn) for bm in (64, 128) for bn in (16, 32, 64, 128))
+
+
+def _pick_tile(b: int, cout: int, tiles, mtiles: Callable[[int], int]) -> Tuple[int, int]:
+    """The rule ``tc_tile`` states, over ``tiles`` (BN already within
+    what Cout takes) for a map of ``mtiles(bm)`` m tiles an image."""
+    def blocks(t):
+        return b * mtiles(t[0]) * -(-cout // t[1])
+
+    def padded(t):
+        return mtiles(t[0]) * t[0] * -(-cout // t[1]) * t[1]
+
+    tight = min(padded(t) for t in tiles)
+    tiles = [t for t in tiles if padded(t) <= 1.1 * tight]
+    full = [t for t in tiles if blocks(t) >= SMS]
+    if full:
+        return min(full, key=lambda t: (-t[0] * t[1], padded(t), -t[0]))
+    return min(tiles, key=lambda t: (-blocks(t), padded(t), -t[0] * t[1]))
+
+
+def _narrow(cout: int):
+    """TC_TILES whose BN suits Cout: BN = 16 serves Cout <= 16 alone."""
+    narrow = 16 if cout <= 16 else 32
+    return [t for t in TC_TILES if narrow <= t[1] <= max(narrow, cout)]
 
 
 def tc_tile(b: int, m: int, cin: int, cout: int,
@@ -149,22 +191,26 @@ def tc_tile(b: int, m: int, cin: int, cout: int,
     allows) whose grid fills one wave of the card's SMs, ties to the
     less padded, then the taller.  Where none fills a wave, the one with
     the most blocks."""
-    narrow = 16 if cout <= 16 else 32
-    fits = [t for t in TC_TILES if narrow <= t[1] <= max(narrow, cout)
-            and (t[0] == 64 or (cin % 64 and not (gather and t[1] > 32)))]
+    fits = [t for t in _narrow(cout)
+            if t[0] == 64 or (cin % 64 and not (gather and t[1] > 32))]
+    return _pick_tile(b, cout, fits, lambda bm: -(-m // bm))
 
-    def blocks(t):
-        return b * -(-m // t[0]) * -(-cout // t[1])
 
-    def padded(t):
-        return -(-m // t[0]) * t[0] * -(-cout // t[1]) * t[1]
+def up_mtiles(ho: int, wo: int, bm: int) -> int:
+    """U tiles of an image in the upsample kernel: BM / 16 rows x 16
+    columns of the (ho, wo) map each."""
+    return -(-ho // (bm // UP_TW)) * -(-wo // UP_TW)
 
-    tight = min(padded(t) for t in fits)
-    fits = [t for t in fits if padded(t) <= 1.1 * tight]
-    full = [t for t in fits if blocks(t) >= SMS]
-    if full:
-        return min(full, key=lambda t: (-t[0] * t[1], padded(t), -t[0]))
-    return min(fits, key=lambda t: (-blocks(t), padded(t), -t[0] * t[1]))
+
+def up_tile(b: int, ho: int, wo: int, cout: int,
+            fp32_in: bool = False) -> Tuple[int, int]:
+    """(BM, BN) of the upsample kernel for ``b`` images of a (ho, wo)
+    map of U: ``tc_tile``'s rule over 2-D tiles.  Its K step is 32
+    channels whatever Cin, so 128-row tiles are open at any Cin; with
+    fp32 inputs (``fp32_in``) only to BN <= 32, as the register path's
+    (wider ones spill: the blend holds four float4 loads)."""
+    fits = [t for t in _narrow(cout) if t[0] == 64 or not (fp32_in and t[1] > 32)]
+    return _pick_tile(b, cout, fits, lambda bm: up_mtiles(ho, wo, bm))
 
 
 def apply_rows(b: int, m: int, cout: int) -> int:
@@ -177,14 +223,14 @@ def apply_rows(b: int, m: int, cout: int) -> int:
 
 def kernel_route(counter: Callable, tap_dtype: str) -> str:
     """Which K loop an entry point's launch runs: "tc" (tensor cores) for
-    the four stride-1 entry points (one input or two) with bf16 taps,
-    "fma" for fp32 taps and for the stride-2 and upsample entry points."""
-    # the two-input modules import this one
+    the six entry points with bf16 taps, "fma" for fp32 taps."""
+    # the two-input and upsample modules import this one
     from gdn_tpu_torch.kernels.fusion_block import fused_fusion_block
     from gdn_tpu_torch.kernels.fusion_bt import fused_fusion_bt
+    from gdn_tpu_torch.kernels.upsample import fused_upsample_conv
 
-    tc_entries = (fused_conv_gn_elu, fused_conv_gn_elu_bt, fused_fusion_bt,
-                  fused_fusion_block)
+    tc_entries = (fused_conv_gn_elu, fused_conv_gn_elu_bt, fused_conv_gn_elu_s2,
+                  fused_fusion_bt, fused_fusion_block, fused_upsample_conv)
     return "tc" if tap_dtype == "bfloat16" and counter in tc_entries else "fma"
 
 
@@ -245,15 +291,17 @@ def _launch(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
             route: Optional[str] = None) -> Residuals:
     """Run the kernels on CUDA tensors; adds one to ``counter.launches``.
     ``upsample`` convolves the bilinear 2x of x (one input, stride 1),
-    which the kernel blends as it gathers and never stores.  ``route``
-    ("tc" or "fma") overrides ``kernel_route``: the smoke check times the
-    FMA kernel beside the tensor-core one with it."""
+    which the kernels blend in shared memory or registers and never
+    store.  ``route`` ("tc" or "fma") overrides ``kernel_route``: the
+    smoke check times the FMA kernel beside the tensor-core one with it."""
     route = route or kernel_route(counter, tap_dtype)
     if route not in ("tc", "fma"):
         raise ValueError(f"unknown route {route!r} (tc|fma)")
-    if route == "tc" and (stride != 1 or upsample or tap_dtype != "bfloat16"):
-        raise ValueError("the tensor-core kernel takes stride 1, no upsample and "
-                         "bf16 taps")
+    if route == "tc" and (tap_dtype != "bfloat16" or stride not in (1, 2)
+                          or (upsample and stride != 1)
+                          or (lat is not None and (stride != 1 or upsample))):
+        raise ValueError("the tensor-core kernel takes bf16 taps, stride 1 or 2, the "
+                         "upsample at stride 1, and a lateral at stride 1 without it")
     b, cx, h, w = x.shape
     cl = 0 if lat is None else lat.shape[1]
     cout = wx.shape[0]
@@ -274,9 +322,13 @@ def _launch(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
         pad_top, pad_left = same_pads(h, 3, stride)[0], same_pads(w, 3, stride)[0]
     m = ho * wo
     gather = x.dtype != torch.bfloat16 or cx % 8 != 0 or cl % 8 != 0  # register path
-    bm, bn = (tc_tile(b, m, pad8(cx) + pad8(cl), cout, gather) if route == "tc"
-              else (block_rows(cout), None))
-    mtiles = -(-m // bm)
+    if route == "fma":
+        bm, bn = block_rows(cout), None
+    elif upsample:
+        bm, bn = up_tile(b, ho, wo, cout, x.dtype == torch.float32)
+    else:
+        bm, bn = tc_tile(b, m, pad8(cx) + pad8(cl), cout, gather)
+    mtiles = up_mtiles(ho, wo, bm) if route == "tc" and upsample else -(-m // bm)
     dev = x.device
     scale32 = scale.detach().float().contiguous()
     bias32 = bias.detach().float().contiguous()
@@ -292,11 +344,13 @@ def _launch(counter: Callable, x, lat, wx, wl, scale, bias, groups, eps, stride,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows_per_chunk = apply_rows(b, m, cout)
     if route == "tc":
-        wk = pack_weight_tc(wx, wl if lat is not None else None)
+        wk = (pack_weight_up(wx) if upsample
+              else pack_weight_tc(wx, wl if lat is not None else None))
         err = load().conv_gn_elu_forward_tc(
             ptr(x), ptr(lat), ptr(wk), ptr(scale32), ptr(bias32), ptr(y), ptr(partials),
-            ptr(a), ptr(yn), ptr(inv), b, h, w, cx, cl, cout, groups, float(eps),
-            _DTYPES[x.dtype], _DTYPES[out_dtype], bm, bn, rows_per_chunk, stream)
+            ptr(a), ptr(yn), ptr(inv), b, h, w, cx, cl, cout, ho, wo, stride, pad_top,
+            pad_left, groups, float(eps), _DTYPES[x.dtype], _DTYPES[out_dtype], bm, bn,
+            rows_per_chunk, int(upsample), stream)
     else:
         wxp = pack_weight(wx, tap)
         wlp = pack_weight(wl, tap) if lat is not None else None

@@ -10,13 +10,18 @@ tap dtype, accumulated in fp32; per-(image, group) single-pass moments,
 the variance clamped at 0; affine; ELU; float32 out whatever x's dtype.
 
 On the card the kernels are those of ``kernels/conv_gn_elu.py``
-(``csrc/conv_gn_elu.cu``) with the upsample in front: every element of
-an im2col row is blended from four pixels of x as it is gathered, so U,
-four times the size of x, exists in no memory at all.  The TPU kernel
-builds U in a VMEM scratch and gates on a VMEM fit and on lane-padded
-widths; here any Cin, any Cout <= 1024 divisible by ``groups`` and any
-H and W (1 included) run the kernel.  What stays is the semantic gate of
-the call site: the function is the exact-2x one only.
+(``csrc/conv_gn_elu.cu``) with the upsample in front, and U, four times
+the size of x, never reaches device memory.  With bf16 taps the
+tensor-core kernel ``conv3x3_stats_tc_up`` owns a 2-D tile of U, stages
+the x patch it needs once a chunk of 32 channels, blends the tile and
+its 1-pixel halo in shared memory once, and reads the nine taps from it
+(weights from ``pack_weight_up``, tile from ``up_tile``); with fp32
+taps the FMA kernel blends each im2col element from four pixels of x as
+it gathers it.  The TPU kernel builds U in a VMEM scratch and gates on a
+VMEM fit and on lane-padded widths; here any Cin, any Cout <= 1024
+divisible by ``groups`` and any H < 2^14 and W < 2^15 (1 included) run
+the kernel.  What stays is the semantic gate of the call site: the
+function is the exact-2x one only.
 
 Under grad the call runs inside ``FusedRecompute``: the inputs are kept
 and the backward is the VJP of the fp32 reference

@@ -6,9 +6,10 @@ card: the shipped build against variants of its source, in one process.
 
 Needs one CUDA card (an H100) and nvcc.  It builds
 ``gdn_tpu_torch/csrc/conv_gn_elu.cu`` once with ``-Xptxas -v`` (the
-registers and spill bytes of every ``conv3x3_stats_tc`` instantiation
-are printed; any spill fails the run) and three variants of it, each
-one nvcc, all started together:
+registers and spill bytes of every instantiation of the tensor-core
+kernels, ``conv3x3_stats_tc`` and ``conv3x3_stats_tc_up``, are printed;
+any spill fails the run) and three variants of it, each one nvcc, all
+started together:
 
   cg     every A-tile copy through L2 only (``cp.async.cg``), where the
          shipped kernel sends the BN = 16 tile's through L1 (``.ca``);
@@ -38,14 +39,15 @@ sys.path.insert(0, ROOT)
 SITES = [(256, 256, 256, 8, 26), (128, 128, 128, 16, 52), (64, 64, 64, 32, 104),
          (32, 32, 32, 64, 208), (16, 32, 16, 128, 416)]  # (Cx, Cl, Cout, H, W)
 SHIPPED = "cp_async16<BN == 16>("
+CO75_AT = "  return launch_dyn(conv3x3_stats_tc<"  # launch_tc's launch
 VARIANTS = {
     "cg": lambda s: s.replace(SHIPPED, "cp_async16<false>("),
     "ca": lambda s: s.replace(SHIPPED, "cp_async16<true>("),
-    "co75": lambda s: s.replace("    ready = true;\n", (
-        "    if (BN == 16)\n"
-        "      cudaFuncSetAttribute(conv3x3_stats_tc<T, BM, BN, BK, ASYNC>,\n"
-        "                           cudaFuncAttributePreferredSharedMemoryCarveout, 75);\n"
-        "    ready = true;\n"), 1),
+    "co75": lambda s: s.replace(CO75_AT, (
+        "  if (BN == 16)\n"
+        "    cudaFuncSetAttribute(conv3x3_stats_tc<T, BM, BN, BK, ASYNC, S>,\n"
+        "                         cudaFuncAttributePreferredSharedMemoryCarveout, 75);\n"
+        + CO75_AT), 1),
 }
 
 
@@ -88,9 +90,9 @@ def build(out_dir):
         if "spill stores" in line:
             count += 1
             spilling += " 0 bytes spill stores" not in line
-    print(f"  ptxas: {count} instantiations of conv3x3_stats_tc, {spilling} spilling")
+    print(f"  ptxas: {count} instantiations of conv3x3_stats_tc{{,_up}}, {spilling} spilling")
     if spilling:
-        raise AssertionError("conv3x3_stats_tc spills registers")
+        raise AssertionError("a tensor-core kernel spills registers")
     tc = libs["shipped"].conv_gn_elu_forward_tc
     for name in VARIANTS:
         lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))

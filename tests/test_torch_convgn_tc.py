@@ -1,18 +1,22 @@
-"""The tensor-core route of the port's stride-1 fused conv3x3+GroupNorm+ELU.
+"""The tensor-core route of the port's fused conv3x3+GroupNorm+ELU.
 
-``fused_conv_gn_elu``, ``fused_conv_gn_elu_bt`` and the two-input
-``fused_fusion_bt`` and ``fused_fusion_block`` with bf16 taps launch
-``conv3x3_stats_tc`` (``gdn_tpu_torch/csrc/conv_gn_elu.cu``) on the card.
-What surrounds that kernel is Python and is held here on the CPU: the
-bf16 K-major weight pack (one source or two), the tile choice
-(``tc_tile``) and the partials it implies, and which entry point and tap
-dtype take which K loop.  The kernel's dataflow (im2col in (tap, x's
-channels, the lateral's channels) order against the packed weights,
-per-tile channel sums at ``tc_tile``'s BM, the per-group fold) is written
-out below in plain PyTorch and held, like the entry points' CPU path,
-against the JAX package's Pallas kernels in interpret mode with bf16
-taps on fp32 inputs: bf16 products are exact in fp32 on both sides and
-only the order of the sums differs, so the JAX suite's forward
+Every entry point with bf16 taps runs on the tensor cores on the card:
+``fused_conv_gn_elu``, ``fused_conv_gn_elu_bt``, ``fused_conv_gn_elu_s2``
+and the two-input ``fused_fusion_bt`` and ``fused_fusion_block`` launch
+``conv3x3_stats_tc``, ``fused_upsample_conv`` launches
+``conv3x3_stats_tc_up`` (``gdn_tpu_torch/csrc/conv_gn_elu.cu``).  What
+surrounds those kernels is Python and is held here on the CPU: the bf16
+K-major weight packs (one source or two; the upsample's channel chunk
+outer, tap inner), the tile choices (``tc_tile``, ``up_tile``) and the
+partials they imply, and which entry point and tap dtype take which K
+loop.  The kernels' dataflow (im2col in the kernel's K order against the
+packed weights, at stride 1 or 2 with XLA's SAME pads, or of the
+upsampled map U blended as the kernel blends it and rounded to bf16;
+per-tile channel sums at the kernel's tiles, the per-group fold) is
+written out below in plain PyTorch and held, like the entry points' CPU
+path, against the JAX package's Pallas kernels in interpret mode with
+bf16 taps on fp32 inputs: bf16 products are exact in fp32 on both sides
+and only the order of the sums differs, so the JAX suite's forward
 tolerance (rtol 1e-4 / atol 1e-5) holds.
 """
 
@@ -25,10 +29,14 @@ import torch.nn.functional as F
 from gdn_tpu.kernels import conv_gn_elu as jk
 from gdn_tpu.kernels import fusion_block as jfb
 from gdn_tpu.kernels import fusion_bt as jf
+from gdn_tpu.kernels import upsample as jup
 from gdn_tpu_torch.kernels import conv_gn_elu as tk
 from gdn_tpu_torch.kernels import fusion_block as tb
 from gdn_tpu_torch.kernels import fusion_bt as tf
 from gdn_tpu_torch.kernels import upsample as tu
+from gdn_tpu_torch.ops.conv import same_pads
+from test_torch_convgn import S2_SHAPES
+from test_torch_fusion import UP_SHAPES
 
 EPS = 1e-6
 FWD = dict(rtol=1e-4, atol=1e-5)
@@ -42,6 +50,14 @@ MAIN = [(b, *site) for b in (8, 32) for site in SITES]
 FUSION_SITES = [(256, 256, 256, 8, 26), (128, 128, 128, 16, 52), (64, 64, 64, 32, 104),
                 (32, 32, 32, 64, 208), (16, 32, 16, 128, 416)]
 FUSION_MAIN = [(b, *site) for b in (8, 32) for site in FUSION_SITES]
+# (Cin, Cout, H, W) of the input of the five stride-2 sites (128x416,
+# enc 32...512) and of the five UpBlock up-convs (dec 256...16, to 2H x 2W)
+S2_SITES = [(32, 32, 128, 416), (32, 64, 64, 208), (64, 128, 32, 104), (128, 256, 16, 52),
+            (256, 512, 8, 26)]
+UP_SITES = [(512, 256, 4, 13), (256, 128, 8, 26), (128, 64, 16, 52), (64, 32, 32, 104),
+            (32, 16, 64, 208)]
+S2_MAIN = [(b, *site) for b in (8, 32) for site in S2_SITES]
+UP_MAIN = [(b, *site) for b in (8, 32) for site in UP_SITES]
 
 
 def _data(seed, b, h, w, cin, cout):
@@ -78,32 +94,78 @@ def _port_fb(x, lat, wx, wl, s, bi):
             k[:, :cx], k[:, cx:], torch.from_numpy(s), torch.from_numpy(bi))
 
 
-def _tc_dataflow(x, w, scale, bias, groups, eps, lat=None, wl=None):
-    """The tensor-core kernel's arithmetic in plain PyTorch, x (and lat)
+def _blend_up(x):
+    """U = the exact-2x bilinear upsample of NCHW x as the upsample kernel
+    blends it: U row u takes x row u // 2 (near) and its far neighbour,
+    the row before at an even u and after at an odd one, clamped into x;
+    0.25 far + 0.75 near in fp32, each product and the sum rounded on its
+    own, rows first and then columns."""
+    def axis(n):
+        near = torch.arange(2 * n) // 2
+        far = torch.where(torch.arange(2 * n) % 2 == 1, (near + 1).clamp(max=n - 1),
+                          (near - 1).clamp(min=0))
+        return near, far
+
+    (rn, rf), (cn, cf) = axis(x.shape[2]), axis(x.shape[3])
+    v = 0.25 * x[:, :, rf] + 0.75 * x[:, :, rn]
+    return 0.25 * v[..., cf] + 0.75 * v[..., cn]
+
+
+def _tc_dataflow(x, w, scale, bias, groups, eps, lat=None, wl=None, stride=1,
+                 upsample=False):
+    """The tensor-core kernels' arithmetic in plain PyTorch, x (and lat)
     NCHW fp32 -> (a, yn, inv) NHWC-ordered fp32: im2col rows of
-    bf16-rounded inputs in (tap, x's channels, the lateral's channels)
-    order, each source padded to a multiple of 8, times the packed
-    weights; per-tile (sum, sum of squares) at tc_tile's BM in the
-    (B, mtiles, Cout, 2) layout of the partials, folded per group, then
-    normalize, affine, ELU."""
-    b, _, h, w_ = x.shape
-    cout, m = w.shape[0], h * w_
-    wk = tk.pack_weight_tc(w, wl).float()
-    kc_p = wk.shape[1] // 9
-    srcs = [x] if lat is None else [x, lat]
-    xp = torch.cat([F.pad(s.to(torch.bfloat16).float().permute(0, 2, 3, 1),
-                          (0, tk.pad8(s.shape[1]) - s.shape[1], 1, 1, 1, 1)) for s in srcs],
-                   dim=3)
-    assert xp.shape[3] == kc_p
-    cols = torch.stack([xp[:, ky:ky + h, kx:kx + w_] for ky in range(3) for kx in range(3)],
-                       dim=3).reshape(b, m, 9 * kc_p)
+    bf16-rounded inputs times the packed weights, then per-tile (sum, sum
+    of squares) in the (B, mtiles, Cout, 2) layout of the partials,
+    folded per group, then normalize, affine, ELU.  Stride 1 or 2
+    (conv3x3_stats_tc): K in (tap, x's channels, the lateral's channels)
+    order, each source padded to a multiple of 8, XLA's SAME pads, tiles
+    of tc_tile's BM consecutive output pixels.  ``upsample``
+    (conv3x3_stats_tc_up): the im2col of U (``_blend_up``, rounded to
+    bf16) with K in (chunk of 32 channels, tap, channel) order, tiles of
+    up_tile's BM / 16 rows x 16 columns of U, row-major."""
+    b, cin, h, w_ = x.shape
+    cout = w.shape[0]
+    if upsample:
+        ho, wo = 2 * h, 2 * w_
+        wk = tk.pack_weight_up(w).float()
+        cin_p = wk.shape[1] // 9
+        up = _blend_up(x.float()).to(torch.bfloat16).float().permute(0, 2, 3, 1)
+        up = F.pad(up, (0, cin_p - cin, 1, 1, 1, 1)).view(b, ho + 2, wo + 2, -1, 32)
+        cols = torch.stack([up[:, ky:ky + ho, kx:kx + wo] for ky in range(3)
+                            for kx in range(3)], dim=4)  # (b, ho, wo, chunk, tap, 32)
+        cols = cols.reshape(b, ho * wo, 9 * cin_p)
+    else:
+        ho, wo = -(-h // stride), -(-w_ // stride)
+        (pt, pb), (pl, pr) = same_pads(h, 3, stride), same_pads(w_, 3, stride)
+        wk = tk.pack_weight_tc(w, wl).float()
+        kc_p = wk.shape[1] // 9
+        srcs = [x] if lat is None else [x, lat]
+        xp = torch.cat([F.pad(s.to(torch.bfloat16).float().permute(0, 2, 3, 1),
+                              (0, tk.pad8(s.shape[1]) - s.shape[1], pl, pr, pt, pb))
+                        for s in srcs], dim=3)
+        assert xp.shape[3] == kc_p
+        span_h, span_w = stride * (ho - 1) + 1, stride * (wo - 1) + 1
+        cols = torch.stack([xp[:, ky:ky + span_h:stride, kx:kx + span_w:stride]
+                            for ky in range(3) for kx in range(3)],
+                           dim=3).reshape(b, ho * wo, 9 * kc_p)
+    m = ho * wo
     y = cols @ wk.t()
-    bm, _ = tk.tc_tile(b, m, kc_p, cout)
-    mtiles = -(-m // bm)
-    tiles = F.pad(y, (0, 0, 0, mtiles * bm - m)).view(b, mtiles, bm, cout)
+    if upsample:
+        bm, _ = tk.up_tile(b, ho, wo, cout)
+        th, tw = bm // tk.UP_TW, tk.UP_TW
+        ty, tx = -(-ho // th), -(-wo // tw)
+        tiles = F.pad(y.view(b, ho, wo, cout), (0, 0, 0, tx * tw - wo, 0, ty * th - ho))
+        tiles = tiles.view(b, ty, th, tx, tw, cout).permute(0, 1, 3, 2, 4, 5)
+        tiles = tiles.reshape(b, ty * tx, bm, cout)
+        assert ty * tx == tk.up_mtiles(ho, wo, bm)
+    else:
+        bm, _ = tk.tc_tile(b, m, wk.shape[1] // 9, cout)
+        mtiles = -(-m // bm)
+        tiles = F.pad(y, (0, 0, 0, mtiles * bm - m)).view(b, mtiles, bm, cout)
     partials = torch.stack([tiles.sum(2), (tiles * tiles).sum(2)], dim=-1)
-    assert partials.shape == (b, mtiles, cout, 2)
-    per_group = partials.view(b, mtiles, groups, cout // groups, 2).sum((1, 3))
+    assert partials.shape == (b, tiles.shape[1], cout, 2)
+    per_group = partials.view(b, -1, groups, cout // groups, 2).sum((1, 3))
     count = m * (cout // groups)
     mean = per_group[..., 0] / count
     inv = torch.rsqrt((per_group[..., 1] / count - mean * mean).clamp(min=0) + eps)
@@ -196,6 +258,58 @@ def test_pack_weight_tc_two_sources_layout_and_rounding(cx, cl):
     assert tk.pack_weight_tc(k[:, :8], k[:, 8:])[0, 8].item() == 1.0
 
 
+@pytest.mark.parametrize("cin", [5, 32, 40, 64])
+def test_pack_weight_up_layout_and_rounding(cin):
+    """(Cout, 9 Cin_p) bf16, Cin_p = Cin rounded up to 32, column (chunk *
+    9 + 3 ky + kx) * 32 + c holding channel chunk * 32 + c, zero past
+    Cin; values rounded to nearest even."""
+    cout = 6
+    w = torch.randn(cout, cin, 3, 3, generator=torch.Generator().manual_seed(cin))
+    wk = tk.pack_weight_up(w)
+    cin_p = -(-cin // 32) * 32
+    assert wk.shape == (cout, 9 * cin_p) and wk.dtype == torch.bfloat16
+    assert wk.is_contiguous()
+    want = w.to(torch.bfloat16)
+    for chunk in range(cin_p // 32):
+        n = min(32, cin - 32 * chunk)
+        for ky in range(3):
+            for kx in range(3):
+                col = (chunk * 9 + 3 * ky + kx) * 32
+                assert torch.equal(wk[:, col:col + n],
+                                   want[:, 32 * chunk:32 * chunk + n, ky, kx])
+                assert not wk[:, col + n:col + 32].any()
+    w = torch.zeros(1, 8, 3, 3)
+    w[0, 0, 0, 0] = 1.0 + 2.0 ** -8
+    assert tk.pack_weight_up(w)[0, 0].item() == 1.0
+
+
+def test_pack_weight_up_k_order_is_the_convolution():
+    """im2col of a map in (chunk of 32 channels, tap, channel) order times
+    the pack is the SAME conv of the bf16-rounded operands (Cin 40: two
+    chunks, the second padded with zeros)."""
+    gen = torch.Generator().manual_seed(8)
+    u = torch.randn(2, 40, 6, 7, generator=gen)
+    w = torch.randn(10, 40, 3, 3, generator=gen)
+    bf = lambda t: t.to(torch.bfloat16).float()
+    want = F.conv2d(bf(u), bf(w), padding=1)
+    up = F.pad(bf(u).permute(0, 2, 3, 1), (0, 24, 1, 1, 1, 1)).view(2, 8, 9, 2, 32)
+    cols = torch.stack([up[:, ky:ky + 6, kx:kx + 7] for ky in range(3) for kx in range(3)],
+                       dim=4).reshape(2, 42, 9 * 64)
+    got = (cols @ tk.pack_weight_up(w).float().t()).view(2, 6, 7, 10).permute(0, 3, 1, 2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_blend_up_is_the_plain_upsample_bit_for_bit():
+    """The dataflow's U (the kernel's index-wise blend) is the plain
+    version's shifted blends, bit for bit, H = 1 and W = 1 included."""
+    from gdn_tpu_torch.ops.resize import upsample2x_bilinear
+
+    gen = torch.Generator().manual_seed(9)
+    for shape in [(2, 3, 4, 13), (1, 2, 1, 6), (1, 2, 5, 1)]:
+        x = torch.randn(shape, generator=gen)
+        assert torch.equal(_blend_up(x), upsample2x_bilinear(x))
+
+
 # ------------------------------------------------- the kernel's dataflow vs JAX
 
 @pytest.mark.parametrize("b,h,w,cin,cout,groups,t", [
@@ -269,6 +383,50 @@ def test_tc_dataflow_matches_jax_fusion_block_bf16_taps(b, h, w, cx, cl, cout, g
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, **FWD)
 
 
+@pytest.mark.parametrize("b,h,w,cin,cout,groups,t", S2_SHAPES)
+def test_tc_dataflow_and_s2_entry_match_jax_bf16_taps(b, h, w, cin, cout, groups, t):
+    """fp32 inputs, bf16 taps, stride 2 with XLA's SAME pads: the dataflow
+    and the s2 entry point's CPU path against the JAX kernel's residuals."""
+    arrays = _data(25, b, h, w, cin, cout)
+    want = jk._conv_gn_elu_s2_all(*map(jnp.asarray, arrays), groups, EPS, t, True,
+                                  "bfloat16")
+    flow = _tc_dataflow(*_port(*arrays), groups, EPS, stride=2)
+    entry = tk._conv_gn_elu_s2_all(*_port(*arrays), groups, EPS, "bfloat16")
+    for name, j, d, e in zip(("a", "yn", "inv"), want, flow, entry):
+        j = np.asarray(j)
+        np.testing.assert_allclose(d.reshape(j.shape).numpy(), j, err_msg=name, **FWD)
+        e = e.permute(0, 2, 3, 1) if e.dim() == 4 else e
+        np.testing.assert_allclose(e.detach().numpy(), j, err_msg=name, **FWD)
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 7, 5), (1, 9, 12), (2, 1, 1)])
+def test_tc_dataflow_s2_at_odd_and_even_sizes(b, h, w):
+    """Pads (1, 1) at an odd length and (0, 1) at an even one: the
+    dataflow's stride-2 im2col against the plain version (conv_same,
+    cuDNN's route) with bf16 taps; Cin 5 pads to 8 as on the card."""
+    x, k, s, bi = _port(*_data(26, b, h, w, 5, 8))
+    flow = _tc_dataflow(x, k, s, bi, 4, EPS, stride=2)
+    want = tk.conv_gn_elu_plain(x, k, s, bi, 4, EPS, 2, "bfloat16", torch.float32)
+    for name, d, p in zip(("a", "yn", "inv"), flow, want):
+        p = p.permute(0, 2, 3, 1).reshape(d.shape) if p.dim() == 4 else p
+        torch.testing.assert_close(d, p, msg=name, **FWD)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,groups", UP_SHAPES)
+def test_tc_dataflow_and_upsample_entry_match_jax_bf16_taps(b, h, w, cin, cout, groups):
+    """fp32 inputs, bf16 taps: U blended as the kernel blends it, rounded
+    to bf16, in the upsample kernel's K order and 2-D tiles, and the
+    upsample entry point's CPU path, against the JAX kernel."""
+    arrays = _data(27, b, h, w, cin, cout)
+    want = np.asarray(jup.fused_upsample_conv(*map(jnp.asarray, arrays), groups, EPS, True,
+                                              "bfloat16"))
+    a, _, _ = _tc_dataflow(*_port(*arrays), groups, EPS, upsample=True)
+    np.testing.assert_allclose(a.reshape(want.shape).numpy(), want, **FWD)
+    got = tu.fused_upsample_conv(*_port(*arrays), groups, EPS, "bfloat16")
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, **FWD)
+
+
 # ------------------------------------------------------------- the tiles
 
 def _warps(bn):
@@ -334,6 +492,61 @@ def test_tc_tile_fills_the_card_at_the_fusion_sites(b, cx, cl, cout, h, w):
     _tile_fills_the_card(b, h * w, tk.pad8(cx) + tk.pad8(cl), cout)
 
 
+@pytest.mark.parametrize("b,cin,cout,h,w", S2_MAIN)
+def test_tc_tile_fills_the_card_at_the_s2_sites(b, cin, cout, h, w):
+    _tile_fills_the_card(b, -(-h // 2) * -(-w // 2), cin, cout)
+
+
+@pytest.mark.parametrize("bm,bn", tk.TC_TILES)
+def test_up_tiles_divide_as_the_kernel_expects(bm, bn):
+    """conv3x3_stats_tc_up's tiles: BM / 16 rows of U, an even count (the
+    x patch covers rows in pairs); whole mma tiles per warp; the weight
+    copies (4 pieces a row of 32 channels) cover BN; the ring of four
+    stages, the halo tile (rows of 64 + 16 bytes) and the fp32 x patch
+    of two blocks fit an SM."""
+    warps_m, warps_n = _warps(bn)
+    threads = 32 * warps_m * warps_n
+    th = bm // tk.UP_TW
+    assert bm % tk.UP_TW == 0 and th % 2 == 0
+    assert (bm // warps_m) % 16 == 0 and (bn // warps_n) % 16 == 0
+    rows = threads // 4
+    assert bn % rows == 0 or bn < rows
+    smem = (4 * bn * 32 * 2 + (th + 2) * (tk.UP_TW + 2) * 80
+            + (th // 2 + 2) * (tk.UP_TW // 2 + 2) * 32 * 4)
+    assert 2 * smem <= 227 * 1024
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w", UP_MAIN)
+def test_up_tile_fills_the_card_at_the_upsample_sites(b, cin, cout, h, w):
+    """At the UpBlock sites (U = 2H x 2W): the tile is one of those BN
+    suits, pads U at most 10% over the tightest 2-D tiling, fills a wave
+    (or has the most blocks), and no larger tile that pads as little
+    would still fill one; the U tiles cover the map exactly once."""
+    ho, wo = 2 * h, 2 * w
+    bm, bn = tk.up_tile(b, ho, wo, cout)
+    narrow = 16 if cout <= 16 else 32
+    tiles = [t for t in tk.TC_TILES if narrow <= t[1] <= max(narrow, cout)]
+    assert (bm, bn) in tiles
+
+    def blocks(t):
+        return b * tk.up_mtiles(ho, wo, t[0]) * -(-cout // t[1])
+
+    def padded(t):
+        return tk.up_mtiles(ho, wo, t[0]) * t[0] * -(-cout // t[1]) * t[1]
+
+    tight = min(padded(t) for t in tiles)
+    assert padded((bm, bn)) <= 1.1 * tight
+    assert blocks((bm, bn)) >= min(tk.SMS, max(blocks(t) for t in tiles))
+    for t in tiles:
+        if t[0] * t[1] > bm * bn and padded(t) <= 1.1 * tight:
+            assert blocks(t) < tk.SMS
+    th = bm // tk.UP_TW
+    assert tk.up_mtiles(ho, wo, bm) * bm >= ho * wo
+    bm32, bn32 = tk.up_tile(b, ho, wo, cout, fp32_in=True)  # fp32 inputs: no spilling tile
+    assert bm32 == 64 or bn32 <= 32
+    assert (tk.up_mtiles(ho, wo, bm) // -(-wo // tk.UP_TW) - 1) * th < ho
+
+
 def test_tc_tile_choices():
     """The deep site at B=8 gets 128 blocks (8 x 16) from the smallest
     tile, not 64; the shallow one the largest tile its 32 channels take;
@@ -363,26 +576,31 @@ def test_tc_tile_choices():
 @pytest.mark.parametrize("entry,tap,route", [
     (tk.fused_conv_gn_elu, "bfloat16", "tc"), (tk.fused_conv_gn_elu, "float32", "fma"),
     (tk.fused_conv_gn_elu_bt, "bfloat16", "tc"), (tk.fused_conv_gn_elu_bt, "float32", "fma"),
-    (tk.fused_conv_gn_elu_s2, "bfloat16", "fma"), (tk.fused_conv_gn_elu_s2, "float32", "fma"),
+    (tk.fused_conv_gn_elu_s2, "bfloat16", "tc"), (tk.fused_conv_gn_elu_s2, "float32", "fma"),
     (tf.fused_fusion_bt, "bfloat16", "tc"), (tf.fused_fusion_bt, "float32", "fma"),
     (tb.fused_fusion_block, "bfloat16", "tc"), (tb.fused_fusion_block, "float32", "fma"),
-    (tu.fused_upsample_conv, "bfloat16", "fma"), (tu.fused_upsample_conv, "float32", "fma"),
+    (tu.fused_upsample_conv, "bfloat16", "tc"), (tu.fused_upsample_conv, "float32", "fma"),
 ])
 def test_kernel_route(entry, tap, route):
     assert tk.kernel_route(entry, tap) == route
 
 
-@pytest.mark.parametrize("case", ["stride", "lateral", "upsample", "taps", "unknown"])
+@pytest.mark.parametrize("case", ["stride", "lateral", "upsample", "taps", "unknown",
+                                  "stride2_lateral"])
 def test_tc_route_refuses_what_the_kernel_does_not_take(case):
+    """Stride 3; a lateral with the upsample or at stride 2; the upsample
+    or any entry with fp32 taps; an unknown route."""
     x, w, s, bi = _port(*_data(22, 1, 4, 6, 8, 8))
     kw = dict(lat=None, wl=None, stride=1, tap_dtype="bfloat16", upsample=False,
               route="tc")
     if case == "stride":
-        kw["stride"] = 2
+        kw["stride"] = 3
     elif case == "lateral":  # two inputs take it, but not with the upsample
         kw.update(lat=x, wl=w, upsample=True)
-    elif case == "upsample":
-        kw["upsample"] = True
+    elif case == "stride2_lateral":  # ... nor at stride 2
+        kw.update(lat=x, wl=w, stride=2)
+    elif case == "upsample":  # the upsample takes the tensor cores with bf16 taps only
+        kw.update(upsample=True, tap_dtype="float32")
     elif case == "taps":
         kw["tap_dtype"] = "float32"
     else:

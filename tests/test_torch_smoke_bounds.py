@@ -1,0 +1,62 @@
+"""The work counts behind the bounds that ``chip_smoke.py`` reports for the
+fused conv kernels (``conv_work``), held to hand arithmetic on the CPU.
+
+A bound is the larger of the flops at the card's peak and the bytes at
+its memory rate, so each count must hold every byte the function must
+move once: the inputs, the fp32 weights, scale and bias, ``a`` and, where
+the entry point stores residuals, ``yn`` (x's dtype) and the fp32
+``inv``.  Nothing here needs a card: ``chip_smoke`` imports torch and
+numpy only at the top.
+"""
+
+import os
+import sys
+
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+
+
+def test_s2_site_counts_a_yn_and_inv():
+    """The first stride-2 site at B=32, bf16: x 32 x 128 x 416 -> 32 x 64
+    x 208."""
+    flops, nbytes = chip_smoke.conv_work("conv_gn_elu_s2", (32, 32, 32, 128, 416), 2, True)
+    assert flops == 7_851_737_088  # 18 * 32 * 32 * (64 * 208) * 32
+    x = 32 * 128 * 416 * 32 * 2  # 109,051,904
+    weights = 3 * 3 * 32 * 32 * 4 + 2 * 32 * 4  # kernel, scale and bias: 37,120
+    a = 32 * 64 * 208 * 32 * 2  # 27,262,976 (and yn the same)
+    inv = 32 * 32 * 4
+    assert nbytes == x + weights + a + a + inv == 163_619_072
+    # serving stores a alone
+    assert chip_smoke.conv_work("conv_gn_elu_s2", (32, 32, 32, 128, 416), 2, False) == (
+        flops, x + weights + a)
+
+
+def test_fusion_bt_site_counts_both_inputs_and_yn():
+    """The last FusionBlock site at B=32, bf16: x 16 and lateral 32
+    channels at 128 x 416 -> 16."""
+    flops, nbytes = chip_smoke.conv_work("fusion_bt", (32, 16, 32, 16, 128, 416), 2, True)
+    assert flops == 23_555_211_264  # 18 * 48 * 16 * (128 * 416) * 32
+    inputs = 32 * 128 * 416 * (16 + 32) * 2  # 163,577,856
+    weights = 3 * 3 * 48 * 16 * 4 + 2 * 16 * 4  # 27,776
+    a = 32 * 128 * 416 * 16 * 2  # 54,525,952 (and yn the same)
+    assert nbytes == inputs + weights + 2 * a + 32 * 16 * 4 == 272_659_584
+
+
+@pytest.mark.parametrize("name,shape,ho,wo", [
+    ("upsample", (32, 32, 16, 64, 208), 128, 416),
+    ("fusion_block", (8, 32, 32, 32, 64, 208), 64, 208),
+    ("conv_gn_elu", (8, 512, 512, 4, 13), 4, 13),
+])
+def test_fp32_out_entry_points_count_fp32_a(name, shape, ho, wo):
+    """The per-image, fusion-block and upsample entry points store fp32 a
+    and no residuals, whatever x's dtype; the upsample's output map is
+    2H x 2W."""
+    b, *chans, h, w = shape
+    cin, cout = sum(chans[:-1]), chans[-1]
+    flops, nbytes = chip_smoke.conv_work(name, shape, 2, False)
+    assert flops == 18 * cin * cout * ho * wo * b
+    assert nbytes == b * h * w * cin * 2 + 9 * cin * cout * 4 + 2 * cout * 4 + (
+        b * ho * wo * cout * 4)

@@ -13,13 +13,20 @@ repository around this file.  Phases, each printed on its own lines:
               then the count of HMMA (tensor-core) instructions in the
               SASS of every instantiation of the tensor-core kernels
               (conv3x3_stats_tc and conv3x3_stats_tc_up; cuobjdump),
-              which must not be zero;
+              which must not be zero; and, from an nvcc -Xptxas -v run
+              beside the build, the registers and spills of the two
+              one-launch kernels (gn_elu_coop, loss_backward), which
+              must not spill;
   3. kernels  at every (B=8, C, H, W, groups) shape the KITTI serving
               forward gives the GroupNorm+ELU kernel, in bf16 and fp32:
               kernel vs its plain PyTorch version on the same tensors,
-              with the kernel's, the plain version's and the library
-              yardstick's (F.group_norm + F.elu) times and the bound;
-              then at every training shape (B=32, bf16), the same check;
+              its (B, 2, G) statistics vs the plain fp32 ones, the plan
+              it took (grid, slabs, held or streamed), with the
+              kernel's (split by kernel name), the plain version's and
+              the library yardstick's (F.group_norm + F.elu) times, the
+              bound and the share of it reached; then at every training
+              shape (B=32, bf16) and at the ragged set GN_RAGGED, the
+              same checks;
   4. slice    the full-width KITTI G-net (random weights from seed 0,
               batch 8, bf16) serves 20 uint8 images through
               BatchedPredictor; the kernel must launch 21 times a batch;
@@ -29,7 +36,8 @@ repository around this file.  Phases, each printed on its own lines:
   6. loss     the fused loss forward and backward kernels vs their plain
               versions at B=32 128x416 (synthetic depth, ~5% holes, one
               all-masked image) and at ragged 3x37x53 and 2x11x16, with
-              device times and bounds;
+              device times split by kernel name, bounds, and the
+              backward kernel's registers, spills and shared memory;
   7. gn grad  GroupNorm+ELU gradients (x, scale, bias) through the
               kernel's autograd Function vs plain autograd, 3 serving
               shapes and the largest training one (32, 32, 128, 416);
@@ -215,12 +223,14 @@ def profiled(run, cpu=False, tries=4, min_calls=1):
     raise ProfilerShort(f"torch.profiler came back short in {tries} sessions")
 
 
-def device_ms(fns, iters=20, what=""):
+def device_ms(fns, iters=20, what="", split=None):
     """Mean device ms of one call, from the profiler: the sum of the
     card's kernel times over a loop, whatever the host's pace.  Where
     the profiler keeps coming back short, the call is timed with CUDA
     events around the loop instead (an upper bound: it includes the gaps
-    between launches), and ``what`` is noted in EVENT_TIMED."""
+    between launches), and ``what`` is noted in EVENT_TIMED.  A dict
+    given as ``split`` receives {kernel name: device ms of one call}
+    and, under "launches", the kernels one call launches."""
     for f in fns[:3]:
         f()
     n = max(iters, len(fns))
@@ -230,12 +240,29 @@ def device_ms(fns, iters=20, what=""):
             fns[i % len(fns)]()
 
     try:
-        _, kernels, _ = profiled(loop, min_calls=n)  # every call launches a kernel
+        # every call launches a kernel; CUPTI on the H100 has recorded one
+        # kernel fewer than launched in a loop of one-kernel calls, session
+        # after session, so one short is taken and each kernel is averaged
+        # over its own recorded launches
+        _, kernels, _ = profiled(loop, min_calls=n - 1)
     except ProfilerShort:
         EVENT_TIMED.append(what)
         log(f"  (timing {what or 'this call'} with CUDA events instead)")
         return cuda_ms(fns, iters)
-    return sum(us for us, _ in kernels.values()) / 1e3 / n
+    # a kernel launched L times a call: its time over its recorded launches,
+    # times L (= its launches over n, rounded)
+    per_call = {k: us / 1e3 / calls * max(1, round(calls / n))
+                for k, (us, calls) in kernels.items()}
+    if split is not None:
+        split.update({k[:80]: ms for k, ms in per_call.items()})
+        split["launches"] = sum(max(1, round(c / n)) for _, c in kernels.values())
+    return sum(per_call.values())
+
+
+def split_text(split):
+    """One line of device_ms's split: each kernel's us, then launches."""
+    return "; ".join(f"{name} {ms * 1e3:.2f} us" if name != "launches"
+                     else f"{ms:g} launches" for name, ms in (split or {}).items())
 
 
 def sass_hmma():
@@ -256,6 +283,45 @@ def sass_hmma():
         elif fn in counts and "HMMA" in line:
             counts[fn] += 1
     return counts
+
+
+def start_ptxas(names):
+    """One ``nvcc -cubin -Xptxas -v`` of each csrc/<name>.cu, started now
+    (beside the build, which takes the same flags without -v)."""
+    from gdn_tpu_torch.kernels import build
+
+    os.makedirs(OUT, exist_ok=True)
+    jobs = []
+    for name in names:
+        cmd = [build._nvcc(), *[f for f in build.NVCC_FLAGS if f not in (
+            "-shared", "-Xcompiler", "-fPIC")], "-cubin", "-Xptxas", "-v", "-o",
+            os.path.join(OUT, f"{name}.cubin"), os.path.join(build.CSRC, f"{name}.cu")]
+        jobs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True))
+    return jobs
+
+
+def finish_ptxas(jobs, kernels):
+    """{entry function naming one of ``kernels``: registers, spill stores,
+    stack bytes} from the ptxas reports of start_ptxas."""
+    out, fn = {}, None
+    for job in jobs:
+        text, _ = job.communicate(timeout=600)
+        if job.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{text}")
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+                if any(k in fn for k in kernels):
+                    out[fn] = {}
+            elif fn in out and "spill stores" in line:
+                nums = [int(t) for t in line.replace(",", " ").split() if t.isdigit()]
+                out[fn].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+            elif fn in out and "Used" in line and "registers" in line:
+                out[fn]["registers"] = int(line.split("Used")[1].split()[0])
+    if not out:
+        raise AssertionError(f"ptxas reported none of {kernels}")
+    return out
 
 
 def gn_sites(m):
@@ -288,6 +354,83 @@ def check_tol(got, want, rtol, atol, what):
     return err.max().item()
 
 
+def gn_work(shape, item):
+    """(flops, bytes) of one GroupNorm+ELU call on x of ``shape`` (B, C,
+    H, W) with ``item`` bytes an element: GN_FLOPS_PER_ELEM a element;
+    x read once, the output written once (x's dtype), the fp32 scale and
+    bias read once."""
+    b, c, h, w = shape
+    numel = b * c * h * w
+    return GN_FLOPS_PER_ELEM * numel, 2 * numel * item + 2 * c * 4
+
+
+def loss_work(b, h, w):
+    """{"fwd" | "bwd": (flops, bytes)} of one fused loss call on (b, h, w)
+    fp32 maps, by the per-pixel counts above."""
+    px = b * h * w
+    return {"fwd": (LOSS_FWD_FLOPS_PX * px, LOSS_FWD_BYTES_PX * px),
+            "bwd": (LOSS_BWD_FLOPS_PX * px, LOSS_BWD_BYTES_PX * px)}
+
+
+def bound_ms(flops, nbytes):
+    """The least time of fp32 work on the card: bytes at the memory rate
+    or operations at the fp32 peak, whichever is longer."""
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+
+
+# GroupNorm+ELU shapes beyond the net's sites: (B, C, H, W, groups, dtype,
+# pointer offset in elements).  C 16 and 1024, odd H*W, H*W = 1, blocks of
+# 252 and 255 threads (C / vec = 12 and 3), C % 8 != 0 and a pointer off 16
+# bytes (the scalar route; 1024 threads a block at C = 1024 in fp32), and
+# one tensor larger than the resident grid holds at B=8 (the streamed route
+# in serving shapes).
+GN_RAGGED = [
+    (3, 16, 7, 9, 4, torch.bfloat16, 0),
+    (2, 1024, 3, 5, 32, torch.bfloat16, 0),
+    (2, 1024, 3, 5, 8, torch.float32, 0),
+    (4, 64, 1, 1, 8, torch.bfloat16, 0),
+    (3, 48, 13, 11, 8, torch.float32, 0),
+    (2, 24, 11, 13, 8, torch.bfloat16, 0),
+    (2, 12, 11, 13, 4, torch.bfloat16, 0),
+    (2, 32, 9, 7, 8, torch.bfloat16, 1),
+    (1, 1024, 2, 3, 8, torch.float32, 1),
+    (BATCH, 32, 256, 416, 8, torch.bfloat16, 0),
+]
+
+
+def _gn_input(shape, dtype, gen, offset=0):
+    """Channels_last x (B, C, H, W), its data ``offset`` elements into its
+    storage (off 16 bytes where offset is odd)."""
+    b, c, h, w = shape
+    flat = torch.randn(offset + b * c * h * w, device="cuda", generator=gen) * 2 + 1
+    return flat.to(dtype)[offset:].view(b, h, w, c).permute(0, 3, 1, 2)
+
+
+def gn_check(gn, x, scale, bias, g, what):
+    """The kernel's output against group_norm_elu_plain (phase-3
+    tolerance) and its fp32 (B, 2, G) mean and inverse std against the
+    plain fp32 statistics (rtol 1e-5, atol 1e-6); (max |out err|, max
+    |stats err|, plan)."""
+    from gdn_tpu_torch.kernels import groupnorm as gnk
+    from gdn_tpu_torch.ops.groupnorm import _chanreduce_stats, group_norm_elu_plain
+
+    out = gn(x, scale, bias, g)
+    _, stats = gnk._launch(x, scale, bias, g, 1e-6)
+    torch.cuda.synchronize()
+    err = check_close(out, group_norm_elu_plain(x, scale, bias, g), x.dtype, what)
+    mean_c, inv_c = _chanreduce_stats(x, g, 1e-6)
+    cg = x.shape[1] // g
+    want = torch.stack([mean_c[:, ::cg], inv_c[:, ::cg]], dim=1)
+    serr = check_tol(stats, want, 1e-5, 1e-6, f"{what} (B, 2, G) statistics")
+    return err, serr, gnk.plan_for(x, g)
+
+
+def plan_text(plan):
+    return (f"plan: grid {plan.grid}, {plan.slabs_per_image} slabs an image of "
+            f"{plan.rows} rows, {plan.slabs_per_block} a block, "
+            f"{'held' if plan.held else 'streamed'}")
+
+
 def phase_kernels(cfg, gn):
     from gdn_tpu_torch.ops.groupnorm import group_norm_elu_plain, pick_groups
 
@@ -298,21 +441,13 @@ def phase_kernels(cfg, gn):
         count = gn_sites(cfg.model).count((c, h, w))
         for dtype in (torch.bfloat16, torch.float32):
             shape = (BATCH, c, h, w)
-            numel = BATCH * c * h * w
-            nbytes = 2 * numel * torch.finfo(dtype).bits // 8 + 2 * c * 4
+            flops, nbytes = gn_work(shape, torch.finfo(dtype).bits // 8)
             copies = max(1, -(-2 * L2_BYTES // nbytes))
-            xs = [
-                (torch.randn(shape, device="cuda", generator=gen) * 2 + 1)
-                .to(dtype).contiguous(memory_format=torch.channels_last)
-                for _ in range(copies)
-            ]
+            xs = [_gn_input(shape, dtype, gen) for _ in range(copies)]
             scale = torch.rand(c, device="cuda", generator=gen) + 0.5
             bias = torch.randn(c, device="cuda", generator=gen)
-            out = gn(xs[0], scale, bias, g)
-            torch.cuda.synchronize()
-            ref = group_norm_elu_plain(xs[0], scale, bias, g)
             what = f"group_norm_elu {tuple(shape)} {dtype}"
-            err = check_close(out, ref, dtype, what)
+            err, serr, plan = gn_check(gn, xs[0], scale, bias, g, what)
             sc, bi = scale.to(dtype), bias.to(dtype)
             fns = {
                 "": [lambda x=x: gn(x, scale, bias, g) for x in xs],
@@ -323,23 +458,27 @@ def phase_kernels(cfg, gn):
             }
             row = {
                 "C": c, "H": h, "W": w, "groups": g, "dtype": str(dtype),
-                "sites": count, "max_abs_err": err, "bytes": nbytes,
-                "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                      GN_FLOPS_PER_ELEM * numel / FP32_FLOPS),
+                "sites": count, "max_abs_err": err, "stats_max_abs_err": serr,
+                "plan": plan._asdict(), "bytes": nbytes, "bound_ms": bound_ms(flops, nbytes),
             }
             for k, f in fns.items():
                 # ms: device time (the card's own, from the profiler);
                 # call_ms: CUDA events around a loop of calls, host-bound
                 # where the wrapper's Python outlasts the kernels.
-                row[f"{k}ms"] = device_ms(f)
+                split = {} if k == "" else None
+                row[f"{k}ms"] = device_ms(f, what=what, split=split)
+                if split:
+                    row["split_ms"] = split
                 row[f"{k}call_ms"] = cuda_ms(f)
             rows.append(row)
-            log(f"  {what}: max|k-p| {err:.3g}  device us: kernel "
-                f"{row['ms']*1e3:.1f} plain {row['plain_ms']*1e3:.1f} "
-                f"library {row['library_ms']*1e3:.1f} bound "
-                f"{row['bound_ms']*1e3:.1f}; per call us: kernel "
-                f"{row['call_ms']*1e3:.1f} plain {row['plain_call_ms']*1e3:.1f}"
-                f" library {row['library_call_ms']*1e3:.1f}  x{count} sites")
+            log(f"  {what}: max|k-p| {err:.3g}, stats {serr:.3g}; {plan_text(plan)}")
+            log(f"    device us: kernel {row['ms']*1e3:.1f} plain "
+                f"{row['plain_ms']*1e3:.1f} library {row['library_ms']*1e3:.1f} bound "
+                f"{row['bound_ms']*1e3:.1f} ({row['bound_ms'] / row['ms']:.0%} of it "
+                f"reached); per call us: kernel {row['call_ms']*1e3:.1f} plain "
+                f"{row['plain_call_ms']*1e3:.1f} library {row['library_call_ms']*1e3:.1f}"
+                f"  x{count} sites")
+            log(f"    kernel split: {split_text(row.get('split_ms'))}")
             del xs
     return rows
 
@@ -347,9 +486,10 @@ def phase_kernels(cfg, gn):
 def phase_kernels_train(cfg, gn):
     """The kernel vs its plain version at every site the stage-1 D-net
     and stage-2 G-net give it in training (B=32, bf16; both nets have
-    the same 21 sites), at the same tolerance; with the kernel's device
-    time and bound per site."""
-    from gdn_tpu_torch.ops.groupnorm import group_norm_elu_plain, pick_groups
+    the same 21 sites), at the same tolerance, statistics included; with
+    the kernel's device time and bound per site.  Then the ragged set
+    GN_RAGGED, checked the same way."""
+    from gdn_tpu_torch.ops.groupnorm import pick_groups
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -357,24 +497,36 @@ def phase_kernels_train(cfg, gn):
     for c, h, w in sorted(set(gn_sites(cfg.model)), reverse=True):
         g = pick_groups(c, cfg.model.group_norm_groups)
         shape = (TRAIN_BATCH, c, h, w)
-        x = ((torch.randn(shape, device="cuda", generator=gen) * 2 + 1)
-             .to(dtype).contiguous(memory_format=torch.channels_last))
+        x = _gn_input(shape, dtype, gen)
         scale = torch.rand(c, device="cuda", generator=gen) + 0.5
         bias = torch.randn(c, device="cuda", generator=gen)
-        out = gn(x, scale, bias, g)
-        torch.cuda.synchronize()
         what = f"group_norm_elu {shape} {dtype}"
-        err = check_close(out, group_norm_elu_plain(x, scale, bias, g), dtype, what)
-        nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
+        err, serr, plan = gn_check(gn, x, scale, bias, g, what)
         row = {"B": TRAIN_BATCH, "C": c, "H": h, "W": w, "groups": g,
-               "dtype": str(dtype), "max_abs_err": err,
-               "ms": device_ms([lambda: gn(x, scale, bias, g)]),
-               "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                     GN_FLOPS_PER_ELEM * x.numel() / FP32_FLOPS)}
+               "dtype": str(dtype), "max_abs_err": err, "stats_max_abs_err": serr,
+               "plan": plan._asdict(), "split_ms": {},
+               "bound_ms": bound_ms(*gn_work(shape, x.element_size()))}
+        row["ms"] = device_ms([lambda: gn(x, scale, bias, g)], what=what,
+                              split=row["split_ms"])
         rows.append(row)
-        log(f"  {what}: max|k-p| {err:.3g}  device us: kernel "
-            f"{row['ms']*1e3:.1f} bound {row['bound_ms']*1e3:.1f}")
-        del x, out
+        log(f"  {what}: max|k-p| {err:.3g}, stats {serr:.3g}; {plan_text(plan)}")
+        log(f"    device us: kernel {row['ms']*1e3:.1f} bound {row['bound_ms']*1e3:.1f} "
+            f"({row['bound_ms'] / row['ms']:.0%} of it reached); kernel split: "
+            f"{split_text(row['split_ms'])}")
+        del x
+    log("   and the ragged set")
+    for b, c, h, w, g, dtype, offset in GN_RAGGED:
+        shape = (b, c, h, w)
+        x = _gn_input(shape, dtype, gen, offset)
+        scale = torch.rand(c, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(c, device="cuda", generator=gen)
+        what = f"group_norm_elu {shape} {dtype} offset {offset}"
+        err, serr, plan = gn_check(gn, x, scale, bias, g, what)
+        rows.append({"B": b, "C": c, "H": h, "W": w, "groups": g, "dtype": str(dtype),
+                     "offset": offset, "max_abs_err": err, "stats_max_abs_err": serr,
+                     "plan": plan._asdict(), "ragged": True})
+        log(f"  {what}: max|k-p| {err:.3g}, stats {serr:.3g}; {plan_text(plan)}")
+        del x
     return rows
 
 
@@ -506,7 +658,7 @@ def profile_serving(pred, images, tag):
         return sum(us for k, (us, _) in kernels.items()
                    if any(part in k for part in parts)) / 1e3
 
-    gn_ms = named("gn_stats", "gn_apply")
+    gn_ms = named("gn_elu_coop")
     conv_ms = named("conv3x3_stats", "gn_elu_apply")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     os.makedirs(OUT, exist_ok=True)
@@ -623,11 +775,14 @@ def phase_loss():
             f"{row['fwd_max_rel_err']:.3g}); dpred max|k-p| {bwd_err:.3g} of "
             f"max|p| {row['bwd_max_abs_ref']:.3g}")
         if main:
-            px = b * h * w
-            row["fwd_bound_ms"] = 1e3 * max(LOSS_FWD_BYTES_PX * px / HBM_BYTES_PER_S,
-                                            LOSS_FWD_FLOPS_PX * px / FP32_FLOPS)
-            row["bwd_bound_ms"] = 1e3 * max(LOSS_BWD_BYTES_PX * px / HBM_BYTES_PER_S,
-                                            LOSS_BWD_FLOPS_PX * px / FP32_FLOPS)
+            work = loss_work(b, h, w)
+            row["fwd_bound_ms"] = bound_ms(*work["fwd"])
+            row["bwd_bound_ms"] = bound_ms(*work["bwd"])
+            row["bwd_resources"] = res = fl.backward_resources()
+            log(f"  backward kernel: {res['registers']} registers and "
+                f"{res['local_bytes']} local (spill) bytes a thread, "
+                f"{res['static_smem'] + res['dynamic_smem']} bytes of shared memory and "
+                f"{res['threads']} threads a block")
             fns = {
                 "fwd_ms": [lambda i=i: fl.fused_loss_fwd(*i, 80.0) for i in ins],
                 "fwd_plain_ms": [lambda i=i: fl.loss_sums_plain(*i, 80.0) for i in ins],
@@ -636,7 +791,12 @@ def phase_loss():
                                  for i in ins],
             }
             for k, f in fns.items():
-                row[k] = device_ms(f)
+                if k in ("fwd_ms", "bwd_ms"):
+                    row[k.replace("ms", "split_ms")] = split = {}
+                    row[k] = device_ms(f, what=k, split=split)
+                    log(f"  {k[:3]} kernels, one call: {split_text(split)}")
+                else:
+                    row[k] = device_ms(f)
             log(f"  device us at B={b}: forward kernel {row['fwd_ms']*1e3:.1f} "
                 f"plain {row['fwd_plain_ms']*1e3:.1f} bound "
                 f"{row['fwd_bound_ms']*1e3:.2f} (operations); backward kernel "
@@ -1238,10 +1398,22 @@ def main():
 
     log("== 2. build")
     t0 = time.perf_counter()
+    ptxas = start_ptxas(("group_norm_elu", "fused_loss"))
     port_kernels.load_all()
     log(f"  group_norm_elu, fused_loss and conv_gn_elu (the fused conv family: six "
         f"entry points, upsample included) built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
+    ptxas = finish_ptxas(ptxas, ("gn_elu_coop", "loss_backward"))
+    for fn, res in ptxas.items():
+        log(f"  ptxas: {fn[:70]}: {res['registers']} registers, {res['spill_stores']} "
+            f"bytes spill stores, {res['stack']} bytes stack")
+    # the scalar route (VEC = 1: C % 8 != 0 or a pointer off 16 bytes, up to
+    # 1024 threads a block) is reported; every other instantiation must
+    # not spill
+    spilling = {fn: res for fn, res in ptxas.items() if res["spill_stores"]
+                and not ("gn_elu_coop" in fn and "Li1EE" in fn)}
+    if spilling:
+        raise AssertionError(f"the one-launch kernels spill: {spilling}")
     hmma_by_fn = sass_hmma()
     hmma = sum(hmma_by_fn.values())
     log(f"  SASS: {hmma} HMMA instructions in {len(hmma_by_fn)} instantiations of "
@@ -1393,7 +1565,7 @@ def main():
                    "serving_fusion": serving_fusion, "serving_all": serving_all,
                    "training_fusion": training_fusion, "vs_cpu_fusion": vs_cpu_fusion,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
-                   "sass_hmma": hmma_by_fn,
+                   "sass_hmma": hmma_by_fn, "ptxas": ptxas,
                    "kernels": kernels}, f, indent=1)
     if EVENT_TIMED:
         log(f"timed with CUDA events, the profiler having come back short: {EVENT_TIMED}")

@@ -10,9 +10,11 @@ they are built) compute, per image, the 8 partial sums
     S SSIM(p/max, g/max), H*W ]
 
 and, for per-image cotangents (ct_l1, ct_gx, ct_gy, ct_ssim), dL/dpred
-in closed form.  ``fused_loss_terms`` binds the two as one
-``torch.autograd.Function`` and normalizes the sums in PyTorch, as the
-JAX package does outside its kernel.
+in closed form, in one launch that keeps the SSIM adjoint maps in shared
+memory (tiles of ``BWD_TILE`` staged with a ``BWD_HALO``-pixel halo).
+``fused_loss_terms`` binds the two as one ``torch.autograd.Function``
+and normalizes the sums in PyTorch, as the JAX package does outside its
+kernel.
 
 A CPU tensor runs the plain version (sums through ``ops/ssim.py``, the
 gradient by autograd); a CUDA tensor launches the kernels or raises.
@@ -38,7 +40,9 @@ _L1, _NM, _GX, _NGX, _GY, _NGY, _SSIM, _NPIX = range(8)
 # SSIM runs on inputs normalized by 1/max_val -> constants at L=1
 C1 = 0.01 ** 2
 C2 = 0.03 ** 2
-_TILE = (16, 32)  # (rows, cols) of one block, as in the CUDA source
+_TILE = (16, 32)  # (rows, cols) of one forward block, as in the CUDA source
+BWD_TILE = (32, 64)  # (rows, cols) of one backward block, as in the CUDA source
+BWD_HALO = 10  # staged halo of a backward tile: 5 for the moments, 5 for the maps
 _MAX_HALF = 5
 _MIN_SIDE = 6
 
@@ -49,9 +53,11 @@ def load() -> ctypes.CDLL:
     if lib.fused_loss_forward.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_loss_forward.argtypes = [p] * 6 + [i] * 4 + [f] * 3 + [p]
-        lib.fused_loss_backward.argtypes = [p] * 7 + [i] * 4 + [f] * 3 + [p]
-        lib.fused_loss_forward.restype = ctypes.c_int
-        lib.fused_loss_backward.restype = ctypes.c_int
+        lib.fused_loss_backward.argtypes = [p] * 6 + [i] * 4 + [f] * 3 + [p]
+        lib.fused_loss_backward_attrs.argtypes = [p]
+        for fn in (lib.fused_loss_forward, lib.fused_loss_backward,
+                   lib.fused_loss_backward_attrs):
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -133,12 +139,11 @@ def fused_loss_bwd(pred, gt, mask, cts, max_val: float, window: int = 11,
     if cts.device != pred.device:
         raise ValueError("cts must lie on pred's device")
     cts = cts.float().contiguous()
-    amaps = torch.empty((b, 3, h, w), dtype=torch.float32, device=pred.device)
     dpred = torch.empty_like(pred)
     wt = _weights(window, sigma, pred.device)
     err = load().fused_loss_backward(
         pred.data_ptr(), gt.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-        cts.data_ptr(), amaps.data_ptr(), dpred.data_ptr(), b, h, w,
+        cts.data_ptr(), dpred.data_ptr(), b, h, w,
         window // 2, 1.0 / max_val, C1, C2,
         torch.cuda.current_stream(pred.device).cuda_stream,
     )
@@ -150,6 +155,18 @@ def fused_loss_bwd(pred, gt, mask, cts, max_val: float, window: int = 11,
 
 fused_loss_fwd.launches = 0
 fused_loss_bwd.launches = 0
+
+
+def backward_resources() -> Dict[str, int]:
+    """The backward kernel's resources as built for the current device:
+    registers and local (spill) bytes a thread, static and dynamic shared
+    bytes and threads a block."""
+    attrs = (ctypes.c_int * 5)()
+    err = load().fused_loss_backward_attrs(attrs)
+    if err != 0:
+        raise RuntimeError(f"fused_loss_backward_attrs failed: cudaError {err}")
+    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem", "threads")
+    return dict(zip(keys, attrs))
 
 
 # ------------------------------------------------------------ plain version

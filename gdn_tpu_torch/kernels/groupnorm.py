@@ -2,9 +2,14 @@
 
 Replaces the TPU kernel ``gdn_tpu/kernels/groupnorm.py::
 fused_group_norm_elu``.  The kernel (``csrc/group_norm_elu.cu``) is
-memory-bound; its header says how its two launches deal with that.
-Unlike the TPU kernel it needs no lane packing and no VMEM gate, so it
-covers every GN site of the net (C = 16 ... 512).
+memory-bound and runs as one cooperative launch a call: blocks stage
+slabs of one image's rows in shared memory, write their partial sums,
+meet at a grid-wide barrier and normalize.  ``gn_plan`` decides the
+slabs and the grid: held (one slab a block, x read once) where the
+resident grid covers the tensor, else streamed (several slabs a block,
+read again after the barrier).  Unlike the TPU kernel it needs no lane
+packing and no VMEM gate, so it covers every GN site of the net (C =
+16 ... 512, up to 1024).
 
 Numerics: statistics in fp32 (single-pass, clamped at 0), then fp32
 math until the one store in the input dtype, like the TPU kernel.  The
@@ -15,27 +20,90 @@ analytic form; in bf16 the two differ by a few bf16 ulps of the output
 
 Gradient: where the input or the affine parameters require grad, the
 kernel runs inside ``_GroupNormELUKernel``, an autograd Function that
-keeps x and the fp32 per-(B, C) mean and inverse std folded from the
-kernel's partials, and whose backward is the JAX package's analytic
-two-reduce backward in plain PyTorch (``ops.groupnorm.gn_elu_backward``;
-on the TPU that backward is XLA, not a Pallas kernel).  Without grad
-(serving, the frozen D-net) the kernel is called directly and nothing
-is kept.  On the CPU every site runs ``group_norm_elu_analytic``.
+keeps x and the fp32 (B, 2, G) mean and inverse std the kernel writes,
+and whose backward is the JAX package's analytic two-reduce backward in
+plain PyTorch (``ops.groupnorm.gn_elu_backward``; on the TPU that
+backward is XLA, not a Pallas kernel).  Without grad (serving, the
+frozen D-net) the kernel is called directly and nothing is kept.  On
+the CPU every site runs ``group_norm_elu_analytic``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from gdn_tpu_torch.kernels import build
 from gdn_tpu_torch.ops.groupnorm import gn_elu_backward, group_norm_elu_analytic
 
-# Elements one block of each launch covers; sets the chunk count.
-_BLOCK_ELEMS = 16384
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C = 1024
+_THREADS = 256  # a block's threads, unless C / vec alone is more
+_BLOCKS_PER_SM = 2  # the slab's shared memory is sized for two blocks an SM
+
+
+class GnPlan(NamedTuple):
+    grid: int  # blocks, all resident at once
+    rows: int  # NHWC rows of one slab
+    slabs_per_image: int
+    slabs_per_block: int  # the most any block walks
+    held: bool  # one slab a block, kept in shared memory across the barrier
+
+
+def block_shape(c: int, vec: int):
+    """(threads across = C / vec, rows at once) of one block."""
+    px = c // vec
+    return px, max(1, _THREADS // px)
+
+
+def smem_bytes(c: int, groups: int, vec: int, slab_bytes: int) -> int:
+    """Dynamic shared memory of one block: the slab, the (rows at once,
+    C) fp32 channel sums and the 2 * G fp32 group statistics."""
+    return slab_bytes + 4 * (block_shape(c, vec)[1] * c + 2 * groups)
+
+
+def slab_capacity(c: int, groups: int, vec: int, smem_per_sm: int,
+                  reserved_per_block: int) -> int:
+    """Bytes of slab a block may stage, 16-byte aligned, so that two
+    blocks fit an SM's shared memory (H100: 233,472 bytes an SM, 1,024
+    reserved a block)."""
+    per_block = smem_per_sm // _BLOCKS_PER_SM - reserved_per_block
+    return (per_block - smem_bytes(c, groups, vec, 0)) // 16 * 16
+
+
+def gn_plan(b: int, hw: int, c: int, itemsize: int, resident_blocks: int,
+            slab_bytes: int, sms: int = 0) -> GnPlan:
+    """Slabs and grid of one call on (b, hw, c) rows of ``itemsize``
+    bytes, for a card that holds ``resident_blocks`` blocks at once, each
+    with ``slab_bytes`` of slab, on ``sms`` SMs (0: no preference).
+
+    Held where a block per slab fits: as many slabs an image as one block
+    an SM allows where they hold the tensor (on an H100 the small serving
+    sites ran faster so than on two blocks an SM: a cheaper barrier and
+    fold), else as many as the resident grid allows.  Else streamed:
+    slabs as large as half the capacity (the kernel keeps the next one's
+    copy in flight in the other half), spread evenly over at most
+    ``resident_blocks`` blocks."""
+    row = c * itemsize
+    cap_rows, stream_rows = slab_bytes // row, slab_bytes // 2 // 16 * 16 // row
+    if stream_rows < 1 or resident_blocks < 1:
+        raise ValueError(f"a slab of {slab_bytes} bytes holds no row of C={c} twice")
+    for limit in sorted({min(sms or resident_blocks, resident_blocks), resident_blocks}):
+        spi = max(1, limit // b)
+        rows = -(-hw // spi)
+        if b * spi <= limit and rows <= cap_rows:
+            spi = -(-hw // rows)
+            return GnPlan(b * spi, rows, spi, 1, True)
+    spi = -(-hw // min(hw, stream_rows))
+    rows = -(-hw // spi)
+    spi = -(-hw // rows)
+    total = b * spi
+    per_block = -(-total // min(resident_blocks, total))
+    grid = -(-total // per_block)
+    return GnPlan(grid, rows, spi, per_block, grid >= total)
 
 
 def load() -> ctypes.CDLL:
@@ -45,9 +113,54 @@ def load() -> ctypes.CDLL:
     fn = lib.gn_elu_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+        fn.argtypes = [p] * 6 + [i] * 11 + [ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
+        lib.gn_elu_device.argtypes = [p]
+        lib.gn_elu_device.restype = ctypes.c_int
+        lib.gn_elu_occupancy.argtypes = [i, i, i, i, p]
+        lib.gn_elu_occupancy.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device: int, dtype: int, vec: int, c: int, groups: int):
+    """(SMs, resident blocks, slab bytes, dynamic shared memory) of the
+    kernel for (dtype, vec, C, G) on the current device, queried once."""
+    lib = load()
+    info = (ctypes.c_int * 5)()
+    err = lib.gn_elu_device(info)
+    if err != 0:
+        raise RuntimeError(f"gn_elu_device failed: cudaError {err}")
+    sms, smem_sm, reserved, _, coop = info
+    if not coop:
+        raise RuntimeError("the card does not take cooperative launches")
+    slab = slab_capacity(c, groups, vec, smem_sm, reserved)
+    dyn = smem_bytes(c, groups, vec, slab)
+    px, by = block_shape(c, vec)
+    blocks = ctypes.c_int(0)
+    err = lib.gn_elu_occupancy(dtype, vec, px * by, dyn, ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(
+            f"gn_elu_occupancy failed: cudaError {err}, {blocks.value} blocks an SM")
+    return sms, sms * blocks.value, slab, dyn
+
+
+def _config(x: torch.Tensor, groups: int):
+    """(vec, plan, slab bytes, dynamic shared memory) of the kernel for
+    CUDA x (B, C, H, W) in channels_last: 16-byte loads where C and the
+    pointer allow, else the scalar route (vec 1)."""
+    b, c, h, w = x.shape
+    vec = 16 // x.element_size()
+    if c % vec or x.data_ptr() % 16:
+        vec = 1
+    sms, resident, slab, dyn = _resident(x.device.index or 0, _DTYPES[x.dtype], vec, c,
+                                         groups)
+    return vec, gn_plan(b, h * w, c, x.element_size(), resident, slab, sms), slab, dyn
+
+
+def plan_for(x: torch.Tensor, groups: int) -> GnPlan:
+    """The plan the kernel takes for CUDA x (B, C, H, W) in channels_last."""
+    return _config(x, groups)[1]
 
 
 def _check(x, scale, bias, groups):
@@ -68,7 +181,8 @@ def _check(x, scale, bias, groups):
 
 
 def _launch(x, scale, bias, groups, eps):
-    """Run the kernel on channels_last CUDA x -> (out, partials)."""
+    """Run the kernel on channels_last CUDA x -> (out, fp32 (B, 2, G)
+    mean and inverse std)."""
     b, c, h, w = x.shape
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("x must be channels_last contiguous (NHWC memory)")
@@ -76,36 +190,22 @@ def _launch(x, scale, bias, groups, eps):
         raise ValueError(f"C={c} exceeds the kernel's limit of {_MAX_C}")
     scale = scale.detach().float().contiguous()
     bias = bias.detach().float().contiguous()
-    vec = 16 // x.element_size()
-    if c % vec or x.data_ptr() % 16:
-        vec = 1
-    hw = h * w
-    rows = max(1, _BLOCK_ELEMS // c)
-    chunks = -(-hw // rows)
+    vec, plan, slab, dyn = _config(x, groups)
+    px, by = block_shape(c, vec)
     out = torch.empty_like(x, memory_format=torch.channels_last)
-    partials = torch.empty((b, groups, chunks, 2), dtype=torch.float32,
+    stats = torch.empty((b, 2, groups), dtype=torch.float32, device=x.device)
+    partials = torch.empty((b * plan.slabs_per_image, groups, 2), dtype=torch.float32,
                            device=x.device)
     err = load().gn_elu_forward(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        partials.data_ptr(), b, hw, c, groups, rows, chunks, float(eps),
-        _DTYPES[x.dtype], vec, torch.cuda.current_stream(x.device).cuda_stream,
+        partials.data_ptr(), stats.data_ptr(), b, h * w, c, groups, plan.rows,
+        plan.slabs_per_image, plan.grid, px, by, slab, dyn, float(eps), _DTYPES[x.dtype], vec,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"gn_elu_forward failed: cudaError {err}")
     group_norm_elu.launches += 1
-    return out, partials
-
-
-def _stats_from_partials(partials, c, hw, eps):
-    """The kernel's (B, G, chunks, 2) partial sums -> fp32 (B, C) mean
-    and inverse std, folded as the kernel folds them (clamped var)."""
-    b, groups = partials.shape[:2]
-    cg = c // groups
-    s = partials.sum(2)  # (B, G, 2)
-    n = float(hw * cg)
-    mean = s[..., 0] / n
-    inv = torch.rsqrt(torch.clamp(s[..., 1] / n - mean * mean, min=0.0) + eps)
-    return mean.repeat_interleave(cg, 1), inv.repeat_interleave(cg, 1)
+    return out, stats
 
 
 class _GroupNormELUKernel(torch.autograd.Function):
@@ -113,20 +213,27 @@ class _GroupNormELUKernel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, groups, eps):
-        out, partials = _launch(x, scale, bias, groups, eps)
-        mean_c, inv_c = _stats_from_partials(partials, x.shape[1],
-                                             x.shape[2] * x.shape[3], eps)
-        ctx.save_for_backward(x, mean_c, inv_c, scale, bias)
+        out, stats = _launch(x, scale, bias, groups, eps)
+        ctx.save_for_backward(x, stats, scale, bias)
         ctx.groups = groups
         return out
 
     @staticmethod
     def backward(ctx, da):
-        x, mean_c, inv_c, scale, bias = ctx.saved_tensors
-        dt = x.dtype
-        yn = (x - mean_c.to(dt)[:, :, None, None]) * inv_c.to(dt)[:, :, None, None]
-        dy, dscale, dbias = gn_elu_backward(da, yn, inv_c, scale, bias, ctx.groups)
-        return dy, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None
+        x, stats, scale, bias = ctx.saved_tensors
+        dy, dscale, dbias = backward_from_stats(da, x, stats, scale, bias, ctx.groups)
+        return dy, dscale, dbias, None, None
+
+
+def backward_from_stats(da, x, stats, scale, bias, groups):
+    """(dx, dscale, dbias) of GroupNorm+ELU from x and the kernel's fp32
+    (B, 2, G) mean and inverse std, expanded per channel by one op."""
+    dt = x.dtype
+    st = stats.repeat_interleave(x.shape[1] // groups, dim=2)  # (B, 2, C)
+    mean_c, inv_c = st[:, 0], st[:, 1]
+    yn = (x - mean_c.to(dt)[:, :, None, None]) * inv_c.to(dt)[:, :, None, None]
+    dy, dscale, dbias = gn_elu_backward(da, yn, inv_c, scale, bias, groups)
+    return dy, dscale.to(scale.dtype), dbias.to(bias.dtype)
 
 
 def group_norm_elu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

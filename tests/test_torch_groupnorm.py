@@ -5,6 +5,16 @@ held to the TPU kernel run in interpret mode and to the analytic XLA
 form, on the same numpy inputs, at the shapes and tolerances of
 tests/test_kernels.py (fp32 rtol 1e-4 / atol 1e-5; bf16 atol 0.05, the
 bound the JAX suite gives the kernel against its reference).
+
+The CUDA kernel itself runs only on the card (``chip_smoke.py``); here
+its plan (``gn_plan``: every row in one slab, every slab in one block,
+no more blocks than are resident, held at every serving site, streamed
+at the 128x416 training sites) is checked at the H100's shared-memory
+sizes, and a plain-PyTorch model of its dataflow (slab partials, a
+fixed-order fold to the (B, 2, G) mean and inverse std) is held to the
+TPU kernel in interpret mode, its statistics to the JAX package's fp32
+ones (rtol 1e-5 / atol 1e-6, as on the card), and the autograd
+Function's backward from those statistics to ``jax.vjp``.
 """
 
 import jax.numpy as jnp
@@ -134,3 +144,174 @@ def test_cpu_path_counts_no_launch():
     x = torch.randn(1, 8, 4, 4).contiguous(memory_format=torch.channels_last)
     group_norm_elu(x, torch.ones(8), torch.zeros(8), 4)
     assert group_norm_elu.launches == before
+
+
+# ------------------------------------------- the one-launch kernel's plan
+
+from gdn_tpu_torch.kernels import groupnorm as gnk  # noqa: E402
+
+H100_SMEM_PER_SM, H100_RESERVED = 233_472, 1_024  # bytes (cudaDevAttr...)
+SMS = 132
+RESIDENT = 2 * SMS  # the two blocks an SM the slab is sized for
+# The distinct GroupNorm+ELU sites of the KITTI G-net (C, H, W) and how many
+# of its 21 sites each is (chip_smoke.gn_sites).
+KITTI_SITES = [(512, 4, 13, 2), (256, 8, 26, 4), (128, 16, 52, 4), (64, 32, 104, 4),
+               (32, 64, 208, 4), (16, 128, 416, 2), (32, 128, 416, 1)]
+PLAN_RAGGED = [  # (B, HW, C, groups, itemsize, vec, resident)
+    (3, 63, 16, 4, 2, 8, RESIDENT), (2, 15, 1024, 32, 2, 8, RESIDENT),
+    (2, 15, 1024, 8, 4, 1, RESIDENT), (4, 1, 64, 8, 2, 8, RESIDENT),
+    (2, 143, 12, 4, 2, 1, RESIDENT), (300, 7, 32, 8, 2, 8, RESIDENT),
+    (8, 256 * 416, 32, 8, 2, 8, RESIDENT), (5, 1000, 48, 8, 4, 4, 7),
+    (1, 6, 1024, 8, 4, 1, 1),
+]
+
+
+def _capacity(c, groups, vec):
+    return gnk.slab_capacity(c, groups, vec, H100_SMEM_PER_SM, H100_RESERVED)
+
+
+def _check_plan(b, hw, c, groups, item, vec, resident):
+    cap = _capacity(c, groups, vec)
+    plan = gnk.gn_plan(b, hw, c, item, resident, cap, SMS)
+    spi, rows = plan.slabs_per_image, plan.rows
+    # every row of every image in exactly one slab
+    assert (spi - 1) * rows < hw <= spi * rows
+    covered = np.zeros((b, hw), np.int64)
+    for s in range(b * spi):
+        covered[s // spi, (s % spi) * rows:(s % spi + 1) * rows] += 1
+    assert (covered == 1).all()
+    # every slab in exactly one block, none beyond the resident grid
+    assert 1 <= plan.grid <= resident
+    walks = [len(range(i, b * spi, plan.grid)) for i in range(plan.grid)]
+    assert sum(walks) == b * spi and max(walks) == plan.slabs_per_block
+    assert min(walks) >= 1
+    assert plan.held == (plan.slabs_per_block == 1)
+    # a held slab within the space, a streamed one within half of it
+    assert rows * c * item <= (cap if plan.held else cap // 2 // 16 * 16)
+    # two blocks' dynamic shared memory fit an SM
+    per_block = gnk.smem_bytes(c, groups, vec, cap) + H100_RESERVED
+    assert 2 * per_block <= H100_SMEM_PER_SM
+    return plan
+
+
+@pytest.mark.parametrize("item", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b", [8, 32])
+@pytest.mark.parametrize("site", KITTI_SITES, ids=lambda s: f"{s[0]}x{s[1]}x{s[2]}")
+def test_gn_plan_covers_every_row_once_at_kitti_sites(site, b, item):
+    c, h, w, _ = site
+    plan = _check_plan(b, h * w, c, 8, item, 16 // item, RESIDENT)
+    if b == 8 and item == 2:
+        assert plan.held  # every serving site stays in shared memory
+        # one block an SM where that holds the site (<= 14 MB), else two
+        assert plan.grid <= (SMS if b * h * w * c * item <= SMS * _capacity(c, 8, 8)
+                             else RESIDENT)
+    if b == 32 and (h, w) == (128, 416):
+        assert not plan.held and plan.slabs_per_block > 1
+
+
+@pytest.mark.parametrize("case", PLAN_RAGGED, ids=lambda t: "-".join(map(str, t[:3])))
+def test_gn_plan_covers_every_row_once_at_ragged_shapes(case):
+    _check_plan(*case)
+
+
+def test_gn_plan_never_exceeds_the_resident_grid():
+    rng = np.random.default_rng(0)
+    for _ in range(300):
+        c = int(rng.choice([8, 16, 24, 48, 64, 512, 1024]))
+        item = int(rng.choice([2, 4]))
+        b, hw = int(rng.integers(1, 70)), int(rng.integers(1, 60000))
+        resident = int(rng.choice([1, 3, 132, 264]))
+        plan = _check_plan(b, hw, c, 8, item, 16 // item, resident)
+        assert plan.grid <= resident
+
+
+def test_gn_plan_refuses_a_slab_without_a_row():
+    with pytest.raises(ValueError, match="no row"):
+        gnk.gn_plan(2, 10, 1024, 4, RESIDENT, 4096)
+
+
+def _gn_dataflow(x, scale, bias, groups, plan, eps=1e-6):
+    """The kernel's dataflow in plain PyTorch on NHWC x (B, HW, C): each
+    slab's per-channel then per-group fp32 sums, the fixed-order fold of
+    an image's slab partials into the (B, 2, G) mean and inverse std,
+    then normalize, affine and ELU in fp32 and one cast to x's dtype."""
+    b, hw, c = x.shape
+    cg, spi, rows = c // groups, plan.slabs_per_image, plan.rows
+    xf = x.float()
+    parts = torch.zeros(b, spi, groups, 2)
+    for s in range(b * spi):
+        slab = xf[s // spi, (s % spi) * rows:(s % spi + 1) * rows]
+        for k, moment in enumerate((slab, slab * slab)):
+            parts[s // spi, s % spi, :, k] = moment.sum(0).view(groups, cg).sum(-1)
+    tot = torch.zeros(b, groups, 2)
+    for k in range(spi):  # fixed order, every block alike
+        tot += parts[:, k]
+    n = hw * cg
+    mean = tot[..., 0] / n
+    inv = torch.rsqrt(torch.clamp(tot[..., 1] / n - mean * mean, min=0.0) + eps)
+    stats = torch.stack([mean, inv], dim=1)  # (B, 2, G)
+    st = stats.repeat_interleave(cg, dim=2)
+    z = (xf - st[:, None, 0]) * (st[:, None, 1] * scale) + bias
+    return F.elu(z).to(x.dtype), stats
+
+
+@pytest.mark.parametrize("resident", [RESIDENT, 3], ids=["held", "streamed"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernel_dataflow_matches_jax_kernel_and_statistics(shape, dtype, resident):
+    import jax
+
+    b, h, w, c, groups = shape
+    x, scale, bias = _inputs(shape, seed=sum(shape) + 1)
+    item = 2 if dtype == "bfloat16" else 4
+    vec = 16 // item
+    cap = _capacity(c, groups, vec) if resident == RESIDENT else 4 * c * item
+    plan = gnk.gn_plan(b, h * w, c, item, resident, cap)
+    assert plan.held == (resident == RESIDENT)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype)).reshape(b, h * w, c)
+    got, stats = _gn_dataflow(xt, torch.from_numpy(scale), torch.from_numpy(bias),
+                              groups, plan)
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    want = fused_group_norm_elu(xj, jnp.asarray(scale), jnp.asarray(bias), groups,
+                                1e-6, True)
+    np.testing.assert_allclose(got.float().numpy().reshape(b, h, w, c),
+                               np.asarray(want, np.float32), **TOL[dtype])
+    # statistics: the JAX package's fp32 inverse std (the residual of its
+    # analytic form) and the groups' mean of the same rounded inputs
+    _, _, inv_c = jax.jit(jgn._gn_elu_impl, static_argnums=(3, 4))(
+        xj, jnp.asarray(scale), jnp.asarray(bias), groups, 1e-6)
+    cg = c // groups
+    np.testing.assert_allclose(stats[:, 1].numpy(), np.asarray(inv_c)[:, ::cg],
+                               rtol=1e-5, atol=1e-6)
+    xr = np.asarray(xj.astype(jnp.float32), np.float64).reshape(b, h * w, groups, cg)
+    np.testing.assert_allclose(stats[:, 0].numpy(), xr.mean(axis=(1, 3)),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES[:3])
+def test_backward_from_kernel_statistics_matches_jax_vjp(shape, dtype):
+    """The autograd Function's backward, fed the (B, 2, G) statistics as
+    the kernel writes them (here by its dataflow model), against jax.vjp
+    of the JAX package's analytic GroupNorm+ELU."""
+    import jax
+
+    b, h, w, c, groups = shape
+    x, scale, bias = _inputs(shape, seed=sum(shape) + 2)
+    da = np.random.default_rng(sum(shape)).normal(size=x.shape).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    xt = torch.from_numpy(x).to(tdt)
+    plan = gnk.gn_plan(b, h * w, c, xt.element_size(), RESIDENT,
+                       _capacity(c, groups, 16 // xt.element_size()))
+    _, stats = _gn_dataflow(xt.reshape(b, h * w, c), torch.from_numpy(scale),
+                            torch.from_numpy(bias), groups, plan)
+    dx, dscale, dbias = gnk.backward_from_stats(
+        _torch_nchw(da, dtype), _torch_nchw(x, dtype), stats, torch.from_numpy(scale),
+        torch.from_numpy(bias), groups)
+    _, vjp = jax.vjp(lambda y, s, bb: jgn.group_norm_elu_analytic(y, s, bb, groups),
+                     jnp.asarray(x).astype(jdt), jnp.asarray(scale), jnp.asarray(bias))
+    jdx, jds, jdb = vjp(jnp.asarray(da).astype(jdt))
+    assert dx.dtype == tdt and dscale.dtype == torch.float32
+    np.testing.assert_allclose(_np(dx), np.asarray(jdx, np.float32), **TOL[dtype])
+    np.testing.assert_allclose(dscale.numpy(), np.asarray(jds), **TOL[dtype])
+    np.testing.assert_allclose(dbias.numpy(), np.asarray(jdb), **TOL[dtype])

@@ -162,6 +162,140 @@ def test_bwd_plain_equals_autograd_of_normalized_terms():
     np.testing.assert_allclose(d.numpy(), p.grad.numpy(), rtol=1e-6, atol=1e-12)
 
 
+# ----------------------------------------- the one-launch backward's tiling
+
+def _reflect(j, n):
+    """The kernel's staging index: reflect-101, then clamped (exact for
+    -n < j < 2n - 1; farther positions feed no output)."""
+    j = np.abs(j)
+    j = np.where(j >= n, 2 * n - 2 - j, j)
+    return np.clip(j, 0, n - 1)
+
+
+def _fold_taps(w, half, j, n, x):
+    """The folded reflect-101 taps of the transposed blur at output j of a
+    line of n (the kernel's fold_taps); x(i) reads the map at pixel i."""
+    v = 0.0
+    if 1 <= j <= half:
+        for i in range(0, half - j + 1):
+            v = v + w[half - i - j] * x(i)
+    if n - 1 - half <= j <= n - 2:
+        for i in range(max(2 * n - 2 - j - half, 0), n):
+            v = v + w[2 * n - 2 - j + half - i] * x(i)
+    return v
+
+
+def _stencil(a, w, half, axis, start, count):
+    """sum_t w[t] a[start + t + k] along ``axis``, k < count (the plain
+    11-tap stencil of the kernel's shared-memory passes)."""
+    out = 0.0
+    for t in range(2 * half + 1):
+        out = out + w[t] * a.narrow(axis, start + t, count)
+    return out
+
+
+def _bwd_tiled(pred, gt, mask, cts, max_val, window=11, sigma=1.5):
+    """dL/dpred by the backward kernel's dataflow, in fp32 PyTorch: per
+    output tile of ``BWD_TILE``, pred/max and gt/max staged with a
+    ``BWD_HALO``-pixel halo (reflect index once a row and once a column),
+    the moments and the three adjoint maps for the tile plus 5 only (0
+    outside the image), the transposed blur rows then columns with the
+    folded taps only in tiles within ``half`` of an edge, then the L1 and
+    difference terms.  Returns (dpred, interior tiles seen, and whether
+    every interior tile's plain stencil equalled blur_t's result)."""
+    b, h, w = pred.shape
+    th, tw = tfl.BWD_TILE
+    halo, hh = tfl.BWD_HALO, tfl.BWD_HALO // 2
+    half = window // 2
+    wt = torch.from_numpy(tssim.gaussian_kernel_1d(window, sigma))
+    t0 = hh - half
+    inv = 1.0 / max_val
+    pn, gn = pred * inv, gt * inv
+    dpred = torch.zeros_like(pred)
+    interior, agree = 0, True
+    for bi in range(b):
+        for r0 in range(0, h, th):
+            for c0 in range(0, w, tw):
+                rix = _reflect(np.arange(r0 - halo, r0 + th + halo), h)
+                cix = _reflect(np.arange(c0 - halo, c0 + tw + halo), w)
+                sp = pn[bi][rix][:, cix]
+                sg = gn[bi][rix][:, cix]
+                mc = tw + 2 * hh
+                hm = [_stencil(v, wt, half, 1, t0, mc)
+                      for v in (sp, sg, sp * sp, sg * sg, sp * sg)]
+                mr = th + 2 * hh
+                mx, my, mxx, myy, mxy = (_stencil(v, wt, half, 0, t0, mr) for v in hm)
+                sxx = torch.clamp(mxx - mx * mx, min=0.0)
+                syy = torch.clamp(myy - my * my, min=0.0)
+                sxy = mxy - mx * my
+                n1, n2 = 2.0 * mx * my + tfl.C1, 2.0 * sxy + tfl.C2
+                d1, d2 = mx * mx + my * my + tfl.C1, sxx + syy + tfl.C2
+                s = (n1 * n2) / (d1 * d2)
+                a1 = 2.0 * my * n2 / (d1 * d2) - s * 2.0 * mx / d1
+                a3 = -s / d2
+                a5 = 2.0 * n1 / (d1 * d2)
+                rows = torch.arange(r0 - hh, r0 + th + hh)[:, None]
+                cols = torch.arange(c0 - hh, c0 + tw + hh)[None, :]
+                inside = ((rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)).float()
+                maps = [(a1 - 2.0 * mx * a3 - my * a5) * inside, a3 * inside, a5 * inside]
+                fx = c0 <= half or c0 + tw + half + 1 > w
+                fy = r0 <= half or r0 + th + half + 1 > h
+                interior += not (fx or fy)
+                tk = []
+                for m in maps:
+                    # the zero-padded stencil: taps w[half - d] at tc + hh + d
+                    ht = _stencil(m, wt.flip(0), half, 1, t0, tw)
+                    folded = ht.clone()
+                    for tc in range(tw):
+                        folded[:, tc] += _fold_taps(
+                            wt, half, c0 + tc, w, lambda i: m[:, i - c0 + hh])
+                    agree &= fx or torch.equal(folded, ht)
+                    ht = folded if fx else ht
+                    v = _stencil(ht, wt.flip(0), half, 0, t0, th)
+                    folded = v.clone()
+                    for tr in range(th):
+                        folded[tr] += _fold_taps(
+                            wt, half, r0 + tr, h, lambda i: ht[i - r0 + hh])
+                    agree &= fy or torch.equal(folded, v)
+                    tk.append(folded if fy else v)
+                r1, c1 = min(r0 + th, h), min(c0 + tw, w)
+                p, g = pred[bi, r0:r1, c0:c1], gt[bi, r0:r1, c0:c1]
+                dpred[bi, r0:r1, c0:c1] = cts[bi, 3] * inv * (
+                    tk[0][:r1 - r0, :c1 - c0] + 2.0 * (p * inv) * tk[1][:r1 - r0, :c1 - c0]
+                    + (g * inv) * tk[2][:r1 - r0, :c1 - c0])
+    # the L1 sign field and the scatter of the forward-difference signs
+    d = pred - gt
+    dpred += cts[:, 0, None, None] * torch.sign(d) * mask
+    sx = torch.sign(d[:, :, 1:] - d[:, :, :-1]) * mask[:, :, 1:] * mask[:, :, :-1]
+    sy = torch.sign(d[:, 1:] - d[:, :-1]) * mask[:, 1:] * mask[:, :-1]
+    gx, gy = torch.zeros_like(pred), torch.zeros_like(pred)
+    gx[:, :, 1:] += sx
+    gx[:, :, :-1] -= sx
+    gy[:, 1:] += sy
+    gy[:, :-1] -= sy
+    dpred += cts[:, 1, None, None] * gx + cts[:, 2, None, None] * gy
+    return dpred, interior, agree
+
+
+@pytest.mark.parametrize("shape", [(2, 24, 32), (3, 37, 53), (2, 11, 16), (2, 80, 200)])
+def test_one_launch_backward_tiling_matches_jax_kernel(shape):
+    """The backward kernel's tiling (tile + 10 staged, maps on tile + 5
+    only, interior tiles on the plain stencil) against the gradient of the
+    JAX Pallas kernel in interpret mode; (2, 80, 200) is three tile rows
+    by four tile columns an image, two of them interior."""
+    weights = (1.0, 0.7, 0.4)
+    pred, gt, mask = _data(7 + shape[1], *shape)
+    _, want = _grad_pair(pred, gt, mask, weights)
+    p, g, m = _t(pred, gt, mask)
+    raw = tfl.loss_sums_plain(p, g, m, 80.0)
+    # ssim = (1 - ssim_mean) / 2, so its weight enters as -w / 2
+    ct = torch.tensor([weights[0], weights[1], -weights[2] / 2])
+    got, interior, agree = _bwd_tiled(p, g, m, tfl._cotangents(raw, ct), 80.0)
+    np.testing.assert_allclose(got.numpy(), want, **GRAD)
+    assert agree  # blur_t's folded taps add nothing on interior tiles
+    assert interior == (4 if shape == (2, 80, 200) else 0)
+
+
 def test_fused_wrappers_check_inputs():
     pred, gt, mask = _t(*_data(4, b=1, h=8, w=8))
     with pytest.raises(ValueError, match="device"):

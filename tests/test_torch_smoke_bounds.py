@@ -1,5 +1,6 @@
 """The work counts behind the bounds that ``chip_smoke.py`` reports for the
-fused conv kernels (``conv_work``), held to hand arithmetic on the CPU.
+fused conv kernels (``conv_work``), the GroupNorm+ELU kernel (``gn_work``)
+and the fused loss (``loss_work``), held to hand arithmetic on the CPU.
 
 A bound is the larger of the flops at the card's peak and the bytes at
 its memory rate, so each count must hold every byte the function must
@@ -60,3 +61,27 @@ def test_fp32_out_entry_points_count_fp32_a(name, shape, ho, wo):
     assert flops == 18 * cin * cout * ho * wo * b
     assert nbytes == b * h * w * cin * 2 + 9 * cin * cout * 4 + 2 * cout * 4 + (
         b * ho * wo * cout * 4)
+
+
+def test_gn_work_at_the_largest_serving_site():
+    """The 32-channel 128 x 416 GroupNorm+ELU site at B=8, bf16: 27.3 MB
+    read and 27.3 MB written, 16.3 us at 3.35 TB/s."""
+    flops, nbytes = chip_smoke.gn_work((8, 32, 128, 416), 2)
+    x = 8 * 32 * 128 * 416 * 2  # 27,262,976
+    assert nbytes == 2 * x + 2 * 32 * 4 == 54_526_208
+    assert flops == 8 * 8 * 32 * 128 * 416  # GN_FLOPS_PER_ELEM a element
+    assert chip_smoke.bound_ms(flops, nbytes) == pytest.approx(54_526_208 / 3.35e9)
+    assert chip_smoke.bound_ms(flops, nbytes) == pytest.approx(0.0163, abs=5e-5)
+
+
+def test_loss_work_at_the_training_batch():
+    """The fused loss at B=32, 128 x 416: 427 fp32 operations a pixel in
+    the backward (10.86 us at 67 TFLOP/s) against 16 bytes (8.1 us), 261
+    and 12 bytes in the forward."""
+    work = chip_smoke.loss_work(32, 128, 416)
+    px = 32 * 128 * 416  # 1,703,936
+    assert work["bwd"] == (427 * px, 16 * px)
+    assert work["fwd"] == (261 * px, 12 * px)
+    assert chip_smoke.bound_ms(*work["bwd"]) == pytest.approx(427 * px / 67e9)
+    assert chip_smoke.bound_ms(*work["bwd"]) == pytest.approx(0.01086, abs=5e-6)
+    assert chip_smoke.bound_ms(*work["fwd"]) == pytest.approx(261 * px / 67e9)

@@ -14,9 +14,9 @@ repository around this file.  Phases, each printed on its own lines:
               SASS of every instantiation of the tensor-core kernels
               (conv3x3_stats_tc and conv3x3_stats_tc_up; cuobjdump),
               which must not be zero; and, from an nvcc -Xptxas -v run
-              beside the build, the registers and spills of the two
-              one-launch kernels (gn_elu_coop, loss_backward), which
-              must not spill;
+              beside the build, the registers and spills of the
+              one-launch kernels (gn_elu_coop, loss_forward,
+              loss_backward), which must not spill;
   3. kernels  at every (B=8, C, H, W, groups) shape the KITTI serving
               forward gives the GroupNorm+ELU kernel, in bf16 and fp32:
               kernel vs its plain PyTorch version on the same tensors,
@@ -35,9 +35,12 @@ repository around this file.  Phases, each printed on its own lines:
               color) and /stats;
   6. loss     the fused loss forward and backward kernels vs their plain
               versions at B=32 128x416 (synthetic depth, ~5% holes, one
-              all-masked image) and at ragged 3x37x53 and 2x11x16, with
-              device times split by kernel name, bounds, and the
-              backward kernel's registers, spills and shared memory;
+              all-masked image), at ragged 3x37x53, 2x11x16, 2x80x200
+              (ragged tiles both ways) and 1x6x6, and with a 7-tap
+              window; two forward calls on the same inputs must give
+              the same bits; device times split by kernel name (the
+              forward one kernel a call), bounds, the forward's plan
+              and both kernels' registers, spills and shared memory;
   7. gn grad  GroupNorm+ELU gradients (x, scale, bias) through the
               kernel's autograd Function vs plain autograd, 3 serving
               shapes and the largest training one (32, 32, 128, 416);
@@ -744,45 +747,71 @@ def _loss_inputs(b, h, w, copies, gen):
     return out
 
 
+LOSS_SHAPES = [(TRAIN_BATCH, 128, 416, 11), (3, 37, 53, 11), (2, 11, 16, 11),
+               (2, 80, 200, 11), (1, 6, 6, 11), (2, 80, 200, 7)]  # (B, H, W, window)
+
+
 def phase_loss():
-    """Both loss kernels vs their plain versions.  Sums: rtol 1e-5 (the
-    JAX suite's value bound) on the counts' and sums' scale, atol 1e-6.
-    dpred: rtol 2e-4 (the JAX suite's gradient bound) plus an absolute
-    floor of 1e-5 of the largest |dpred| (the per-image cotangents are
-    ~1/N, and elements near 0 see the adjoint's cancellations)."""
+    """Both loss kernels vs their plain versions at LOSS_SHAPES (the
+    training shape; ragged tiles in both directions; the least side; a
+    7-tap window).  Sums: rtol 1e-5 (the JAX suite's value bound) on the
+    counts' and sums' scale, atol 1e-6, and two forward calls on the same
+    inputs bit-identical.  dpred: rtol 2e-4 (the JAX suite's gradient
+    bound) plus an absolute floor of 1e-5 of the largest |dpred| (the
+    per-image cotangents are ~1/N, and elements near 0 see the adjoint's
+    cancellations).  At the training shape the forward's device time
+    must come from one kernel a call."""
     from gdn_tpu_torch.kernels import fused_loss as fl
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     ct = torch.tensor([1.0, 1.0, 0.5], device="cuda")  # w_recon, w_grad, w_ssim
     rows = []
-    for b, h, w in [(TRAIN_BATCH, 128, 416), (3, 37, 53), (2, 11, 16)]:
+    for b, h, w, window in LOSS_SHAPES:
         main = b == TRAIN_BATCH
+        what = f"{b}x{h}x{w} window {window}"
         ins = _loss_inputs(b, h, w, 3 if main else 1, gen)
         pred, gt, mask = ins[0]
-        raw = fl.fused_loss_fwd(pred, gt, mask, 80.0)
-        ref = fl.loss_sums_plain(pred, gt, mask, 80.0)
-        fwd_err = check_tol(raw, ref, 1e-5, 1e-6, f"fused_loss_fwd {b}x{h}x{w}")
+        raw = fl.fused_loss_fwd(pred, gt, mask, 80.0, window)
+        again = fl.fused_loss_fwd(pred, gt, mask, 80.0, window)
+        ref = fl.loss_sums_plain(pred, gt, mask, 80.0, window)
+        fwd_err = check_tol(raw, ref, 1e-5, 1e-6, f"fused_loss_fwd {what}")
+        if not torch.equal(raw, again):
+            raise AssertionError(f"fused_loss_fwd {what}: two calls differ by "
+                                 f"{(raw - again).abs().max().item():.3g}")
         cts = fl._cotangents(ref, ct)
-        d = fl.fused_loss_bwd(pred, gt, mask, cts, 80.0)
-        dref = fl.fused_loss_bwd_plain(pred, gt, mask, cts, 80.0)
+        d = fl.fused_loss_bwd(pred, gt, mask, cts, 80.0, window)
+        dref = fl.fused_loss_bwd_plain(pred, gt, mask, cts, 80.0, window)
         torch.cuda.synchronize()
         floor = 1e-5 * dref.abs().max().item()
-        bwd_err = check_tol(d, dref, 2e-4, floor, f"fused_loss_bwd {b}x{h}x{w}")
-        row = {"B": b, "H": h, "W": w, "fwd_max_abs_err": fwd_err,
+        bwd_err = check_tol(d, dref, 2e-4, floor, f"fused_loss_bwd {what}")
+        plan = fl.plan_for(pred, window)
+        row = {"B": b, "H": h, "W": w, "window": window, "fwd_max_abs_err": fwd_err,
                "fwd_max_rel_err": ((raw - ref).abs() / ref.abs().clamp(min=1e-30)).max().item(),
+               "fwd_plan": plan._asdict(),
                "bwd_max_abs_err": bwd_err, "bwd_max_abs_ref": dref.abs().max().item()}
-        log(f"  {b}x{h}x{w}: sums max|k-p| {fwd_err:.3g} (rel "
-            f"{row['fwd_max_rel_err']:.3g}); dpred max|k-p| {bwd_err:.3g} of "
-            f"max|p| {row['bwd_max_abs_ref']:.3g}")
+        log(f"  {what}: sums max|k-p| {fwd_err:.3g} (rel "
+            f"{row['fwd_max_rel_err']:.3g}), a second call bit-identical; dpred max|k-p| "
+            f"{bwd_err:.3g} of max|p| {row['bwd_max_abs_ref']:.3g}; forward plan "
+            f"{plan.tiles_y}x{plan.tiles_x} tiles an image, {plan.grid} blocks, "
+            f"<= {plan.tiles_per_block} tiles a block")
         if main:
             work = loss_work(b, h, w)
             row["fwd_bound_ms"] = bound_ms(*work["fwd"])
             row["bwd_bound_ms"] = bound_ms(*work["bwd"])
+            row["fwd_resources"] = fres = fl.forward_resources()
             row["bwd_resources"] = res = fl.backward_resources()
+            log(f"  forward kernel: {fres['registers']} registers and "
+                f"{fres['local_bytes']} local (spill) bytes a thread, "
+                f"{fres['static_smem'] + fres['dynamic_smem']} bytes of shared memory and "
+                f"{fres['threads']} threads a block, {fl.FWD_TILE[0]}x{fl.FWD_TILE[1]} "
+                f"tiles, {fres['blocks_per_sm']} blocks an SM")
             log(f"  backward kernel: {res['registers']} registers and "
                 f"{res['local_bytes']} local (spill) bytes a thread, "
                 f"{res['static_smem'] + res['dynamic_smem']} bytes of shared memory and "
                 f"{res['threads']} threads a block")
+            for name, r in (("forward", fres), ("backward", res)):
+                if r["local_bytes"]:
+                    raise AssertionError(f"the loss {name} kernel spills: {r}")
             fns = {
                 "fwd_ms": [lambda i=i: fl.fused_loss_fwd(*i, 80.0) for i in ins],
                 "fwd_plain_ms": [lambda i=i: fl.loss_sums_plain(*i, 80.0) for i in ins],
@@ -797,6 +826,14 @@ def phase_loss():
                     log(f"  {k[:3]} kernels, one call: {split_text(split)}")
                 else:
                     row[k] = device_ms(f)
+            fsplit = row["fwd_split_ms"]
+            for _ in range(2):  # events time no split: profile the forward again
+                if fsplit:
+                    break
+                device_ms(fns["fwd_ms"], what="fwd split", split=fsplit)
+                log(f"  fwd kernels, one call: {split_text(fsplit)}")
+            if not fsplit or fsplit["launches"] != 1 or len(fsplit) != 2:
+                raise AssertionError(f"the loss forward is not one kernel a call: {fsplit}")
             log(f"  device us at B={b}: forward kernel {row['fwd_ms']*1e3:.1f} "
                 f"plain {row['fwd_plain_ms']*1e3:.1f} bound "
                 f"{row['fwd_bound_ms']*1e3:.2f} (operations); backward kernel "
@@ -1403,7 +1440,7 @@ def main():
     log(f"  group_norm_elu, fused_loss and conv_gn_elu (the fused conv family: six "
         f"entry points, upsample included) built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
-    ptxas = finish_ptxas(ptxas, ("gn_elu_coop", "loss_backward"))
+    ptxas = finish_ptxas(ptxas, ("gn_elu_coop", "loss_forward", "loss_backward"))
     for fn, res in ptxas.items():
         log(f"  ptxas: {fn[:70]}: {res['registers']} registers, {res['spill_stores']} "
             f"bytes spill stores, {res['stack']} bytes stack")

@@ -25,16 +25,30 @@
 // slightly above it.
 //
 // Design.
-//   forward  (16 x 32 tiles, 5-pixel halo)
-//            1. loss_tile: a block stages its tile of pred/max and gt/max
-//               with the halo in shared memory (each input pixel read from
-//               device memory ~1.6 times), runs the horizontal pass (5
-//               moments over the halo rows), the vertical pass and the SSIM
-//               map; the L1 and gradient terms from the raw maps (each
-//               forward difference is owned by its left/top pixel).  It
-//               reduces its 7 sums in a fixed order into (B, tiles, 8).
-//            2. fold_partials: one block per image adds its tiles in order
-//               -> (B, 8); column 7 is H*W.  No atomics: deterministic.
+//   forward  (one cooperative launch, loss_forward): a grid of the blocks
+//            the card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+//            x SMs; cudaLaunchCooperativeKernel refuses more) walks the
+//            (image, 32 x 64 tile) jobs, block k taking jobs k, k + grid,
+//            ...  A job's raw pred and gt are staged for the tile plus a
+//            halo of max(half, 1) and its mask for the tile plus 1 (4-byte
+//            cp.async copies, all in flight at once, the reflect index
+//            computed once a row and once a column).  Then, in one phase,
+//            the L1 and forward-difference sums from the staged raw values
+//            (each difference owned by its left/top pixel) and the row
+//            pass (5 moments of pred/max and gt/max over the staged rows,
+//            the products rounded as the JAX package's p * inv_max); after
+//            a barrier the column pass, whose SSIM map goes straight into
+//            the sums.  4 outputs a thread along a line, the taps
+//            unrolled (the half-window is a template parameter) and held
+//            in registers, odd row strides where a warp walks down
+//            columns.  The block reduces its 7 sums in a fixed order into
+//            a (B, tiles, 8) scratch; after grid.sync() block k folds
+//            images k, k + grid, ... over their tiles in tile order ->
+//            (B, 8), column 7 = H*W.  No atomics: two calls on the same
+//            inputs give the same bits.  The staging costs (32 + 10)(64 +
+//            10) / (32 x 64) = 1.52x the tile, the row pass 42 / 32 =
+//            1.31x the least work; 88,848 bytes of dynamic shared memory,
+//            two blocks an SM.
 //   backward (one launch, loss_backward): a block owns a 32 x 64 output
 //            tile.  It stages raw pred and gt for the tile plus a 10-pixel
 //            halo (5 for the moments' blur, 5 for the adjoint maps' blur)
@@ -51,8 +65,8 @@
 //            (not 44), the taps unrolled (the half-window is a template
 //            parameter); rows are laid out with an odd stride where a warp
 //            walks down columns, so its 32 lanes meet 32 banks.  The tile is
-//            32 x 64 rather than the forward's 16 x 32 so that the 10-pixel
-//            halo costs 1.9x the tile's staging, not 3.5x, at two blocks an
+//            32 x 64 so that the 10-pixel halo costs 1.9x the tile's
+//            staging (3.5x at 16 x 32), at two blocks an
 //            SM (114,760 bytes of shared memory each: the moments' buffer is
 //            reused for the row pass of the transposed blur, the staged
 //            inputs' for the adjoint maps).  A tile within `half` of an
@@ -71,20 +85,24 @@
 // stencil needs no edge test: only the folded taps do.
 //
 // Layout: pred, gt, mask (B, H, W) fp32 contiguous; weights the 2*half+1
-// fp32 taps; cts (B, 4) fp32.  H, W >= 6 and half <= 5 (checked).
+// fp32 taps; cts (B, 4) fp32; the forward's scratch (B, tiles, 8) fp32
+// and out (B, 8) fp32.  H, W >= 6 and half <= 5 (checked).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kTW = 32;    // tile width (one warp across)
-constexpr int kTH = 16;    // tile height
-constexpr int kHalo = 5;   // largest half-window
-constexpr int kRows = kTH + 2 * kHalo;
-constexpr int kCols = kTW + 2 * kHalo;
-constexpr int kThreads = 256;  // blockDim (32, 8)
+constexpr int kHalo = 5;  // largest half-window
 constexpr int kSums = 7;
+constexpr int kRB = 4;    // outputs a thread takes along a line
+constexpr int kMaxDevices = 64;
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // reflect-101 (exact for -n < j < 2n-1), then clamped so that a halo
 // position no output needs still reads inside the image
@@ -104,118 +122,222 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Forward: the block's 7 partial sums into partials.
-__global__ void __launch_bounds__(kThreads)
-loss_tile(const float* __restrict__ pred, const float* __restrict__ gt,
-          const float* __restrict__ mask, const float* __restrict__ weights,
-          int H, int W, int half, float inv_max, float c1, float c2,
-          float* __restrict__ partials) {
-  __shared__ float wt[2 * kHalo + 1];
-  __shared__ float sp[kRows][kCols + 1];  // pred / max
-  __shared__ float sg[kRows][kCols + 1];  // gt / max
-  __shared__ float hm[5][kRows][kTW + 1];  // row-blurred x, y, xx, yy, xy
-  __shared__ float red[kThreads / 32][kSums];
-  const int b = blockIdx.z;
-  const int c0 = blockIdx.x * kTW, r0 = blockIdx.y * kTH;
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kTW + tx;
-  const size_t img = (size_t)b * H * W;
-  if (tid <= 2 * half) wt[tid] = weights[tid];
-  for (int i = tid; i < kRows * kCols; i += kThreads) {
-    const int rr = i / kCols, cc = i % kCols;
-    const size_t off = img + (size_t)reflect(r0 + rr - kHalo, H) * W +
-                       reflect(c0 + cc - kHalo, W);
-    sp[rr][cc] = pred[off] * inv_max;
-    sg[rr][cc] = gt[off] * inv_max;
-  }
-  __syncthreads();
-  const int t0 = kHalo - half;
-  for (int i = tid; i < kRows * kTW; i += kThreads) {
-    const int rr = i / kTW, cc = i % kTW;
-    float x = 0.f, y = 0.f, xx = 0.f, yy = 0.f, xy = 0.f;
-    for (int t = 0; t <= 2 * half; ++t) {
-      const float w = wt[t], a = sp[rr][cc + t0 + t], g = sg[rr][cc + t0 + t];
-      x += w * a;
-      y += w * g;
-      xx += w * (a * a);
-      yy += w * (g * g);
-      xy += w * (a * g);
-    }
-    hm[0][rr][cc] = x;
-    hm[1][rr][cc] = y;
-    hm[2][rr][cc] = xx;
-    hm[3][rr][cc] = yy;
-    hm[4][rr][cc] = xy;
-  }
-  __syncthreads();
-  float acc[kSums] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  const int c = c0 + tx;
-  for (int rr = ty; rr < kTH; rr += kThreads / kTW) {
-    const int r = r0 + rr;
-    if (r >= H || c >= W) continue;
-    float mx = 0.f, my = 0.f, mxx = 0.f, myy = 0.f, mxy = 0.f;
-    for (int t = 0; t <= 2 * half; ++t) {
-      const float w = wt[t];
-      const int row = rr + t0 + t;
-      mx += w * hm[0][row][tx];
-      my += w * hm[1][row][tx];
-      mxx += w * hm[2][row][tx];
-      myy += w * hm[3][row][tx];
-      mxy += w * hm[4][row][tx];
-    }
-    // clamped: non-negative in exact math
-    const float sxx = fmaxf(mxx - mx * mx, 0.f);
-    const float syy = fmaxf(myy - my * my, 0.f);
-    const float sxy = mxy - mx * my;
-    const float n1 = 2.f * mx * my + c1;
-    const float n2 = 2.f * sxy + c2;
-    const float d1 = mx * mx + my * my + c1;
-    const float d2 = sxx + syy + c2;
-    const float s = (n1 * n2) / (d1 * d2);
-    const size_t px = img + (size_t)r * W + c;
-    const float p = pred[px], g = gt[px], m = mask[px];
-    acc[0] += fabsf(p - g) * m;
-    acc[1] += m;
-    if (c + 1 < W) {
-      const float mdx = m * mask[px + 1];
-      acc[2] += fabsf((pred[px + 1] - p) - (gt[px + 1] - g)) * mdx;
-      acc[3] += mdx;
-    }
-    if (r + 1 < H) {
-      const float mdy = m * mask[px + W];
-      acc[4] += fabsf((pred[px + W] - p) - (gt[px + W] - g)) * mdy;
-      acc[5] += mdy;
-    }
-    acc[6] += s;
-  }
-  const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) {
-    const float v = warp_sum(acc[k]);
-    if (lane == 0) red[warp][k] = v;
-  }
-  __syncthreads();
-  if (tid < kSums) {
-    float v = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) v += red[w][tid];
-    const int tiles = gridDim.x * gridDim.y;
-    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-    partials[((size_t)b * tiles + tile) * 8 + tid] = v;
-  }
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 
-// (B, tiles, 8) -> (B, 8): warp k adds column k over the tiles in a fixed
-// order; column 7 is H*W.
-__global__ void fold_partials(const float* __restrict__ partials, int tiles,
-                              float hw, float* __restrict__ out) {
-  const int b = blockIdx.x, lane = threadIdx.x & 31, k = threadIdx.x >> 5;
-  if (k < kSums) {
-    const float* src = partials + (size_t)b * tiles * 8 + k;
-    float v = 0.f;
-    for (int t = lane; t < tiles; t += 32) v += src[(size_t)t * 8];
-    v = warp_sum(v);
-    if (lane == 0) out[b * 8 + k] = v;
-  } else if (lane == 0) {
-    out[b * 8 + kSums] = hw;
+// ------------------------------------------------------------------ forward
+
+constexpr int kFH = 32, kFW = 64;              // a tile's rows and columns
+constexpr int kFwdBlocks = 2;                  // blocks an SM (__launch_bounds__)
+constexpr int kFR = kFH + 2 * kHalo;           // staged rows at most
+constexpr int kFS = (kFW + 2 * kHalo) | 1;     // staged row stride (odd)
+constexpr int kFKR = kFH + 1, kFKC = kFW + 1;  // staged mask: tile + 1
+constexpr int kFMS = kFW + 1;  // the row-blurred moments' row stride (odd)
+constexpr int kFwdThreads = 256;
+constexpr int kFwdItems = kFH * kFW / (kRB * kFwdThreads);  // column-pass items a thread
+// The row-blurred moments (5, staged rows, kFMS), the staged pred and gt (2,
+// kFR, kFS), the mask (kFKR, kFKC), the reflect indices (kFR + kFS).
+constexpr int kFMom = 5 * kFR * kFMS;
+constexpr int kFwdSmem = 4 * (kFMom + 2 * kFR * kFS + kFKR * kFKC + kFR + kFS);  // 88,848 bytes
+static_assert(kFH % kRB == 0 && kFW % kRB == 0, "whole items along a line");
+static_assert(kFwdItems * kRB * kFwdThreads == kFH * kFW, "whole column-pass items a thread");
+static_assert(kFwdThreads / 32 == kSums + 1, "the fold: a warp a sum, one for H*W");
+
+// Jobs job = blockIdx.x + k * gridDim.x < B * tiles, job = b * tiles + tile
+// (tile = row * tiles_x + column): the tile's 7 sums into partials[job];
+// then, after the grid-wide barrier, images blockIdx.x + k * gridDim.x
+// folded over their tiles in tile order into out.  The grid must be
+// resident at once (a cooperative launch).
+template <int HALF>
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocks)
+loss_forward(const float* __restrict__ pred, const float* __restrict__ gt,
+             const float* __restrict__ mask, const float* __restrict__ weights, int B, int H,
+             int W, int tiles_x, int tiles, float inv_max, float c1, float c2,
+             float* __restrict__ partials, float* __restrict__ out) {
+  constexpr int NT = 2 * HALF + 1;
+  constexpr int SH = HALF > 1 ? HALF : 1;  // staged halo: the differences need 1
+  constexpr int T0 = SH - HALF;
+  constexpr int SR = kFH + 2 * SH, SC = kFW + 2 * SH;
+  constexpr int MP = SR * kFMS;  // one moment plane
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[kFwdThreads / 32][kSums];
+  float* const hm = smem;             // (5, SR, kFMS)
+  float* const sp = smem + kFMom;     // (SR, kFS)
+  float* const sg = sp + kFR * kFS;
+  float* const sm = sg + kFR * kFS;   // mask (kFKR, kFKC)
+  int* const rix = reinterpret_cast<int*>(sm + kFKR * kFKC);  // staged row -> image row * W
+  int* const cix = rix + kFR;                                  // staged column -> image column
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, total = B * tiles;
+  float wt[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) wt[t] = weights[t];
+
+  for (int job = blockIdx.x; job < total; job += gridDim.x) {
+    const int b = job / tiles, tile = job - b * tiles, ty = tile / tiles_x;
+    const int r0 = ty * kFH, c0 = (tile - ty * tiles_x) * kFW;
+    const size_t img = (size_t)b * H * W;
+    // The reflect indices of the staged rows and columns, computed once a
+    // row and once a column.
+    if (tid < SR) rix[tid] = reflect(r0 - SH + tid, H) * W;
+    if (tid < SC) cix[tid] = reflect(c0 - SH + tid, W);
+    __syncthreads();  // the indices are in; the last job's maps and sums are read
+    // Stage raw pred and gt (tile + SH) and the mask (tile + 1 right and
+    // below): 4-byte cp.async copies, all of a thread's issued at once.
+    for (int i = tid; i < SR * SC; i += kFwdThreads) {
+      const int sr = i / SC, sc = i - sr * SC;
+      const size_t off = img + rix[sr] + cix[sc];
+      cp_async4(sp + sr * kFS + sc, pred + off);
+      cp_async4(sg + sr * kFS + sc, gt + off);
+    }
+    for (int i = tid; i < kFKR * kFKC; i += kFwdThreads) {
+      const int mr = i / kFKC, mc = i - mr * kFKC;
+      cp_async4(sm + i, mask + img + rix[mr + SH] + cix[mc + SH]);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    // L1 and the forward differences from the staged raw values, at the
+    // pixels of the column pass (item it: column it % kFW, kRB rows from
+    // it / kFW * kRB); a difference is owned by its left/top pixel.
+    float acc[kSums];
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kFwdItems; ++q) {
+      const int it = tid + q * kFwdThreads;
+      const int tc = it % kFW, tr0 = it / kFW * kRB, c = c0 + tc;
+#pragma unroll
+      for (int j = 0; j < kRB; ++j) {
+        const int tr = tr0 + j, r = r0 + tr;
+        if (r >= H || c >= W) continue;
+        const float* P = sp + (tr + SH) * kFS + tc + SH;
+        const float* G = sg + (tr + SH) * kFS + tc + SH;
+        const float* M = sm + tr * kFKC + tc;
+        const float p = P[0], g = G[0], m = M[0];
+        acc[0] += fabsf(p - g) * m;
+        acc[1] += m;
+        if (c + 1 < W) {
+          const float mdx = M[1] * m;
+          acc[2] += fabsf((P[1] - p) - (G[1] - g)) * mdx;
+          acc[3] += mdx;
+        }
+        if (r + 1 < H) {
+          const float mdy = M[kFKC] * m;
+          acc[4] += fabsf((P[kFS] - p) - (G[kFS] - g)) * mdy;
+          acc[5] += mdy;
+        }
+      }
+    }
+
+    // Row pass: the 5 moments of pred/max and gt/max over the staged rows
+    // at the tile's columns; a thread takes kRB columns of one row, a warp
+    // 32 rows.
+    for (int it = tid; it < SR * (kFW / kRB); it += kFwdThreads) {
+      const int sr = it % SR, fc0 = it / SR * kRB;
+      const float* a = sp + sr * kFS + fc0 + T0;
+      const float* g = sg + sr * kFS + fc0 + T0;
+      float x[kRB], y[kRB], xx[kRB], yy[kRB], xy[kRB];
+#pragma unroll
+      for (int j = 0; j < kRB; ++j) x[j] = y[j] = xx[j] = yy[j] = xy[j] = 0.f;
+#pragma unroll
+      for (int t = 0; t < kRB + 2 * HALF; ++t) {
+        const float av = a[t] * inv_max, gv = g[t] * inv_max;
+        const float aa = av * av, gg = gv * gv, ag = av * gv;
+#pragma unroll
+        for (int j = 0; j < kRB; ++j) {
+          if (t - j >= 0 && t - j < NT) {
+            const float w = wt[t - j];
+            x[j] += w * av;
+            y[j] += w * gv;
+            xx[j] += w * aa;
+            yy[j] += w * gg;
+            xy[j] += w * ag;
+          }
+        }
+      }
+      const int o = sr * kFMS + fc0;
+#pragma unroll
+      for (int j = 0; j < kRB; ++j) {
+        hm[o + j] = x[j];
+        hm[MP + o + j] = y[j];
+        hm[2 * MP + o + j] = xx[j];
+        hm[3 * MP + o + j] = yy[j];
+        hm[4 * MP + o + j] = xy[j];
+      }
+    }
+    __syncthreads();
+
+    // Column pass and the SSIM map at the tile's pixels, summed at once; a
+    // thread takes kRB rows of one column, a warp 32 columns.
+#pragma unroll
+    for (int q = 0; q < kFwdItems; ++q) {
+      const int it = tid + q * kFwdThreads;
+      const int tc = it % kFW, tr0 = it / kFW * kRB, c = c0 + tc;
+      float mo[5][kRB];
+#pragma unroll
+      for (int k = 0; k < 5; ++k)
+#pragma unroll
+        for (int j = 0; j < kRB; ++j) mo[k][j] = 0.f;
+#pragma unroll
+      for (int t = 0; t < kRB + 2 * HALF; ++t) {
+        const float* h = hm + (tr0 + T0 + t) * kFMS + tc;
+        float v[5];
+#pragma unroll
+        for (int k = 0; k < 5; ++k) v[k] = h[k * MP];
+#pragma unroll
+        for (int j = 0; j < kRB; ++j)
+          if (t - j >= 0 && t - j < NT) {
+#pragma unroll
+            for (int k = 0; k < 5; ++k) mo[k][j] += wt[t - j] * v[k];
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < kRB; ++j) {
+        if (r0 + tr0 + j >= H || c >= W) continue;
+        const float mx = mo[0][j], my = mo[1][j];
+        // clamped: non-negative in exact math
+        const float sxx = fmaxf(mo[2][j] - mx * mx, 0.f);
+        const float syy = fmaxf(mo[3][j] - my * my, 0.f);
+        const float sxy = mo[4][j] - mx * my;
+        const float n1 = 2.f * mx * my + c1;
+        const float n2 = 2.f * sxy + c2;
+        const float d1 = mx * mx + my * my + c1;
+        const float d2 = sxx + syy + c2;
+        acc[6] += (n1 * n2) / (d1 * d2);
+      }
+    }
+
+    // The tile's 7 sums, in a fixed order: warp trees, then the warps in
+    // turn.
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) {
+      const float v = warp_sum(acc[k]);
+      if (lane == 0) red[warp][k] = v;
+    }
+    __syncthreads();
+    if (tid < kSums) {
+      float v = 0.f;
+      for (int w = 0; w < kFwdThreads / 32; ++w) v += red[w][tid];
+      partials[(size_t)job * 8 + tid] = v;
+    }
+  }
+
+  cg::this_grid().sync();
+
+  // Warp k adds column k of an image over its tiles (lanes strided, then a
+  // warp tree); the last warp writes H*W.
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    if (warp < kSums) {
+      const float* src = partials + (size_t)b * tiles * 8 + warp;
+      float v = 0.f;
+      for (int t = lane; t < tiles; t += 32) v += __ldcg(src + (size_t)t * 8);
+      v = warp_sum(v);
+      if (lane == 0) out[b * 8 + warp] = v;
+    } else if (lane == 0) {
+      out[b * 8 + kSums] = (float)H * (float)W;
+    }
   }
 }
 
@@ -231,9 +353,7 @@ constexpr int kMC = kBW + 2 * kHalo;         // moment and map columns
 constexpr int kAS = kMC + 1;                 // the maps' row stride (odd)
 constexpr int kTS = kBW + 1;                 // the row pass's row stride (odd)
 constexpr int kKR = kBH + 2, kKC = kBW + 2;  // staged mask: tile + 1
-constexpr int kRB = 4;                       // outputs a thread takes along a line
 constexpr int kBwdThreads = 256;
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
 // Region A: the reflect indices and the mask, then the row-blurred moments
 // (5, kSR, kMC), then the row pass of the transposed blur (3, kMR, kTS).
 // Region B: the staged pred and gt (2, kSR, kSS), then the adjoint maps (3,
@@ -243,11 +363,6 @@ constexpr int kRegionA = cmax(cmax(kSR + kSC + kKR * kKC, 5 * kSR * kMC), 3 * kM
 constexpr int kRegionB = cmax(2 * kSR * kSS, 3 * kMR * kAS);
 constexpr int kBwdSmem = 4 * (kRegionA + kRegionB);  // 114,760 bytes: two blocks an SM
 static_assert(kBH * kBW == 2 * kRB * kBwdThreads, "the last pass: two items a thread");
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
 
 // The folded reflect-101 taps of the transposed 1-D blur at output j of a
 // line of n pixels (the zero-padded stencil is added by the caller); x(i)
@@ -531,49 +646,120 @@ bool shape_ok(int B, int H, int W, int half) {
   return B >= 1 && H >= 6 && W >= 6 && half >= 0 && half <= kHalo;
 }
 
-// The backward's dynamic shared memory is above 48 KB: set the attribute
-// once a device for each instantiation.
+// Dynamic shared memory above 48 KB needs the attribute: set once a device
+// for each kernel (``done``: that kernel's flags).
+template <typename K>
+cudaError_t allow_smem(K* kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+template <int HALF>
+cudaError_t prepare_forward() {
+  static bool done[kMaxDevices];
+  return allow_smem(loss_forward<HALF>, kFwdSmem, done);
+}
+
+template <int HALF>
+cudaError_t launch_forward(const float* pred, const float* gt, const float* mask,
+                           const float* weights, int B, int H, int W, int tiles_x, int tiles,
+                           int grid, float inv_max, float c1, float c2, float* partials,
+                           float* out, cudaStream_t stream) {
+  cudaError_t err = prepare_forward<HALF>();
+  if (err != cudaSuccess) return err;
+  void* args[] = {&pred, &gt,    &mask,    &weights, &B,  &H,        &W,
+                  &tiles_x, &tiles, &inv_max, &c1,   &c2, &partials, &out};
+  return cudaLaunchCooperativeKernel((const void*)loss_forward<HALF>, dim3(grid),
+                                     dim3(kFwdThreads), args, (size_t)kFwdSmem, stream);
+}
+
 template <int HALF>
 cudaError_t launch_backward(const float* pred, const float* gt, const float* mask,
                             const float* weights, const float* cts, float* dpred, int B, int H,
                             int W, float inv_max, float c1, float c2, cudaStream_t stream) {
-  static bool done[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static bool done[kMaxDevices];
+  cudaError_t err = allow_smem(loss_backward<HALF>, kBwdSmem, done);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !done[dev]) {
-    err = cudaFuncSetAttribute(loss_backward<HALF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kBwdSmem);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) done[dev] = true;
-  }
   dim3 grid((W + kBW - 1) / kBW, (H + kBH - 1) / kBH, B);
   loss_backward<HALF><<<grid, kBwdThreads, kBwdSmem, stream>>>(pred, gt, mask, weights, cts, H,
                                                                 W, inv_max, c1, c2, dpred);
   return cudaGetLastError();
 }
 
+// f(std::integral_constant<int, half>()) for half in 0..5.
+template <typename F>
+cudaError_t by_half(int half, F f) {
+  switch (half) {
+    case 0: return f(std::integral_constant<int, 0>());
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 3: return f(std::integral_constant<int, 3>());
+    case 4: return f(std::integral_constant<int, 4>());
+    default: return f(std::integral_constant<int, 5>());
+  }
+}
+
+// attrs = [registers a thread, local (spill) bytes a thread, static shared
+// bytes, dynamic shared bytes, threads a block] of a kernel.
+cudaError_t kernel_attrs(const void* kernel, int dyn, int threads, int* attrs) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  attrs[0] = fa.numRegs;
+  attrs[1] = (int)fa.localSizeBytes;
+  attrs[2] = (int)fa.sharedSizeBytes;
+  attrs[3] = dyn;
+  attrs[4] = threads;
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// Forward: partials (B, tiles, 8) scratch, out (B, 8).  Returns a cudaError_t.
+// Forward: partials (B, tiles_y * tiles_x, 8) scratch, out (B, 8); one
+// cooperative launch of ``grid`` blocks, which must be resident at once
+// (fused_loss_forward_occupancy; a grid the card refuses returns its
+// error).  Returns a cudaError_t.
 extern "C" int fused_loss_forward(const void* pred, const void* gt, const void* mask,
-                                  const void* weights, void* partials, void* out,
-                                  int B, int H, int W, int half, float inv_max,
-                                  float c1, float c2, void* stream) {
-  if (!shape_ok(B, H, W, half)) return (int)cudaErrorInvalidValue;
+                                  const void* weights, void* partials, void* out, int B, int H,
+                                  int W, int half, int tiles_y, int tiles_x, int grid,
+                                  float inv_max, float c1, float c2, void* stream) {
+  if (!shape_ok(B, H, W, half) || tiles_y != (H + kFH - 1) / kFH ||
+      tiles_x != (W + kFW - 1) / kFW || grid < 1 || (long long)grid > (long long)B * tiles_y * tiles_x)
+    return (int)cudaErrorInvalidValue;
+  const float* p = static_cast<const float*>(pred);
+  const float* g = static_cast<const float*>(gt);
+  const float* m = static_cast<const float*>(mask);
+  const float* w = static_cast<const float*>(weights);
+  float* part = static_cast<float*>(partials);
+  float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-  dim3 block(kTW, kThreads / kTW);
-  loss_tile<<<grid, block, 0, st>>>(
-      static_cast<const float*>(pred), static_cast<const float*>(gt),
-      static_cast<const float*>(mask), static_cast<const float*>(weights), H, W, half,
-      inv_max, c1, c2, static_cast<float*>(partials));
-  cudaError_t err = cudaGetLastError();
+  return (int)by_half(half, [&](auto h) {
+    return launch_forward<decltype(h)::value>(p, g, m, w, B, H, W, tiles_x, tiles_y * tiles_x,
+                                              grid, inv_max, c1, c2, part, o, st);
+  });
+}
+
+// info = [SMs, blocks of the forward for ``half`` that one SM holds at once,
+// cooperative launch supported] on the current device.  Returns a
+// cudaError_t.
+extern "C" int fused_loss_forward_occupancy(int half, int* info) {
+  if (half < 0 || half > kHalo) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&info[0], cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&info[2], cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return (int)err;
-  fold_partials<<<B, 256, 0, st>>>(static_cast<const float*>(partials),
-                                   (int)(grid.x * grid.y), (float)H * (float)W,
-                                   static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return (int)by_half(half, [&](auto h) {
+    constexpr int HALF = decltype(h)::value;
+    cudaError_t e = prepare_forward<HALF>();
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], loss_forward<HALF>,
+                                                         kFwdThreads, kFwdSmem);
+  });
 }
 
 // Backward: dpred (B, H, W), one launch.  Returns a cudaError_t.
@@ -589,27 +775,21 @@ extern "C" int fused_loss_backward(const void* pred, const void* gt, const void*
   const float* ct = static_cast<const float*>(cts);
   float* d = static_cast<float*>(dpred);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (half) {
-    case 0: return (int)launch_backward<0>(p, g, m, w, ct, d, B, H, W, inv_max, c1, c2, st);
-    case 1: return (int)launch_backward<1>(p, g, m, w, ct, d, B, H, W, inv_max, c1, c2, st);
-    case 2: return (int)launch_backward<2>(p, g, m, w, ct, d, B, H, W, inv_max, c1, c2, st);
-    case 3: return (int)launch_backward<3>(p, g, m, w, ct, d, B, H, W, inv_max, c1, c2, st);
-    case 4: return (int)launch_backward<4>(p, g, m, w, ct, d, B, H, W, inv_max, c1, c2, st);
-    default: return (int)launch_backward<5>(p, g, m, w, ct, d, B, H, W, inv_max, c1, c2, st);
-  }
+  return (int)by_half(half, [&](auto h) {
+    return launch_backward<decltype(h)::value>(p, g, m, w, ct, d, B, H, W, inv_max, c1, c2, st);
+  });
+}
+
+// The forward kernel's resources as built (the 11-tap instantiation):
+// attrs = [registers a thread, local (spill) bytes a thread, static shared
+// bytes, dynamic shared bytes, threads a block].  Returns a cudaError_t.
+extern "C" int fused_loss_forward_attrs(int* attrs) {
+  return (int)kernel_attrs((const void*)loss_forward<kHalo>, kFwdSmem, kFwdThreads, attrs);
 }
 
 // The backward kernel's resources as built (the 11-tap instantiation):
 // attrs = [registers a thread, local (spill) bytes a thread, static shared
 // bytes, dynamic shared bytes, threads a block].  Returns a cudaError_t.
 extern "C" int fused_loss_backward_attrs(int* attrs) {
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, loss_backward<kHalo>);
-  if (err != cudaSuccess) return (int)err;
-  attrs[0] = fa.numRegs;
-  attrs[1] = (int)fa.localSizeBytes;
-  attrs[2] = (int)fa.sharedSizeBytes;
-  attrs[3] = kBwdSmem;
-  attrs[4] = kBwdThreads;
-  return 0;
+  return (int)kernel_attrs((const void*)loss_backward<kHalo>, kBwdSmem, kBwdThreads, attrs);
 }

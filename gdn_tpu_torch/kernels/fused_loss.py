@@ -9,9 +9,13 @@ they are built) compute, per image, the 8 partial sums
   [ S|p-g|m, Sm, S|dx p - dx g|m_dx, Sm_dx, S|dy p - dy g|m_dy, Sm_dy,
     S SSIM(p/max, g/max), H*W ]
 
-and, for per-image cotangents (ct_l1, ct_gx, ct_gy, ct_ssim), dL/dpred
-in closed form, in one launch that keeps the SSIM adjoint maps in shared
-memory (tiles of ``BWD_TILE`` staged with a ``BWD_HALO``-pixel halo).
+in one cooperative launch (tiles of ``FWD_TILE`` staged with a halo of
+``max(half, 1)``, walked by a resident grid that ``fwd_plan`` sizes; each
+tile's sums go to a (B, tiles, 8) scratch, folded per image in tile
+order after a grid-wide barrier: deterministic, no atomics), and, for
+per-image cotangents (ct_l1, ct_gx, ct_gy, ct_ssim), dL/dpred in closed
+form, in one launch that keeps the SSIM adjoint maps in shared memory
+(tiles of ``BWD_TILE`` staged with a ``BWD_HALO``-pixel halo).
 ``fused_loss_terms`` binds the two as one ``torch.autograd.Function``
 and normalizes the sums in PyTorch, as the JAX package does outside its
 kernel.
@@ -26,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -40,11 +44,32 @@ _L1, _NM, _GX, _NGX, _GY, _NGY, _SSIM, _NPIX = range(8)
 # SSIM runs on inputs normalized by 1/max_val -> constants at L=1
 C1 = 0.01 ** 2
 C2 = 0.03 ** 2
-_TILE = (16, 32)  # (rows, cols) of one forward block, as in the CUDA source
+FWD_TILE = (32, 64)  # (rows, cols) of one forward tile, as in the CUDA source
 BWD_TILE = (32, 64)  # (rows, cols) of one backward block, as in the CUDA source
 BWD_HALO = 10  # staged halo of a backward tile: 5 for the moments, 5 for the maps
 _MAX_HALF = 5
 _MIN_SIDE = 6
+
+
+class FwdPlan(NamedTuple):
+    tiles_y: int  # tile rows of an image
+    tiles_x: int  # tile columns of an image
+    grid: int  # blocks, all resident at once
+    tiles_per_block: int  # the most any block walks
+
+
+def fwd_plan(b: int, h: int, w: int, resident_blocks: int) -> FwdPlan:
+    """Tiles and grid of one forward call on (b, h, w) maps, for a card
+    that holds ``resident_blocks`` blocks of the kernel at once: tiles of
+    ``FWD_TILE`` (the last row and column of an image ragged), and a grid
+    of at most ``resident_blocks`` blocks, block k walking the (image,
+    tile) jobs k, k + grid, ... in image-major order."""
+    if resident_blocks < 1:
+        raise ValueError(f"the card holds {resident_blocks} blocks of the kernel")
+    ty, tx = -(-h // FWD_TILE[0]), -(-w // FWD_TILE[1])
+    total = b * ty * tx
+    grid = min(resident_blocks, total)
+    return FwdPlan(ty, tx, grid, -(-total // grid))
 
 
 def load() -> ctypes.CDLL:
@@ -52,10 +77,13 @@ def load() -> ctypes.CDLL:
     lib = build.load("fused_loss")
     if lib.fused_loss_forward.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fused_loss_forward.argtypes = [p] * 6 + [i] * 4 + [f] * 3 + [p]
+        lib.fused_loss_forward.argtypes = [p] * 6 + [i] * 7 + [f] * 3 + [p]
         lib.fused_loss_backward.argtypes = [p] * 6 + [i] * 4 + [f] * 3 + [p]
-        lib.fused_loss_backward_attrs.argtypes = [p]
+        lib.fused_loss_forward_occupancy.argtypes = [i, p]
+        for fn in (lib.fused_loss_forward_attrs, lib.fused_loss_backward_attrs):
+            fn.argtypes = [p]
         for fn in (lib.fused_loss_forward, lib.fused_loss_backward,
+                   lib.fused_loss_forward_occupancy, lib.fused_loss_forward_attrs,
                    lib.fused_loss_backward_attrs):
             fn.restype = ctypes.c_int
     return lib
@@ -108,20 +136,43 @@ def _weights(window, sigma, device):
     return torch.from_numpy(gaussian_kernel_1d(window, sigma)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _resident(device: int, half: int) -> int:
+    """Blocks of the forward kernel for ``half`` that the device holds at
+    once (SMs times blocks an SM), queried once; raises where the card
+    takes no cooperative launch."""
+    sms, per_sm, coop = _attrs("fused_loss_forward_occupancy", 3, half)
+    if per_sm < 1:
+        raise RuntimeError(f"the forward kernel fits {per_sm} blocks an SM")
+    if not coop:
+        raise RuntimeError("the card does not take cooperative launches")
+    return sms * per_sm
+
+
+def plan_for(pred: torch.Tensor, window: int = 11) -> FwdPlan:
+    """The plan the forward kernel takes for CUDA maps (B, H, W)."""
+    b, h, w = pred.shape
+    with torch.cuda.device(pred.device):  # the query reads the current device
+        return fwd_plan(b, h, w, _resident(pred.device.index, window // 2))
+
+
 def fused_loss_fwd(pred, gt, mask, max_val: float, window: int = 11,
                    sigma: float = 1.5) -> torch.Tensor:
     """(B, 8) fp32 partial sums of fp32 contiguous (B, H, W) CUDA maps."""
     _check_kernel_args(pred, gt, mask, window)
     b, h, w = pred.shape
-    tiles = -(-h // _TILE[0]) * -(-w // _TILE[1])
-    partials = torch.empty((b, tiles, 8), dtype=torch.float32, device=pred.device)
+    plan = plan_for(pred, window)
+    partials = torch.empty((b, plan.tiles_y * plan.tiles_x, 8), dtype=torch.float32,
+                           device=pred.device)
     out = torch.empty((b, 8), dtype=torch.float32, device=pred.device)
     wt = _weights(window, sigma, pred.device)
-    err = load().fused_loss_forward(
-        pred.data_ptr(), gt.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), b, h, w, window // 2,
-        1.0 / max_val, C1, C2, torch.cuda.current_stream(pred.device).cuda_stream,
-    )
+    with torch.cuda.device(pred.device):  # the launch goes to the current device
+        err = load().fused_loss_forward(
+            pred.data_ptr(), gt.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), b, h, w, window // 2, plan.tiles_y,
+            plan.tiles_x, plan.grid, 1.0 / max_val, C1, C2,
+            torch.cuda.current_stream(pred.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"fused_loss_forward failed: cudaError {err}")
     fused_loss_fwd.launches += 1
@@ -141,12 +192,13 @@ def fused_loss_bwd(pred, gt, mask, cts, max_val: float, window: int = 11,
     cts = cts.float().contiguous()
     dpred = torch.empty_like(pred)
     wt = _weights(window, sigma, pred.device)
-    err = load().fused_loss_backward(
-        pred.data_ptr(), gt.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-        cts.data_ptr(), dpred.data_ptr(), b, h, w,
-        window // 2, 1.0 / max_val, C1, C2,
-        torch.cuda.current_stream(pred.device).cuda_stream,
-    )
+    with torch.cuda.device(pred.device):
+        err = load().fused_loss_backward(
+            pred.data_ptr(), gt.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+            cts.data_ptr(), dpred.data_ptr(), b, h, w,
+            window // 2, 1.0 / max_val, C1, C2,
+            torch.cuda.current_stream(pred.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"fused_loss_backward failed: cudaError {err}")
     fused_loss_bwd.launches += 1
@@ -157,16 +209,33 @@ fused_loss_fwd.launches = 0
 fused_loss_bwd.launches = 0
 
 
+_RESOURCE_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem", "threads")
+
+
+def _attrs(name: str, n: int, *args):
+    """The n ints the library's function ``name`` writes after ``args``."""
+    attrs = (ctypes.c_int * n)()
+    err = getattr(load(), name)(*args, attrs)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError {err}")
+    return list(attrs)
+
+
+def forward_resources() -> Dict[str, int]:
+    """The forward kernel's resources as built for the current device (the
+    11-tap instantiation): registers and local (spill) bytes a thread,
+    static and dynamic shared bytes, threads a block, and the blocks of it
+    that an SM holds."""
+    res = dict(zip(_RESOURCE_KEYS, _attrs("fused_loss_forward_attrs", 5)))
+    res["blocks_per_sm"] = _attrs("fused_loss_forward_occupancy", 3, _MAX_HALF)[1]
+    return res
+
+
 def backward_resources() -> Dict[str, int]:
     """The backward kernel's resources as built for the current device:
     registers and local (spill) bytes a thread, static and dynamic shared
     bytes and threads a block."""
-    attrs = (ctypes.c_int * 5)()
-    err = load().fused_loss_backward_attrs(attrs)
-    if err != 0:
-        raise RuntimeError(f"fused_loss_backward_attrs failed: cudaError {err}")
-    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem", "threads")
-    return dict(zip(keys, attrs))
+    return dict(zip(_RESOURCE_KEYS, _attrs("fused_loss_backward_attrs", 5)))
 
 
 # ------------------------------------------------------------ plain version

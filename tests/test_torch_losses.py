@@ -25,6 +25,7 @@ import torch
 
 from gdn_tpu import config as jcfg
 from gdn_tpu import losses as jl
+from gdn_tpu.kernels import fused_loss as jfl
 from gdn_tpu.kernels.fused_loss import fused_loss_terms as j_fused
 from gdn_tpu.ops import groupnorm as jgn
 from gdn_tpu_torch import config as tcfg
@@ -160,6 +161,118 @@ def test_bwd_plain_equals_autograd_of_normalized_terms():
     (tfl._normalize(raw) * ct).sum().backward()
     d = tfl.fused_loss_bwd_plain(*_t(pred, gt, mask), tfl._cotangents(raw.detach(), ct), 80.0)
     np.testing.assert_allclose(d.numpy(), p.grad.numpy(), rtol=1e-6, atol=1e-12)
+
+
+# ------------------------------------------ the one-launch forward's tiling
+
+def _fwd_tiled(pred, gt, mask, max_val, window=11, sigma=1.5, grid=5):
+    """The (B, 8) sums by the forward kernel's dataflow, in fp32 PyTorch:
+    the (image, ``FWD_TILE`` tile) jobs walked as ``fwd_plan`` deals them
+    to ``grid`` blocks; per tile raw pred and gt staged with a halo of
+    max(half, 1) and the mask with 1 (reflect index once a row and once a
+    column), L1 and the forward differences from the staged raw values
+    (left/top ownership), the moments of the staged maps times 1/max rows
+    then columns, the SSIM map summed; each tile's 7 sums into a (B,
+    tiles, 8) scratch, folded per image in tile order."""
+    b, h, w = pred.shape
+    th, tw = tfl.FWD_TILE
+    half = window // 2
+    sh = max(half, 1)
+    t0 = sh - half
+    wt = torch.from_numpy(tssim.gaussian_kernel_1d(window, sigma))
+    plan = tfl.fwd_plan(b, h, w, grid)
+    tiles = plan.tiles_y * plan.tiles_x
+    partials = torch.full((b, tiles, 8), float("nan"))
+    for job in (j for k in range(plan.grid) for j in range(k, b * tiles, plan.grid)):
+        bi, tile = divmod(job, tiles)
+        r0, c0 = tile // plan.tiles_x * th, tile % plan.tiles_x * tw
+        rix = _reflect(np.arange(r0 - sh, r0 + th + sh), h)
+        cix = _reflect(np.arange(c0 - sh, c0 + tw + sh), w)
+        sp, sg = pred[bi][rix][:, cix], gt[bi][rix][:, cix]
+        sm = mask[bi][rix[sh:sh + th + 1]][:, cix[sh:sh + tw + 1]]
+        nr, nc = min(th, h - r0), min(tw, w - c0)
+        p, g, m = sp[sh:sh + nr, sh:sh + nc], sg[sh:sh + nr, sh:sh + nc], sm[:nr, :nc]
+        d = p - g
+        dx = (sp[sh:sh + nr, sh + 1:sh + nc + 1] - p) - (sg[sh:sh + nr, sh + 1:sh + nc + 1] - g)
+        dy = (sp[sh + 1:sh + nr + 1, sh:sh + nc] - p) - (sg[sh + 1:sh + nr + 1, sh:sh + nc] - g)
+        mdx = sm[:nr, 1:nc + 1] * m
+        mdy = sm[1:nr + 1, :nc] * m
+        cols = torch.arange(c0, c0 + nc)[None, :] + 1 < w  # owned: the right pixel is in
+        rows = torch.arange(r0, r0 + nr)[:, None] + 1 < h
+        mdx, mdy = mdx * cols, mdy * rows
+        pn, gn = sp * (1.0 / max_val), sg * (1.0 / max_val)
+        hm = [_stencil(v, wt, half, 1, t0, tw) for v in (pn, gn, pn * pn, gn * gn, pn * gn)]
+        mx, my, mxx, myy, mxy = (_stencil(v, wt, half, 0, t0, th)[:nr, :nc] for v in hm)
+        sxx = torch.clamp(mxx - mx * mx, min=0.0)
+        syy = torch.clamp(myy - my * my, min=0.0)
+        sxy = mxy - mx * my
+        s = ((2.0 * mx * my + tfl.C1) * (2.0 * sxy + tfl.C2)) / (
+            (mx * mx + my * my + tfl.C1) * (sxx + syy + tfl.C2))
+        partials[bi, tile, :7] = torch.stack([
+            (d.abs() * m).sum(), m.sum(), (dx.abs() * mdx).sum(), mdx.sum(),
+            (dy.abs() * mdy).sum(), mdy.sum(), s.sum()])
+    out = torch.zeros((b, 8))
+    for t in range(tiles):
+        out[:, :7] += partials[:, t, :7]
+    out[:, 7] = float(h * w)
+    return out
+
+
+def _jax_raw(pred, gt, mask, window=11):
+    """The (B, 8) sums of the JAX package's Pallas forward in interpret
+    mode (the residual its custom VJP keeps)."""
+    _, (_, _, _, raw) = jfl._fused_terms_fwd(
+        *map(jnp.asarray, (pred, gt, mask)), 80.0, window, 1.5, True, pred.shape[1:],
+        "highest")
+    return np.asarray(raw)
+
+
+_FWD_SHAPES = [(2, 24, 32), (3, 37, 53), (2, 11, 16), (1, 6, 6), (2, 80, 200)]
+
+
+@pytest.mark.parametrize("shape,window", [(s, 11) for s in _FWD_SHAPES] + [((2, 80, 200), 7)])
+def test_one_launch_forward_tiling_matches_jax_kernel(shape, window):
+    """The forward kernel's dataflow (tiles of FWD_TILE, raw maps staged
+    with the half-window's halo, L1 and differences from the staged
+    values, rows then columns, the per-image fold in tile order) against
+    the JAX Pallas kernel's (B, 8) sums in interpret mode; (2, 80, 200)
+    is three tile rows by four tile columns an image, ragged in both
+    directions, with interior tiles."""
+    pred, gt, mask = _data(11 + shape[2], *shape)
+    got = _fwd_tiled(*_t(pred, gt, mask), 80.0, window)
+    want = _jax_raw(pred, gt, mask, window)
+    np.testing.assert_allclose(got.numpy(), want, rtol=VAL["rel"])
+
+
+_PLAN_SHAPES = _FWD_SHAPES + [(32, 128, 416)]
+
+
+@pytest.mark.parametrize("resident", [1, 5, 7, 264, 528, 10_000])
+@pytest.mark.parametrize("shape", _PLAN_SHAPES)
+def test_forward_plan_visits_every_tile_once(shape, resident):
+    """fwd_plan: every (image, tile) job once, tiles covering the image
+    with ragged last ones, never more blocks than resident, none idle,
+    and the scratch (B, tiles, 8)."""
+    b, h, w = shape
+    th, tw = tfl.FWD_TILE
+    plan = tfl.fwd_plan(b, h, w, resident)
+    assert (plan.tiles_y - 1) * th < h <= plan.tiles_y * th
+    assert (plan.tiles_x - 1) * tw < w <= plan.tiles_x * tw
+    total = b * plan.tiles_y * plan.tiles_x
+    assert 1 <= plan.grid <= min(resident, total)
+    seen = np.zeros(total, int)
+    for k in range(plan.grid):
+        jobs = list(range(k, total, plan.grid))
+        assert 1 <= len(jobs) <= plan.tiles_per_block
+        seen[jobs] += 1
+    assert (seen == 1).all()
+    if shape == (32, 128, 416) and resident == 264:  # two blocks on each of 132 SMs
+        assert plan == tfl.FwdPlan(4, 7, 264, 4)
+
+
+def test_forward_plan_refuses_no_resident_block():
+    with pytest.raises(ValueError, match="blocks"):
+        tfl.fwd_plan(1, 8, 8, 0)
 
 
 # ----------------------------------------- the one-launch backward's tiling

@@ -94,13 +94,35 @@ repository around this file.  Phases, each printed on its own lines:
               5 upsample, no fusion-block), each checked against the CPU;
  18. fusion train  phase 8 with use_pallas_fusion on, 6 steps a stage,
               launches per step asserted exactly;
- 19. fusion vs CPU  phase 9 with use_pallas_fusion on.
+ 19. fusion vs CPU  phase 9 with use_pallas_fusion on;
+ 20. eval     the eval protocol (gdn_tpu_torch/evaluate.py) with phase 4's
+              weights, bf16, full width: 64 images, RGB at 128x416, GT at
+              KITTI's raw 375x1242 from numpy (seed 20; [0, 1.3 cap], 15%
+              zeroed), batch 8, garg crop, cap 80.  One pass each:
+              host-fed; device-cached (metrics equal to host-fed bit for
+              bit, cuDNN's deterministic algorithms for the pair); u16 GT
+              wire; flip TTA; median scaling; every fused flag on; the
+              stage-1 D-net (random weights, seed 1) on the GT downsampled
+              by nearest resize.  Launches asserted exactly (21 GN+ELU a
+              batch unfused, 1 with every fused flag, the warm-up batch of
+              each new Evaluator included).  The per-image metric columns
+              of the card's eval step, host-fed and median-scaling, against
+              the port's protocol on the CPU on the same fp32 predictions
+              (atol 1e-5, rtol 1e-5).  Eval images/s (host clock, best of
+              3 passes, device-cached and host-fed) and one profiled cached
+              pass (device busy, idle share, launches a batch by kernel).
+              Then train_stage2, 2 epochs of 3 steps at B=32 with 2
+              validation batches and an in-training eval of 16 images each
+              epoch: eval_rmse logged twice, the split read once (cached),
+              the launches exact, stage2_best.pth written and scored by
+              scripts/eval_torch.py --best.
 
 Any failure ends the run with a nonzero exit.  The last lines are the
 kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape numbers also go to smoke_out/chip_smoke.json, the profiles to
-smoke_out/{serving,training}{,_fused,_fusion}_profile.txt.
+smoke_out/{serving,training}{,_fused,_fusion}_profile.txt and
+smoke_out/eval_profile.txt.
 """
 
 import io
@@ -1414,6 +1436,247 @@ def _family_entry(name, line, rows, launches, hmma):
     }
 
 
+EVAL_IMAGES = 64
+EVAL_GT = (375, 1242)  # KITTI's raw GT size
+EVAL_BATCH = 8
+EVAL_TRAIN_STEPS = 3  # in-training eval: 2 epochs of 3 steps
+EVAL_VAL_STEPS = 2
+EVAL_TRAIN_IMAGES = 16
+EVAL_TOL = dict(atol=1e-5, rtol=1e-5)  # card vs CPU protocol on the same fp32 preds
+
+
+def eval_split(cfg, n=EVAL_IMAGES, seed=20):
+    """``n`` samples: RGB at the train size, GT at KITTI's raw size, both
+    from numpy with a fixed seed; GT uniform in [0, 1.3 cap] with 15% of
+    its pixels zeroed (invalid), so the cap and the mask have work."""
+    rng = np.random.default_rng(seed)
+    h, w = cfg.model.image_size
+    rgb = rng.uniform(0, 1, (n, h, w, 3)).astype(np.float32)
+    gt = rng.uniform(0, 1.3 * cfg.eval.cap, (n, *EVAL_GT)).astype(np.float32)
+    gt[rng.uniform(size=gt.shape) < 0.15] = 0.0
+    return [{"rgb": rgb[i:i + 1], "gt": gt[i:i + 1]} for i in range(n)]
+
+
+def eval_pass(ev, split, what, per_batch, warm):
+    """One Evaluator pass (``split`` None: the cached split) between
+    zeroed and read launch counts; ``per_batch`` launches for each of
+    the split's batches and for ``warm`` warm-up batches."""
+    from gdn_tpu_torch import metrics as M
+
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = ev.run(split, verbose=False)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts(what, counts, **{k: v * (batches + warm) for k, v in per_batch.items()})
+    if not all(np.isfinite(out[k]) for k in M.METRIC_NAMES):
+        raise AssertionError(f"{what}: metrics not finite: {out}")
+    log(f"  {what}: " + " ".join(f"{k}={out[k]:.4f}" for k in M.METRIC_NAMES)
+        + f"; {out['fps']:.1f} images/s; launches { {k: v for k, v in counts.items() if v} }")
+    return out, counts
+
+
+def protocol_vs_cpu(cfg, forward, split, what):
+    """The per-image metric columns of the card's eval step against the
+    port's protocol run on the CPU on the same fp32 predictions (the
+    step's ``return_preds``), for the first two batches."""
+    from gdn_tpu_torch.evaluate import _batch_iter, _wire_encoders, make_eval_step
+
+    card = make_eval_step(cfg, forward, EVAL_GT, return_preds=True, device="cuda")
+    cpu = make_eval_step(cfg, lambda pred: pred, EVAL_GT, device="cpu")
+    worst = 0.0
+    batches = _batch_iter(split[:2 * EVAL_BATCH], EVAL_BATCH, None, *_wire_encoders(cfg))
+    for _, rgb, gt, _, _ in batches:
+        cols, preds = card(rgb.cuda(), gt.cuda())
+        want = cpu(preds.cpu()[..., None], gt).numpy()
+        got = cols.cpu().numpy()
+        np.testing.assert_allclose(got, want, **EVAL_TOL, err_msg=what)
+        worst = max(worst, float(np.abs(got - want).max()))
+    log(f"  {what}: card vs CPU protocol on the same fp32 predictions, 16 images x 8 "
+        f"metrics: max|d| {worst:.3g} (atol {EVAL_TOL['atol']:g}, rtol {EVAL_TOL['rtol']:g})")
+    return worst
+
+
+def profile_eval(ev, tag="eval"):
+    """One device-cached pass under torch.profiler: the card's busy share
+    of the wall time and the launches a batch by kernel name."""
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    try:
+        prof, kernels, wall = profiled(lambda: ev.run(None, verbose=False), cpu=True)
+    except ProfilerShort as e:
+        log(f"  profile of {tag}: not measured ({e})")
+        return None
+    busy_ms = sum(us for us, _ in kernels.values()) / 1e3
+    with open(os.path.join(OUT, f"{tag}_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / (wall * 1e3),
+           "launches_per_batch": sum(n for _, n in kernels.values()) / batches,
+           "launches_per_batch_by_kernel": {k: n / batches
+                                            for k, (_, n) in kernels.items()},
+           "top_kernels_us": [(k[:90], us, n) for k, (us, n) in top]}
+    log(f"  profile of one cached pass ({EVAL_IMAGES} images): wall {out['wall_ms']:.1f} ms, "
+        f"device busy {busy_ms:.2f} ms (idle {out['idle_share']:.1%}), "
+        f"{out['launches_per_batch']:.1f} launches a batch")
+    for k, us, n in out["top_kernels_us"]:
+        log(f"    {us / 1e3:8.3f} ms  x{n:<5d} ({n / batches:g} a batch) {k}")
+    return out
+
+
+def phase_eval(cfg, cfg_all, sd):
+    """Phase 20: the eval protocol on the card at full width (see the
+    module docstring)."""
+    import importlib.util
+
+    from gdn_tpu_torch import metrics as M
+    from gdn_tpu_torch.checkpoint import init_params
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.synthetic import SyntheticDataset
+    from gdn_tpu_torch.evaluate import Evaluator, Stage1Split
+    from gdn_tpu_torch.models import DtoDNet, RtoDNet
+    from gdn_tpu_torch.train.loop import train_stage2
+    from gdn_tpu_torch.train.steps import make_eval_forward
+    from gdn_tpu_torch.utils.logging import MetricLogger
+
+    os.makedirs(OUT, exist_ok=True)
+    ev_over = {"eval.batch_size": EVAL_BATCH, "eval.crop": "garg", "eval.cap": 80.0}
+    cfg = _with(cfg, **ev_over)
+    h, w = cfg.model.image_size
+    split = eval_split(cfg)
+    n_gn = len(gn_sites(cfg.model))
+    unfused = {"group_norm_elu": n_gn}
+    net = RtoDNet(cfg.model)
+    net.load_state_dict(sd)
+    net = net.cuda()
+    fwd = make_eval_forward(cfg, net)
+    out, launches = {}, {}
+
+    def same(a, b, what):
+        if any(a[k] != b[k] for k in M.METRIC_NAMES):
+            raise AssertionError(f"{what}: {a} != {b}")
+        log(f"  {what}: equal bit for bit")
+
+    # the passes compared bit for bit run cuDNN's deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    ev = Evaluator(cfg, fwd)
+    out["host_fed"], launches["eval_host_fed"] = eval_pass(ev, split, "host-fed", unfused, 1)
+    ev.cache_dataset(split)
+    log(f"  cached {ev.cached_images} images, {ev.cached_bytes / 2**20:.1f} MiB of wire "
+        "format on the card")
+    out["cached"], launches["eval_cached"] = eval_pass(ev, None, "device-cached", unfused, 0)
+    same(out["cached"], out["host_fed"], "device-cached vs host-fed metrics")
+    # the u16 wire ships round(gt * 256) counts: its pass equals an f32 pass
+    # on the GT rounded so on the host
+    c16 = _with(cfg, **{"eval.gt_wire": "u16"})
+    out["u16"], launches["eval_u16"] = eval_pass(Evaluator(c16, fwd), split, "gt_wire u16",
+                                                 unfused, 1)
+    rounded = [{"rgb": s["rgb"], "gt": (np.round(s["gt"] * 256.0) / 256.0).astype(np.float32)}
+               for s in split]
+    same(out["u16"], ev.run(rounded, verbose=False), "u16 wire vs f32 wire of the rounded GT")
+    torch.backends.cudnn.deterministic = False
+    out["protocol_err"] = protocol_vs_cpu(cfg, fwd, split, "host-fed protocol")
+
+    tta = make_eval_forward(cfg, net, flip_tta=True)
+    out["flip_tta"], launches["eval_flip_tta"] = eval_pass(
+        Evaluator(cfg, tta), split, "flip_tta (one 2B forward a batch)", unfused, 1)
+
+    cms = _with(cfg, **{"eval.median_scaling": True})
+    out["median_scaling"], launches["eval_median"] = eval_pass(
+        Evaluator(cms, fwd), split, "median_scaling", unfused, 1)
+    out["protocol_err_median"] = protocol_vs_cpu(cms, fwd, split, "median-scaling protocol")
+
+    call = _with(cfg_all, **ev_over)
+    net_all = RtoDNet(call.model)
+    net_all.load_state_dict(sd)
+    fused = {"group_norm_elu": 1, "conv_gn_elu_s2": 5, "conv_gn_elu_bt": 5,
+             "fusion_bt": 5, "upsample": 5}
+    out["all_fused"], launches["eval_all_fused"] = eval_pass(
+        Evaluator(call, make_eval_forward(call, net_all.cuda())), split,
+        "every fused flag", fused, 1)
+    # bf16 through other kernels: the metrics of the same weights agree to 2%
+    for k in ("abs_rel", "rmse", "a1"):
+        a, b = out["all_fused"][k], out["host_fed"][k]
+        if abs(a - b) > 0.02 * abs(b):
+            raise AssertionError(f"every fused flag {k}={a} vs unfused {b}")
+    del net_all
+
+    d_net = DtoDNet(cfg.model)
+    d_sd = init_params(cfg.model, torch.Generator().manual_seed(1), in_channels=1)
+    d_net.load_state_dict(d_sd)
+    out["stage1"], launches["eval_stage1"] = eval_pass(
+        Evaluator(cfg, make_eval_forward(cfg, d_net.cuda())), Stage1Split(split, (h, w)),
+        "stage 1 (D-net reconstruction)", unfused, 1)
+    del d_net
+
+    fps = {"cached": [ev.run(None, verbose=False)["fps"] for _ in range(3)],
+           "host_fed": [ev.run(split, verbose=False)["fps"] for _ in range(3)]}
+    out["images_per_s"] = {k: max(v) for k, v in fps.items()}
+    out["images_per_s_runs"] = fps
+    log(f"  eval images/s (host clock, best of 3 passes of {EVAL_IMAGES}, batch "
+        f"{EVAL_BATCH}, GT {EVAL_GT[0]}x{EVAL_GT[1]}): device-cached "
+        f"{out['images_per_s']['cached']:.1f}, host-fed {out['images_per_s']['host_fed']:.1f}"
+        f" (runs {fps})")
+    out["profile"] = profile_eval(ev)
+    del ev, net
+
+    # in-training eval: one Evaluator, the split cached once, best tracking
+    ckpt = os.path.join(OUT, "eval_train")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ct = _with(cfg, **{"train.steps_per_epoch": EVAL_TRAIN_STEPS,
+                       "train.log_every": EVAL_TRAIN_STEPS, "train.ckpt_dir": ckpt,
+                       "data.batch_size": TRAIN_BATCH})
+    small = split[:EVAL_TRAIN_IMAGES]
+    calls = []
+    jsonl = os.path.join(OUT, "eval_train.jsonl")
+    if os.path.exists(jsonl):
+        os.remove(jsonl)
+    logger = MetricLogger(prefix="stage2", jsonl_path=jsonl)
+    torch.cuda.synchronize()
+    reset_counts()
+    train_stage2(ct, SyntheticDataset(TRAIN_BATCH, h, w, ct.model.max_depth, seed=0,
+                                      device="cuda"),
+                 d_sd, epochs=2, logger=logger,
+                 val_iter=SyntheticDataset(TRAIN_BATCH, h, w, ct.model.max_depth, seed=1,
+                                           device="cuda"),
+                 val_steps=EVAL_VAL_STEPS, eval_dataset=lambda: calls.append(1) or small,
+                 eval_every=1)
+    torch.cuda.synchronize()
+    launches["eval_train"] = counts = read_counts()
+    logger.close()
+    steps, evals = 2 * EVAL_TRAIN_STEPS, 2 * EVAL_TRAIN_IMAGES // EVAL_BATCH + 1
+    expect_counts("in-training eval", counts, fused_loss_fwd=steps + 2 * EVAL_VAL_STEPS,
+                  fused_loss_bwd=steps,
+                  group_norm_elu=n_gn * (2 * steps + 2 * EVAL_VAL_STEPS + evals))
+    recs = [json.loads(line) for line in open(jsonl)]
+    rmse = [r["eval_rmse"] for r in recs if "eval_rmse" in r]
+    if len(rmse) != 2 or not all(np.isfinite(rmse)):
+        raise AssertionError(f"eval_rmse of the two epochs: {rmse}")
+    if sum("val_total" in r for r in recs) != 2:
+        raise AssertionError("validation did not log both epochs")
+    if len(calls) != 1:
+        raise AssertionError(f"the eval split was read {len(calls)} times, not once")
+    best = os.path.join(ckpt, "stage2_best.pth")
+    if not os.path.exists(best):
+        raise AssertionError("stage2_best.pth not written")
+    spec = importlib.util.spec_from_file_location(
+        "eval_torch", os.path.join(ROOT, "scripts", "eval_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    res = script.main(["--dataset", "synthetic", "--ckpt_dir", ckpt, "--best",
+                       "--max_images", str(EVAL_TRAIN_IMAGES)])
+    if not all(np.isfinite(res[k]) for k in M.METRIC_NAMES):
+        raise AssertionError(f"eval_torch.py --best: {res}")
+    out["in_training"] = {"eval_rmse": rmse, "launches": counts, "split_reads": len(calls),
+                          "eval_torch_best": res}
+    log(f"  in-training eval: eval_rmse {rmse} over 2 epochs of {EVAL_TRAIN_STEPS} steps, "
+        f"split read once and cached, launches "
+        f"{ {k: v for k, v in counts.items() if v} }; eval_torch.py --best rmse "
+        f"{res['rmse']:.4f}")
+    return out, launches
+
+
 def main():
     log("== 1. device")
     if not torch.cuda.is_available():
@@ -1542,6 +1805,11 @@ def main():
 
     log("== 19. one stage-2 step with use_pallas_fusion, card vs CPU, B=2")
     vs_cpu_fusion = phase_vs_cpu(cfg_fusion, s2, d_net)
+    del s2, d_net
+
+    log(f"== 20. eval: {EVAL_IMAGES} images, GT {EVAL_GT[0]}x{EVAL_GT[1]}, batch "
+        f"{EVAL_BATCH}, garg crop, cap 80, bf16, full width")
+    evaluation, eval_launches = phase_eval(cfg, cfg_all, sd)
 
     main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
     per_fwd = {k: sum(r[k] * r["sites"] for r in main_rows)
@@ -1551,7 +1819,8 @@ def main():
                      "serving_fused": fused_counts, "serving_v1": v1_counts,
                      **{f"{k}_fused": v for k, v in fused_train_launches.items()},
                      "serving_fusion": fusion_counts, "serving_all": all_counts,
-                     **{f"{k}_fusion": v for k, v in fusion_train_launches.items()}}
+                     **{f"{k}_fusion": v for k, v in fusion_train_launches.items()},
+                     **eval_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in path_launches.values())
@@ -1601,6 +1870,7 @@ def main():
                    "training_fused": training_fused, "vs_cpu_fused": vs_cpu_fused,
                    "serving_fusion": serving_fusion, "serving_all": serving_all,
                    "training_fusion": training_fusion, "vs_cpu_fusion": vs_cpu_fusion,
+                   "eval": evaluation,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
                    "sass_hmma": hmma_by_fn, "ptxas": ptxas,
                    "kernels": kernels}, f, indent=1)

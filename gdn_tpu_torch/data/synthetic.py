@@ -1,6 +1,6 @@
 """Synthetic RGB-D batches (port of ``gdn_tpu/data/synthetic.py``): a
-zero-IO training source with a learnable RGB <-> depth relation, drawn
-on the device from an explicit ``torch.Generator``.
+zero-IO training source and eval split with a learnable RGB <-> depth
+relation, drawn on the device from an explicit ``torch.Generator``.
 
 Depth is a road-like vertical ramp (far at the top) with 6 random
 frontal boxes per image; RGB is a shading of that depth plus texture
@@ -60,6 +60,11 @@ def synthetic_batch(gen: torch.Generator, batch_size: int = 4, height: int = 128
     }
 
 
+def _image_seed(seed: int, i: int) -> int:
+    """The generator seed of item ``i`` of a stream seeded ``seed``."""
+    return int(np.random.SeedSequence([seed, i]).generate_state(1, np.uint64)[0])
+
+
 class SyntheticDataset:
     """Endless iterator of synthetic batches on ``device`` (CUDA unless
     the caller asks for another; raises without a card).  Batch i is
@@ -79,14 +84,39 @@ class SyntheticDataset:
         """Start the next iteration at batch ``n_batches``."""
         self._skip = int(n_batches)
 
-    def _seed(self, i: int) -> int:
-        return int(np.random.SeedSequence([self.seed, i]).generate_state(1, np.uint64)[0])
-
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         i, self._skip = self._skip, 0
         gen = torch.Generator(device=self.device)
         while True:
-            gen.manual_seed(self._seed(i))
+            gen.manual_seed(_image_seed(self.seed, i))
             yield synthetic_batch(gen, self.batch_size, self.height, self.width,
                                   self.max_depth)
             i += 1
+
+
+class SyntheticEvalDataset:
+    """A bounded eval split without data on disk: yields ``n_images``
+    per-image {'rgb' (1, H, W, 3), 'gt' (1, H, W)} numpy float32 arrays
+    (GT at the train size), the interface of the KITTI/NYU eval loaders.
+    Image i is drawn on ``device`` (CUDA unless the caller asks for
+    another; raises without a card) from a generator seeded by (seed, i),
+    so every iteration yields the same split."""
+
+    def __init__(self, n_images: int = 32, height: int = 128, width: int = 416,
+                 max_depth: float = 80.0, seed: int = 999, device=None):
+        self.n_images = n_images
+        self.height = height
+        self.width = width
+        self.max_depth = max_depth
+        self.seed = seed
+        self.device = resolve_device(device)
+
+    def __len__(self) -> int:
+        return self.n_images
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        gen = torch.Generator(device=self.device)
+        for i in range(self.n_images):
+            gen.manual_seed(_image_seed(self.seed, i))
+            b = synthetic_batch(gen, 1, self.height, self.width, self.max_depth)
+            yield {"rgb": b["rgb"].cpu().numpy(), "gt": b["depth"][..., 0].cpu().numpy()}

@@ -3,17 +3,29 @@
 Port of ``gdn_tpu/ops/resize.py``.  Tensors are NCHW-shaped and conv
 kernels OIHW (the port's layout); the JAX package's are NHWC and HWIO.
 
-- bilinear: half-pixel centers with edge clamp, i.e.
+- bilinear: ``jax.image.resize(method="bilinear")``.  Where both axes
+  grow or keep their size, that is half-pixel centers with edge clamp,
   ``F.interpolate(mode="bilinear", align_corners=False,
-  antialias=False)``, which equals ``jax.image.resize(method=
-  "bilinear")`` whenever the target is at least the source size (every
-  caller here upsamples).
+  antialias=False)`` (the model's route: it only upsamples).  Where an
+  axis shrinks, JAX widens the triangle kernel by the scale
+  (antialiasing, its default), as ``antialias=True`` does; on axes that
+  grow the two agree to rounding, but ``antialias=False`` is the closer
+  match there, so it is taken only when some axis shrinks (the eval
+  protocol resizes predictions to whatever size the GT has).
+- nearest: ``jax.image.resize(method="nearest")`` takes source pixel
+  ``floor((i + 0.5) * in / out)``, which XLA compiles to a float32
+  multiply by the constant ``in * (1 / out)`` (each step rounded to
+  float32).  Torch's ``"nearest"`` floors ``i * in / out`` and its
+  ``"nearest-exact"`` rounds the scale otherwise; either lands one
+  pixel off where a center falls near a pixel edge (i = 155 of 311 from
+  104), so the indices are computed here as XLA computes them.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -25,9 +37,22 @@ def resize_bilinear(
     in float32 whatever the input dtype; ``precise=False`` keeps it."""
     orig = x.dtype
     xc = x.float() if precise else x
+    shrinks = size[0] < x.shape[-2] or size[1] < x.shape[-1]
     out = F.interpolate(xc, size=tuple(size), mode="bilinear",
-                        align_corners=False, antialias=False)
+                        align_corners=False, antialias=shrinks)
     return out.to(orig)
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of the (H, W) axes of (B, C, H, W) with JAX's
+    half-pixel centers, computed in float32 whatever the input dtype."""
+    def index(n_in, n_out):
+        scale = float(np.float32(n_in) * (np.float32(1) / np.float32(n_out)))
+        pos = (torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5) * scale
+        return torch.floor(pos).long().clamp_(max=n_in - 1)
+
+    out = x.float().index_select(-2, index(x.shape[-2], size[0]))
+    return out.index_select(-1, index(x.shape[-1], size[1])).to(x.dtype)
 
 
 def compose_bilinear_deconv_kernel(k3: torch.Tensor) -> torch.Tensor:

@@ -6,26 +6,32 @@ with the guidance term from the frozen D-net.  Both run on CUDA unless
 the caller passes ``device="cpu"``.  Per-step scalars (loss terms,
 images/s with the first step left out) go through ``MetricLogger``;
 with ``cfg.train.ckpt_dir`` set, each epoch ends by writing
-``<ckpt_dir>/stage{1,2}.pth`` (``checkpoint.save_pth``).
+``<ckpt_dir>/stage{1,2}.pth`` (``checkpoint.save_pth``).  After each
+epoch, optionally: validation (the mean loss terms over held-out
+batches, ``val_*``) and, in stage 2, the full eval protocol through one
+persistent ``Evaluator`` (``eval_*``), with the best eval RMSE's weights
+kept as ``<ckpt_dir>/stage2_best.pth``.
 
-Not ported yet (ROADMAP Queue A items 5-7): validation and the eval
-protocol, orbax checkpoints, resume and preemption.
+Not ported yet (ROADMAP Queue A items 5 and 7): checkpoints with the
+optimizer state and EMA, resume and preemption.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, Iterable, Optional, Union
+from typing import Any, Callable, Dict, Iterable, Optional, Union
 
 import torch
 
 from gdn_tpu_torch import kernels
 from gdn_tpu_torch.checkpoint import init_params, save_pth, transfer_stage1_decoder
 from gdn_tpu_torch.config import Config, resolve_device
+from gdn_tpu_torch.evaluate import Evaluator
+from gdn_tpu_torch.losses import total_loss
 from gdn_tpu_torch.models import DtoDNet, RtoDNet
 from gdn_tpu_torch.train.state import TrainState
-from gdn_tpu_torch.train.steps import make_stage1_step, make_stage2_step
+from gdn_tpu_torch.train.steps import make_eval_forward, make_stage1_step, make_stage2_step
 from gdn_tpu_torch.utils.logging import MetricLogger
 
 
@@ -45,8 +51,7 @@ def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
     t_start = time.perf_counter()
     timed_from = 0
     for i in range(steps):
-        batch = {k: torch.as_tensor(v).to(device, non_blocking=True)
-                 for k, v in next(data_iter).items()}
+        batch = _batch_to(next(data_iter), device)
         state, terms = step_fn(state, *extra_args, batch)
         if i == 0:
             _floats(terms)
@@ -61,6 +66,36 @@ def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
                 log_kw["imgs_per_sec"] = batch_size * timed / elapsed
             logger.log(**log_kw)
     return state
+
+
+def _batch_to(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def _validate(cfg: Config, net: torch.nn.Module, val_iter, steps: int,
+              logger: MetricLogger, step: int, device: torch.device,
+              input_key: str = "depth") -> Dict[str, float]:
+    """Periodic validation: the loss terms averaged over ``steps``
+    held-out batches (fewer if ``val_iter`` ends first), without
+    gradients, logged as ``val_*``.  Stage 2 feeds the G-net RGB
+    (``input_key="rgb"``) and scores its depth alone: no guidance term."""
+    sums: Dict[str, float] = {}
+    n = 0
+    for _ in range(steps):
+        try:
+            batch = _batch_to(next(val_iter), device)
+        except StopIteration:
+            break
+        with torch.no_grad():
+            out = net(batch[input_key])
+            terms = total_loss(out["depth"], batch["depth"], batch["mask"], cfg.loss,
+                               cfg.model.max_depth, scale_preds=out["depth_scales"][:-1])
+        for k, v in _floats(terms).items():
+            sums[k] = sums.get(k, 0.0) + v
+        n += 1
+    avg = {f"val_{k}": v / max(n, 1) for k, v in sums.items()}
+    logger.log(step=step, **avg)
+    return avg
 
 
 def _net(cls, cfg: Config, sd: Dict[str, torch.Tensor], device) -> torch.nn.Module:
@@ -83,10 +118,13 @@ def _save(cfg: Config, state: TrainState, name: str) -> None:
 
 def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
                  epochs: Optional[int] = None, state: Optional[TrainState] = None,
-                 logger: Optional[MetricLogger] = None, device=None) -> TrainState:
+                 logger: Optional[MetricLogger] = None,
+                 val_iter: Optional[Iterable[Dict[str, Any]]] = None,
+                 val_steps: int = 10, device=None) -> TrainState:
     """D-net pretraining; returns the final TrainState.  Weights start
     from ``init_params`` with seed cfg.train.seed unless ``state`` is
-    given."""
+    given.  ``val_iter``: held-out batches, validated after each epoch
+    (``val_steps`` of them, from the start of the iterable each time)."""
     dev = _prepare(device)
     if state is None:
         gen = torch.Generator().manual_seed(cfg.train.seed)
@@ -98,6 +136,8 @@ def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
     for _ in range(epochs if epochs is not None else cfg.train.epochs):
         state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
                             logger, cfg.data.batch_size, cfg.train.log_every, dev)
+        if val_iter is not None:
+            _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step, dev)
         _save(cfg, state, "stage1.pth")
     return state
 
@@ -105,14 +145,29 @@ def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
 def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
                  d_params: Union[Dict[str, torch.Tensor], torch.nn.Module],
                  epochs: Optional[int] = None, state: Optional[TrainState] = None,
-                 logger: Optional[MetricLogger] = None, device=None) -> TrainState:
+                 logger: Optional[MetricLogger] = None,
+                 val_iter: Optional[Iterable[Dict[str, Any]]] = None,
+                 val_steps: int = 10,
+                 eval_dataset: Optional[Callable[[], Iterable[Dict[str, Any]]]] = None,
+                 eval_every: int = 1, eval_max_images: Optional[int] = None,
+                 device=None) -> TrainState:
     """Guided G-net training; returns the final TrainState.
 
     ``d_params``: the trained stage-1 D-net, as its state_dict or as the
     DtoDNet itself (on the device; it is frozen in place).  Unless
     ``state`` is given, a fresh G-net (seed cfg.train.seed) takes its
     decoder (``transfer_stage1_decoder``), frozen when
-    cfg.train.freeze_decoder.  The D-net runs without grad."""
+    cfg.train.freeze_decoder.  The D-net runs without grad.
+
+    ``val_iter``, ``val_steps``: as in :func:`train_stage1`.
+    ``eval_dataset``: a zero-argument callable returning the eval split
+    ({'rgb' (1, H, W, 3), 'gt' (1, Hg, Wg)}); every ``eval_every``
+    epochs the full eval protocol runs on it (at most
+    ``eval_max_images`` images) and logs ``eval_*``.  One Evaluator
+    serves the whole run; the split is cached on the device at its first
+    use, or stays host-fed past the 2 GiB gate or when the card runs out
+    of memory.  Each new best eval RMSE writes
+    ``<ckpt_dir>/stage2_best.pth``."""
     dev = _prepare(device)
     d_net = (d_params if isinstance(d_params, torch.nn.Module)
              else _net(DtoDNet, cfg, d_params, dev)).requires_grad_(False)
@@ -126,9 +181,25 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
     step_fn = make_stage2_step(cfg)
     logger = logger or MetricLogger(prefix="stage2")
     data_iter = iter(data_iter)
-    for _ in range(epochs if epochs is not None else cfg.train.epochs):
+    evaluator, eval_cached, best_rmse = None, False, float("inf")
+    for epoch in range(epochs if epochs is not None else cfg.train.epochs):
         state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
                             logger, cfg.data.batch_size, cfg.train.log_every, dev,
                             extra_args=(d_net,))
+        if val_iter is not None:
+            _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step, dev,
+                      input_key="rgb")
+        if eval_dataset is not None and (epoch + 1) % max(eval_every, 1) == 0:
+            if evaluator is None:
+                evaluator = Evaluator(cfg, make_eval_forward(cfg, state.net), device=dev)
+                eval_cached = evaluator.cache_or_host_fed(eval_dataset(), eval_max_images)
+            out = evaluator.run(None if eval_cached else eval_dataset(),
+                                max_images=eval_max_images, verbose=False)
+            logger.log(step=state.step, **{f"eval_{k}": v for k, v in out.items()})
+            # the best weights by eval RMSE survive later epochs that regress
+            if cfg.train.ckpt_dir and out.get("rmse", float("inf")) < best_rmse:
+                best_rmse = out["rmse"]
+                _save(cfg, state, "stage2_best.pth")
+                logger.log(step=state.step, best_rmse=best_rmse)
         _save(cfg, state, "stage2.pth")
     return state

@@ -94,3 +94,29 @@ def make_stage2_step(cfg: Config) -> Callable[[TrainState, nn.Module, Batch],
         return state, _detached(terms)
 
     return step
+
+
+def make_eval_forward(cfg: Config, net: nn.Module,
+                      flip_tta: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The eval forward: rgb (B, H, W, 3) -> depth (B, H, W, 1) float32,
+    under ``torch.inference_mode()``, with ``net``'s weights as they are
+    at each call (in-training eval reads the live G-net).  The eval
+    harness resizes the depth to the GT's size afterwards.
+
+    ``flip_tta``: horizontal-flip test-time augmentation (predict on the
+    image and its mirror, un-mirror, average), as ONE forward of 2B
+    images."""
+    if cfg.model.quant != "none":
+        raise NotImplementedError(
+            f"eval with model.quant={cfg.model.quant!r} is not ported to "
+            "gdn_tpu_torch yet; see ROADMAP.md Queue A item 11 (int8 PTQ)")
+
+    @torch.inference_mode()
+    def forward(rgb: torch.Tensor) -> torch.Tensor:
+        if not flip_tta:
+            return net(rgb)["depth"].float()
+        depth = net(torch.cat([rgb, rgb.flip(2)]))["depth"].float()
+        b = rgb.shape[0]
+        return 0.5 * (depth[:b] + depth[b:].flip(2))
+
+    return forward

@@ -8,7 +8,12 @@ moves and freezes its decoder in a fresh G-net, trains stage 2 and
 writes ``<ckpt_dir>/stage2.pth`` (loadable by scripts/serve_torch.py
 --pth).  Runs on the card (``--device cuda``, the default) or, when
 asked, on the CPU.  Only the synthetic data source is ported; the step
-lines also go to ``<ckpt_dir>/train_log.jsonl``.
+lines also go to ``<ckpt_dir>/train_log.jsonl``.  ``--val_steps N``
+validates each epoch on N held-out synthetic batches (seed + 1);
+``--eval_every N`` (RtoD) scores the G-net every N epochs with the full
+eval protocol on the synthetic eval split and keeps the best eval RMSE's
+weights as ``<ckpt_dir>/stage2_best.pth`` (scripts/eval_torch.py
+--best).
 
 Examples:
   python scripts/train_torch.py --mode DtoD --dataset synthetic \\
@@ -26,6 +31,9 @@ Examples:
       --model.use_pallas_fusion --epochs 1 --steps_per_epoch 50
           # the UpBlock up-convs through the upsample kernel and the
           # FusionBlocks through the per-image fusion kernel
+  python scripts/train_torch.py --mode RtoD --dataset synthetic \
+      --epochs 4 --steps_per_epoch 50 --val_steps 5 --eval_every 1
+          # validation and in-training eval with best-model tracking
 """
 
 import argparse
@@ -62,6 +70,17 @@ def parse_args(argv=None):
     p.add_argument("--ckpt_dir", type=str, default="checkpoints")
     p.add_argument("--stage1_pth", type=str, default="",
                    help="RtoD: the stage-1 .pth (default <ckpt_dir>/stage1.pth)")
+    p.add_argument("--val_steps", type=int, default=0,
+                   help="validate each epoch on this many held-out synthetic "
+                        "batches (seed + 1); 0 = off")
+    p.add_argument("--eval_every", type=int, default=0,
+                   help="(RtoD) run the full eval protocol on the synthetic eval "
+                        "split every N epochs, log eval_* and keep the best RMSE's "
+                        "weights as <ckpt_dir>/stage2_best.pth (0 = off)")
+    p.add_argument("--eval_max_images", type=int, default=None,
+                   help="cap images per in-training eval pass")
+    p.add_argument("--eval_batch", type=int, default=32,
+                   help="images per in-training eval step (metrics stay per-image)")
     add_fused_kernel_flags(p)
     args = p.parse_args(argv)
     if args.dataset != "synthetic":
@@ -80,6 +99,7 @@ def build_config(args):
         "train.lr": args.lr, "train.seed": args.seed,
         "train.steps_per_epoch": args.steps_per_epoch,
         "train.log_every": args.log_every, "train.ckpt_dir": args.ckpt_dir,
+        "eval.batch_size": args.eval_batch,
         **fused_kernel_overrides(args),
     }
     if args.height or args.width:
@@ -88,12 +108,12 @@ def build_config(args):
     return kitti_config(**over)
 
 
-def main():
-    args = parse_args()
+def main(argv=None):
+    args = parse_args(argv)
 
     from gdn_tpu_torch import checkpoint as ckpt
     from gdn_tpu_torch.config import resolve_device
-    from gdn_tpu_torch.data.synthetic import SyntheticDataset
+    from gdn_tpu_torch.data.synthetic import SyntheticDataset, SyntheticEvalDataset
     from gdn_tpu_torch.train.loop import train_stage1, train_stage2
     from gdn_tpu_torch.utils.logging import MetricLogger
 
@@ -107,12 +127,20 @@ def main():
                           jsonl_path=os.path.join(args.ckpt_dir, "train_log.jsonl"))
     print(f"{stage}: {h}x{w}, batch {args.batch_size}, {args.dtype}, "
           f"device {device}", flush=True)
+    val = dict(val_iter=SyntheticDataset(args.batch_size, h, w, cfg.model.max_depth,
+                                         seed=args.seed + 1, device=device),
+               val_steps=args.val_steps) if args.val_steps else {}
     if args.mode == "DtoD":
-        train_stage1(cfg, data, logger=logger, device=device)
+        train_stage1(cfg, data, logger=logger, device=device, **val)
     else:
         d_params = ckpt.load_pth(args.stage1_pth
                                  or os.path.join(args.ckpt_dir, "stage1.pth"))
-        train_stage2(cfg, data, d_params, logger=logger, device=device)
+        split = SyntheticEvalDataset(height=h, width=w, max_depth=cfg.model.max_depth,
+                                     device=device)
+        train_stage2(cfg, data, d_params, logger=logger, device=device,
+                     eval_dataset=(lambda: split) if args.eval_every else None,
+                     eval_every=args.eval_every, eval_max_images=args.eval_max_images,
+                     **val)
     logger.close()
     print(f"wrote {os.path.join(args.ckpt_dir, stage + '.pth')}", flush=True)
 

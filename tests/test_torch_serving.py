@@ -33,7 +33,8 @@ TINY = Config(model=ModelConfig(
     image_size=(32, 64), enc_channels=(8, 16), dec_channels=(16, 8),
     dtype="float32", use_pallas_gn=True,
 ))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gdn_tpu")
+# the JAX stack, the JAX package, and ml_dtypes (absent on the card's machine)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gdn_tpu", "ml_dtypes")
 
 
 @pytest.fixture(scope="module")
@@ -329,7 +330,8 @@ def test_serve_torch_cli_subprocess(tmp_path):
 def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "serve_torch.py"),
-             os.path.join(REPO, "scripts", "train_torch.py")]
+             os.path.join(REPO, "scripts", "train_torch.py"),
+             os.path.join(REPO, "scripts", "eval_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "gdn_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)

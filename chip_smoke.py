@@ -114,8 +114,29 @@ repository around this file.  Phases, each printed on its own lines:
               Then train_stage2, 2 epochs of 3 steps at B=32 with 2
               validation batches and an in-training eval of 16 images each
               epoch: eval_rmse logged twice, the split read once (cached),
-              the launches exact, stage2_best.pth written and scored by
-              scripts/eval_torch.py --best.
+              the launches exact, a checkpoint written to stage2_best/ and
+              scored by scripts/eval_torch.py --best;
+ 21. lifecycle  full-width KITTI: (a) stage 1, B=32, bf16, EMA 0.99,
+              cuDNN's deterministic algorithms: 6 steps unbroken (twice)
+              against 3 steps, an asynchronous checkpoint, a restore into
+              a fresh net and optimizer and 3 more: parameters, EMA and
+              Adam moments bit-identical; (b) train_stage2 with SIGTERM
+              raised from the data iterator at batch 2: it stops after
+              step 3, stage2/3.pt exists, the restore continues to step
+              5; (c) grad_accum=2, stage 2, B=2, fp32: the first
+              micro-step leaves params and EMA unchanged, the same batch
+              twice equals one grad_accum=1 step (rtol 1e-5, atol 1e-7);
+              (d) one stage-2 step at B=32, bf16, with and without remat,
+              unfused, fused and fusion: loss terms equal, gradients
+              within 5% of each tensor's largest, launches exact (the
+              G-net's sites launch again in the recompute: 3 a site a
+              step with the D-net's, 2 without remat), then peak
+              allocated memory and ms/step of 3 training steps each;
+              (e) scripts/train_torch.py --mode RtoD --ema_decay 0.99
+              --eval_every 1 (2 x 3 steps, default keep_ckpts),
+              scripts/eval_torch.py with and without --use_ema (metrics
+              differ), scripts/serve_torch.py --ckpt_dir --use_ema --port
+              0 answering one POST.
 
 Any failure ends the run with a nonzero exit.  The last lines are the
 kernels' JSON line, the nvidia-smi line, and
@@ -913,7 +934,7 @@ def phase_train(cfg, steps, per_net, tag="train"):
     """train_stage1 then train_stage2, ``steps`` each; ``per_net`` is
     the model kernels' launches in one net's forward (stage 2 runs two
     nets a step: the G-net under grad and the frozen D-net)."""
-    from gdn_tpu_torch.checkpoint import init_params, load_pth
+    from gdn_tpu_torch.checkpoint import init_params, load_params
     from gdn_tpu_torch.config import _with
     from gdn_tpu_torch.data.synthetic import SyntheticDataset
     from gdn_tpu_torch.models import DtoDNet
@@ -939,7 +960,7 @@ def phase_train(cfg, steps, per_net, tag="train"):
             s1 = train_stage1(cfg, data, epochs=1, logger=logger)
         else:
             d_net = DtoDNet(cfg.model)
-            d_net.load_state_dict(load_pth(os.path.join(ckpt, "stage1.pth")))
+            d_net.load_state_dict(load_params(os.path.join(ckpt, "stage1")))
             d_net = d_net.cuda()
             d_before = {k: v.clone() for k, v in d_net.state_dict().items()}
             s2 = train_stage2(cfg, data, d_net, epochs=1, logger=logger)
@@ -1528,10 +1549,8 @@ def profile_eval(ev, tag="eval"):
 def phase_eval(cfg, cfg_all, sd):
     """Phase 20: the eval protocol on the card at full width (see the
     module docstring)."""
-    import importlib.util
-
     from gdn_tpu_torch import metrics as M
-    from gdn_tpu_torch.checkpoint import init_params
+    from gdn_tpu_torch.checkpoint import init_params, latest_step
     from gdn_tpu_torch.config import _with
     from gdn_tpu_torch.data.synthetic import SyntheticDataset
     from gdn_tpu_torch.evaluate import Evaluator, Stage1Split
@@ -1657,14 +1676,9 @@ def phase_eval(cfg, cfg_all, sd):
         raise AssertionError("validation did not log both epochs")
     if len(calls) != 1:
         raise AssertionError(f"the eval split was read {len(calls)} times, not once")
-    best = os.path.join(ckpt, "stage2_best.pth")
-    if not os.path.exists(best):
-        raise AssertionError("stage2_best.pth not written")
-    spec = importlib.util.spec_from_file_location(
-        "eval_torch", os.path.join(ROOT, "scripts", "eval_torch.py"))
-    script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(script)
-    res = script.main(["--dataset", "synthetic", "--ckpt_dir", ckpt, "--best",
+    if latest_step(os.path.join(ckpt, "stage2_best")) is None:
+        raise AssertionError("no checkpoint in stage2_best")
+    res = load_script("eval_torch").main(["--dataset", "synthetic", "--ckpt_dir", ckpt, "--best",
                        "--max_images", str(EVAL_TRAIN_IMAGES)])
     if not all(np.isfinite(res[k]) for k in M.METRIC_NAMES):
         raise AssertionError(f"eval_torch.py --best: {res}")
@@ -1674,6 +1688,419 @@ def phase_eval(cfg, cfg_all, sd):
         f"split read once and cached, launches "
         f"{ {k: v for k, v in counts.items() if v} }; eval_torch.py --best rmse "
         f"{res['rmse']:.4f}")
+    return out, launches
+
+
+LIFE_STEPS = 6  # phase 21 (a): 6 steps unbroken; 3, a checkpoint, 3 more
+LIFE_PREEMPT_AT = 2  # phase 21 (b): SIGTERM while the data iterator yields batch 2
+LIFE_TIMED = 3  # phase 21 (d): timed steps a configuration, after one untimed
+GRAD_TOL_BF16 = 0.05  # phase 9's bf16 bound, per tensor: of its largest magnitude
+ACCUM_TOL = dict(rtol=1e-5, atol=1e-7)  # tests/test_grad_accum.py's bound
+
+
+def load_script(name):
+    """scripts/<name>.py as a module (its main() is the command line)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _snapshot(state):
+    """Parameters, EMA, Adam moments, gradient mean and counts of a
+    TrainState, copied to the host."""
+    opt = [state.optimizer.state.get(p, {}) for p in state.params]
+    return {"params": {k: v.detach().cpu() for k, v in state.net.state_dict().items()},
+            "ema": {k: v.cpu() for k, v in (state.ema or {}).items()},
+            "exp_avg": {i: s["exp_avg"].cpu() for i, s in enumerate(opt) if s},
+            "exp_avg_sq": {i: s["exp_avg_sq"].cpu() for i, s in enumerate(opt) if s},
+            "counts": (state.step, state.updates)}
+
+
+def _snap_diff(a, b):
+    """{part: largest |a - b|} of two snapshots; raises when they differ
+    in keys or counts."""
+    if a["counts"] != b["counts"]:
+        raise AssertionError(f"(step, updates) {a['counts']} vs {b['counts']}")
+    out = {}
+    for part in ("params", "ema", "exp_avg", "exp_avg_sq"):
+        if a[part].keys() != b[part].keys():
+            raise AssertionError(f"{part}: keys differ")
+        out[part] = max([(a[part][k].float() - b[part][k].float()).abs().max().item()
+                         for k in a[part]], default=0.0)
+    return out
+
+
+def counts_text(counts):
+    """The nonzero launch counts, for a log line."""
+    return str({k: v for k, v in counts.items() if v})
+
+
+def _quiet(prefix):
+    from gdn_tpu_torch.utils.logging import MetricLogger
+
+    return MetricLogger(prefix=prefix, stream=io.StringIO())
+
+
+def life_resume(cfg, root, n_gn):
+    """Phase 21 (a): stage 1, an unbroken run against one stopped at half
+    way, checkpointed asynchronously, restored into a fresh state and
+    continued; bit for bit under cuDNN's deterministic algorithms."""
+    from gdn_tpu_torch.checkpoint import restore_checkpoint, wait_for_checkpoints
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.synthetic import SyntheticDataset
+    from gdn_tpu_torch.train.loop import stage1_state, train_stage1
+
+    c = _with(cfg, **{"train.ema_decay": 0.99, "train.log_every": 100,
+                      "data.batch_size": TRAIN_BATCH, "train.ckpt_dir": ""})
+    h, w = c.model.image_size
+    whole = _with(c, **{"train.steps_per_epoch": LIFE_STEPS})
+    half = _with(c, **{"train.steps_per_epoch": LIFE_STEPS // 2, "train.ckpt_dir": root,
+                       "train.async_ckpt": True})
+
+    def data(skip=0):
+        ds = SyntheticDataset(TRAIN_BATCH, h, w, c.model.max_depth, seed=21, device="cuda")
+        ds.seek(skip)
+        return ds
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    runs = [_snapshot(train_stage1(whole, data(), epochs=1, logger=_quiet("stage1")))
+            for _ in range(2)]
+    train_stage1(half, data(), epochs=1, logger=_quiet("stage1"))
+    wait_for_checkpoints(root)
+    stage_dir = os.path.join(root, "stage1")
+    state = restore_checkpoint(stage_dir, stage1_state(half))
+    if state.step != LIFE_STEPS // 2:
+        raise AssertionError(f"restored at step {state.step}")
+    state = train_stage1(half, data(state.step), epochs=1, state=state,
+                         logger=_quiet("stage1"))
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    counts = read_counts()
+    steps = 3 * LIFE_STEPS
+    expect_counts("lifecycle resume", counts, group_norm_elu=n_gn * steps,
+                  fused_loss_fwd=steps, fused_loss_bwd=steps)
+    again = _snap_diff(runs[0], runs[1])
+    resumed = _snap_diff(_snapshot(state), runs[0])
+    log(f"  (a) resume, stage 1, B={TRAIN_BATCH}, bf16, EMA 0.99, cuDNN deterministic: "
+        f"two unbroken runs of {LIFE_STEPS} steps differ by {again}; "
+        f"{LIFE_STEPS // 2} steps + async checkpoint + restore into a fresh net and "
+        f"optimizer + {LIFE_STEPS // 2} steps vs unbroken: {resumed}; launches "
+        f"{counts_text(counts)} ({time.perf_counter() - t0:.1f} s)")
+    if any(resumed.values()):
+        raise AssertionError(f"resumed run not bit-identical to the unbroken one: {resumed}")
+    return state, counts, {"unbroken_twice_max_diff": again, "resumed_max_diff": resumed}
+
+
+def life_preempt(cfg, root, d_sd, n_gn):
+    """Phase 21 (b): SIGTERM from the data iterator during stage 2."""
+    import signal
+
+    from gdn_tpu_torch.checkpoint import latest_step, restore_checkpoint
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.synthetic import SyntheticDataset
+    from gdn_tpu_torch.train.loop import stage2_state, train_stage2
+
+    c = _with(cfg, **{"train.steps_per_epoch": 50, "train.ckpt_dir": root,
+                      "train.log_every": 100, "data.batch_size": TRAIN_BATCH})
+    h, w = c.model.image_size
+
+    def data(skip=0):
+        ds = SyntheticDataset(TRAIN_BATCH, h, w, c.model.max_depth, seed=22, device="cuda")
+        ds.seek(skip)
+        return ds
+
+    def preempting():
+        for i, batch in enumerate(data()):
+            if i == LIFE_PREEMPT_AT:
+                signal.raise_signal(signal.SIGTERM)
+            yield batch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = train_stage2(c, preempting(), d_sd, epochs=2, logger=_quiet("stage2"))
+    stop = LIFE_PREEMPT_AT + 1  # the step in flight when the signal came
+    stage_dir = os.path.join(root, "stage2")
+    if state.step != stop or latest_step(stage_dir) != stop:
+        raise AssertionError(f"stopped at {state.step}, newest checkpoint "
+                             f"{latest_step(stage_dir)}; expected {stop}")
+    restored = restore_checkpoint(stage_dir, stage2_state(c, d_sd))
+    if _snap_diff(_snapshot(restored), _snapshot(state))["params"]:
+        raise AssertionError("the restored G-net is not the preempted one")
+    cont = _with(c, **{"train.steps_per_epoch": 2, "train.ckpt_dir": ""})
+    final = train_stage2(cont, data(restored.step), d_sd, epochs=1, state=restored,
+                         logger=_quiet("stage2"))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    steps = stop + 2
+    expect_counts("lifecycle preemption", counts, group_norm_elu=2 * n_gn * steps,
+                  fused_loss_fwd=steps, fused_loss_bwd=steps)
+    if final.step != stop + 2:
+        raise AssertionError(f"the restore continued to step {final.step}")
+    log(f"  (b) preemption, stage 2: SIGTERM at batch {LIFE_PREEMPT_AT} stopped the run "
+        f"after step {stop}; stage2/{stop}.pt written; restored and continued to step "
+        f"{final.step}; launches {counts_text(counts)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return counts, {"stopped_at": stop, "continued_to": final.step}
+
+
+def life_accum(cfg, d_sd, n_gn):
+    """Phase 21 (c): grad_accum=2 on the same batch twice against one
+    grad_accum=1 step, stage 2, B=2, fp32, TF32 off."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.synthetic import synthetic_batch
+    from gdn_tpu_torch.models import DtoDNet
+    from gdn_tpu_torch.train.loop import stage2_state
+    from gdn_tpu_torch.train.steps import make_stage2_step
+
+    c = _with(cfg, **{"model.dtype": "float32", "train.ema_decay": 0.99,
+                      "train.grad_clip": 1.0})
+    ca = _with(c, **{"train.grad_accum": 2})
+    h, w = c.model.image_size
+    batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(23), 2, h, w,
+                            c.model.max_depth)
+    d_net = DtoDNet(c.model)
+    d_net.load_state_dict(d_sd)
+    d_net = d_net.cuda().requires_grad_(False)
+    ref, acc = stage2_state(c, d_sd), stage2_state(ca, d_sd)
+    start = _snapshot(acc)
+    torch.backends.cudnn.deterministic = True  # the same batch, the same gradient
+    torch.cuda.synchronize()
+    reset_counts()
+    make_stage2_step(ca)(acc, d_net, batch)
+    first = _snapshot(acc)
+    if first["params"].keys() != start["params"].keys() or any(
+            not torch.equal(first[p][k], start[p][k]) for p in ("params", "ema")
+            for k in start[p]):
+        raise AssertionError("the first micro-step moved the parameters or the EMA")
+    make_stage2_step(ca)(acc, d_net, batch)
+    make_stage2_step(c)(ref, d_net, batch)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    counts = read_counts()
+    expect_counts("lifecycle grad_accum", counts, group_norm_elu=2 * n_gn * 3,
+                  fused_loss_fwd=3, fused_loss_bwd=3)
+    a, r = _snapshot(acc), _snapshot(ref)
+    if (a["counts"], r["counts"]) != ((2, 1), (1, 1)):
+        raise AssertionError(f"(step, updates): accumulated {a['counts']}, plain {r['counts']}")
+    diff = _snap_diff({**a, "counts": r["counts"]}, r)
+    for part in ("params", "ema", "exp_avg", "exp_avg_sq"):
+        for k in r[part]:
+            np.testing.assert_allclose(a[part][k].numpy(), r[part][k].numpy(),
+                                       err_msg=f"grad_accum {part} {k}", **ACCUM_TOL)
+    log(f"  (c) grad_accum=2, stage 2, B=2, fp32: the first micro-step left params and "
+        f"EMA unchanged; the same batch twice vs one grad_accum=1 step, max|d| {diff} "
+        f"(bound rtol {ACCUM_TOL['rtol']}, atol {ACCUM_TOL['atol']}); launches "
+        f"{counts_text(counts)}")
+    return counts, {"max_diff": diff}
+
+
+def life_remat(cfgs, d_sd):
+    """Phase 21 (d): one stage-2 step at B=32, bf16, with and without
+    remat, in each configuration of ``cfgs`` ({tag: (cfg, per_net)}):
+    loss terms equal, gradients within GRAD_TOL_BF16, launches exact;
+    then peak memory and ms/step of the training step."""
+    from gdn_tpu_torch.checkpoint import init_params, transfer_stage1_decoder
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.synthetic import synthetic_batch
+    from gdn_tpu_torch.models import DtoDNet, RtoDNet
+    from gdn_tpu_torch.train.state import TrainState
+    from gdn_tpu_torch.train.steps import _stage2_loss, make_stage2_step
+
+    out, launches = {}, {}
+    g_sd = None
+    for tag, (cfg, per_net) in cfgs.items():
+        h, w = cfg.model.image_size
+        if g_sd is None:
+            g_sd = transfer_stage1_decoder(
+                init_params(cfg.model, torch.Generator().manual_seed(24)),
+                {k: v.cpu() for k, v in d_sd.items()})
+        batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(24), TRAIN_BATCH,
+                                h, w, cfg.model.max_depth)
+
+        def nets(c):
+            g, d = RtoDNet(c.model), DtoDNet(c.model)
+            g.load_state_dict(g_sd)
+            d.load_state_dict(d_sd)
+            g, d = g.cuda(), d.cuda().requires_grad_(False)
+            return g, d
+
+        res = {}
+        torch.backends.cudnn.deterministic = True
+        for remat in (False, True):
+            c = _with(cfg, **{"train.remat": remat})
+            g, d = nets(c)
+            g.decoder.requires_grad_(False)
+            _stage2_loss(g, d, batch, c)["total"].backward()  # cuDNN's first calls
+            g.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            reset_counts()
+            terms = _stage2_loss(g, d, batch, c)
+            terms["total"].backward()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            nets_a_step = 3 if remat else 2  # the G-net (again under remat) and the D-net
+            expect_counts(f"{tag} remat={remat}", counts, fused_loss_fwd=1, fused_loss_bwd=1,
+                          **{k: v * nets_a_step for k, v in per_net.items()})
+            res[remat] = ({k: float(v.detach()) for k, v in terms.items()},
+                          {k: p.grad.detach().clone() for k, p in g.named_parameters()
+                           if p.requires_grad}, counts)
+            launches[f"lifecycle_remat_{tag}_{remat}"] = counts
+            del g, d, terms
+        torch.backends.cudnn.deterministic = False
+        (t0, g0, c0), (t1, g1, c1) = res[False], res[True]
+        if t0 != t1:
+            raise AssertionError(f"{tag}: loss terms with remat {t1} vs without {t0}")
+        rel = max(((g1[k] - g0[k]).abs().max() / g0[k].abs().max().clamp_min(1e-30)).item()
+                  for k in g0)
+        if rel > GRAD_TOL_BF16:
+            raise AssertionError(f"{tag}: remat gradients off by {rel:.3g} of their max")
+        row = {"terms_equal": True, "grad_max_rel_diff": rel,
+               "launches_per_step": {str(r): {k: v for k, v in res[r][2].items() if v}
+                                     for r in (False, True)}}
+        # the training step as the trainer runs it: timed, and its peak memory
+        for remat in (False, True):
+            c = _with(cfg, **{"train.remat": remat})
+            g, d = nets(c)
+            state = TrainState(g, c.train, 10, freeze_decoder=True)
+            step = make_stage2_step(c)
+            step(state, d, batch)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t_start = time.perf_counter()
+            for _ in range(LIFE_TIMED):
+                step(state, d, batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t_start) / LIFE_TIMED
+            peak = torch.cuda.max_memory_allocated()
+            counts = read_counts()
+            expect_counts(f"{tag} remat={remat} timed", counts,
+                          fused_loss_fwd=LIFE_TIMED, fused_loss_bwd=LIFE_TIMED,
+                          **{k: v * (3 if remat else 2) * LIFE_TIMED
+                             for k, v in per_net.items()})
+            launches[f"lifecycle_remat_{tag}_{remat}_timed"] = counts
+            row[f"remat_{remat}"] = {"ms_per_step": ms, "peak_allocated_bytes": peak,
+                                     "allocated_before_bytes": base,
+                                     "peak_above_before_bytes": peak - base}
+            del g, d, state, step
+        out[tag] = row
+        r0, r1 = row["remat_False"], row["remat_True"]
+        log(f"  (d) remat, {tag}: loss terms equal, gradients within {rel:.3g} of their "
+            f"max, launches a step {row['launches_per_step']['False']} -> "
+            f"{row['launches_per_step']['True']}; step {r0['ms_per_step']:.1f} -> "
+            f"{r1['ms_per_step']:.1f} ms (host clock, {LIFE_TIMED} steps), peak "
+            f"{r0['peak_allocated_bytes'] / 2**30:.2f} -> "
+            f"{r1['peak_allocated_bytes'] / 2**30:.2f} GiB allocated "
+            f"({r0['peak_above_before_bytes'] / 2**30:.2f} -> "
+            f"{r1['peak_above_before_bytes'] / 2**30:.2f} GiB above the state)")
+    return out, launches
+
+
+def life_cli(stage1_dir, root):
+    """Phase 21 (e): train_torch.py RtoD with an EMA and in-training
+    eval, eval_torch.py with and without --use_ema, serve_torch.py
+    --ckpt_dir --use_ema answering one POST."""
+    from PIL import Image
+
+    from gdn_tpu_torch import metrics as M
+    from gdn_tpu_torch.checkpoint import latest_step
+
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    state = load_script("train_torch").main([
+        "--mode", "RtoD", "--dataset", "synthetic", "--ema_decay", "0.99",
+        "--eval_every", "1", "--eval_max_images", "8", "--epochs", "2",
+        "--steps_per_epoch", "3", "--log_every", "3", "--ckpt_dir", root,
+        "--stage1_ckpt", stage1_dir])
+    files = {d: sorted(os.listdir(os.path.join(root, d))) for d in ("stage2", "stage2_best")}
+    if state.step != 6 or files["stage2"] != ["3.pt", "6.pt", "config.json"] or len(
+            files["stage2_best"]) != 2:
+        raise AssertionError(f"train_torch.py RtoD: step {state.step}, files {files}")
+    ev = load_script("eval_torch")
+    base = ["--dataset", "synthetic", "--ckpt_dir", root, "--max_images", "16"]
+    plain, ema = ev.main(base), ev.main([*base, "--use_ema"])
+    if not all(np.isfinite(ema[k]) for k in M.METRIC_NAMES) or all(
+            plain[k] == ema[k] for k in M.METRIC_NAMES):
+        raise AssertionError(f"eval_torch.py --use_ema {ema} vs without {plain}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  (e) train_torch.py --mode RtoD --ema_decay 0.99 --eval_every 1: 2 x 3 steps, "
+        f"{files}; eval_torch.py rmse {plain['rmse']:.4f}, with --use_ema "
+        f"{ema['rmse']:.4f}; launches {counts_text(counts)}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "scripts", "serve_torch.py"), "--ckpt_dir", root,
+         "--use_ema", "--port", "0", "--serve_batch", "2"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+    try:
+        lines = []
+        deadline = time.time() + 180
+        while time.time() < deadline:
+            lines.append(proc.stdout.readline())
+            if "serving on" in lines[-1] or proc.poll() is not None:
+                break
+        if "serving on" not in lines[-1]:
+            raise AssertionError("serve_torch.py did not start: " + "".join(lines))
+        port = int(lines[-1].split("http://127.0.0.1:")[1].split(" ")[0])
+        rgb = np.random.default_rng(21).integers(0, 255, (128, 416, 3), np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(rgb).save(buf, format="PNG")
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                     data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            depth = np.load(io.BytesIO(r.read()))
+        if depth.shape != (128, 416) or not np.isfinite(depth).all():
+            raise AssertionError(f"serve_torch.py answered {depth.shape}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    log(f"  (e) serve_torch.py --ckpt_dir --use_ema --port 0: answered one POST, depth "
+        f"{depth.shape}, mean {depth.mean():.3f} m ({time.perf_counter() - t0:.1f} s with "
+        "its start)")
+    return counts, {"eval": plain, "eval_ema": ema, "files": files}
+
+
+def phase_lifecycle(cfg, cfg_fused, cfg_fusion):
+    """Phase 21: checkpoints, resume, preemption, grad_accum, remat and
+    the command line around them (see the module docstring)."""
+    root = os.path.join(OUT, "lifecycle")
+    shutil.rmtree(root, ignore_errors=True)
+    n_gn = len(gn_sites(cfg.model))
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    d_state, launches["lifecycle_resume"], out["resume"] = life_resume(cfg, root, n_gn)
+    d_sd = {k: v.detach() for k, v in d_state.net.state_dict().items()}
+    del d_state
+    launches["lifecycle_preempt"], out["preempt"] = life_preempt(cfg, root, d_sd, n_gn)
+    launches["lifecycle_accum"], out["grad_accum"] = life_accum(cfg, d_sd, n_gn)
+    out["device"] = smi_line()
+    log(f"  (d) remat: ms/step and peak memory on {out['device']}")
+    out["remat"], remat_launches = life_remat({
+        "unfused": (cfg, {"group_norm_elu": n_gn}),
+        "fused": (cfg_fused, {"group_norm_elu": 6, "conv_gn_elu_bt": 5,
+                              "conv_gn_elu_s2": 5, "fusion_bt": 5}),
+        "fusion": (cfg_fusion, {"group_norm_elu": n_gn - 10, "upsample": 5,
+                                "fusion_block": 5})}, d_sd)
+    launches.update(remat_launches)
+    launches["lifecycle_cli"], out["cli"] = life_cli(
+        os.path.join(root, "stage1"), os.path.join(OUT, "lifecycle_cli"))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 21 took {out['seconds']:.1f} s")
     return out, launches
 
 
@@ -1811,6 +2238,9 @@ def main():
         f"{EVAL_BATCH}, garg crop, cap 80, bf16, full width")
     evaluation, eval_launches = phase_eval(cfg, cfg_all, sd)
 
+    log("== 21. lifecycle: resume, preemption, grad_accum, remat, the command line")
+    lifecycle, life_launches = phase_lifecycle(cfg, cfg_fused, cfg_fusion)
+
     main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
     per_fwd = {k: sum(r[k] * r["sites"] for r in main_rows)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -1820,7 +2250,7 @@ def main():
                      **{f"{k}_fused": v for k, v in fused_train_launches.items()},
                      "serving_fusion": fusion_counts, "serving_all": all_counts,
                      **{f"{k}_fusion": v for k, v in fusion_train_launches.items()},
-                     **eval_launches}
+                     **eval_launches, **life_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in path_launches.values())
@@ -1870,7 +2300,7 @@ def main():
                    "training_fused": training_fused, "vs_cpu_fused": vs_cpu_fused,
                    "serving_fusion": serving_fusion, "serving_all": serving_all,
                    "training_fusion": training_fusion, "vs_cpu_fusion": vs_cpu_fusion,
-                   "eval": evaluation,
+                   "eval": evaluation, "lifecycle": lifecycle,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
                    "sass_hmma": hmma_by_fn, "ptxas": ptxas,
                    "kernels": kernels}, f, indent=1)

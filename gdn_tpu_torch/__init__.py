@@ -8,9 +8,10 @@ run on CUDA unless the caller passes ``device="cpu"``.
 
 Ported so far: the stage-2 G-net serving path (config, ops, models,
 checkpoint import, BatchedPredictor, the HTTP server) with the
-GroupNorm+ELU kernel, and the training of both stages (losses with the
-fused loss kernels, train state/steps/loops, synthetic data, .pth
-checkpoints).  See ROADMAP.md for what comes next.
+GroupNorm+ELU kernel; the training of both stages (losses with the
+fused loss kernels, train state/steps/loops, synthetic data) with
+checkpoints, resume, preemption, gradient accumulation and remat; and
+the eval protocol.  See ROADMAP.md for what comes next.
 """
 
 __version__ = "0.1.0"

@@ -38,6 +38,13 @@ What differs:
   ``ssim_precision`` is checked and ignored: the port's SSIM is fp32.
 - ``TrainConfig.flatten_optimizer`` changes no math (it packs optax's
   leaves on the TPU) and is accepted as a no-op.
+- ``TrainConfig.grad_accum`` averages the gradients of k micro-steps as
+  ``optax.MultiSteps`` does and ``remat`` recomputes the trained net's
+  forward in its backward (``torch.utils.checkpoint``); of the remat
+  policies only ``"nothing_saveable"`` (recompute everything) is ported.
+  ``keep_ckpts`` and ``async_ckpt`` drive ``checkpoint.save_checkpoint``
+  (keep the newest k files of a stage; write them on a background
+  thread after a copy to the host).
 """
 
 from __future__ import annotations
@@ -64,8 +71,7 @@ _NOT_YET = (
     ("multiscale_heads", False, "Queue A item 3 (multi-scale heads)"),
 )
 _TRAIN_NOT_YET = (
-    ("grad_accum", 1, "Queue A item 5 (gradient accumulation)"),
-    ("remat", False, "Queue A item 5 (activation recomputation)"),
+    ("remat_policy", ("nothing_saveable",), "Queue A item 5 (remat policies)"),
     ("steps_per_call", 1, "Queue A item 12 (multistep)"),
     ("fused_guidance", False, "Queue A item 12 (fused guidance)"),
     ("fused_guidance_vjp", False, "Queue A item 12 (fused guidance)"),

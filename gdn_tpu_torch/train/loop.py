@@ -3,29 +3,36 @@
 ``train_stage1`` trains the D-net on GT depth; ``train_stage2`` moves
 the stage-1 decoder into a fresh G-net, freezes it, and trains the rest
 with the guidance term from the frozen D-net.  Both run on CUDA unless
-the caller passes ``device="cpu"``.  Per-step scalars (loss terms,
-images/s with the first step left out) go through ``MetricLogger``;
-with ``cfg.train.ckpt_dir`` set, each epoch ends by writing
-``<ckpt_dir>/stage{1,2}.pth`` (``checkpoint.save_pth``).  After each
+the caller passes ``device="cpu"``, and both continue a ``state`` given
+to them (a resumed run).  Per-step scalars (loss terms, images/s with
+the first step left out) go through ``MetricLogger``.  After each
 epoch, optionally: validation (the mean loss terms over held-out
 batches, ``val_*``) and, in stage 2, the full eval protocol through one
-persistent ``Evaluator`` (``eval_*``), with the best eval RMSE's weights
-kept as ``<ckpt_dir>/stage2_best.pth``.
+persistent ``Evaluator`` (``eval_*``).
 
-Not ported yet (ROADMAP Queue A items 5 and 7): checkpoints with the
-optimizer state and EMA, resume and preemption.
+With ``cfg.train.ckpt_dir`` set, each epoch ends with a full checkpoint
+(``checkpoint.save_checkpoint``: weights, EMA, optimizer, counts, the
+data cursor) in ``<ckpt_dir>/stage1`` or ``stage2``, keeping the newest
+``keep_ckpts``, written in the background when ``async_ckpt``; each new
+best eval RMSE saves one to ``<ckpt_dir>/stage2_best``.  SIGTERM or
+SIGINT (``PreemptionHandler``) ends the epoch after the step in flight:
+the loop skips validation and eval, checkpoints and returns, and every
+write is on disk before it does.
 """
 
 from __future__ import annotations
 
 import os
+import signal
 import time
 from typing import Any, Callable, Dict, Iterable, Optional, Union
 
 import torch
 
 from gdn_tpu_torch import kernels
-from gdn_tpu_torch.checkpoint import init_params, save_pth, transfer_stage1_decoder
+from gdn_tpu_torch.checkpoint import (
+    init_params, save_checkpoint, transfer_stage1_decoder, wait_for_checkpoints,
+)
 from gdn_tpu_torch.config import Config, resolve_device
 from gdn_tpu_torch.evaluate import Evaluator
 from gdn_tpu_torch.losses import total_loss
@@ -33,6 +40,38 @@ from gdn_tpu_torch.models import DtoDNet, RtoDNet
 from gdn_tpu_torch.train.state import TrainState
 from gdn_tpu_torch.train.steps import make_eval_forward, make_stage1_step, make_stage2_step
 from gdn_tpu_torch.utils.logging import MetricLogger
+
+
+class PreemptionHandler:
+    """SIGTERM/SIGINT set a flag; the epoch loop finishes the step in
+    flight, the trainer checkpoints, and the run returns.  A run started
+    again with ``--resume`` continues where it stopped: the batch stream
+    is a function of (seed, step).
+
+    ``install`` replaces the handlers for one training run and
+    ``uninstall`` puts the previous ones back."""
+
+    def __init__(self):
+        self.requested = False
+        self._prev = {}
+
+    def _on_signal(self, signum, frame):
+        self.requested = True
+        print(f"[train] received signal {signum}: will checkpoint and "
+              "stop after the current step", flush=True)
+
+    def install(self) -> "PreemptionHandler":
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev[sig] = signal.signal(sig, self._on_signal)
+            except ValueError:  # not the main thread: no signal handling
+                pass
+        return self
+
+    def uninstall(self) -> None:
+        for sig, prev in self._prev.items():
+            signal.signal(sig, prev)
+        self._prev = {}
 
 
 def _floats(terms: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -44,10 +83,12 @@ def _floats(terms: Dict[str, torch.Tensor]) -> Dict[str, float]:
 
 def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
                 logger: MetricLogger, batch_size: int, log_every: int,
-                device: torch.device, extra_args=()) -> TrainState:
-    """Drive ``steps`` optimizer updates.  The clock restarts after the
-    first step, so its one-time costs (cuDNN's algorithm search, the
-    allocator's growth) stay out of ``imgs_per_sec``."""
+                device: torch.device, extra_args=(),
+                preemption: Optional[PreemptionHandler] = None) -> TrainState:
+    """Drive ``steps`` micro-steps, fewer when preemption is requested.
+    The clock restarts after the first step, so its one-time costs
+    (cuDNN's algorithm search, the allocator's growth) stay out of
+    ``imgs_per_sec``."""
     t_start = time.perf_counter()
     timed_from = 0
     for i in range(steps):
@@ -65,6 +106,8 @@ def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
             if timed > 0:
                 log_kw["imgs_per_sec"] = batch_size * timed / elapsed
             logger.log(**log_kw)
+        if preemption is not None and preemption.requested:
+            break
     return state
 
 
@@ -111,9 +154,35 @@ def _prepare(device) -> torch.device:
     return dev
 
 
-def _save(cfg: Config, state: TrainState, name: str) -> None:
-    if cfg.train.ckpt_dir:
-        save_pth(state.net.state_dict(), os.path.join(cfg.train.ckpt_dir, name))
+def stage1_state(cfg: Config, device=None) -> TrainState:
+    """A fresh stage-1 TrainState: a D-net from ``init_params`` with
+    seed cfg.train.seed, on ``device`` (CUDA unless asked otherwise)."""
+    gen = torch.Generator().manual_seed(cfg.train.seed)
+    net = _net(DtoDNet, cfg, init_params(cfg.model, gen, in_channels=1),
+               resolve_device(device))
+    return TrainState(net, cfg.train, cfg.train.steps_per_epoch)
+
+
+def stage2_state(cfg: Config, d_sd: Dict[str, torch.Tensor], device=None) -> TrainState:
+    """A fresh stage-2 TrainState: a G-net (seed cfg.train.seed) with
+    the decoder of the D-net ``d_sd`` (``transfer_stage1_decoder``),
+    frozen when cfg.train.freeze_decoder."""
+    gen = torch.Generator().manual_seed(cfg.train.seed)
+    g_sd = transfer_stage1_decoder(init_params(cfg.model, gen, in_channels=3), d_sd)
+    return TrainState(_net(RtoDNet, cfg, g_sd, resolve_device(device)), cfg.train,
+                      cfg.train.steps_per_epoch, freeze_decoder=cfg.train.freeze_decoder)
+
+
+def _save(cfg: Config, state: TrainState, stage: str, keep: Optional[int] = None) -> None:
+    save_checkpoint(os.path.join(cfg.train.ckpt_dir, stage), state.step, state,
+                    cfg.train.keep_ckpts if keep is None else keep,
+                    use_async=cfg.train.async_ckpt, cfg=cfg,
+                    loader_state={"step": state.step})
+
+
+def _preempted(state: TrainState) -> None:
+    print(f"[train] preempted: checkpoint saved at step {state.step}; "
+          "resume with --resume", flush=True)
 
 
 def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
@@ -121,24 +190,33 @@ def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
                  logger: Optional[MetricLogger] = None,
                  val_iter: Optional[Iterable[Dict[str, Any]]] = None,
                  val_steps: int = 10, device=None) -> TrainState:
-    """D-net pretraining; returns the final TrainState.  Weights start
-    from ``init_params`` with seed cfg.train.seed unless ``state`` is
-    given.  ``val_iter``: held-out batches, validated after each epoch
-    (``val_steps`` of them, from the start of the iterable each time)."""
+    """D-net pretraining; returns the final TrainState.  Starts from
+    ``stage1_state`` unless ``state`` is given.  ``val_iter``: held-out
+    batches, validated after each epoch (``val_steps`` of them, from the
+    start of the iterable each time)."""
     dev = _prepare(device)
     if state is None:
-        gen = torch.Generator().manual_seed(cfg.train.seed)
-        net = _net(DtoDNet, cfg, init_params(cfg.model, gen, in_channels=1), dev)
-        state = TrainState(net, cfg.train, cfg.train.steps_per_epoch)
+        state = stage1_state(cfg, dev)
     step_fn = make_stage1_step(cfg)
     logger = logger or MetricLogger(prefix="stage1")
     data_iter = iter(data_iter)
-    for _ in range(epochs if epochs is not None else cfg.train.epochs):
-        state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
-                            logger, cfg.data.batch_size, cfg.train.log_every, dev)
-        if val_iter is not None:
-            _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step, dev)
-        _save(cfg, state, "stage1.pth")
+    preempt = PreemptionHandler().install()
+    try:
+        for _ in range(epochs if epochs is not None else cfg.train.epochs):
+            state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
+                                logger, cfg.data.batch_size, cfg.train.log_every, dev,
+                                preemption=preempt)
+            if val_iter is not None and not preempt.requested:
+                _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step, dev)
+            if cfg.train.ckpt_dir:
+                _save(cfg, state, "stage1")
+            if preempt.requested:
+                _preempted(state)
+                break
+    finally:
+        preempt.uninstall()
+        if cfg.train.ckpt_dir:
+            wait_for_checkpoints(cfg.train.ckpt_dir)
     return state
 
 
@@ -155,9 +233,8 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
 
     ``d_params``: the trained stage-1 D-net, as its state_dict or as the
     DtoDNet itself (on the device; it is frozen in place).  Unless
-    ``state`` is given, a fresh G-net (seed cfg.train.seed) takes its
-    decoder (``transfer_stage1_decoder``), frozen when
-    cfg.train.freeze_decoder.  The D-net runs without grad.
+    ``state`` is given, the G-net starts from ``stage2_state``: fresh
+    weights with the D-net's decoder.  The D-net runs without grad.
 
     ``val_iter``, ``val_steps``: as in :func:`train_stage1`.
     ``eval_dataset``: a zero-argument callable returning the eval split
@@ -166,40 +243,47 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
     ``eval_max_images`` images) and logs ``eval_*``.  One Evaluator
     serves the whole run; the split is cached on the device at its first
     use, or stays host-fed past the 2 GiB gate or when the card runs out
-    of memory.  Each new best eval RMSE writes
-    ``<ckpt_dir>/stage2_best.pth``."""
+    of memory.  Each new best eval RMSE saves a checkpoint to
+    ``<ckpt_dir>/stage2_best``, which keeps one."""
     dev = _prepare(device)
     d_net = (d_params if isinstance(d_params, torch.nn.Module)
              else _net(DtoDNet, cfg, d_params, dev)).requires_grad_(False)
     if state is None:
-        gen = torch.Generator().manual_seed(cfg.train.seed)
-        g_sd = transfer_stage1_decoder(init_params(cfg.model, gen, in_channels=3),
-                                       d_net.state_dict())
-        state = TrainState(_net(RtoDNet, cfg, g_sd, dev), cfg.train,
-                           cfg.train.steps_per_epoch,
-                           freeze_decoder=cfg.train.freeze_decoder)
+        state = stage2_state(cfg, d_net.state_dict(), dev)
     step_fn = make_stage2_step(cfg)
     logger = logger or MetricLogger(prefix="stage2")
     data_iter = iter(data_iter)
     evaluator, eval_cached, best_rmse = None, False, float("inf")
-    for epoch in range(epochs if epochs is not None else cfg.train.epochs):
-        state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
-                            logger, cfg.data.batch_size, cfg.train.log_every, dev,
-                            extra_args=(d_net,))
-        if val_iter is not None:
-            _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step, dev,
-                      input_key="rgb")
-        if eval_dataset is not None and (epoch + 1) % max(eval_every, 1) == 0:
-            if evaluator is None:
-                evaluator = Evaluator(cfg, make_eval_forward(cfg, state.net), device=dev)
-                eval_cached = evaluator.cache_or_host_fed(eval_dataset(), eval_max_images)
-            out = evaluator.run(None if eval_cached else eval_dataset(),
-                                max_images=eval_max_images, verbose=False)
-            logger.log(step=state.step, **{f"eval_{k}": v for k, v in out.items()})
-            # the best weights by eval RMSE survive later epochs that regress
-            if cfg.train.ckpt_dir and out.get("rmse", float("inf")) < best_rmse:
-                best_rmse = out["rmse"]
-                _save(cfg, state, "stage2_best.pth")
-                logger.log(step=state.step, best_rmse=best_rmse)
-        _save(cfg, state, "stage2.pth")
+    preempt = PreemptionHandler().install()
+    try:
+        for epoch in range(epochs if epochs is not None else cfg.train.epochs):
+            state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
+                                logger, cfg.data.batch_size, cfg.train.log_every, dev,
+                                extra_args=(d_net,), preemption=preempt)
+            if val_iter is not None and not preempt.requested:
+                _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step,
+                          dev, input_key="rgb")
+            if (eval_dataset is not None and (epoch + 1) % max(eval_every, 1) == 0
+                    and not preempt.requested):
+                if evaluator is None:
+                    evaluator = Evaluator(cfg, make_eval_forward(cfg, state.net), device=dev)
+                    eval_cached = evaluator.cache_or_host_fed(eval_dataset(),
+                                                              eval_max_images)
+                out = evaluator.run(None if eval_cached else eval_dataset(),
+                                    max_images=eval_max_images, verbose=False)
+                logger.log(step=state.step, **{f"eval_{k}": v for k, v in out.items()})
+                # the best weights by eval RMSE survive later epochs that regress
+                if cfg.train.ckpt_dir and out.get("rmse", float("inf")) < best_rmse:
+                    best_rmse = out["rmse"]
+                    _save(cfg, state, "stage2_best", keep=1)
+                    logger.log(step=state.step, best_rmse=best_rmse)
+            if cfg.train.ckpt_dir:
+                _save(cfg, state, "stage2")
+            if preempt.requested:
+                _preempted(state)
+                break
+    finally:
+        preempt.uninstall()
+        if cfg.train.ckpt_dir:
+            wait_for_checkpoints(cfg.train.ckpt_dir)
     return state

@@ -1,7 +1,12 @@
 """Train steps of both stages (port of ``gdn_tpu/train/steps.py``).
 
-A step is forward, ``total_loss``, backward and one optimizer update,
-run eagerly.  Batches are dicts of tensors on the net's device:
+A step is forward, ``total_loss``, backward and one micro-step of the
+optimizer (an update on every ``grad_accum``-th; ``TrainState``), run
+eagerly.  With ``cfg.train.remat`` the trained net's forward (the D-net
+in stage 1, the G-net in stage 2; not the frozen D-net of stage 2) runs
+under ``torch.utils.checkpoint``: its backward recomputes the forward
+instead of keeping its activations.  Batches are dicts of tensors on
+the net's device:
 
   depth: (B, H, W, 1) float32 metric depth (GT)
   mask:  (B, H, W, 1) float32 validity
@@ -17,6 +22,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gdn_tpu_torch.config import Config
 from gdn_tpu_torch.losses import total_loss
@@ -38,8 +44,18 @@ def _apply_update(state: TrainState, loss: torch.Tensor) -> None:
     state.apply_gradients()
 
 
+def _maybe_remat(net: nn.Module, cfg: Config) -> Callable:
+    """``net``, or with cfg.train.remat ``net`` under a non-reentrant
+    checkpoint: the forward keeps only its inputs, and the backward runs
+    it again (the JAX package's ``jax.checkpoint`` with the
+    ``nothing_saveable`` policy)."""
+    if not cfg.train.remat:
+        return net
+    return lambda x: checkpoint(net, x, use_reentrant=False)
+
+
 def _stage1_loss(net: nn.Module, batch: Batch, cfg: Config) -> Terms:
-    out = net(batch["depth"])
+    out = _maybe_remat(net, cfg)(batch["depth"])
     return total_loss(
         out["depth"], batch["depth"], batch["mask"], cfg.loss,
         cfg.model.max_depth, scale_preds=out["depth_scales"][:-1],
@@ -53,7 +69,7 @@ def _stage2_loss(net: nn.Module, d_net: nn.Module, batch: Batch,
     features are held against the D-net's."""
     with torch.no_grad():
         d_out = d_net(batch["depth"])
-    g_out = net(batch["rgb"])
+    g_out = _maybe_remat(net, cfg)(batch["rgb"])
     return total_loss(
         g_out["depth"], batch["depth"], batch["mask"], cfg.loss,
         cfg.model.max_depth,

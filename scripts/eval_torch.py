@@ -1,25 +1,28 @@
 #!/usr/bin/env python
 """Eval entry point of the PyTorch/CUDA port (gdn_tpu_torch), the
-counterpart of scripts/eval.py: read a ``.pth`` that
+counterpart of scripts/eval.py: read a checkpoint that
 scripts/train_torch.py wrote, run the eval split through the reference
 protocol (forward at train size -> bilinear resize to the GT's size in
 fp32 -> crop/cap/mask -> the 8-metric table) and print the table, the
 images/s and one ``name=value`` line.
 
-``--stage 2`` (default) scores the G-net of ``<ckpt_dir>/stage2.pth``
-(``--best``: ``stage2_best.pth``, the best eval RMSE of a
-``train_torch.py --eval_every`` run); ``--stage 1`` scores the D-net's
-reconstruction of each GT, downsampled to train size by nearest resize
-(``<ckpt_dir>/stage1.pth``).  ``--pth`` names another file.  The model
-is described by the flags, as in train_torch.py.  Runs on the card
-(``--device cuda``, the default) or, when asked, on the CPU.  Only the
-synthetic eval split is ported (32 images, seed 999, GT at train size).
+``--stage 2`` (default) scores the G-net of the newest checkpoint in
+``<ckpt_dir>/stage2/`` (``--best``: ``stage2_best/``, the best eval RMSE
+of a ``train_torch.py --eval_every`` run); ``--stage 1`` scores the
+D-net's reconstruction of each GT, downsampled to train size by nearest
+resize (``<ckpt_dir>/stage1/``).  The architecture comes from the
+checkpoint's config.json (``--height``/``--width`` still win, loudly).
+``--use_ema`` scores the EMA weights of an ``--ema_decay`` run.
+``--pth`` scores an exported state_dict instead; the flags describe the
+model then.  Runs on the card (``--device cuda``, the default) or, when
+asked, on the CPU.  Only the synthetic eval split is ported (32 images,
+seed 999, GT at train size).
 
 Examples:
   python scripts/eval_torch.py --dataset synthetic --ckpt_dir checkpoints
-  python scripts/eval_torch.py --dataset synthetic --best --flip_tta
+  python scripts/eval_torch.py --dataset synthetic --best --flip_tta --use_ema
   python scripts/eval_torch.py --dataset synthetic --stage 1 --device cpu \\
-      --dtype float32 --height 32 --width 64      # CPU run of a tiny net
+      --dtype float32      # CPU run of a tiny net trained on the CPU
 """
 
 import argparse
@@ -28,7 +31,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-A7 = "ROADMAP.md Queue A item 7 (checkpoint: the port's .pth holds no EMA)"
 A8 = "ROADMAP.md Queue A item 8 (data)"
 A10 = "ROADMAP.md Queue A item 10 (parallel)"
 A11 = "ROADMAP.md Queue A item 11 (int8 PTQ)"
@@ -46,11 +48,12 @@ def parse_args(argv=None):
                         "reconstruction")
     p.add_argument("--ckpt_dir", type=str, default="checkpoints")
     p.add_argument("--best", action="store_true",
-                   help="read <ckpt_dir>/stage2_best.pth (train_torch.py --eval_every)")
+                   help="read <ckpt_dir>/stage2_best (train_torch.py --eval_every)")
     p.add_argument("--pth", type=str, default="",
-                   help="the .pth to score (default: from --ckpt_dir, --stage, --best)")
+                   help="score this exported .pth instead of a checkpoint; the flags "
+                        "describe the model")
     p.add_argument("--height", type=int, default=None,
-                   help="train height (default: the preset's)")
+                   help="train height (default: the checkpoint's, else the preset's)")
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16",
                    help="compute dtype of the conv stack")
@@ -80,7 +83,7 @@ def parse_args(argv=None):
     p.add_argument("--num_devices", type=int, default=1,
                    help="data-parallel eval over this many cards (only 1 is ported)")
     p.add_argument("--use_ema", action="store_true",
-                   help="score the EMA weights (not ported: the .pth holds none)")
+                   help="score the EMA weights of an --ema_decay training run")
     p.add_argument("--device_cache", action="store_true",
                    help="stage the whole split on the card first (wire format, "
                         "2 GiB gate; host-fed past it or on an allocation failure)")
@@ -95,8 +98,10 @@ def parse_args(argv=None):
         p.error(f"--calib_dir: velodyne GT is not ported yet ({A8})")
     if args.quantize != "none":
         p.error(f"--quantize {args.quantize}: not ported yet ({A11})")
-    if args.use_ema:
-        p.error(f"--use_ema: not ported yet ({A7})")
+    if args.use_ema and args.pth:
+        p.error("--use_ema reads the EMA of a checkpoint directory; an exported .pth "
+                "holds one set of weights (scripts/export_torch.py --use_ema exports "
+                "a JAX run's EMA)")
     if args.num_devices != 1:
         p.error(f"--num_devices {args.num_devices}: not ported yet ({A10})")
     if args.stage == "1" and (args.best or args.flip_tta):
@@ -123,7 +128,8 @@ def main(argv=None):
     args = parse_args(argv)
 
     from gdn_tpu_torch import kernels
-    from gdn_tpu_torch.checkpoint import load_pth
+    from gdn_tpu_torch.checkpoint import load_params, load_pth
+    from gdn_tpu_torch.cli import apply_saved_model_config
     from gdn_tpu_torch.config import resolve_device
     from gdn_tpu_torch.data.synthetic import SyntheticEvalDataset
     from gdn_tpu_torch.evaluate import Stage1Split, evaluate
@@ -132,20 +138,28 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = build_config(args)
+    if args.pth:
+        source, sd = args.pth, load_pth(args.pth)
+    else:
+        source = os.path.join(args.ckpt_dir, "stage1" if args.stage == "1"
+                              else "stage2_best" if args.best else "stage2")
+        cfg = apply_saved_model_config(cfg, args, source)
+        try:
+            sd = load_params(source, key="ema" if args.use_ema else "params")
+        except KeyError as e:
+            raise SystemExit(f"eval_torch.py: --use_ema: {e.args[0]}") from None
     h, w = cfg.model.image_size
-    name = ("stage1.pth" if args.stage == "1"
-            else "stage2_best.pth" if args.best else "stage2.pth")
-    path = args.pth or os.path.join(args.ckpt_dir, name)
     net = (DtoDNet if args.stage == "1" else RtoDNet)(cfg.model)
-    net.load_state_dict(load_pth(path), strict=True)
+    net.load_state_dict(sd, strict=True)
     net = net.to(device)
     if device.type == "cuda":
         kernels.load_all()
     split = SyntheticEvalDataset(height=h, width=w, max_depth=cfg.model.max_depth,
                                  device=device)
     dataset = Stage1Split(split, (h, w)) if args.stage == "1" else split
-    print(f"stage {args.stage} eval of {path}: {h}x{w}, batch {cfg.eval.batch_size}, "
-          f"{args.dtype}, device {device}", flush=True)
+    print(f"stage {args.stage} eval of {source}{' (EMA)' if args.use_ema else ''}: "
+          f"{h}x{w}, batch {cfg.eval.batch_size}, {cfg.model.dtype}, device {device}",
+          flush=True)
     results = evaluate(cfg, make_eval_forward(cfg, net, flip_tta=args.flip_tta), dataset,
                        max_images=args.max_images, save_preds=args.save_preds or None,
                        device_cache=args.device_cache, device=device)

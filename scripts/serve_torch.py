@@ -3,10 +3,14 @@
 (gdn_tpu_torch/server.py), the counterpart of scripts/serve.py.
 
 Serves the stage-2 G-net on the card (``--device cuda``, the default)
-or, when asked, on the CPU.  Weights come from a ``.pth`` state_dict
-written by scripts/export_torch.py, or are drawn at random from seed 0.
+or, when asked, on the CPU.  Weights come from the newest checkpoint in
+``<ckpt_dir>/stage2/`` that scripts/train_torch.py wrote, with the
+architecture of its config.json (``--use_ema``: its EMA weights), from a
+``.pth`` state_dict written by scripts/export_torch.py (the flags
+describe the model), or are drawn at random from seed 0.
 
 Examples:
+  python scripts/serve_torch.py --ckpt_dir checkpoints --use_ema --port 8500
   python scripts/serve_torch.py --pth gdn_stage2.pth --port 8500
   python scripts/serve_torch.py --init_random --port 0
   python scripts/serve_torch.py --init_random --model.use_pallas_convgn_bt \
@@ -34,6 +38,9 @@ def parse_args(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--dataset", choices=["kitti", "nyu"], default="kitti")
     src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--ckpt_dir", type=str,
+                     help="serve the newest checkpoint of <ckpt_dir>/stage2 "
+                          "(scripts/train_torch.py --mode RtoD)")
     src.add_argument("--pth", type=str, help="state_dict .pth to serve")
     src.add_argument("--init_random", action="store_true",
                      help="serve random weights drawn from seed 0 (smoke "
@@ -54,8 +61,13 @@ def parse_args(argv=None):
     p.add_argument("--wire", choices=["f32", "u16"], default="f32",
                    help="device fetch format: f32 meters, or u16 "
                         "depth*256 counts (half the D2H bytes)")
+    p.add_argument("--use_ema", action="store_true",
+                   help="(--ckpt_dir) serve the EMA weights of an --ema_decay run")
     add_fused_kernel_flags(p)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.use_ema and not args.ckpt_dir:
+        p.error("--use_ema reads the EMA of a checkpoint: give --ckpt_dir")
+    return args
 
 
 def build_config(args):
@@ -66,21 +78,30 @@ def build_config(args):
                      **fused_kernel_overrides(args)})
 
 
-def main():
-    args = parse_args()
+def main(argv=None):
+    args = parse_args(argv)
 
     import torch
 
     from gdn_tpu_torch import checkpoint as ckpt
+    from gdn_tpu_torch.cli import apply_saved_model_config
     from gdn_tpu_torch.server import DepthServer
 
     cfg = build_config(args)
     if args.init_random:
         sd = ckpt.init_params(cfg.model, torch.Generator().manual_seed(0))
-    else:
+    elif args.pth:
         sd = ckpt.load_pth(args.pth)
+    else:
+        stage_dir = os.path.join(args.ckpt_dir, "stage2")
+        cfg = apply_saved_model_config(cfg, args, stage_dir)
+        try:
+            sd = ckpt.load_params(stage_dir, key="ema" if args.use_ema else "params")
+        except KeyError as e:
+            raise SystemExit(f"serve_torch.py: --use_ema: {e.args[0]}") from None
 
-    print("warming up the serving path...", flush=True)
+    h, w = cfg.model.image_size
+    print(f"warming up the serving path ({h}x{w})...", flush=True)
     server = DepthServer(
         cfg, sd, host=args.host, port=args.port,
         batch_size=args.serve_batch, max_wait_ms=args.max_wait_ms,

@@ -46,7 +46,7 @@ from gdn_tpu.train import loop as jloop
 from gdn_tpu.train.steps import make_eval_forward as j_eval_forward
 from gdn_tpu_torch import config as tcfg
 from gdn_tpu_torch import evaluate as TE
-from gdn_tpu_torch.checkpoint import init_params, load_pth, save_pth
+from gdn_tpu_torch.checkpoint import init_params, latest_step, load_params, save_checkpoint
 from gdn_tpu_torch.data.synthetic import SyntheticDataset, SyntheticEvalDataset
 from gdn_tpu_torch.models import DtoDNet, RtoDNet
 from gdn_tpu_torch.ops import resize as tr
@@ -409,7 +409,8 @@ def test_train_stage2_evaluates_and_keeps_the_best(tmp_path, monkeypatch):
     assert len(calls) == 1 and len(caches) == 1  # one upload; the second pass replays it
     best = [r for r in recs if "best_rmse" in r]
     assert best and best[0]["best_rmse"] == evals[0]["eval_rmse"]
-    RtoDNet(cfg.model).load_state_dict(load_pth(str(tmp_path / "stage2_best.pth")))
+    assert latest_step(str(tmp_path / "stage2_best")) == best[-1]["step"]
+    RtoDNet(cfg.model).load_state_dict(load_params(str(tmp_path / "stage2_best")))
 
 
 # ------------------------------------------------------------------ the CLI
@@ -438,13 +439,12 @@ def test_eval_script_scores_what_train_script_wrote(tmp_path):
     # stage 1 as train_torch.py --mode DtoD writes it (tests/test_torch_train.py
     # runs that mode), without its training time
     cfg = train.build_config(train.parse_args(["--mode", "DtoD", *common]))
-    save_pth(init_params(cfg.model, torch.Generator().manual_seed(0), in_channels=1),
-             str(tmp_path / "stage1.pth"))
+    save_checkpoint(str(tmp_path / "stage1"), 0, tloop.stage1_state(cfg, "cpu"), cfg=cfg)
     train.main(["--mode", "RtoD", "--val_steps", "1", "--eval_every", "1",
                 "--eval_max_images", "4", "--eval_batch", "2", *common])
     recs = [json.loads(line) for line in open(tmp_path / "train_log.jsonl")]
     assert any("val_total" in r for r in recs) and any("eval_rmse" in r for r in recs)
-    assert (tmp_path / "stage2_best.pth").exists()
+    assert latest_step(str(tmp_path / "stage2_best")) == 1
     out = _script("eval_torch.py", *TINY, "--ckpt_dir", str(tmp_path), "--best",
                   "--max_images", "4", "--eval_batch", "2", "--device_cache")
     assert out.returncode == 0, out.stderr
@@ -468,7 +468,7 @@ def test_eval_script_scores_what_train_script_wrote(tmp_path):
     (["--dataset", "nyu"], "Queue A item 8"),
     (["--calib_dir", "/data/calib"], "Queue A item 8"),
     (["--quantize", "int8"], "Queue A item 11"),
-    (["--use_ema"], "Queue A item 7"),
+    (["--use_ema", "--pth", "w.pth"], "export_torch.py --use_ema"),
     (["--num_devices", "4"], "Queue A item 10"),
 ])
 def test_eval_script_refuses_unported_flags(flags, item, capsys):

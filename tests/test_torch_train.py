@@ -9,8 +9,8 @@
   fp32 on the CPU, every loss term held to atol 1e-4 / rtol 1e-3 (that
   file's bound: both sides round independently; a real divergence moves
   the losses at the 1e-1 level at once).
-- The loops, the ``.pth`` they write, the data source, the logger and
-  ``scripts/train_torch.py`` at tiny sizes on the CPU.
+- The loops, the checkpoints they write, the data source, the logger
+  and ``scripts/train_torch.py`` at tiny sizes on the CPU.
 """
 
 import importlib.util
@@ -34,7 +34,9 @@ from gdn_tpu.train import state as jstate
 from gdn_tpu.train import steps as jsteps
 from gdn_tpu.utils.logging import MetricLogger as JLogger
 from gdn_tpu_torch import config as tcfg
-from gdn_tpu_torch.checkpoint import load_pth, params_from_flax, transfer_stage1_decoder
+from gdn_tpu_torch.checkpoint import (
+    latest_step, load_params, params_from_flax, transfer_stage1_decoder,
+)
 from gdn_tpu_torch.data.synthetic import SyntheticDataset
 from gdn_tpu_torch.models import DtoDNet, RtoDNet
 from gdn_tpu_torch.serving import BatchedPredictor
@@ -342,7 +344,7 @@ def test_train_loops_log_and_write_pth(tmp_path):
         logs[stage] = str(tmp_path / f"{stage}.jsonl")
     s1 = train_stage1(cfg, data, epochs=2, device="cpu",
                       logger=MetricLogger("stage1", logs["stage1"], io.StringIO()))
-    s2 = train_stage2(cfg, data, load_pth(str(tmp_path / "stage1.pth")), epochs=2,
+    s2 = train_stage2(cfg, data, load_params(str(tmp_path / "stage1")), epochs=2,
                       device="cpu",
                       logger=MetricLogger("stage2", logs["stage2"], io.StringIO()))
     assert s1.step == s2.step == 6
@@ -354,9 +356,12 @@ def test_train_loops_log_and_write_pth(tmp_path):
             assert keys <= set(r) and all(np.isfinite(r[k]) for k in keys)
         # the first step of each epoch restarts the clock: no rate yet
         assert [("imgs_per_sec" in r) for r in recs] == [False, True, True] * 2
-    d_sd = load_pth(str(tmp_path / "stage1.pth"))
+    # a checkpoint an epoch, the newest keep_ckpts (3) of them kept
+    assert sorted(os.listdir(tmp_path / "stage1")) == ["3.pt", "6.pt", "config.json"]
+    assert latest_step(str(tmp_path / "stage2")) == 6
+    d_sd = load_params(str(tmp_path / "stage1"))
     DtoDNet(cfg.model).load_state_dict(d_sd, strict=True)
-    g_sd = load_pth(str(tmp_path / "stage2.pth"))
+    g_sd = load_params(str(tmp_path / "stage2"))
     for k, v in s2.net.state_dict().items():
         assert torch.equal(g_sd[k], v), k
     for k in g_sd:  # the frozen decoder is stage 1's
@@ -422,12 +427,13 @@ def test_train_script_both_stages_on_cpu(tmp_path):
               "--steps_per_epoch", "1", "--log_every", "1", "--ckpt_dir", str(tmp_path)]
     one = _script("--mode", "DtoD", *common)
     assert one.returncode == 0, one.stderr
-    two = _script("--mode", "RtoD", "--stage1_pth", str(tmp_path / "stage1.pth"), *common)
+    two = _script("--mode", "RtoD", *common)  # reads <ckpt_dir>/stage1
     assert two.returncode == 0, two.stderr
     assert "[stage2] step=2" in two.stdout  # one step in each of 2 epochs
+    assert "stage 2 finished at step 2" in two.stdout
     recs = [json.loads(line) for line in open(tmp_path / "train_log.jsonl")]
     assert [r["step"] for r in recs] == [1, 2, 1, 2]
-    g_sd = load_pth(str(tmp_path / "stage2.pth"))
+    g_sd = load_params(str(tmp_path / "stage2"))
     cfg = tcfg.kitti_config(**{"model.image_size": (16, 32), "model.use_pallas_gn": True})
     RtoDNet(cfg.model).load_state_dict(g_sd, strict=True)
 

@@ -136,14 +136,48 @@ repository around this file.  Phases, each printed on its own lines:
               --eval_every 1 (2 x 3 steps, default keep_ckpts),
               scripts/eval_torch.py with and without --use_ema (metrics
               differ), scripts/serve_torch.py --ckpt_dir --use_ema --port
-              0 answering one POST.
+              0 answering one POST;
+ 22. disk     data from disk (gdn_tpu_torch/data): (a) a corpus written
+              under smoke_out/disk: 512 KITTI pairs at 128x416
+              (scripts/make_fixture.py --style scene, 16-bit depth PNGs,
+              four processes), 64 KITTI eval images at the four raw sizes
+              375x1242, 370x1224, 374x1238, 376x1241 (16 each: 12 with
+              16-bit PNG GT, 4 with a velodyne .bin scan and KITTI's
+              calibration files), 64 + 16 NYU frames at 480x640 with
+              millimetre PNG depth; (b) host decode, images/s of
+              KittiTrainDataset batches at B=32: native and PIL, wire and
+              f32, cold and from a warm decode cache, with
+              native_io.available() and the decoder each loader used;
+              (c) stage 1 then stage 2, unfused, B=32, bf16, 8 steps each,
+              through make_train_pipeline with augmentation, fed three
+              ways: host-fed wire, the decode cache warm, the
+              DeviceResidentDataset; ms/step and images/s beside phase 8's
+              synthetic ones, launches exact, one profiled stage-2 step
+              pulling its batch (device busy, idle share, launches), the
+              pipeline's own device ops and time a batch, and the bytes
+              it copies host to card; (d) one augmented batch, card vs
+              CPU with the same draws: depth and mask bit for bit, RGB
+              within 1e-6, then a stage-1 step on it at B=2, fp32, card
+              vs CPU at phase 9's bounds; (e) scripts/train_torch.py
+              --dataset kitti, stage 1, fp32, B=8, cuDNN deterministic: 6
+              steps unbroken against 3, a checkpoint and --resume for 3:
+              parameters and Adam moments bit-identical; (f) the eval list
+              through an Evaluator (warm-up time a GT size), then
+              scripts/eval_torch.py --dataset kitti --calib_dir host-fed
+              and --device_cache (metrics equal), launches exact, the
+              card's per-image metrics against the CPU protocol on the
+              same fp32 predictions (rtol and atol 1e-5, a1-a3 within one
+              pixel), and a fused (rows 5-7) stage-2 run from disk for 3
+              steps with in-training eval over the list; (g) NYU: stage
+              1 at 228x304, B=32, 3 steps, and the D-net's eval on the 16
+              test frames (GT cropped to 426x560).
 
 Any failure ends the run with a nonzero exit.  The last lines are the
 kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape numbers also go to smoke_out/chip_smoke.json, the profiles to
-smoke_out/{serving,training}{,_fused,_fusion}_profile.txt and
-smoke_out/eval_profile.txt.
+smoke_out/{serving,training}{,_fused,_fusion}_profile.txt,
+smoke_out/eval_profile.txt and smoke_out/disk_*_profile.txt.
 """
 
 import io
@@ -2104,6 +2138,580 @@ def phase_lifecycle(cfg, cfg_fused, cfg_fusion):
     return out, launches
 
 
+DISK_PAIRS = 512  # KITTI training pairs at 128x416, written by scripts/make_fixture.py
+DISK_WRITERS = 4  # make_fixture.py processes, 128 pairs each
+DISK_STEPS = 8  # a stage per feed: one pass over the corpus in two stages; host clock 2-8
+DISK_DECODE_BATCHES = 4  # (b): batches of 32 per decode measurement
+DISK_EVAL_SIZES = ((375, 1242), (370, 1224), (374, 1238), (376, 1241))  # KITTI's raw sizes
+DISK_EVAL_PER_SIZE, DISK_VELO_PER_SIZE = 16, 4  # 12 PNG and 4 velodyne GT a size
+DISK_EVAL_BATCH = 8
+DISK_RESUME = (6, 3, 8)  # (e): steps unbroken, steps before the stop, batch
+DISK_FUSED_STEPS = 3
+NYU_PAIRS, NYU_TEST, NYU_STEPS = 64, 16, 3
+# KITTI's published calibration of the 2011_09_26 drive (camera 2, velodyne)
+KITTI_CALIB = {
+    "calib_cam_to_cam.txt": (
+        "calib_time: 09-Jan-2012 13:57:47\n"
+        "R_rect_00: 9.999239e-01 9.837760e-03 -7.445048e-03 -9.869795e-03 9.999421e-01 "
+        "-4.278459e-03 7.402527e-03 4.351614e-03 9.999631e-01\n"
+        "P_rect_02: 7.215377e+02 0.000000e+00 6.095593e+02 4.485728e+01 0.000000e+00 "
+        "7.215377e+02 1.728540e+02 2.163791e-01 0.000000e+00 0.000000e+00 1.000000e+00 "
+        "2.745884e-03\n"),
+    "calib_velo_to_cam.txt": (
+        "calib_time: 15-Mar-2012 11:37:16\n"
+        "R: 7.533745e-03 -9.999714e-01 -6.166020e-04 1.480249e-02 7.280733e-04 "
+        "-9.998902e-01 9.998621e-01 7.523790e-03 1.480755e-02\n"
+        "T: -4.069766e-03 -7.631618e-02 -2.717806e-01\n"),
+}
+
+
+def _smooth_rgb(rng, h, w):
+    """A smooth RGB field with noise, uint8: bilinear upsampling of a
+    coarse random grid (compresses and decodes like a photograph, not
+    like noise)."""
+    from PIL import Image
+
+    coarse = rng.integers(0, 256, (max(2, h // 24), max(2, w // 24), 3), np.uint8)
+    img = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BILINEAR), np.int16)
+    return np.clip(img + rng.integers(-8, 9, img.shape), 0, 255).astype(np.uint8)
+
+
+def write_disk_corpus(root):
+    """Phase 22 (a): the KITTI training corpus (scripts/make_fixture.py
+    --style scene, DISK_WRITERS processes), the KITTI eval list at the
+    four raw sizes with 16-bit PNG and velodyne GT and the calibration,
+    and NYU's 480x640 frames with millimetre PNG depth.  Returns the
+    dataset roots and the seconds taken."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    kitti, nyu = os.path.join(root, "kitti"), os.path.join(root, "nyu")
+    per = DISK_PAIRS // DISK_WRITERS
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "scripts", "make_fixture.py"), "--out",
+         os.path.join(kitti, f"p{s}"), "--n", str(per), "--style", "scene", "--seed", str(s)],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for s in range(DISK_WRITERS)]
+    rng = np.random.default_rng(22)
+    calib = os.path.join(kitti, "calib")
+    os.makedirs(calib, exist_ok=True)
+    os.makedirs(os.path.join(kitti, "eval"), exist_ok=True)
+    for name, text in KITTI_CALIB.items():
+        with open(os.path.join(calib, name), "w") as f:
+            f.write(text)
+    lines = []
+    for (h, w) in DISK_EVAL_SIZES:
+        for i in range(DISK_EVAL_PER_SIZE):
+            stem = f"eval/{h}x{w}_{i:02d}"
+            Image.fromarray(_smooth_rgb(rng, h, w)).save(os.path.join(kitti, stem + ".png"))
+            if i < DISK_VELO_PER_SIZE:
+                n = 120_000  # a 64-beam scan
+                pts = np.stack([rng.uniform(-10, 80, n), rng.uniform(-40, 40, n),
+                                rng.uniform(-2.5, 1.5, n), rng.uniform(0, 1, n)], -1)
+                pts.astype(np.float32).tofile(os.path.join(kitti, stem + ".bin"))
+                lines.append(f"{stem}.png {stem}.bin")
+            else:  # LiDAR-like: a ramp, valid on ~5% of pixels in the lower 2/3
+                depth = np.linspace(80, 3, h)[:, None] * rng.uniform(0.7, 1.0, (1, w))
+                keep = (rng.uniform(size=(h, w)) < 0.08) & (np.arange(h)[:, None] > h // 3)
+                gt = np.where(keep, np.round(depth * 256), 0).astype(np.uint16)
+                Image.fromarray(gt).save(os.path.join(kitti, stem + "_gt.png"))
+                lines.append(f"{stem}.png {stem}_gt.png")
+    with open(os.path.join(kitti, "eval.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    os.makedirs(os.path.join(nyu, "f"), exist_ok=True)
+    nyu_lines = []
+    for i in range(NYU_PAIRS + NYU_TEST):
+        Image.fromarray(_smooth_rgb(rng, 480, 640)).save(os.path.join(nyu, f"f/{i:03d}.png"))
+        depth = np.linspace(1.0, 9.0, 640)[None, :] * rng.uniform(0.8, 1.1, (480, 1))
+        depth[rng.uniform(size=depth.shape) < 0.1] = 0.0  # Kinect holes
+        Image.fromarray(np.round(depth * 1000).astype(np.uint16)).save(
+            os.path.join(nyu, f"f/{i:03d}_d.png"))
+        nyu_lines.append(f"f/{i:03d}.png f/{i:03d}_d.png")
+    with open(os.path.join(nyu, "train.txt"), "w") as f:
+        f.write("\n".join(nyu_lines[:NYU_PAIRS]) + "\n")
+    with open(os.path.join(nyu, "test.txt"), "w") as f:
+        f.write("\n".join(nyu_lines[NYU_PAIRS:]) + "\n")
+    train = []
+    for s, p in enumerate(procs):
+        _, err = p.communicate(timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"make_fixture.py --seed {s} failed: {err[-2000:]}")
+        with open(os.path.join(kitti, f"p{s}", "train.txt")) as f:
+            train += [" ".join(f"p{s}/{x}" for x in line.split()) for line in f if line.strip()]
+    with open(os.path.join(kitti, "train.txt"), "w") as f:
+        f.write("\n".join(train) + "\n")
+    seconds = time.perf_counter() - t0
+    log(f"  (a) wrote {len(train)} KITTI pairs at 128x416 (make_fixture.py --style scene, "
+        f"{DISK_WRITERS} processes), {len(lines)} eval images at "
+        f"{', '.join(f'{h}x{w}' for h, w in DISK_EVAL_SIZES)} "
+        f"({DISK_EVAL_PER_SIZE - DISK_VELO_PER_SIZE} 16-bit PNG + {DISK_VELO_PER_SIZE} "
+        f"velodyne GT a size) and {NYU_PAIRS} + {NYU_TEST} NYU frames at 480x640 in "
+        f"{seconds:.1f} s; os.cpu_count() = {os.cpu_count()}")
+    return kitti, nyu, seconds
+
+
+def _decode_rate(loader, batches=DISK_DECODE_BATCHES):
+    it = iter(loader)
+    t0 = time.perf_counter()
+    n = sum(next(it)["rgb"].shape[0] for _ in range(batches))
+    return n / (time.perf_counter() - t0)
+
+
+def disk_decode(kitti, cache_root):
+    """Phase 22 (b): images/s of KittiTrainDataset batches (B=32) on the
+    host, native and PIL, wire and f32, cold and from a decode cache."""
+    from gdn_tpu_torch.data import native_io
+    from gdn_tpu_torch.data.kitti import KittiTrainDataset
+
+    avail = native_io.available()
+    log(f"  (b) native_io.available() = {avail}"
+        + ("" if avail else f"; make -C native said: {native_io.BUILD_LOG.strip()[-600:]}"))
+    out = {"native_available": avail, "cpu_count": os.cpu_count()}
+    for use_native in (True, False):
+        kw = dict(size=(128, 416), batch_size=TRAIN_BATCH, seed=0, use_native=use_native)
+        decoder = KittiTrainDataset(kitti, "train.txt", **kw).decoder
+        if use_native and decoder != "native":
+            log("  (b) the native decoder is unavailable: its loaders decode with PIL")
+            continue
+        cache = os.path.join(cache_root, f"decode_{decoder}")
+        shutil.rmtree(cache, ignore_errors=True)
+        rates = {f"{wire}_cold": _decode_rate(KittiTrainDataset(kitti, "train.txt", wire=wire,
+                                                                **kw))
+                 for wire in ("auto", "f32")}
+        rates["cache_fill"] = _decode_rate(KittiTrainDataset(kitti, "train.txt",
+                                                             cache_dir=cache, **kw))
+        for wire in ("auto", "f32"):
+            rates[f"{wire}_warm_cache"] = _decode_rate(
+                KittiTrainDataset(kitti, "train.txt", wire=wire, cache_dir=cache, **kw))
+        out[decoder] = rates
+        log(f"  (b) decoder {decoder}: images/s at B={TRAIN_BATCH} over "
+            f"{DISK_DECODE_BATCHES} batches: " + ", ".join(f"{k} {v:.0f}"
+                                                          for k, v in rates.items()))
+    return out
+
+
+def _pipeline_ops(cfg, loader):
+    """What the pipeline does to one batch on the card (the upload, the
+    wire decode, the augmentation), profiled alone: device ms, kernels
+    and copies by name, and the bytes it copies host -> card."""
+    from gdn_tpu_torch.data.augment import apply_augment, augment_params, decode_wire_batch
+    from gdn_tpu_torch.data.pipeline import upload
+
+    dev = torch.device("cuda")
+    it = iter(loader)
+    host = next(it)
+
+    def run():
+        b = {k: upload(v, dev) for k, v in host.items()}
+        b = decode_wire_batch(b, max_depth=cfg.model.max_depth, depth_scale=256.0)
+        params = augment_params(torch.Generator().manual_seed(0), TRAIN_BATCH, cfg.data)
+        flat = upload(torch.stack(list(params.values())), dev)
+        return apply_augment(b, dict(zip(params, flat)), cfg.data)
+
+    run()
+    before = upload.bytes
+    run()
+    h2d = upload.bytes - before
+    if not isinstance(host["rgb"], np.ndarray):  # the device cache: its index upload
+        before = upload.bytes
+        next(it)
+        h2d += upload.bytes - before
+    try:
+        _, kernels, _ = profiled(run)
+    except ProfilerShort as e:
+        return {"h2d_bytes": h2d, "profile": f"not measured ({e})"}
+    by_name = {}
+    for k, (_, n) in kernels.items():
+        by_name[k[:90]] = by_name.get(k[:90], 0) + n
+    return {"h2d_bytes": h2d, "device_ms": sum(us for us, _ in kernels.values()) / 1e3,
+            "ops": sum(n for _, n in kernels.values()), "by_name": by_name}
+
+
+def profile_disk_step(cfg, state, d_net, pipe, tag):
+    """One stage-2 step that pulls its batch from the pipeline, under
+    torch.profiler (the prefetch thread keeps working meanwhile)."""
+    from gdn_tpu_torch.train.steps import make_stage2_step
+
+    step = make_stage2_step(cfg)
+    step(state, d_net, next(pipe))
+    try:
+        prof, kernels, wall = profiled(lambda: step(state, d_net, next(pipe)), cpu=True)
+    except ProfilerShort as e:
+        log(f"  profile of {tag}: not measured ({e})")
+        return None
+    busy_ms = sum(us for us, _ in kernels.values()) / 1e3
+    with open(os.path.join(OUT, f"{tag}_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / (wall * 1e3),
+            "kernel_launches": sum(n for _, n in kernels.values())}
+
+
+def disk_train(cfg, kitti, cache_root, synthetic, n_gn):
+    """Phase 22 (c): stage 1 then stage 2 from disk, B=32, bf16, through
+    make_train_pipeline with augmentation, in three feeds."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.device_cache import DeviceResidentDataset
+    from gdn_tpu_torch.data.kitti import KittiTrainDataset
+    from gdn_tpu_torch.data.pipeline import make_train_pipeline
+    from gdn_tpu_torch.train.loop import train_stage1, train_stage2
+    from gdn_tpu_torch.utils.logging import MetricLogger
+
+    h, w = cfg.model.image_size
+    cache = os.path.join(cache_root, "train_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    t0 = time.perf_counter()
+    filled = sum(b["rgb"].shape[0] for b in KittiTrainDataset(
+        kitti, "train.txt", (h, w), TRAIN_BATCH, loop=False, cache_dir=cache))
+    fill_s = time.perf_counter() - t0
+    log(f"  (c) decode cache filled: {filled} pairs in {fill_s:.2f} s "
+        f"({filled / fill_s:.0f} images/s)")
+    out, launches = {"cache_fill_images_per_s": filled / fill_s}, {}
+    for feed in ("host_fed", "decode_cache", "device_cache"):
+        tag = f"disk_{feed}"
+        ckpt = os.path.join(OUT, tag) if feed == "host_fed" else ""
+        if ckpt:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        c = _with(cfg, **{"train.steps_per_epoch": DISK_STEPS, "train.log_every": DISK_STEPS,
+                          "train.ckpt_dir": ckpt, "data.batch_size": TRAIN_BATCH})
+        loader = KittiTrainDataset(kitti, "train.txt", (h, w), TRAIN_BATCH, seed=0,
+                                   cache_dir=cache if feed != "host_fed" else "")
+        row = {"decoder": loader.decoder}
+        if feed == "device_cache":
+            t0 = time.perf_counter()
+            loader = DeviceResidentDataset(loader, device="cuda")
+            torch.cuda.synchronize()
+            row["setup_s"] = time.perf_counter() - t0
+            row["resident_bytes"] = loader.resident_bytes
+        row["pipeline"] = _pipeline_ops(c, loader)
+        loader.seek(0)  # each feed trains on the loader's order from its start
+        pipe = make_train_pipeline(c, loader, device="cuda")
+        for stage in ("stage1", "stage2"):
+            jsonl = os.path.join(OUT, f"{tag}_{stage}.jsonl")
+            if os.path.exists(jsonl):
+                os.remove(jsonl)
+            logger = MetricLogger(prefix=stage, jsonl_path=jsonl, stream=io.StringIO())
+            torch.cuda.synchronize()
+            reset_counts()
+            if stage == "stage1":
+                s1 = train_stage1(c, pipe, epochs=1, logger=logger)
+                d_net = s1.net.requires_grad_(False)
+            else:
+                s2 = train_stage2(c, pipe, d_net, epochs=1, logger=logger)
+            torch.cuda.synchronize()
+            launches[f"{tag}_{stage}"] = counts = read_counts()
+            logger.close()
+            nets = 1 if stage == "stage1" else 2
+            expect_counts(f"{tag} {stage}", counts, fused_loss_fwd=DISK_STEPS,
+                          fused_loss_bwd=DISK_STEPS, group_norm_elu=n_gn * nets * DISK_STEPS)
+            rec = [json.loads(line) for line in open(jsonl)][-1]
+            if not all(np.isfinite(v) for k, v in rec.items() if k not in ("t", "step")):
+                raise AssertionError(f"{tag} {stage}: {rec}")
+            ips = rec["imgs_per_sec"]
+            row[stage] = {"images_per_s": ips, "ms_per_step": 1e3 * TRAIN_BATCH / ips,
+                          "total": rec["total"]}
+        row["profile"] = profile_disk_step(c, s2, d_net, pipe, tag)
+        pipe.close()
+        del s1, s2, d_net, loader
+        out[feed] = row
+        syn = {k: synthetic[k]["ms_per_step"] for k in ("stage1", "stage2")}
+        p, pr = row["pipeline"], row["profile"] or {}
+        log(f"  (c) {feed} ({row['decoder']} decode): stage 1 "
+            f"{row['stage1']['ms_per_step']:.1f} ms/step ({row['stage1']['images_per_s']:.1f} "
+            f"images/s), stage 2 {row['stage2']['ms_per_step']:.1f} ms/step "
+            f"({row['stage2']['images_per_s']:.1f} images/s); phase 8 synthetic "
+            f"{syn['stage1']:.1f} / {syn['stage2']:.1f} ms/step; one stage-2 step: wall "
+            f"{pr.get('wall_ms', float('nan')):.1f} ms, device busy "
+            f"{pr.get('device_busy_ms', float('nan')):.2f} ms (idle "
+            f"{pr.get('idle_share', float('nan')):.1%}), {pr.get('kernel_launches')} launches; "
+            f"the pipeline a batch: {p.get('ops')} device ops, {p.get('device_ms', 0):.3f} ms, "
+            f"{p['h2d_bytes']} bytes H2D"
+            + (f"; corpus {row['resident_bytes'] / 2**20:.1f} MiB on the card in "
+               f"{row['setup_s']:.2f} s" if feed == "device_cache" else ""))
+    return out, launches
+
+
+def disk_vs_cpu(cfg, kitti):
+    """Phase 22 (d): one wire batch decoded and augmented on the card and
+    on the CPU with the same values; then one stage-1 step on it at B=2,
+    fp32, card against CPU (phase 9's bounds)."""
+    from gdn_tpu_torch.checkpoint import init_params
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.augment import apply_augment, augment_params, decode_wire_batch
+    from gdn_tpu_torch.data.kitti import KittiTrainDataset
+    from gdn_tpu_torch.data.pipeline import host_tensor, upload
+    from gdn_tpu_torch.models import DtoDNet
+    from gdn_tpu_torch.train.steps import _stage1_loss
+
+    host = next(iter(KittiTrainDataset(kitti, "train.txt", cfg.model.image_size, TRAIN_BATCH,
+                                       seed=3)))
+    params = augment_params(torch.Generator().manual_seed(22), TRAIN_BATCH, cfg.data)
+    kw = dict(max_depth=cfg.model.max_depth, depth_scale=256.0)
+    cpu = apply_augment(decode_wire_batch({k: host_tensor(v) for k, v in host.items()}, **kw),
+                        params, cfg.data)
+    dev = torch.device("cuda")
+    card = apply_augment(decode_wire_batch({k: upload(v, dev) for k, v in host.items()}, **kw),
+                         {k: v.to(dev) for k, v in params.items()}, cfg.data)
+    card = {k: v.cpu() for k, v in card.items()}
+    for k in ("depth", "mask"):
+        if not torch.equal(card[k], cpu[k]):
+            raise AssertionError(f"augmented {k}: card != CPU")
+    rgb_err = (card["rgb"] - cpu["rgb"]).abs().max().item()
+    if rgb_err > 1e-6:
+        raise AssertionError(f"augmented rgb: card vs CPU {rgb_err:.3g} > 1e-6")
+    c = _with(cfg, **{"model.dtype": "float32"})
+    sd = init_params(c.model, torch.Generator().manual_seed(5), in_channels=1)
+    batch = {k: v[:2].contiguous() for k, v in cpu.items()}
+    watch = ("encoder.stem.Conv_0.kernel", "encoder.stem.gn_scale")
+    res = {}
+    for name, d in (("cpu", "cpu"), ("card", "cuda")):
+        net = DtoDNet(c.model)
+        net.load_state_dict(sd)
+        net = net.to(d)
+        terms = _stage1_loss(net, {k: v.to(d) for k, v in batch.items()}, c)
+        terms["total"].backward()
+        grads = dict(net.named_parameters())
+        res[name] = ({k: float(v.detach()) for k, v in terms.items()},
+                     {k: grads[k].grad.detach().cpu() for k in watch})
+    out = {"rgb_max_abs_err": rgb_err, "terms": {k: v[0] for k, v in res.items()}}
+    for k, v in res["card"][0].items():
+        if abs(v - res["cpu"][0][k]) > 1e-4 * abs(res["cpu"][0][k]):
+            raise AssertionError(f"stage-1 step from disk: card {k}={v} vs CPU {res['cpu'][0][k]}")
+    for k in watch:
+        got, want = res["card"][1][k], res["cpu"][1][k]
+        out[f"grad_rel_err {k}"] = rel = ((got - want).abs().max() / want.abs().max()).item()
+        if rel > 1e-3:
+            raise AssertionError(f"stage-1 step from disk: grad {k} off by {rel:.3g} of its max")
+    log(f"  (d) one augmented B={TRAIN_BATCH} batch, same values: depth and mask equal bit "
+        f"for bit card vs CPU, RGB max|d| {rgb_err:.3g} (bound 1e-6); stage-1 step at B=2, "
+        f"fp32: terms within rtol 1e-4, grads " + ", ".join(
+            f"{k} {out[f'grad_rel_err {k}']:.3g}" for k in watch) + " of their max (bound 1e-3)")
+    return out
+
+
+def disk_resume(kitti, cache_root):
+    """Phase 22 (e): scripts/train_torch.py --dataset kitti, stage 1,
+    fp32: an unbroken run against one stopped, checkpointed and
+    --resume-d; bit for bit under cuDNN's deterministic algorithms."""
+    n, k, b = DISK_RESUME
+    root = os.path.join(OUT, "disk_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    train = load_script("train_torch")
+    common = ["--mode", "DtoD", "--dataset", "kitti", "--data_path", kitti, "--dtype",
+              "float32", "--batch_size", str(b), "--steps_per_epoch", str(k), "--log_every",
+              str(k), "--decode_cache", os.path.join(cache_root, "train_cache")]
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    whole = train.main([*common, "--epochs", str(n // k), "--ckpt_dir",
+                        os.path.join(root, "whole")])
+    train.main([*common, "--epochs", "1", "--ckpt_dir", os.path.join(root, "parts")])
+    resumed = train.main([*common, "--epochs", str(n // k - 1), "--ckpt_dir",
+                          os.path.join(root, "parts"), "--resume"])
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    counts = read_counts()
+    diff = _snap_diff(_snapshot(resumed), _snapshot(whole))
+    log(f"  (e) train_torch.py --dataset kitti, stage 1, fp32, B={b}: {n} steps unbroken vs "
+        f"{k} + checkpoint + --resume {n - k}: max|d| {diff}; launches {counts_text(counts)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if any(diff.values()) or resumed.step != n:
+        raise AssertionError(f"resumed from disk at step {resumed.step}: {diff}")
+    return counts, {"max_diff": diff}
+
+
+def _split_vs_cpu(cfg, forward, samples):
+    """The card's per-image metric columns against the CPU protocol on
+    the same fp32 predictions, the first batch of each GT size: rtol and
+    atol 1e-5 on the continuous metrics, a1-a3 within one pixel."""
+    from gdn_tpu_torch import metrics as M
+    from gdn_tpu_torch.evaluate import _batch_iter, _wire_encoders, make_eval_step
+
+    worst, seen = {}, set()
+    for shape, rgb, gt, n_real, _ in _batch_iter(samples, DISK_EVAL_BATCH, None,
+                                                  *_wire_encoders(cfg)):
+        if shape in seen:
+            continue
+        seen.add(shape)
+        card = make_eval_step(cfg, forward, shape, return_preds=True, device="cuda")
+        cpu = make_eval_step(cfg, lambda p: p, shape, device="cpu")
+        cols, preds = card(rgb.cuda(), gt.cuda())
+        want = cpu(preds.cpu()[..., None], gt).numpy()
+        got = cols.cpu().numpy()
+        valid = ((gt > cfg.model.min_depth) & (gt < cfg.eval.cap)
+                 & torch.from_numpy(M.crop_mask(*shape, cfg.eval.crop))).sum(dim=(1, 2))
+        for j, name in enumerate(M.METRIC_NAMES):
+            if name in ("a1", "a2", "a3"):
+                pixel = 1.0 / valid.clamp_min(1).numpy()
+                if (np.abs(got[j] - want[j]) > pixel + 1e-6).any():
+                    raise AssertionError(f"{shape} {name}: more than one pixel apart")
+            else:
+                np.testing.assert_allclose(got[j], want[j], atol=1e-5, rtol=1e-5,
+                                           err_msg=f"{shape} {name}")
+        worst[f"{shape[0]}x{shape[1]}"] = float(np.abs(got - want).max())
+    return worst
+
+
+def disk_eval(cfg, cfg_fused, kitti, cache_root, n_gn):
+    """Phase 22 (f): eval from disk on the 64-image list (four raw sizes,
+    PNG and velodyne GT), the card against the CPU protocol, and a fused
+    stage-2 run with in-training eval over the list."""
+    from gdn_tpu_torch import metrics as M
+    from gdn_tpu_torch.checkpoint import load_params
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.kitti import KittiEvalDataset
+    from gdn_tpu_torch.evaluate import Evaluator
+    from gdn_tpu_torch.models import RtoDNet
+    from gdn_tpu_torch.train.steps import make_eval_forward
+
+    calib = os.path.join(kitti, "calib")
+    ckpt = os.path.join(OUT, "disk_host_fed")
+    c = _with(cfg, **{"eval.batch_size": DISK_EVAL_BATCH, "eval.crop": "garg",
+                      "eval.cap": 80.0, "data.data_path": kitti, "data.val_list": "eval.txt",
+                      "data.calib_dir": calib})
+    split = KittiEvalDataset(kitti, "eval.txt", c.model.image_size, calib_dir=calib)
+    t0 = time.perf_counter()
+    samples = list(split)
+    read_s = time.perf_counter() - t0
+    shapes = sorted({s["gt"].shape[1:] for s in samples})
+    velo = [s["gt"] for s, e in zip(samples, split.entries) if e[1].endswith(".bin")]
+    velo_px = float(np.mean([(g > 0).mean() for g in velo]))
+    log(f"  (f) eval list read: {len(samples)} images, GT sizes {shapes}, {len(velo)} "
+        f"velodyne GT ({velo_px:.2%} of pixels valid), in {read_s:.2f} s "
+        f"({len(samples) / read_s:.1f} images/s host decode and projection)")
+    net = RtoDNet(c.model)
+    net.load_state_dict(load_params(os.path.join(ckpt, "stage2")))
+    fwd = make_eval_forward(c, net.cuda())
+    out, launches = {"read_images_per_s": len(samples) / read_s}, {}
+    # passes compared bit for bit run cuDNN's deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    ev = Evaluator(c, fwd)
+    torch.cuda.synchronize()
+    reset_counts()
+    direct = ev.run(split, verbose=False)
+    torch.cuda.synchronize()
+    launches["disk_eval_direct"] = counts = read_counts()
+    batches = len(DISK_EVAL_SIZES) * -(-DISK_EVAL_PER_SIZE // DISK_EVAL_BATCH)
+    forwards = batches + len(DISK_EVAL_SIZES)  # a warm-up batch a size
+    expect_counts("eval from disk", counts, group_norm_elu=n_gn * forwards)
+    out["warm_seconds"] = {f"{h}x{w}": s for (h, w), s in ev.warm_seconds.items()}
+    out["protocol_err"] = _split_vs_cpu(c, fwd, samples)
+    del ev
+    script = load_script("eval_torch")
+    args = ["--dataset", "kitti", "--data_path", kitti, "--val_list", "eval.txt",
+            "--calib_dir", calib, "--ckpt_dir", ckpt, "--eval_batch", str(DISK_EVAL_BATCH)]
+    for feed, extra in (("host_fed", []), ("device_cache", ["--device_cache"])):
+        torch.cuda.synchronize()
+        reset_counts()
+        res = script.main(args + extra)
+        torch.cuda.synchronize()
+        launches[f"disk_eval_{feed}"] = counts = read_counts()
+        expect_counts(f"eval_torch.py {feed}", counts, group_norm_elu=n_gn * forwards)
+        if not all(np.isfinite(res[k]) for k in M.METRIC_NAMES):
+            raise AssertionError(f"eval_torch.py {feed}: {res}")
+        if any(res[k] != direct[k] for k in M.METRIC_NAMES):
+            raise AssertionError(f"eval_torch.py {feed} {res} vs the direct pass {direct}")
+        out[feed] = res
+    torch.backends.cudnn.deterministic = False
+    log(f"  (f) eval_torch.py --dataset kitti --calib_dir, {len(samples)} images, batch "
+        f"{DISK_EVAL_BATCH}: rmse {out['host_fed']['rmse']:.4f}, a1 {out['host_fed']['a1']:.4f};"
+        f" host-fed {out['host_fed']['fps']:.1f} images/s, --device_cache "
+        f"{out['device_cache']['fps']:.1f} images/s (metrics equal to a direct pass); warm-up "
+        "batch a GT size: " + ", ".join(f"{k} {v * 1e3:.0f} ms"
+                                         for k, v in out["warm_seconds"].items())
+        + "; card vs CPU protocol max|d| by size " + ", ".join(
+            f"{k} {v:.3g}" for k, v in out["protocol_err"].items())
+        + " (rtol/atol 1e-5, a1-a3 within one pixel)")
+    # the fused configuration, disk-fed, with in-training eval over the list
+    root = os.path.join(OUT, "disk_fused")
+    shutil.rmtree(root, ignore_errors=True)
+    flags = [f"--{k}" for k in FUSED]
+    train = load_script("train_torch")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = train.main(["--mode", "RtoD", "--dataset", "kitti", "--data_path", kitti,
+                        "--val_list", "eval.txt", "--calib_dir", calib, "--stage1_ckpt",
+                        os.path.join(ckpt, "stage1"), "--ckpt_dir", root, "--epochs", "1",
+                        "--steps_per_epoch", str(DISK_FUSED_STEPS), "--log_every",
+                        str(DISK_FUSED_STEPS), "--eval_every", "1", "--eval_batch",
+                        str(DISK_EVAL_PER_SIZE), "--decode_cache",
+                        os.path.join(cache_root, "train_cache"), *flags])
+    torch.cuda.synchronize()
+    launches["disk_fused_train_eval"] = counts = read_counts()
+    fused = {"group_norm_elu": 6, "conv_gn_elu_bt": 5, "conv_gn_elu_s2": 5, "fusion_bt": 5}
+    eval_fwd = 2 * len(DISK_EVAL_SIZES)  # one batch and one warm-up a size
+    expect_counts("fused stage 2 from disk with in-training eval", counts,
+                  fused_loss_fwd=DISK_FUSED_STEPS, fused_loss_bwd=DISK_FUSED_STEPS,
+                  **{k: v * (2 * DISK_FUSED_STEPS + eval_fwd) for k, v in fused.items()})
+    recs = [json.loads(line) for line in open(os.path.join(root, "train_log.jsonl"))]
+    rmse = [r["eval_rmse"] for r in recs if "eval_rmse" in r]
+    if state.step != DISK_FUSED_STEPS or len(rmse) != 1 or not np.isfinite(rmse[0]):
+        raise AssertionError(f"fused stage 2 from disk: step {state.step}, eval_rmse {rmse}")
+    out["fused_train"] = {"eval_rmse": rmse[0], "launches": counts,
+                          "seconds": time.perf_counter() - t0}
+    log(f"  (f) fused stage 2 (rows 5-7) from disk, {DISK_FUSED_STEPS} steps with in-training "
+        f"eval over the list: eval_rmse {rmse[0]:.4f}; launches {counts_text(counts)} "
+        f"({out['fused_train']['seconds']:.1f} s)")
+    return out, launches
+
+
+def disk_nyu(nyu, n_gn):
+    """Phase 22 (g): stage 1 on NYU at 228x304 (B=32, bf16) from disk,
+    then the D-net's eval on the test frames (GT cropped to 426x560)."""
+    from gdn_tpu_torch import metrics as M
+
+    root = os.path.join(OUT, "disk_nyu")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = load_script("train_torch").main([
+        "--mode", "DtoD", "--dataset", "nyu", "--data_path", nyu, "--epochs", "1",
+        "--steps_per_epoch", str(NYU_STEPS), "--log_every", str(NYU_STEPS), "--ckpt_dir", root,
+        "--batch_size", str(TRAIN_BATCH)])
+    res = load_script("eval_torch").main([
+        "--dataset", "nyu", "--data_path", nyu, "--val_list", "test.txt", "--stage", "1",
+        "--ckpt_dir", root, "--eval_batch", str(DISK_EVAL_BATCH)])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    forwards = NYU_TEST // DISK_EVAL_BATCH + 1
+    expect_counts("NYU from disk", counts, fused_loss_fwd=NYU_STEPS, fused_loss_bwd=NYU_STEPS,
+                  group_norm_elu=n_gn * (NYU_STEPS + forwards))
+    recs = [json.loads(line) for line in open(os.path.join(root, "train_log.jsonl"))]
+    if state.step != NYU_STEPS or not np.isfinite(recs[-1]["total"]) or not all(
+            np.isfinite(res[k]) for k in M.METRIC_NAMES):
+        raise AssertionError(f"NYU: step {state.step}, {recs[-1]}, eval {res}")
+    log(f"  (g) NYU stage 1, 228x304, B={TRAIN_BATCH}: {NYU_STEPS} steps, total "
+        f"{recs[-1]['total']:.4f}, {recs[-1]['imgs_per_sec']:.1f} images/s; D-net eval on "
+        f"{NYU_TEST} frames (GT 426x560, cap 10): rmse {res['rmse']:.4f}, a1 {res['a1']:.4f}; "
+        f"launches {counts_text(counts)} ({time.perf_counter() - t0:.1f} s)")
+    return counts, {"train": recs[-1], "eval": res}
+
+
+def phase_disk(cfg, cfg_fused, synthetic):
+    """Phase 22: training and eval from disk (see the module docstring)."""
+    root = os.path.join(OUT, "disk")
+    n_gn = len(gn_sites(cfg.model))
+    t0 = time.perf_counter()
+    out, launches = {"device": smi_line()}, {}
+    kitti, nyu, out["corpus_seconds"] = write_disk_corpus(root)
+    out["decode"] = disk_decode(kitti, root)
+    out["train"], train_launches = disk_train(cfg, kitti, root, synthetic, n_gn)
+    launches.update(train_launches)
+    out["vs_cpu"] = disk_vs_cpu(cfg, kitti)
+    launches["disk_resume"], out["resume"] = disk_resume(kitti, root)
+    out["eval"], eval_launches = disk_eval(cfg, cfg_fused, kitti, root, n_gn)
+    launches.update(eval_launches)
+    launches["disk_nyu"], out["nyu"] = disk_nyu(nyu, n_gn)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 22 took {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main():
     log("== 1. device")
     if not torch.cuda.is_available():
@@ -2241,6 +2849,10 @@ def main():
     log("== 21. lifecycle: resume, preemption, grad_accum, remat, the command line")
     lifecycle, life_launches = phase_lifecycle(cfg, cfg_fused, cfg_fusion)
 
+    log("== 22. data from disk: KITTI and NYU loaders, decode and device caches, "
+        "the on-card wire decode and augmentation")
+    disk, disk_launches = phase_disk(cfg, cfg_fused, training)
+
     main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
     per_fwd = {k: sum(r[k] * r["sites"] for r in main_rows)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -2250,7 +2862,7 @@ def main():
                      **{f"{k}_fused": v for k, v in fused_train_launches.items()},
                      "serving_fusion": fusion_counts, "serving_all": all_counts,
                      **{f"{k}_fusion": v for k, v in fusion_train_launches.items()},
-                     **eval_launches, **life_launches}
+                     **eval_launches, **life_launches, **disk_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in path_launches.values())
@@ -2300,7 +2912,7 @@ def main():
                    "training_fused": training_fused, "vs_cpu_fused": vs_cpu_fused,
                    "serving_fusion": serving_fusion, "serving_all": serving_all,
                    "training_fusion": training_fusion, "vs_cpu_fusion": vs_cpu_fusion,
-                   "eval": evaluation, "lifecycle": lifecycle,
+                   "eval": evaluation, "lifecycle": lifecycle, "disk": disk,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
                    "sass_hmma": hmma_by_fn, "ptxas": ptxas,
                    "kernels": kernels}, f, indent=1)

@@ -78,6 +78,10 @@ _TRAIN_NOT_YET = (
     ("fused_encoders", False, "Queue A item 12 (fused encoders)"),
     ("check_numerics", False, "Queue A item 9 (utils.guards)"),
 )
+_DATA_NOT_YET = (
+    ("loader", "native", "Queue A item 8 (the grain loader)"),
+    ("device_cache_sharded", False, "Queue A item 10 (parallel)"),
+)
 _MESH_NOT_YET = (
     ("num_devices", (0, 1), "Queue A item 10 (parallel)"),
     ("spatial_devices", (1,), "Queue A item 10 (parallel)"),
@@ -168,8 +172,13 @@ class LossConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Data pipeline settings (only the synthetic source is ported;
-    ROADMAP Queue A item 8)."""
+    """Data pipeline settings (``data/``): the synthetic source, or the
+    KITTI and NYU loaders on disk through the prefetch pipeline, with the
+    decode cache (``decode_cache``) and the device-resident corpus
+    (``device_cache``).  ``num_workers`` and ``grain_workers`` change
+    nothing in the port: the native decoder sizes its own thread pool.
+    The grain loader and the sharded device cache are refused until they
+    are ported (ROADMAP.md Queue A items 8 and 10)."""
 
     dataset: str = "kitti"  # "kitti" | "nyu" | "synthetic"
     data_path: str = ""
@@ -190,6 +199,8 @@ class DataConfig:
     decode_cache: str = ""
     device_cache: bool = False
     device_cache_sharded: bool = False
+
+    __post_init__ = _refuse("DataConfig", _DATA_NOT_YET)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,8 +22,6 @@ are when it runs.  Entry points run on CUDA unless the caller passes
 from __future__ import annotations
 
 import os
-import queue
-import threading
 import time
 from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
@@ -32,6 +30,7 @@ import torch
 
 from gdn_tpu_torch import metrics as M
 from gdn_tpu_torch.config import Config, resolve_device
+from gdn_tpu_torch.data.pipeline import prefetch_to_device, upload as _upload
 from gdn_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 
 Forward = Callable[[torch.Tensor], torch.Tensor]
@@ -133,79 +132,21 @@ def _batch_iter(dataset: Iterable[Dict[str, np.ndarray]], bs: int,
         yield (shape, *assemble(pending.pop(shape)))
 
 
-def _upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """Host tensor -> ``device``; on CUDA through pinned memory, without
-    waiting (the copy is ordered on the current stream)."""
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
-
-
 def _prefetch(batches: Iterator[HostBatch], device: torch.device,
               size: int = 2) -> Iterator[HostBatch]:
     """Assemble and upload host batches in a background thread, ahead of
-    the consumer.  On CUDA the copies run on the thread's own stream; the
-    consumer's stream waits on each batch's upload event before using it,
-    and the batch's tensors are recorded on that stream, so the allocator
-    does not hand their memory out while the consumer may still read it.
+    the consumer (``data.pipeline.prefetch_to_device``: on CUDA through
+    pinned memory on the thread's own stream, the consumer waiting on
+    each batch's upload)."""
 
-    Cancellation-safe: if the consumer abandons the generator, the
-    producer sees ``stop`` instead of blocking forever on a full queue."""
-    q: "queue.Queue" = queue.Queue(maxsize=size)
-    sentinel = object()
-    stop = threading.Event()
-    err: list = []
-    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    def prepare(item: HostBatch, i: int):
+        shape, rgb, gt, n_real, idxs = item
+        return {"rgb": _upload(rgb, device), "gt": _upload(gt, device),
+                "meta": (shape, n_real, idxs)}
 
-    def put(item) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.2)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def producer():
-        try:
-            for shape, rgb, gt, n_real, idxs in batches:
-                done = None
-                if stream is not None:
-                    with torch.cuda.stream(stream):
-                        rgb, gt = _upload(rgb, device), _upload(gt, device)
-                        done = torch.cuda.Event()
-                        done.record(stream)
-                else:
-                    rgb, gt = _upload(rgb, device), _upload(gt, device)
-                if not put((shape, rgb, gt, n_real, idxs, done)):
-                    return
-        except Exception as e:  # handed to the consumer, raised there
-            err.append(e)
-        finally:
-            put(sentinel)
-
-    threading.Thread(target=producer, daemon=True).start()
-    try:
-        while True:
-            item = q.get()
-            if item is sentinel:
-                if err:
-                    raise err[0]
-                return
-            shape, rgb, gt, n_real, idxs, done = item
-            if done is not None:
-                consumer = torch.cuda.current_stream(device)
-                consumer.wait_event(done)
-                rgb.record_stream(consumer)
-                gt.record_stream(consumer)
-            yield shape, rgb, gt, n_real, idxs
-    finally:
-        stop.set()
-        try:
-            while True:
-                q.get_nowait()
-        except queue.Empty:
-            pass
+    for b in prefetch_to_device(batches, size, device, prepare):
+        shape, n_real, idxs = b["meta"]
+        yield shape, b["rgb"], b["gt"], n_real, idxs
 
 
 def _first_images(batches, max_images: Optional[int]) -> Iterator[HostBatch]:
@@ -239,6 +180,7 @@ class Evaluator:
         self._encoders = _wire_encoders(cfg)  # raises on an unknown wire
         self._steps: Dict[Tuple[Tuple[int, int], bool], Callable] = {}
         self._warm: set = set()
+        self.warm_seconds: Dict[Tuple[int, int], float] = {}  # GT size: its warm-up batch
         self._cached: Optional[list] = None
         self.cached_bytes = 0
 
@@ -364,6 +306,7 @@ class Evaluator:
                 if cuda:
                     torch.cuda.synchronize(self.device)
                 self._warm.add(key)
+                self.warm_seconds[shape] = time.perf_counter() - tw
                 if t0 is None:
                     t0 = time.perf_counter()
                 else:

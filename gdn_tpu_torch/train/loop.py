@@ -5,7 +5,10 @@ the stage-1 decoder into a fresh G-net, freezes it, and trains the rest
 with the guidance term from the frozen D-net.  Both run on CUDA unless
 the caller passes ``device="cpu"``, and both continue a ``state`` given
 to them (a resumed run).  Per-step scalars (loss terms, images/s with
-the first step left out) go through ``MetricLogger``.  After each
+the first step left out) go through ``MetricLogger``.  ``data_iter``
+yields batches on the device: the synthetic source draws them there,
+and disk data comes through ``data.pipeline.make_train_pipeline``
+(prefetched, decoded and augmented on the device).  After each
 epoch, optionally: validation (the mean loss terms over held-out
 batches, ``val_*``) and, in stage 2, the full eval protocol through one
 persistent ``Evaluator`` (``eval_*``).
@@ -112,6 +115,11 @@ def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
 
 
 def _batch_to(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    """The batch's leaves as tensors on ``device``.  A tensor already
+    there is passed on as it is: the batches of the prefetch pipeline
+    (``data.pipeline``) and of the synthetic source cost nothing here.
+    A host array (validation's f32 pairs) is copied from pageable
+    memory, which waits for the copy."""
     return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
 
 

@@ -16,9 +16,10 @@ from typing import IO, Optional
 
 class MetricLogger:
     def __init__(self, prefix: str = "", jsonl_path: Optional[str] = None,
-                 stream: IO = sys.stdout):
+                 stream: Optional[IO] = None):
         self.prefix = prefix
-        self.stream = stream
+        # sys.stdout as it is now, not as it was when this module was imported
+        self.stream = sys.stdout if stream is None else stream
         if jsonl_path and os.path.dirname(jsonl_path):
             os.makedirs(os.path.dirname(jsonl_path), exist_ok=True)
         self._jsonl = open(jsonl_path, "a") if jsonl_path else None

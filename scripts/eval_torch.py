@@ -15,10 +15,17 @@ checkpoint's config.json (``--height``/``--width`` still win, loudly).
 ``--use_ema`` scores the EMA weights of an ``--ema_decay`` run.
 ``--pth`` scores an exported state_dict instead; the flags describe the
 model then.  Runs on the card (``--device cuda``, the default) or, when
-asked, on the CPU.  Only the synthetic eval split is ported (32 images,
-seed 999, GT at train size).
+asked, on the CPU.  ``--dataset kitti|nyu`` scores the split of the list
+file ``--val_list`` under ``--data_path`` (lines ``<rgb> <gt>``; the GT a
+depth ``.npy``/``.png`` at its raw size, or for KITTI a velodyne ``.bin``
+projected with the calibration files in ``--calib_dir``);
+``--dataset synthetic`` the synthetic split (32 images, seed 999, GT at
+train size).  ``--device_cache`` stages the split on the card first.
 
 Examples:
+  python scripts/eval_torch.py --dataset kitti --data_path data/kitti \\
+      --val_list eigen_test.txt --calib_dir data/kitti/calib --ckpt_dir checkpoints
+  python scripts/eval_torch.py --dataset nyu --data_path data/nyu --val_list test.txt
   python scripts/eval_torch.py --dataset synthetic --ckpt_dir checkpoints
   python scripts/eval_torch.py --dataset synthetic --best --flip_tta --use_ema
   python scripts/eval_torch.py --dataset synthetic --stage 1 --device cpu \\
@@ -31,7 +38,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-A8 = "ROADMAP.md Queue A item 8 (data)"
 A10 = "ROADMAP.md Queue A item 10 (parallel)"
 A11 = "ROADMAP.md Queue A item 11 (int8 PTQ)"
 
@@ -42,7 +48,11 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--dataset", choices=["kitti", "nyu", "synthetic"], default="kitti",
-                   help="preset and eval split; only synthetic data is ported")
+                   help="preset and eval split")
+    p.add_argument("--data_path", type=str, default="",
+                   help="root of --val_list and the paths in it")
+    p.add_argument("--val_list", type=str, default="val.txt",
+                   help="eval list, lines '<rgb> <gt>'")
     p.add_argument("--stage", choices=["1", "2"], default="2",
                    help="score the stage-2 G-net (default) or the stage-1 D-net's "
                         "reconstruction")
@@ -63,7 +73,8 @@ def parse_args(argv=None):
                    help="depth cap in meters (KITTI: 80 or 50; NYU: 10)")
     p.add_argument("--crop", choices=["garg", "eigen", "none"], default=None)
     p.add_argument("--calib_dir", type=str, default="",
-                   help="KITTI calibration dir (velodyne GT; not ported)")
+                   help="KITTI calibration dir for velodyne .bin GT entries in the "
+                        "eval list")
     p.add_argument("--median_scaling", action="store_true")
     p.add_argument("--max_images", type=int, default=None)
     p.add_argument("--eval_batch", type=int, default=8,
@@ -91,11 +102,6 @@ def parse_args(argv=None):
                    help="post-training int8 inference (not ported)")
     add_fused_kernel_flags(p)
     args = p.parse_args(argv)
-    if args.dataset != "synthetic":
-        p.error(f"--dataset {args.dataset}: the real-data loaders are not ported "
-                f"yet ({A8}); use --dataset synthetic")
-    if args.calib_dir:
-        p.error(f"--calib_dir: velodyne GT is not ported yet ({A8})")
     if args.quantize != "none":
         p.error(f"--quantize {args.quantize}: not ported yet ({A11})")
     if args.use_ema and args.pth:
@@ -110,18 +116,21 @@ def parse_args(argv=None):
 
 
 def build_config(args):
-    from gdn_tpu_torch.config import fused_kernel_overrides, kitti_config
+    from gdn_tpu_torch.config import fused_kernel_overrides, kitti_config, nyu_config
 
+    preset = nyu_config if args.dataset == "nyu" else kitti_config
     over = {"model.use_pallas_gn": True, "model.dtype": args.dtype,
-            "data.dataset": args.dataset, "eval.batch_size": args.eval_batch,
+            "data.dataset": args.dataset, "data.data_path": args.data_path,
+            "data.val_list": args.val_list, "data.calib_dir": args.calib_dir,
+            "eval.batch_size": args.eval_batch,
             "eval.median_scaling": args.median_scaling, **fused_kernel_overrides(args)}
     for field in ("cap", "crop", "gt_wire", "rgb_wire"):
         if getattr(args, field) is not None:
             over[f"eval.{field}"] = getattr(args, field)
     if args.height or args.width:
-        h0, w0 = kitti_config().model.image_size
+        h0, w0 = preset().model.image_size
         over["model.image_size"] = (args.height or h0, args.width or w0)
-    return kitti_config(**over)
+    return preset(**over)
 
 
 def main(argv=None):
@@ -131,7 +140,7 @@ def main(argv=None):
     from gdn_tpu_torch.checkpoint import load_params, load_pth
     from gdn_tpu_torch.cli import apply_saved_model_config
     from gdn_tpu_torch.config import resolve_device
-    from gdn_tpu_torch.data.synthetic import SyntheticEvalDataset
+    from gdn_tpu_torch.data.pipeline import make_loader
     from gdn_tpu_torch.evaluate import Stage1Split, evaluate
     from gdn_tpu_torch.models import DtoDNet, RtoDNet
     from gdn_tpu_torch.train.steps import make_eval_forward
@@ -154,8 +163,7 @@ def main(argv=None):
     net = net.to(device)
     if device.type == "cuda":
         kernels.load_all()
-    split = SyntheticEvalDataset(height=h, width=w, max_depth=cfg.model.max_depth,
-                                 device=device)
+    split = make_loader(cfg, "eval", device=device)
     dataset = Stage1Split(split, (h, w)) if args.stage == "1" else split
     print(f"stage {args.stage} eval of {source}{' (EMA)' if args.use_ema else ''}: "
           f"{h}x{w}, batch {cfg.eval.batch_size}, {cfg.model.dtype}, device {device}",

@@ -18,14 +18,30 @@ of the weights (``--use_ema`` in eval and serve), ``--grad_accum N``
 applies one update every N batches on their mean gradient.
 
 Runs on the card (``--device cuda``, the default) or, when asked, on
-the CPU.  Only the synthetic data source is ported; the step lines also
-go to ``<ckpt_dir>/train_log.jsonl``.  ``--val_steps N`` validates each
-epoch on N held-out synthetic batches (seed + 1); ``--eval_every N``
-(RtoD) scores the G-net every N epochs with the full eval protocol on
-the synthetic eval split and keeps the best eval RMSE's checkpoint in
-``<ckpt_dir>/stage2_best/`` (scripts/eval_torch.py --best).
+the CPU.  ``--dataset kitti|nyu`` trains from the list file
+``--train_list`` under ``--data_path`` (lines ``<rgb> <depth>``, e.g. the
+corpus scripts/make_fixture.py writes): the host decodes (the native
+decoder when it builds, else PIL), a prefetch thread uploads the uint8 /
+uint16 wire (``--train_wire auto``) and decodes and augments it on the
+device.  ``--decode_cache DIR`` keeps the decoded samples in memmaps for
+later epochs; ``--device_cache`` keeps the whole wire corpus on the card
+and gathers batches there.  ``--resume`` moves the loader and the
+augmentation stream to the restored step.  ``--dataset synthetic`` draws
+batches on the card and does not augment them.  The step lines also go
+to ``<ckpt_dir>/train_log.jsonl``.  ``--val_pairs_list`` validates each
+epoch on ``--val_steps`` (default 10) batches of a pairs list (f32 wire);
+on synthetic data ``--val_steps N`` validates on N held-out synthetic
+batches (seed + 1).  ``--eval_every N`` (RtoD) scores the G-net every N
+epochs with the full eval protocol on the ``--val_list`` split (the
+synthetic eval split on synthetic data) and keeps the best eval RMSE's
+checkpoint in ``<ckpt_dir>/stage2_best/`` (scripts/eval_torch.py --best).
 
 Examples:
+  python scripts/make_fixture.py --out data/kitti --n 512 --style scene
+  python scripts/train_torch.py --mode DtoD --dataset kitti --data_path data/kitti \\
+      --epochs 1 --steps_per_epoch 50 --decode_cache data/kitti_cache
+  python scripts/train_torch.py --mode RtoD --dataset kitti --data_path data/kitti \\
+      --epochs 1 --steps_per_epoch 50 --device_cache
   python scripts/train_torch.py --mode DtoD --dataset synthetic \\
       --epochs 1 --steps_per_epoch 50
   python scripts/train_torch.py --mode DtoD --dataset synthetic \\
@@ -64,8 +80,28 @@ def parse_args(argv=None):
                    help="DtoD = stage 1 (D-net), RtoD = stage 2 (G-net)")
     p.add_argument("--dataset", choices=["kitti", "nyu", "synthetic"],
                    default="kitti",
-                   help="preset (image size, max depth); only synthetic "
-                        "data is ported")
+                   help="data source and preset (image size, max depth)")
+    p.add_argument("--data_path", type=str, default="",
+                   help="root of the list files and the paths in them")
+    p.add_argument("--train_list", type=str, default="train.txt")
+    p.add_argument("--val_pairs_list", type=str, default="",
+                   help="held-out list in the train pair format: validation loss "
+                        "each epoch")
+    p.add_argument("--val_list", type=str, default="val.txt",
+                   help="eval split of --eval_every (lines '<rgb> <gt>')")
+    p.add_argument("--calib_dir", type=str, default="",
+                   help="KITTI calibration dir for velodyne .bin GT in --val_list")
+    p.add_argument("--train_wire", choices=["auto", "f32"], default="auto",
+                   help="upload format: auto ships uint8 RGB + uint16 depth counts "
+                        "and decodes them on the card; f32 converts on the host")
+    p.add_argument("--decode_cache", type=str, default="",
+                   help="directory of the decoded-sample cache: the first epoch "
+                        "decodes and stores wire samples, later ones read memmaps")
+    p.add_argument("--device_cache", action="store_true",
+                   help="keep the decoded wire corpus on the card and gather batches "
+                        "there (2 GiB gate)")
+    p.add_argument("--loader", choices=["native", "grain"], default="native",
+                   help="host loader (grain: not ported)")
     p.add_argument("--height", type=int, default=None,
                    help="train height (default: the preset's)")
     p.add_argument("--width", type=int, default=None)
@@ -94,30 +130,35 @@ def parse_args(argv=None):
                    help="accumulate gradients over N micro-batches per optimizer "
                         "update (effective batch = N * batch_size)")
     p.add_argument("--val_steps", type=int, default=0,
-                   help="validate each epoch on this many held-out synthetic "
-                        "batches (seed + 1); 0 = off")
+                   help="validation batches each epoch: of --val_pairs_list (0 = "
+                        "10), or held-out synthetic ones (seed + 1; 0 = off)")
     p.add_argument("--eval_every", type=int, default=0,
-                   help="(RtoD) run the full eval protocol on the synthetic eval "
-                        "split every N epochs, log eval_* and keep the best RMSE's "
-                        "checkpoint in <ckpt_dir>/stage2_best (0 = off)")
+                   help="(RtoD) run the full eval protocol on the eval split every N "
+                        "epochs, log eval_* and keep the best RMSE's checkpoint in "
+                        "<ckpt_dir>/stage2_best (0 = off)")
     p.add_argument("--eval_max_images", type=int, default=None,
                    help="cap images per in-training eval pass")
     p.add_argument("--eval_batch", type=int, default=32,
                    help="images per in-training eval step (metrics stay per-image)")
     add_fused_kernel_flags(p)
     args = p.parse_args(argv)
-    if args.dataset != "synthetic":
-        p.error(f"--dataset {args.dataset}: the real-data loaders are not "
-                "ported yet (ROADMAP.md Queue A item 8); use --dataset synthetic")
+    if args.loader == "grain":
+        p.error("--loader grain: not ported yet (ROADMAP.md Queue A item 8, the grain "
+                "loader); use --loader native")
     return args
 
 
 def build_config(args):
-    from gdn_tpu_torch.config import fused_kernel_overrides, kitti_config
+    from gdn_tpu_torch.config import fused_kernel_overrides, kitti_config, nyu_config
 
+    preset = nyu_config if args.dataset == "nyu" else kitti_config
     over = {
         "model.use_pallas_gn": True, "model.dtype": args.dtype,
         "data.dataset": args.dataset, "data.batch_size": args.batch_size,
+        "data.data_path": args.data_path, "data.train_list": args.train_list,
+        "data.val_list": args.val_list, "data.calib_dir": args.calib_dir,
+        "data.train_wire": args.train_wire, "data.decode_cache": args.decode_cache,
+        "data.device_cache": args.device_cache, "data.loader": args.loader,
         "train.mode": args.mode, "train.epochs": args.epochs,
         "train.lr": args.lr, "train.seed": args.seed,
         "train.steps_per_epoch": args.steps_per_epoch,
@@ -127,9 +168,52 @@ def build_config(args):
         **fused_kernel_overrides(args),
     }
     if args.height or args.width:
-        h0, w0 = kitti_config().model.image_size
+        h0, w0 = preset().model.image_size
         over["model.image_size"] = (args.height or h0, args.width or w0)
-    return kitti_config(**over)
+    return preset(**over)
+
+
+def build_data(cfg, device, skip: int = 0):
+    """The training batches from batch ``skip`` on: the synthetic source
+    on the device, or the disk loader behind the prefetch pipeline (wire
+    decode and augmentation on the device)."""
+    from gdn_tpu_torch.data.pipeline import make_loader, make_train_pipeline
+
+    loader = make_loader(cfg, "train", device=device)
+    loader.seek(skip)
+    if cfg.data.dataset == "synthetic":
+        return loader
+    print(f"{cfg.data.dataset}: {len(loader)} pairs, decoder {loader.decoder}, "
+          f"wire {cfg.data.train_wire}", flush=True)
+    if cfg.data.device_cache:
+        from gdn_tpu_torch.data.device_cache import DeviceResidentDataset
+
+        loader = DeviceResidentDataset(loader, device=device)
+        print(f"device_cache: {len(loader)} samples, {loader.resident_bytes / 2**20:.1f} "
+              f"MiB resident on {device}", flush=True)
+    return make_train_pipeline(cfg, loader, augment=True, skip=skip, device=device)
+
+
+def build_val(cfg, args, device):
+    """Validation: a pairs list on disk (f32 wire, like the JAX CLI) or
+    held-out synthetic batches; {} without either."""
+    h, w = cfg.model.image_size
+    if args.val_pairs_list and cfg.data.dataset != "synthetic":
+        from gdn_tpu_torch.data.kitti import KittiTrainDataset
+        from gdn_tpu_torch.data.nyu import NyuTrainDataset
+
+        cls = NyuTrainDataset if cfg.data.dataset == "nyu" else KittiTrainDataset
+        return dict(val_iter=cls(cfg.data.data_path, args.val_pairs_list, (h, w),
+                                 cfg.data.batch_size, max_depth=cfg.model.max_depth,
+                                 wire="f32"),
+                    val_steps=args.val_steps or 10)
+    if args.val_steps and cfg.data.dataset == "synthetic":
+        from gdn_tpu_torch.data.synthetic import SyntheticDataset
+
+        return dict(val_iter=SyntheticDataset(cfg.data.batch_size, h, w, cfg.model.max_depth,
+                                              seed=args.seed + 1, device=device),
+                    val_steps=args.val_steps)
+    return {}
 
 
 def main(argv=None):
@@ -138,7 +222,7 @@ def main(argv=None):
     from gdn_tpu_torch import checkpoint as ckpt
     from gdn_tpu_torch.cli import apply_saved_model_config
     from gdn_tpu_torch.config import resolve_device
-    from gdn_tpu_torch.data.synthetic import SyntheticDataset, SyntheticEvalDataset
+    from gdn_tpu_torch.data.pipeline import CachedSampleIterable, make_loader
     from gdn_tpu_torch.train.loop import stage1_state, stage2_state, train_stage1, train_stage2
     from gdn_tpu_torch.utils.logging import MetricLogger
 
@@ -154,15 +238,10 @@ def main(argv=None):
         # the stage-1 config describes the decoder that moves to the G-net
         cfg = apply_saved_model_config(cfg, args, stage1_dir)
     h, w = cfg.model.image_size
-    data = SyntheticDataset(args.batch_size, h, w, cfg.model.max_depth,
-                            seed=args.seed, device=device)
     logger = MetricLogger(prefix=f"stage{n}",
                           jsonl_path=os.path.join(args.ckpt_dir, "train_log.jsonl"))
     print(f"stage{n}: {h}x{w}, batch {args.batch_size}, {args.dtype}, "
           f"device {device}", flush=True)
-    val = dict(val_iter=SyntheticDataset(args.batch_size, h, w, cfg.model.max_depth,
-                                         seed=args.seed + 1, device=device),
-               val_steps=args.val_steps) if args.val_steps else {}
     if args.mode == "RtoD":
         if args.stage1_pth:
             d_params = ckpt.load_pth(args.stage1_pth)
@@ -174,15 +253,17 @@ def main(argv=None):
         fresh = (stage1_state(cfg, device) if args.mode == "DtoD"
                  else stage2_state(cfg, d_params, device))
         state = ckpt.restore_checkpoint(stage_dir, fresh)
-        data.seek(state.step)  # the batch stream continues where the run stopped
         print(f"resumed stage {n} at step {state.step}", flush=True)
+    # the batch stream continues where a resumed run stopped
+    data = build_data(cfg, device, skip=state.step if state is not None else 0)
+    val = build_val(cfg, args, device)
     if args.mode == "DtoD":
         state = train_stage1(cfg, data, state=state, logger=logger, device=device, **val)
     else:
-        split = SyntheticEvalDataset(height=h, width=w, max_depth=cfg.model.max_depth,
-                                     device=device)
+        split = CachedSampleIterable(lambda: make_loader(cfg, "eval", device=device),
+                                     max_items=args.eval_max_images)
         state = train_stage2(cfg, data, d_params, state=state, logger=logger, device=device,
-                             eval_dataset=(lambda: split) if args.eval_every else None,
+                             eval_dataset=split if args.eval_every else None,
                              eval_every=args.eval_every,
                              eval_max_images=args.eval_max_images, **val)
     logger.close()

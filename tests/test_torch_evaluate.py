@@ -464,9 +464,6 @@ def test_eval_script_scores_what_train_script_wrote(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dataset", "kitti"], "Queue A item 8"),
-    (["--dataset", "nyu"], "Queue A item 8"),
-    (["--calib_dir", "/data/calib"], "Queue A item 8"),
     (["--quantize", "int8"], "Queue A item 11"),
     (["--use_ema", "--pth", "w.pth"], "export_torch.py --use_ema"),
     (["--num_devices", "4"], "Queue A item 10"),

@@ -463,7 +463,8 @@ def test_train_script_refuses_cpu_fallback_and_real_data(tmp_path):
     if not torch.cuda.is_available():
         out = _script("--dataset", "synthetic", "--ckpt_dir", str(tmp_path))
         assert out.returncode != 0 and "no CUDA device" in out.stderr
-    out = _script("--dataset", "kitti", "--device", "cpu")
+    # of the real-data loaders only the grain loader is still to port
+    out = _script("--dataset", "kitti", "--device", "cpu", "--loader", "grain")
     assert out.returncode != 0 and "not ported" in out.stderr
 
 

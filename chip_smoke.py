@@ -171,11 +171,44 @@ repository around this file.  Phases, each printed on its own lines:
               steps with in-training eval over the list; (g) NYU: stage
               1 at 228x304, B=32, 3 steps, and the D-net's eval on the 16
               test frames (GT cropped to 426x560).
+  23. tools  (a) the grain loader's counterpart on phase 22's corpus:
+              host decode images/s at B=32, wire, at 0, 2, 4 and 8
+              decode threads beside phase 22 (b)'s one-thread PIL loader;
+              the first 6 batches at 0 and 4 threads hold grain's own
+              record order (GRAIN_ORDER, computed with grain), two
+              loaders yield them bit for bit, and their wire decode on
+              the card equals the CPU's; stage 1 then stage 2, unfused,
+              B=32, bf16, 8 steps each, host-fed through it at the best
+              thread count, at 0 and at 2, beside phase 22 (c)'s
+              host-fed and decode-cache rows, launches exact, one
+              profiled stage-2 step at the best count; scripts/train_torch.py --loader grain --workers 4,
+              fp32, B=8, cuDNN deterministic: 6 steps unbroken against 3,
+              a checkpoint with the grain cursor and --resume for 3, bit
+              for bit; (b) scripts/train_torch.py with the JAX flags
+              (--lr_schedule cosine --warmup_steps 4 --grad_clip 1.0
+              --tensorboard --model_dir), 6 steps a stage, unfused and
+              with two sets of fused flags that together launch rows
+              4-9 (CLI_ROUTES), launches exact, the logged learning
+              rates against the schedule's formula, TensorBoard event
+              files (or the logger's warning without the package); one
+              stage-1 run with check_numerics (GuardedStep) against one
+              without, alternated, ms/step; (c)
+              scripts/convergence_torch.py --seeds 0 1 2 (300 steps a
+              stage, 32x64, B=16): per-seed metrics, a1_mean within
+              CONVERGENCE_A1_TOL of the port's own CPU run and of the JAX
+              package's (the eval split is drawn on the host, so every
+              device scores the same one); (d) scripts/profile_step_torch.py --mode
+              RtoD --steps 3 (its top kernels and idle share beside phase
+              8's profiled step), scripts/bench_torch.py,
+              scripts/bench_eval_torch.py --device_cache and
+              scripts/demo_torch.py on four of phase 22's eval images
+              with --gif (maps at each input's size), each once.
 
 Any failure ends the run with a nonzero exit.  The last lines are the
 kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Per-shape numbers also go to smoke_out/chip_smoke.json, the profiles to
+Per-shape numbers also go to smoke_out/chip_smoke.json (phase 23's under
+"tools"), the profiles to
 smoke_out/{serving,training}{,_fused,_fusion}_profile.txt,
 smoke_out/eval_profile.txt and smoke_out/disk_*_profile.txt.
 """
@@ -2712,6 +2745,417 @@ def phase_disk(cfg, cfg_fused, synthetic):
     return out, launches
 
 
+TOOLS_WORKERS = (0, 2, 4, 8)  # (a): decode threads of the grain loader's counterpart
+TOOLS_DECODE_BATCHES = 6
+TOOLS_ORDER_BATCHES = 6
+# (a): the record indices of the first TOOLS_ORDER_BATCHES batches of the
+# 512-pair corpus at B=32, seed 0, as grain's own IndexSampler and Batch
+# order them (grain's compiled index_shuffle, computed with grain 0.2.15):
+# the first 16 hex digits of the sha256 of the int64 (6, 32) array, and
+# the first batch's first 8 records
+GRAIN_ORDER = {0: ("b2eb66bc1bfe514c", [134, 133, 395, 287, 149, 69, 95, 9]),
+               4: ("dca7c5ae784a5ab4", [134, 149, 511, 254, 319, 364, 71, 70])}
+TOOLS_CLI_STEPS = 6  # (b): a stage, cosine after a 4-step warmup
+TOOLS_GUARD_STEPS = 8
+TOOLS_DEMO_IMAGES = 4
+# (c): a1_mean of the 600-step protocol (seeds 0 1 2, bf16, 300 steps a
+# stage, 32x64, B=16, 30 eval images) on a CPU: the port's own
+# scripts/convergence_torch.py --device cpu, and the JAX package's
+# scripts/convergence.py --platform cpu.  The card's a1_mean is held to
+# both within CONVERGENCE_A1_TOL: training draws its batches from another
+# generator there and rounds otherwise, so it is not bit-equal.
+PORT_CPU_CONVERGENCE_A1_MEAN = 0.8994
+JAX_CONVERGENCE_A1_MEAN = 0.9054
+CONVERGENCE_A1_TOL = 0.03
+# (b): the fused routes by CLI flag, and one net's launches a forward;
+# together they launch rows 4-9 of the kernels line
+CLI_ROUTES = (
+    ("plain", [], {"group_norm_elu": 21}),
+    ("convgn", ["--model.use_pallas_convgn_s2", "--model.use_pallas_convgn",
+                "--model.use_pallas_fusion_bt"],
+     {"group_norm_elu": 6, "conv_gn_elu_s2": 5, "conv_gn_elu": 5, "fusion_bt": 5}),
+    ("fusion", ["--model.use_pallas_convgn_bt", "--model.use_pallas_fusion"],
+     {"group_norm_elu": 6, "conv_gn_elu_bt": 5, "upsample": 5, "fusion_block": 5}),
+)
+
+
+def _grain(kitti, workers, **kw):
+    from gdn_tpu_torch.data.grain_loader import GrainKittiDataset
+
+    return GrainKittiDataset(kitti, "train.txt", (128, 416), TRAIN_BATCH, seed=0,
+                             worker_count=workers, **kw)
+
+
+def tools_grain_decode(kitti, pil_rate):
+    """Phase 23 (a): host decode images/s of the grain loader's
+    counterpart at B=32, wire, for each thread count."""
+    rates = {w: _decode_rate(_grain(kitti, w), TOOLS_DECODE_BATCHES) for w in TOOLS_WORKERS}
+    best = max(rates, key=rates.get)
+    log(f"  (a) grain counterpart, host decode at B={TRAIN_BATCH} over "
+        f"{TOOLS_DECODE_BATCHES} batches, wire: " + ", ".join(
+            f"{w} threads {r:.0f}" for w, r in rates.items())
+        + f" images/s; phase 22 (b)'s one-thread PIL loader {pil_rate:.0f}; best {best}")
+    return {"images_per_s": rates, "best_workers": best, "phase22_pil": pil_rate}
+
+
+def tools_grain_order(cfg, kitti):
+    """Phase 23 (a): at 0 and 4 threads the first batches hold grain's
+    records (GRAIN_ORDER), a second loader yields the same host batches,
+    and the card's wire decode of them equals the CPU's."""
+    import hashlib
+
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.augment import decode_wire_batch
+    from gdn_tpu_torch.data.pipeline import host_tensor, make_train_pipeline
+
+    c = _with(cfg, **{"data.batch_size": TRAIN_BATCH})
+    out = {}
+    for w in (0, 4):
+        ld = _grain(kitti, w)
+        k = max(w, 1)
+        pos = [[j % k + k * ((j // k) * TRAIN_BATCH + t) for t in range(TRAIN_BATCH)]
+               for j in range(TOOLS_ORDER_BATCHES)]
+        recs = np.stack([ld.records(np.asarray(p)) for p in pos]).astype(np.int64)
+        digest = hashlib.sha256(recs.tobytes()).hexdigest()[:16]
+        if (digest, recs[0][:8].tolist()) != GRAIN_ORDER[w]:
+            raise AssertionError(f"grain order at {w} threads: {digest} {recs[0][:8]} vs "
+                                 f"{GRAIN_ORDER[w]}")
+        host = [b for b, _ in zip(ld, range(TOOLS_ORDER_BATCHES))]
+        again = [b for b, _ in zip(_grain(kitti, w), range(TOOLS_ORDER_BATCHES))]
+        card = [{k2: v.cpu() for k2, v in b.items()} for b, _ in zip(
+            make_train_pipeline(c, _grain(kitti, w), augment=False, device="cuda"),
+            range(TOOLS_ORDER_BATCHES))]
+        rgb_err = 0.0
+        for h, a, g in zip(host, again, card):
+            for key in h:
+                if not np.array_equal(h[key], a[key]):
+                    raise AssertionError(f"grain loader at {w} threads: {key} differs between "
+                                         "two loaders")
+            cpu = decode_wire_batch({k2: host_tensor(v) for k2, v in h.items()},
+                                    max_depth=cfg.model.max_depth, depth_scale=256.0)
+            for key in ("depth", "mask"):
+                if not torch.equal(cpu[key], g[key]):
+                    raise AssertionError(f"grain batch at {w} threads: {key} card != CPU")
+            rgb_err = max(rgb_err, (cpu["rgb"] - g["rgb"]).abs().max().item())
+        if rgb_err > 1e-6:
+            raise AssertionError(f"grain batch at {w} threads: rgb card vs CPU {rgb_err}")
+        out[w] = {"sha256_16": digest, "rgb_max_abs_err": rgb_err}
+    log(f"  (a) the first {TOOLS_ORDER_BATCHES} batches at 0 and 4 threads hold grain's "
+        f"records (sha256 {out[0]['sha256_16']}, {out[4]['sha256_16']}), two loaders yield "
+        f"them bit for bit, and their wire decode on the card equals the CPU's (depth and "
+        f"mask exact, RGB max|d| {max(o['rgb_max_abs_err'] for o in out.values()):.3g})")
+    return out
+
+
+def tools_grain_train(cfg, kitti, workers, n_gn, disk, profile=True):
+    """Phase 23 (a): stage 1 then stage 2, unfused, B=32, bf16,
+    DISK_STEPS each, host-fed through make_train_pipeline from the
+    grain loader's counterpart at ``workers`` threads (with ``profile``,
+    one profiled stage-2 step); phase 22 (c)'s host-fed and
+    decode-cache rows of the same call beside it."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.pipeline import make_train_pipeline
+    from gdn_tpu_torch.train.loop import train_stage1, train_stage2
+    from gdn_tpu_torch.utils.logging import MetricLogger
+
+    c = _with(cfg, **{"train.steps_per_epoch": DISK_STEPS, "train.log_every": DISK_STEPS,
+                      "train.ckpt_dir": "", "data.batch_size": TRAIN_BATCH,
+                      "data.loader": "grain", "data.grain_workers": workers})
+    pipe = make_train_pipeline(c, _grain(kitti, workers), device="cuda")
+    row, launches = {"workers": workers}, {}
+    for stage in ("stage1", "stage2"):
+        jsonl = os.path.join(OUT, f"tools_grain_{stage}.jsonl")
+        if os.path.exists(jsonl):
+            os.remove(jsonl)
+        logger = MetricLogger(prefix=stage, jsonl_path=jsonl, stream=io.StringIO())
+        torch.cuda.synchronize()
+        reset_counts()
+        if stage == "stage1":
+            d_net = train_stage1(c, pipe, epochs=1, logger=logger).net.requires_grad_(False)
+        else:
+            s2 = train_stage2(c, pipe, d_net, epochs=1, logger=logger)
+        torch.cuda.synchronize()
+        launches[f"tools_grain{workers}_{stage}"] = counts = read_counts()
+        logger.close()
+        nets = 1 if stage == "stage1" else 2
+        expect_counts(f"grain {stage}", counts, fused_loss_fwd=DISK_STEPS,
+                      fused_loss_bwd=DISK_STEPS, group_norm_elu=n_gn * nets * DISK_STEPS)
+        rec = [json.loads(line) for line in open(jsonl)][-1]
+        ips = rec["imgs_per_sec"]
+        row[stage] = {"images_per_s": ips, "ms_per_step": 1e3 * TRAIN_BATCH / ips,
+                      "total": rec["total"]}
+    row["profile"] = profile_disk_step(c, s2, d_net, pipe, "tools_grain") if profile else None
+    pipe.close()
+    ref = {f: {s: disk["train"][f][s]["ms_per_step"] for s in ("stage1", "stage2")}
+           for f in ("host_fed", "decode_cache")}
+    pr = row["profile"] or {}
+    log(f"  (a) grain counterpart, {workers} threads, host-fed: stage 1 "
+        f"{row['stage1']['ms_per_step']:.1f} ms/step ({row['stage1']['images_per_s']:.1f} "
+        f"images/s), stage 2 {row['stage2']['ms_per_step']:.1f} "
+        f"({row['stage2']['images_per_s']:.1f}); phase 22 (c) host-fed "
+        f"{ref['host_fed']['stage1']:.1f} / {ref['host_fed']['stage2']:.1f}, decode cache "
+        f"{ref['decode_cache']['stage1']:.1f} / {ref['decode_cache']['stage2']:.1f} ms/step"
+        + (f"; one stage-2 step: wall {pr.get('wall_ms', float('nan')):.1f} ms, device busy "
+           f"{pr.get('device_busy_ms', float('nan')):.2f} ms (idle "
+           f"{pr.get('idle_share', float('nan')):.1%}), {pr.get('kernel_launches')} launches"
+           if profile else ""))
+    row["phase22_ms_per_step"] = ref
+    return row, launches
+
+
+def tools_grain_resume(kitti):
+    """Phase 23 (a): scripts/train_torch.py --loader grain --workers 4,
+    stage 1, fp32, B=8: 6 steps unbroken against 3, a checkpoint with
+    the grain cursor and --resume for 3; bit for bit under cuDNN's
+    deterministic algorithms (phase 21 (a)'s rule)."""
+    from gdn_tpu_torch.checkpoint import load_loader_state
+
+    n, k, b = DISK_RESUME
+    root = os.path.join(OUT, "tools_grain_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    train = load_script("train_torch")
+    common = ["--mode", "DtoD", "--dataset", "kitti", "--data_path", kitti, "--loader",
+              "grain", "--workers", "4", "--dtype", "float32", "--batch_size", str(b),
+              "--steps_per_epoch", str(k), "--log_every", str(k)]
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        whole = train.main([*common, "--epochs", str(n // k), "--ckpt_dir",
+                            os.path.join(root, "whole")])
+        train.main([*common, "--epochs", "1", "--ckpt_dir", os.path.join(root, "parts")])
+        entry = load_loader_state(os.path.join(root, "parts", "stage1"))
+        resumed = train.main([*common, "--epochs", str(n // k - 1), "--ckpt_dir",
+                              os.path.join(root, "parts"), "--resume"])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    counts = read_counts()
+    diff = _snap_diff(_snapshot(resumed), _snapshot(whole))
+    log(f"  (a) train_torch.py --loader grain --workers 4, stage 1, fp32, B={b}: {n} steps "
+        f"unbroken vs {k} + checkpoint (loader entry {entry}) + --resume {n - k}: max|d| "
+        f"{diff} ({time.perf_counter() - t0:.1f} s)")
+    if any(diff.values()) or resumed.step != n or "grain" not in entry:
+        raise AssertionError(f"grain resume at step {resumed.step}: {diff}, {entry}")
+    return counts, {"max_diff": diff, "loader_entry": entry}
+
+
+def _cosine_warmup(lr, t, warmup, total):
+    """optax's linear warmup then cosine decay to 0, the LR of update t."""
+    if t < warmup:
+        return lr * t / warmup
+    return lr * 0.5 * (1 + np.cos(np.pi * min(t - warmup, total - warmup) / (total - warmup)))
+
+
+def tools_cli(n_gn):
+    """Phase 23 (b): scripts/train_torch.py with the JAX flags, stage 1
+    then stage 2, once a fused route (CLI_ROUTES): launches exact, the
+    logged learning rates against the schedule's formula, TensorBoard."""
+    import glob
+    import importlib.util
+
+    train = load_script("train_torch")
+    steps, warmup, lr = TOOLS_CLI_STEPS, 4, 1e-4
+    common = ["--dataset", "synthetic", "--lr_schedule", "cosine", "--warmup_steps",
+              str(warmup), "--grad_clip", "1.0", "--tensorboard", "--epochs", "1",
+              "--steps_per_epoch", str(steps), "--log_every", "1", "--lr", str(lr)]
+    want_lr = [_cosine_warmup(lr, t, warmup, steps) for t in range(steps)]
+    has_tb = importlib.util.find_spec("tensorboard") is not None
+    out, launches = {"tensorboard_installed": has_tb}, {}
+    for tag, flags, per_net in CLI_ROUTES:
+        per_net = dict(per_net, group_norm_elu=per_net["group_norm_elu"] - 21 + n_gn)
+        model_dir = os.path.join(OUT, f"tools_cli_{tag}")
+        shutil.rmtree(model_dir, ignore_errors=True)
+        row = {}
+        for mode, nets in (("DtoD", 1), ("RtoD", 2)):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            train.main(["--mode", mode, *common, *flags, "--model_dir", model_dir])
+            torch.cuda.synchronize()
+            row[f"{mode}_s"] = time.perf_counter() - t0
+            launches[f"tools_cli_{tag}_{mode}"] = counts = read_counts()
+            expect_counts(f"train_torch.py {tag} {mode}", counts, fused_loss_fwd=steps,
+                          fused_loss_bwd=steps,
+                          **{k: v * nets * steps for k, v in per_net.items()})
+        recs = [json.loads(line) for line in open(os.path.join(model_dir, "train_log.jsonl"))]
+        got = [[r["lr"] for r in recs if "lr" in r][s * steps:(s + 1) * steps] for s in (0, 1)]
+        err = max(abs(g - w) for stage in got for g, w in zip(stage, want_lr))
+        if len(got[1]) != steps or err > 1e-12 * lr:
+            raise AssertionError(f"{tag}: logged LRs {got} vs the formula {want_lr}")
+        events = glob.glob(os.path.join(model_dir, "tb", "events.out.tfevents*"))
+        if has_tb and not events:
+            raise AssertionError(f"{tag}: no TensorBoard events under {model_dir}/tb")
+        row.update(lr_max_abs_err=err, tb_event_files=len(events))
+        out[tag] = row
+        log(f"  (b) train_torch.py {' '.join(flags) or '(unfused)'} --lr_schedule cosine "
+            f"--warmup_steps {warmup} --grad_clip 1.0 --tensorboard: {steps} steps a stage, "
+            f"launches exact ({counts_text(counts)} in stage 2); logged LRs "
+            f"{[f'{v:.3g}' for v in got[0]]} = formula within {err:.2g}; "
+            + (f"{len(events)} TensorBoard event files" if has_tb else
+               "no tensorboard package: the logger printed its warning, JSONL written")
+            + f" ({row['DtoD_s']:.1f} + {row['RtoD_s']:.1f} s)")
+    out["lr_formula"] = want_lr
+    return out, launches
+
+
+def tools_guard(cfg, n_gn):
+    """Phase 23 (b): train_stage1 with check_numerics (GuardedStep: a
+    device-to-host read of the loss terms every step) against without,
+    alternated, ms/step of each (host clock over steps 2-N)."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.synthetic import SyntheticDataset
+    from gdn_tpu_torch.train.loop import train_stage1
+    from gdn_tpu_torch.utils.logging import MetricLogger
+
+    h, w = cfg.model.image_size
+    out, launches = {"guarded": [], "unguarded": []}, {}
+    for i, guard in enumerate((False, True, False, True)):
+        c = _with(cfg, **{"train.steps_per_epoch": TOOLS_GUARD_STEPS,
+                          "train.log_every": TOOLS_GUARD_STEPS, "train.ckpt_dir": "",
+                          "data.batch_size": TRAIN_BATCH, "train.check_numerics": guard})
+        jsonl = os.path.join(OUT, "tools_guard.jsonl")
+        if os.path.exists(jsonl):
+            os.remove(jsonl)
+        logger = MetricLogger(prefix="guard", jsonl_path=jsonl, stream=io.StringIO())
+        reset_counts()
+        train_stage1(c, SyntheticDataset(TRAIN_BATCH, h, w, cfg.model.max_depth, seed=i,
+                                         device="cuda"), epochs=1, logger=logger)
+        torch.cuda.synchronize()
+        logger.close()
+        launches[f"tools_guard_{i}"] = counts = read_counts()
+        expect_counts("guard", counts, fused_loss_fwd=TOOLS_GUARD_STEPS,
+                      fused_loss_bwd=TOOLS_GUARD_STEPS,
+                      group_norm_elu=n_gn * TOOLS_GUARD_STEPS)
+        rec = [json.loads(line) for line in open(jsonl)][-1]
+        out["guarded" if guard else "unguarded"].append(1e3 * TRAIN_BATCH / rec["imgs_per_sec"])
+    log(f"  (b) GuardedStep (check_numerics), stage 1, B={TRAIN_BATCH}, {TOOLS_GUARD_STEPS} "
+        f"steps, alternated: guarded {', '.join(f'{v:.1f}' for v in out['guarded'])} ms/step, "
+        f"unguarded {', '.join(f'{v:.1f}' for v in out['unguarded'])}")
+    return out, launches
+
+
+def tools_convergence():
+    """Phase 23 (c): scripts/convergence_torch.py --seeds 0 1 2 (300 steps
+    a stage, 32x64, B=16, bf16)."""
+    t0 = time.perf_counter()
+    reset_counts()
+    done = load_script("convergence_torch").main(["--seeds", "0", "1", "2"])
+    counts = read_counts()
+    minutes = (time.perf_counter() - t0) / 60
+    for seed, m in done["per_seed"].items():
+        log(f"  (c) seed {seed}: " + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
+    a1 = done["a1_mean"]
+    refs = {"port_cpu": PORT_CPU_CONVERGENCE_A1_MEAN, "jax_cpu": JAX_CONVERGENCE_A1_MEAN}
+    log(f"  (c) convergence_torch.py --seeds 0 1 2: a1_mean {a1:.4f} in {minutes:.2f} min; "
+        f"on a CPU the port's {PORT_CPU_CONVERGENCE_A1_MEAN} (difference "
+        f"{a1 - PORT_CPU_CONVERGENCE_A1_MEAN:+.4f}), the JAX package's "
+        f"{JAX_CONVERGENCE_A1_MEAN} (difference {a1 - JAX_CONVERGENCE_A1_MEAN:+.4f}), "
+        f"bound {CONVERGENCE_A1_TOL}")
+    far = {k: v for k, v in refs.items() if not abs(a1 - v) <= CONVERGENCE_A1_TOL}
+    if far:
+        raise AssertionError(f"convergence protocol: a1_mean {a1} further than "
+                             f"{CONVERGENCE_A1_TOL} from {far}")
+    return {"done": done, "minutes": minutes, "a1_mean_on_cpu": refs,
+            "a1_tol": CONVERGENCE_A1_TOL}, counts
+
+
+def tools_scripts(kitti, training, cli_dir):
+    """Phase 23 (d): profile_step_torch.py, bench_torch.py,
+    bench_eval_torch.py --device_cache and demo_torch.py, once each,
+    in this process (each main() must return)."""
+    from PIL import Image
+
+    out, launches = {}, {}
+    reset_counts()
+    prof = load_script("profile_step_torch").main([
+        "--mode", "RtoD", "--steps", "3", "--batch_size", str(TRAIN_BATCH),
+        "--logdir", os.path.join(OUT, "tools_profile")])
+    launches["tools_profile_step"] = read_counts()
+    p8 = training.get("profile") or {}
+    out["profile_step"] = prof
+    log(f"  (d) profile_step_torch.py --mode RtoD --steps 3 --batch_size {TRAIN_BATCH}: "
+        f"device {prof['device_ms_per_step']:.2f} ms a step, wall "
+        f"{prof['wall_ms_per_step']:.1f}, idle {prof['idle_share']:.1%}, "
+        f"{prof['launches_per_step']:.1f} launches; phase 8's profiled step: device "
+        f"{p8.get('device_busy_ms', float('nan')):.2f} ms, idle "
+        f"{p8.get('idle_share', float('nan')):.1%}, {p8.get('kernel_launches')} launches")
+    for name, ms, calls in prof["top_kernels"][:6]:
+        log(f"    {ms:8.3f} ms  x{calls:<6.1f} {name[:90]}")
+    reset_counts()
+    out["bench"] = load_script("bench_torch").main([])
+    launches["tools_bench"] = read_counts()
+    b = out["bench"]
+    log(f"  (d) bench_torch.py: median {b['value']:.1f} images/s over {len(b['calls'])} "
+        f"calls ({', '.join(f'{v:.1f}' for v in b['calls'])}; spread {b['spread']:.1%}), SM "
+        f"clock {b['sm_clock_mhz']} MHz, load {[round(v, 2) for v in b['load_avg_1m']]}")
+    reset_counts()
+    out["bench_eval"] = load_script("bench_eval_torch").main(["--device_cache"])
+    launches["tools_bench_eval"] = read_counts()
+    log("  (d) bench_eval_torch.py --device_cache: " + "; ".join(
+        f"pass {r['pass']} {r['fps']:.1f} images/s" for r in out["bench_eval"])
+        + f" ({out['bench_eval'][0]['images']} images, batch {out['bench_eval'][0]['batch']}, "
+        f"cache {out['bench_eval'][0]['cache_mb']:.0f} MiB built in "
+        f"{out['bench_eval'][0]['cache_build_s']:.2f} s)")
+    src = os.path.join(OUT, "tools_demo_in")
+    dst = os.path.join(OUT, "tools_demo_out")
+    for d in (src, dst):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(src)
+    names = sorted(n for n in os.listdir(os.path.join(kitti, "eval")) if n.endswith(".png")
+                   and "_gt" not in n)[::DISK_EVAL_PER_SIZE][:TOOLS_DEMO_IMAGES]
+    for n in names:
+        shutil.copy(os.path.join(kitti, "eval", n), os.path.join(src, n))
+    reset_counts()
+    written = load_script("demo_torch").main(["--input", src, "--output", dst, "--gif",
+                                              "demo.gif", "--model_dir", cli_dir])
+    launches["tools_demo"] = read_counts()
+    sizes = []
+    for n, path in zip(names, written):
+        hw = Image.open(os.path.join(src, n)).size[::-1]
+        got = Image.open(path).size[::-1]
+        sizes.append((hw, got))
+        if got != (2 * hw[0], hw[1]):
+            raise AssertionError(f"demo: {path} is {got}, its input {hw}")
+    if len(written) != len(names) + 1 or not written[-1].endswith("demo.gif"):
+        raise AssertionError(f"demo wrote {written}")
+    out["demo"] = {"written": len(written), "sizes": sizes}
+    log(f"  (d) demo_torch.py on {len(names)} eval images ({', '.join(f'{h}x{w}' for (h, w), _ in sizes)}): "
+        f"{len(names)} maps at each input's size (frame above depth) and a GIF")
+    return out, launches
+
+
+def phase_tools(cfg, disk, training):
+    """Phase 23: the grain loader's counterpart, the command line, the
+    guard, the convergence protocol and the tools (see the module
+    docstring)."""
+    kitti = os.path.join(OUT, "disk", "kitti")
+    n_gn = len(gn_sites(cfg.model))
+    t0 = time.perf_counter()
+    out, launches = {"device": smi_line()}, {}
+    out["decode"] = tools_grain_decode(kitti, disk["decode"]["pil"]["auto_cold"])
+    out["order"] = tools_grain_order(cfg, kitti)
+    best = out["decode"]["best_workers"]
+    out["train"] = {}
+    for w in sorted({0, 2, best}):  # the profile at the best count only
+        out["train"][w], more = tools_grain_train(cfg, kitti, w, n_gn, disk,
+                                                  profile=w == best)
+        launches.update(more)
+    launches["tools_grain_resume"], out["resume"] = tools_grain_resume(kitti)
+    out["cli"], more = tools_cli(n_gn)
+    launches.update(more)
+    out["guard"], more = tools_guard(cfg, n_gn)
+    launches.update(more)
+    out["convergence"], launches["tools_convergence"] = tools_convergence()
+    out["scripts"], more = tools_scripts(kitti, training, os.path.join(OUT, "tools_cli_plain"))
+    launches.update(more)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 23 took {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main():
     log("== 1. device")
     if not torch.cuda.is_available():
@@ -2853,6 +3297,10 @@ def main():
         "the on-card wire decode and augmentation")
     disk, disk_launches = phase_disk(cfg, cfg_fused, training)
 
+    log("== 23. tools: the grain loader's counterpart, the command line, the numerics "
+        "guard, the convergence protocol, profile_step, the benches and the demo")
+    tools, tools_launches = phase_tools(cfg, disk, training)
+
     main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
     per_fwd = {k: sum(r[k] * r["sites"] for r in main_rows)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -2862,7 +3310,8 @@ def main():
                      **{f"{k}_fused": v for k, v in fused_train_launches.items()},
                      "serving_fusion": fusion_counts, "serving_all": all_counts,
                      **{f"{k}_fusion": v for k, v in fusion_train_launches.items()},
-                     **eval_launches, **life_launches, **disk_launches}
+                     **eval_launches, **life_launches, **disk_launches,
+                     **tools_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in path_launches.values())
@@ -2913,6 +3362,7 @@ def main():
                    "serving_fusion": serving_fusion, "serving_all": serving_all,
                    "training_fusion": training_fusion, "vs_cpu_fusion": vs_cpu_fusion,
                    "eval": evaluation, "lifecycle": lifecycle, "disk": disk,
+                   "tools": tools,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
                    "sass_hmma": hmma_by_fn, "ptxas": ptxas,
                    "kernels": kernels}, f, indent=1)

@@ -16,7 +16,8 @@ same net from it), and one ``<step>.pt`` a save: a plain dict that
 ``ema`` (when the run keeps one), ``optimizer`` (the Adam/AdamW
 ``state_dict()``), ``step`` (micro-steps), ``updates``, ``accum`` (the
 gradient mean so far, when grad_accum > 1) and ``loader`` (the data
-cursor, ``{"step": n}``).  Every file is written to a temporary name and
+cursor: ``{"step": n}``, with the grain loader's counterpart
+``{"step": n, "grain": its cursor at n}``).  Every file is written to a temporary name and
 renamed, so a reader never sees half of one.
 """
 

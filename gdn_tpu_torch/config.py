@@ -44,7 +44,8 @@ What differs:
   policies only ``"nothing_saveable"`` (recompute everything) is ported.
   ``keep_ckpts`` and ``async_ckpt`` drive ``checkpoint.save_checkpoint``
   (keep the newest k files of a stage; write them on a background
-  thread after a copy to the host).
+  thread after a copy to the host).  ``check_numerics`` wraps the train
+  step in ``utils.guards.GuardedStep``.
 """
 
 from __future__ import annotations
@@ -76,10 +77,9 @@ _TRAIN_NOT_YET = (
     ("fused_guidance", False, "Queue A item 12 (fused guidance)"),
     ("fused_guidance_vjp", False, "Queue A item 12 (fused guidance)"),
     ("fused_encoders", False, "Queue A item 12 (fused encoders)"),
-    ("check_numerics", False, "Queue A item 9 (utils.guards)"),
 )
 _DATA_NOT_YET = (
-    ("loader", "native", "Queue A item 8 (the grain loader)"),
+    ("loader", ("native", "grain"), "Queue A item 8 (the host loaders)"),
     ("device_cache_sharded", False, "Queue A item 10 (parallel)"),
 )
 _MESH_NOT_YET = (
@@ -175,10 +175,12 @@ class DataConfig:
     """Data pipeline settings (``data/``): the synthetic source, or the
     KITTI and NYU loaders on disk through the prefetch pipeline, with the
     decode cache (``decode_cache``) and the device-resident corpus
-    (``device_cache``).  ``num_workers`` and ``grain_workers`` change
+    (``device_cache``).  ``loader="grain"`` takes the grain loader's
+    counterpart (``data/grain_loader.py``: grain's batch order and
+    cursor, ``grain_workers`` decode threads).  ``num_workers`` changes
     nothing in the port: the native decoder sizes its own thread pool.
-    The grain loader and the sharded device cache are refused until they
-    are ported (ROADMAP.md Queue A items 8 and 10)."""
+    The sharded device cache is refused until it is ported (ROADMAP.md
+    Queue A item 10)."""
 
     dataset: str = "kitti"  # "kitti" | "nyu" | "synthetic"
     data_path: str = ""

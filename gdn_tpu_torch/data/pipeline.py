@@ -214,19 +214,40 @@ class CachedSampleIterable:
             self._samples = acc
 
 
+def _grain_loader(cfg: Config):
+    """The grain loader's counterpart for cfg.data.dataset (KITTI or NYU
+    decode), ``grain_workers`` decode threads."""
+    d = cfg.data
+    if d.decode_cache:
+        raise ValueError("--decode_cache supports the native loader only "
+                         "(grain owns its own worker-side transform chain)")
+    from gdn_tpu_torch.data.grain_loader import GrainKittiDataset
+
+    return GrainKittiDataset(d.data_path, d.train_list, cfg.model.image_size, d.batch_size,
+                             seed=cfg.train.seed, max_depth=cfg.model.max_depth,
+                             worker_count=d.grain_workers, dataset=d.dataset,
+                             wire=d.train_wire)
+
+
 def make_loader(cfg: Config, split: str = "train", device=None):
     """The loader named by cfg.data.dataset: for ``split="train"`` the
-    batched training loader, for ``"eval"`` the per-image eval split.
-    The synthetic source draws on ``device`` (CUDA unless asked
-    otherwise); the disk loaders yield host arrays."""
+    batched training loader (``cfg.data.loader``: the native loaders, or
+    the grain loader's counterpart), for ``"eval"`` the per-image eval
+    split.  The synthetic training source draws on ``device`` (CUDA
+    unless asked otherwise); its eval split and the disk loaders yield
+    host arrays."""
     h, w = cfg.model.image_size
     d = cfg.data
+    if split == "train" and d.loader == "grain" and d.dataset in ("kitti", "nyu"):
+        return _grain_loader(cfg)
     if d.dataset == "synthetic":
+        if d.loader == "grain":
+            raise ValueError("--loader grain needs an on-disk dataset (kitti or nyu); "
+                             "synthetic data is generated on the device")
         from gdn_tpu_torch.data.synthetic import SyntheticDataset, SyntheticEvalDataset
 
         if split == "eval":
-            return SyntheticEvalDataset(height=h, width=w, max_depth=cfg.model.max_depth,
-                                        device=device)
+            return SyntheticEvalDataset(height=h, width=w, max_depth=cfg.model.max_depth)
         return SyntheticDataset(d.batch_size, h, w, cfg.model.max_depth,
                                 seed=cfg.train.seed, device=device)
     if d.dataset == "kitti":

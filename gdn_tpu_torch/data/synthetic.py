@@ -1,6 +1,7 @@
 """Synthetic RGB-D batches (port of ``gdn_tpu/data/synthetic.py``): a
 zero-IO training source and eval split with a learnable RGB <-> depth
-relation, drawn on the device from an explicit ``torch.Generator``.
+relation, drawn from an explicit ``torch.Generator`` (the training
+batches on the device, the eval split on the host).
 
 Depth is a road-like vertical ramp (far at the top) with 6 random
 frontal boxes per image; RGB is a shading of that depth plus texture
@@ -98,25 +99,24 @@ class SyntheticEvalDataset:
     """A bounded eval split without data on disk: yields ``n_images``
     per-image {'rgb' (1, H, W, 3), 'gt' (1, H, W)} numpy float32 arrays
     (GT at the train size), the interface of the KITTI/NYU eval loaders.
-    Image i is drawn on ``device`` (CUDA unless the caller asks for
-    another; raises without a card) from a generator seeded by (seed, i),
-    so every iteration yields the same split."""
+    Image i is drawn on the host from a CPU generator seeded by (seed, i):
+    the split is the same on every device (as a JAX key's draws are) and
+    on every iteration.  A CUDA generator would draw another split."""
 
     def __init__(self, n_images: int = 32, height: int = 128, width: int = 416,
-                 max_depth: float = 80.0, seed: int = 999, device=None):
+                 max_depth: float = 80.0, seed: int = 999):
         self.n_images = n_images
         self.height = height
         self.width = width
         self.max_depth = max_depth
         self.seed = seed
-        self.device = resolve_device(device)
 
     def __len__(self) -> int:
         return self.n_images
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        gen = torch.Generator(device=self.device)
+        gen = torch.Generator()
         for i in range(self.n_images):
             gen.manual_seed(_image_seed(self.seed, i))
             b = synthetic_batch(gen, 1, self.height, self.width, self.max_depth)
-            yield {"rgb": b["rgb"].cpu().numpy(), "gt": b["depth"][..., 0].cpu().numpy()}
+            yield {"rgb": b["rgb"].numpy(), "gt": b["depth"][..., 0].numpy()}

@@ -5,7 +5,8 @@ the stage-1 decoder into a fresh G-net, freezes it, and trains the rest
 with the guidance term from the frozen D-net.  Both run on CUDA unless
 the caller passes ``device="cpu"``, and both continue a ``state`` given
 to them (a resumed run).  Per-step scalars (loss terms, images/s with
-the first step left out) go through ``MetricLogger``.  ``data_iter``
+the first step left out, and ``lr``, the learning rate of the last
+update) go through ``MetricLogger``.  ``data_iter``
 yields batches on the device: the synthetic source draws them there,
 and disk data comes through ``data.pipeline.make_train_pipeline``
 (prefetched, decoded and augmented on the device).  After each
@@ -105,7 +106,8 @@ def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
             vals = _floats(terms)
             elapsed = max(time.perf_counter() - t_start, 1e-9)
             timed = i + 1 - timed_from
-            log_kw = dict(step=state.step, **vals)
+            # the LR of the last update applied (the schedule's value at it)
+            log_kw = dict(step=state.step, **vals, lr=state.optimizer.param_groups[0]["lr"])
             if timed > 0:
                 log_kw["imgs_per_sec"] = batch_size * timed / elapsed
             logger.log(**log_kw)
@@ -181,11 +183,26 @@ def stage2_state(cfg: Config, d_sd: Dict[str, torch.Tensor], device=None) -> Tra
                       cfg.train.steps_per_epoch, freeze_decoder=cfg.train.freeze_decoder)
 
 
-def _save(cfg: Config, state: TrainState, stage: str, keep: Optional[int] = None) -> None:
+def _save(cfg: Config, state: TrainState, stage: str, keep: Optional[int] = None,
+          loader_state_fn: Optional[Callable[[int], Optional[Dict[str, Any]]]] = None) -> None:
+    """A checkpoint of ``state`` under ``<ckpt_dir>/<stage>``; its
+    ``loader`` entry is ``loader_state_fn(step)`` (the grain cursor) or
+    ``{"step": step}``."""
+    loader_state = (loader_state_fn(state.step) if loader_state_fn is not None
+                    else {"step": state.step})
     save_checkpoint(os.path.join(cfg.train.ckpt_dir, stage), state.step, state,
                     cfg.train.keep_ckpts if keep is None else keep,
-                    use_async=cfg.train.async_ckpt, cfg=cfg,
-                    loader_state={"step": state.step})
+                    use_async=cfg.train.async_ckpt, cfg=cfg, loader_state=loader_state)
+
+
+def _guarded(cfg: Config, step_fn):
+    """The step behind ``utils.guards.GuardedStep`` when
+    cfg.train.check_numerics: the loss terms checked every step."""
+    if not cfg.train.check_numerics:
+        return step_fn
+    from gdn_tpu_torch.utils.guards import GuardedStep
+
+    return GuardedStep(step_fn)
 
 
 def _preempted(state: TrainState) -> None:
@@ -197,15 +214,21 @@ def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
                  epochs: Optional[int] = None, state: Optional[TrainState] = None,
                  logger: Optional[MetricLogger] = None,
                  val_iter: Optional[Iterable[Dict[str, Any]]] = None,
-                 val_steps: int = 10, device=None) -> TrainState:
+                 val_steps: int = 10, device=None,
+                 loader_state_fn: Optional[Callable[[int], Optional[Dict[str, Any]]]] = None
+                 ) -> TrainState:
     """D-net pretraining; returns the final TrainState.  Starts from
     ``stage1_state`` unless ``state`` is given.  ``val_iter``: held-out
     batches, validated after each epoch (``val_steps`` of them, from the
-    start of the iterable each time)."""
+    start of the iterable each time).  ``loader_state_fn(step)``: the
+    data cursor each checkpoint saves as its ``loader`` entry (default
+    ``{"step": step}``).  cfg.train.check_numerics raises
+    FloatingPointError at the first step whose loss terms are not
+    finite."""
     dev = _prepare(device)
     if state is None:
         state = stage1_state(cfg, dev)
-    step_fn = make_stage1_step(cfg)
+    step_fn = _guarded(cfg, make_stage1_step(cfg))
     logger = logger or MetricLogger(prefix="stage1")
     data_iter = iter(data_iter)
     preempt = PreemptionHandler().install()
@@ -217,7 +240,7 @@ def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
             if val_iter is not None and not preempt.requested:
                 _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step, dev)
             if cfg.train.ckpt_dir:
-                _save(cfg, state, "stage1")
+                _save(cfg, state, "stage1", loader_state_fn=loader_state_fn)
             if preempt.requested:
                 _preempted(state)
                 break
@@ -236,7 +259,9 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
                  val_steps: int = 10,
                  eval_dataset: Optional[Callable[[], Iterable[Dict[str, Any]]]] = None,
                  eval_every: int = 1, eval_max_images: Optional[int] = None,
-                 device=None) -> TrainState:
+                 device=None,
+                 loader_state_fn: Optional[Callable[[int], Optional[Dict[str, Any]]]] = None
+                 ) -> TrainState:
     """Guided G-net training; returns the final TrainState.
 
     ``d_params``: the trained stage-1 D-net, as its state_dict or as the
@@ -244,7 +269,8 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
     ``state`` is given, the G-net starts from ``stage2_state``: fresh
     weights with the D-net's decoder.  The D-net runs without grad.
 
-    ``val_iter``, ``val_steps``: as in :func:`train_stage1`.
+    ``val_iter``, ``val_steps``, ``loader_state_fn``: as in
+    :func:`train_stage1`.
     ``eval_dataset``: a zero-argument callable returning the eval split
     ({'rgb' (1, H, W, 3), 'gt' (1, Hg, Wg)}); every ``eval_every``
     epochs the full eval protocol runs on it (at most
@@ -258,7 +284,7 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
              else _net(DtoDNet, cfg, d_params, dev)).requires_grad_(False)
     if state is None:
         state = stage2_state(cfg, d_net.state_dict(), dev)
-    step_fn = make_stage2_step(cfg)
+    step_fn = _guarded(cfg, make_stage2_step(cfg))
     logger = logger or MetricLogger(prefix="stage2")
     data_iter = iter(data_iter)
     evaluator, eval_cached, best_rmse = None, False, float("inf")
@@ -286,7 +312,7 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
                     _save(cfg, state, "stage2_best", keep=1)
                     logger.log(step=state.step, best_rmse=best_rmse)
             if cfg.train.ckpt_dir:
-                _save(cfg, state, "stage2")
+                _save(cfg, state, "stage2", loader_state_fn=loader_state_fn)
             if preempt.requested:
                 _preempted(state)
                 break

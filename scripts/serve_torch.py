@@ -4,10 +4,13 @@
 
 Serves the stage-2 G-net on the card (``--device cuda``, the default)
 or, when asked, on the CPU.  Weights come from the newest checkpoint in
-``<ckpt_dir>/stage2/`` that scripts/train_torch.py wrote, with the
+``<model_dir>/stage2/`` that scripts/train_torch.py wrote, with the
 architecture of its config.json (``--use_ema``: its EMA weights), from a
 ``.pth`` state_dict written by scripts/export_torch.py (the flags
-describe the model), or are drawn at random from seed 0.
+describe the model), or are drawn at random from seed 0.  The flags are
+the JAX serve CLI's (gdn_tpu_torch/cli.py; ``--ckpt_dir`` is another
+name of ``--model_dir``, default ``checkpoints``); ``--quantize int8``
+and ``--artifact`` end the run at parse time, naming their ROADMAP item.
 
 Examples:
   python scripts/serve_torch.py --ckpt_dir checkpoints --use_ema --port 8500
@@ -32,23 +35,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def parse_args(argv=None):
-    from gdn_tpu_torch.config import add_fused_kernel_flags
+    from gdn_tpu_torch.cli import add_common_args, parse_or_exit
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--dataset", choices=["kitti", "nyu"], default="kitti")
-    src = p.add_mutually_exclusive_group(required=True)
-    src.add_argument("--ckpt_dir", type=str,
-                     help="serve the newest checkpoint of <ckpt_dir>/stage2 "
-                          "(scripts/train_torch.py --mode RtoD)")
-    src.add_argument("--pth", type=str, help="state_dict .pth to serve")
-    src.add_argument("--init_random", action="store_true",
-                     help="serve random weights drawn from seed 0 (smoke "
-                          "tests only)")
-    p.add_argument("--dtype", choices=["bfloat16", "float32"],
-                   default="bfloat16", help="compute dtype of the conv stack")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (default) or cpu")
+    add_common_args(p)
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8500,
                    help="0 picks an ephemeral port (printed on start)")
@@ -58,24 +49,32 @@ def parse_args(argv=None):
                    help="batching window opened by the first request")
     p.add_argument("--request_timeout", type=float, default=600.0,
                    help="per-request wait bound (seconds)")
+    p.add_argument("--use_ema", action="store_true",
+                   help="serve the EMA weights of an --ema_decay run (--ckpt_dir)")
+    src = p.add_mutually_exclusive_group()
+    src.add_argument("--init_random", action="store_true",
+                     help="serve random weights drawn from seed 0 (smoke tests only)")
+    src.add_argument("--pth", type=str, default="",
+                     help="serve this state_dict .pth, described by the flags")
     p.add_argument("--wire", choices=["f32", "u16"], default="f32",
                    help="device fetch format: f32 meters, or u16 "
                         "depth*256 counts (half the D2H bytes)")
-    p.add_argument("--use_ema", action="store_true",
-                   help="(--ckpt_dir) serve the EMA weights of an --ema_decay run")
-    add_fused_kernel_flags(p)
-    args = p.parse_args(argv)
-    if args.use_ema and not args.ckpt_dir:
+    p.add_argument("--quantize", choices=["none", "int8"], default="none",
+                   help="post-training int8 serving (not ported)")
+    p.add_argument("--quant_calib_dir", type=str, default="",
+                   help="images to calibrate --quantize int8 on (not ported)")
+    p.add_argument("--artifact", type=str, default="",
+                   help="serve an exported artifact (not ported)")
+    args = parse_or_exit(p, argv)
+    if args.use_ema and (args.init_random or args.pth):
         p.error("--use_ema reads the EMA of a checkpoint: give --ckpt_dir")
     return args
 
 
 def build_config(args):
-    from gdn_tpu_torch.config import fused_kernel_overrides, kitti_config, nyu_config
+    from gdn_tpu_torch.cli import build_config
 
-    preset = kitti_config if args.dataset == "kitti" else nyu_config
-    return preset(**{"model.use_pallas_gn": True, "model.dtype": args.dtype,
-                     **fused_kernel_overrides(args)})
+    return build_config(args)
 
 
 def main(argv=None):
@@ -93,7 +92,7 @@ def main(argv=None):
     elif args.pth:
         sd = ckpt.load_pth(args.pth)
     else:
-        stage_dir = os.path.join(args.ckpt_dir, "stage2")
+        stage_dir = os.path.join(args.model_dir, "stage2")
         cfg = apply_saved_model_config(cfg, args, stage_dir)
         try:
             sd = ckpt.load_params(stage_dir, key="ema" if args.use_ema else "params")

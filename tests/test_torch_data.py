@@ -751,7 +751,13 @@ def test_make_loader_selects_and_refuses(kitti_root, nyu_root):
                       SyntheticEvalDataset)
     with pytest.raises(ValueError, match="bogus"):
         TP.make_loader(cfg("bogus", ""))
+    from gdn_tpu_torch.data.grain_loader import GrainKittiDataset
+
+    assert isinstance(TP.make_loader(cfg("kitti", kitti_root, loader="grain")),
+                      GrainKittiDataset)
+    with pytest.raises(ValueError, match="native loader only"):
+        TP.make_loader(cfg("kitti", kitti_root, loader="grain", decode_cache="c"))
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        tcfg.DataConfig(loader="grain")
+        tcfg.DataConfig(loader="bogus")
     with pytest.raises(NotImplementedError, match="Queue A item 10"):
         tcfg.DataConfig(device_cache_sharded=True)

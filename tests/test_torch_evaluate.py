@@ -305,15 +305,26 @@ def test_run_without_cache_raises():
 
 
 def test_synthetic_eval_dataset_is_a_fixed_split():
-    ds = SyntheticEvalDataset(n_images=3, height=16, width=32, device="cpu")
+    ds = SyntheticEvalDataset(n_images=3, height=16, width=32)
     a, b = list(ds), list(ds)
     assert len(ds) == 3 and len(a) == 3
     assert a[0]["rgb"].shape == (1, 16, 32, 3) and a[0]["gt"].shape == (1, 16, 32)
     assert all(isinstance(s["gt"], np.ndarray) for s in a)
     assert all(np.array_equal(x["gt"], y["gt"]) for x, y in zip(a, b))
     assert not np.array_equal(a[0]["gt"], a[1]["gt"])
-    d = SyntheticEvalDataset(device="cpu")
+    d = SyntheticEvalDataset()
     assert (d.n_images, d.seed, d.height, d.width) == (32, 999, 128, 416)
+
+
+def test_synthetic_eval_split_is_the_cpu_generators_draw():
+    # the same split whatever device the protocol runs on: image i is
+    # synthetic_batch under a CPU generator seeded by (999, i)
+    from gdn_tpu_torch.data.synthetic import _image_seed, synthetic_batch
+
+    for i, s in enumerate(SyntheticEvalDataset(n_images=2, height=16, width=32)):
+        b = synthetic_batch(torch.Generator().manual_seed(_image_seed(999, i)), 1, 16, 32)
+        np.testing.assert_array_equal(s["rgb"], b["rgb"].numpy())
+        np.testing.assert_array_equal(s["gt"], b["depth"][..., 0].numpy())
 
 
 def test_stage1_split_feeds_the_nearest_downsampled_gt():
@@ -384,7 +395,7 @@ def test_train_stage2_evaluates_and_keeps_the_best(tmp_path, monkeypatch):
         "data.batch_size": 2, "train.steps_per_epoch": 1, "train.log_every": 1,
         "train.ckpt_dir": str(tmp_path), "eval.batch_size": 2})
     d_sd = init_params(cfg.model, torch.Generator().manual_seed(1), in_channels=1)
-    split = list(SyntheticEvalDataset(n_images=3, height=16, width=32, device="cpu"))
+    split = list(SyntheticEvalDataset(n_images=3, height=16, width=32))
     calls, caches = [], []
     real_cache = TE.Evaluator.cache_dataset
 

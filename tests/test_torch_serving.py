@@ -34,7 +34,7 @@ TINY = Config(model=ModelConfig(
     dtype="float32", use_pallas_gn=True,
 ))
 # the JAX stack, the JAX package, and ml_dtypes (absent on the card's machine)
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gdn_tpu", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gdn_tpu", "ml_dtypes", "grain")
 
 
 @pytest.fixture(scope="module")
@@ -328,10 +328,11 @@ def test_serve_torch_cli_subprocess(tmp_path):
 # ------------------------------------------------------ import isolation
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "serve_torch.py"),
-             os.path.join(REPO, "scripts", "train_torch.py"),
-             os.path.join(REPO, "scripts", "eval_torch.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    # the port's scripts (export_torch.py and import_torch.py are the JAX
+    # package's .pth converters)
+    files += [os.path.join(REPO, "scripts", n) for n in os.listdir(os.path.join(REPO, "scripts"))
+              if n.endswith("_torch.py") and n not in ("export_torch.py", "import_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "gdn_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)

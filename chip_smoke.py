@@ -203,12 +203,43 @@ repository around this file.  Phases, each printed on its own lines:
               scripts/bench_eval_torch.py --device_cache and
               scripts/demo_torch.py on four of phase 22's eval images
               with --gif (maps at each input's size), each once.
+  24. artifacts  (a) torch.export artifacts of the full-width G-net
+              (random weights from seed 0, batch 8, bf16) exported on the
+              card in four configurations: unfused, every fused flag,
+              use_pallas_fusion, use_pallas_convgn (together rows 1 and
+              4-9), and the int8 G-net of (b); seconds and MB of each;
+              all five loaded in one fresh process that imports torch,
+              the kernels and serving, never gdn_tpu_torch.models, which
+              serves 20 uint8 images through BatchedPredictor.from_artifact
+              on both wires: depths against BatchedPredictor on the same
+              state_dict (bit for bit, else rtol 1e-5 with the count of
+              pixels that differ), launches a batch by kernel equal to
+              the checkpoint predictor's and to phases 4, 12 and 17;
+              (b) int8: scales calibrated on the card on
+              synthetic_calibration_batches and on the CPU, in fp32
+              (each within 1%) and in bf16 (within phase 3's bf16
+              rtol, 0.05: a scale is the absmax of bf16 GN+ELU
+              outputs, and bf16 ulps are 0.4-0.8%); 20 images through
+              the int8 predictor and its artifact (21 GN+ELU launches a
+              batch, nothing else); against the CPU int8 run of the same
+              weights and scales, in fp32 and in bf16: the conv of each
+              of the 21 sites on the CPU run's input (int32 sums equal,
+              output within rtol 1e-6), the depth at a relative mean
+              |d| < 0.05 (an input within rounding of a .5 step flips,
+              and flips carry downstream into more), and against the
+              card's bf16 forward (relative mean |d| < 0.05); int8
+              beside bf16 in the same
+              call: ms a batch, device busy ms, idle share, launches by
+              kernel; (c) scripts/eval_torch.py --quantize int8 on phase
+              22's eval list, calibrated on its train list, beside phase
+              22 (f)'s bf16 metrics; (d) scripts/serve_torch.py
+              --artifact answering one POST.
 
 Any failure ends the run with a nonzero exit.  The last lines are the
 kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape numbers also go to smoke_out/chip_smoke.json (phase 23's under
-"tools"), the profiles to
+"tools", phase 24's under "artifacts"), the profiles to
 smoke_out/{serving,training}{,_fused,_fusion}_profile.txt,
 smoke_out/eval_profile.txt and smoke_out/disk_*_profile.txt.
 """
@@ -3156,6 +3187,363 @@ def phase_tools(cfg, disk, training):
     return out, launches
 
 
+ART_IMAGES = 20  # phase 24: images served through every artifact
+ART_CONFIGS = ("unfused", "all", "fusion", "v1")  # together rows 1 and 4-9
+QUANT_CALIB = (2, 4)  # (b): synthetic calibration batches x images, card and CPU
+QUANT_SCALE_TOL = 0.01  # (b): card vs CPU scales in fp32, relative
+# (b): the same in bf16: a scale is the absmax of bf16 GN+ELU outputs,
+# which phase 3 holds to the plain version at rtol 0.05 (TOL)
+QUANT_SCALE_TOL_BF16 = TOL[torch.bfloat16][0]
+INT8_CPU_IMAGES = 2  # (b): images of the CPU int8 run
+INT8_VS_BF16 = 0.05  # (b): relative mean |d| of int8 against bf16 (tests/test_quant.py)
+TRAIN_CALIB_BATCHES = 4  # (c): train_split_calibration_batches' default
+# (a): a fresh process with only torch, the kernels and serving: every
+# artifact through from_artifact, both wires, launches a batch by kernel
+ART_LOADER = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+import chip_smoke as S
+from gdn_tpu_torch.serving import BatchedPredictor
+images = np.load(sys.argv[2])
+sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+depths, info = {}, {}
+for name, path in json.loads(sys.argv[4]).items():
+    t0 = time.perf_counter()
+    pred = BatchedPredictor.from_artifact(path)
+    load_s = time.perf_counter() - t0
+    pred.predict(images[:pred.batch_size])
+    sync()
+    S.reset_counts()
+    depths[name + "_f32"] = pred.predict(images)
+    sync()
+    counts = S.read_counts()
+    depths[name + "_u16"] = pred.predict(images, wire="u16")
+    info[name] = {"load_s": load_s, "counts": counts, "batch": pred.batch_size,
+                  "image_size": list(pred.image_size)}
+np.savez(sys.argv[3], **depths)
+print(json.dumps({"info": info,
+                  "port_modules": sorted(m for m in sys.modules if m.startswith("gdn_tpu"))}))
+"""
+
+
+def _eager(cfg, sd, images, scales=None):
+    """A checkpoint predictor's depths on both wires and its launches a
+    batch (f32 wire), after a warm-up batch."""
+    from gdn_tpu_torch.serving import BatchedPredictor
+
+    pred = BatchedPredictor(cfg, sd, batch_size=BATCH, quant_scales=scales)
+    pred.predict(images[:BATCH])
+    torch.cuda.synchronize()
+    reset_counts()
+    f32 = pred.predict(images)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    return pred, f32, pred.predict(images, wire="u16"), counts
+
+
+def _per_batch(counts, batches):
+    return {k: v // batches for k, v in counts.items() if v}
+
+
+def art_int8_scales(cfg_int8, sd):
+    """Phase 24 (b): the int8 scales calibrated on the card and on the
+    CPU on the same synthetic batches (a CPU generator's draws): in fp32,
+    where the two compute one function up to summation order, within
+    QUANT_SCALE_TOL (what is left is one-step int8 flips carried
+    downstream); in bf16, the serving dtype, within QUANT_SCALE_TOL_BF16.
+    Returns the card's scales by dtype."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.ops.quant import (
+        quantized_model_and_scales, synthetic_calibration_batches,
+    )
+
+    batches = list(synthetic_calibration_batches(cfg_int8, *QUANT_CALIB))
+    out, scales = {}, {}
+    torch.cuda.synchronize()
+    reset_counts()
+    for dtype, tol in (("float32", QUANT_SCALE_TOL), ("bfloat16", QUANT_SCALE_TOL_BF16)):
+        c = _with(cfg_int8, **{"model.dtype": dtype})
+        t0 = time.perf_counter()
+        card = quantized_model_and_scales(c, sd, calib_batches=batches)[1]
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = quantized_model_and_scales(c, sd, calib_batches=batches, device="cpu")[1]
+        cpu_s = time.perf_counter() - t0
+        rel = {k: abs(card[k].item() / cpu[k].item() - 1) for k in card}
+        worst = max(rel, key=rel.get)
+        log(f"  (b) int8 scales at {len(card)} sites, {dtype}, calibrated on "
+            f"{QUANT_CALIB[0]} x {QUANT_CALIB[1]} synthetic images: card {card_s:.2f} s, "
+            f"CPU {cpu_s:.2f} s; card vs CPU max rel {rel[worst]:.3g} ({worst}), mean "
+            f"{np.mean(list(rel.values())):.3g} (bound {tol})")
+        if set(card) != set(cpu) or rel[worst] > tol:
+            raise AssertionError(f"int8 scales ({dtype}) card vs CPU beyond {tol}: {rel}")
+        out[dtype] = {"sites": len(card), "card_vs_cpu_max_rel": rel[worst],
+                      "card_vs_cpu_mean_rel": float(np.mean(list(rel.values()))),
+                      "card_s": card_s, "cpu_s": cpu_s}
+        scales[dtype] = card
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("int8 calibration", counts,
+                  group_norm_elu=2 * len(gn_sites(cfg_int8.model)) * QUANT_CALIB[0])
+    return scales, counts, out
+
+
+def art_int8_sites(cfg, sd, scales, images):
+    """Phase 24 (b): the CPU int8 forward of ``images`` -> its depth, with
+    every int8 site's input recorded; each site's conv then runs on the
+    card on that same input: int32 sums exact, output within rtol 1e-6
+    (the same IEEE operations)."""
+    from gdn_tpu_torch.models import blocks
+    from gdn_tpu_torch.ops import quant as Q
+    from gdn_tpu_torch.serving import BatchedPredictor
+
+    seen = []
+    conv = blocks._conv_int8
+
+    def record(block, x, kernel, stride):
+        seen.append((x.detach().clone(), kernel.detach(), stride, block.x_scale.clone()))
+        return conv(block, x, kernel, stride)
+
+    blocks._conv_int8 = record
+    try:
+        depth = BatchedPredictor(cfg, sd, batch_size=len(images), device="cpu",
+                                 quant_scales=scales).predict(images)
+    finally:
+        blocks._conv_int8 = conv
+    worst = 0.0
+    for x, k, stride, sc in seen:
+        sums = [Q.conv2d_s32(Q.quantize_act(v.permute(0, 2, 3, 1), t),
+                             Q.quantize_weight_per_channel(w)[0], stride).cpu()
+                for v, w, t in ((x, k, sc), (x.cuda(), k.cuda(), sc.cuda()))]
+        if not torch.equal(*sums):
+            raise AssertionError(f"int8 sums card vs CPU at a site of {tuple(x.shape)}")
+        want = Q.conv2d_int8(x, k, stride, sc)
+        got = Q.conv2d_int8(x.cuda(), k.cuda(), stride, sc.cuda()).cpu()
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        worst = max(worst, ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item())
+    return depth, len(seen), worst
+
+
+def art_timing(preds, images):
+    """Phase 24 (b): ms a batch (host clock, best of 3 calls of 64
+    images) and a profiled call of each predictor, in turns."""
+    many = np.concatenate([images] * 4)[:64]
+    out = {}
+    for name, pred in preds.items():
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pred.predict(many)
+            times.append(time.perf_counter() - t0)
+        out[name] = {"ms_per_batch": 1e3 * min(times) / (len(many) // BATCH),
+                     "images_per_s": len(many) / min(times),
+                     "profile": profile_serving(pred, many, f"serving_{name}_p24")}
+        prof = out[name]["profile"] or {}
+        log(f"  (b) {name}: {out[name]['ms_per_batch']:.2f} ms a batch of {BATCH} "
+            f"({out[name]['images_per_s']:.1f} images/s); device busy "
+            f"{prof.get('device_busy_ms', float('nan')):.2f} ms of 64 images, idle "
+            f"{prof.get('idle_share', float('nan')):.1%}")
+    return out
+
+
+def art_eval_int8(n_gn, disk):
+    """Phase 24 (c): scripts/eval_torch.py --quantize int8 on phase 22's
+    eval list, its scales calibrated on the train list, beside phase 22
+    (f)'s bf16 metrics of the same checkpoint."""
+    from gdn_tpu_torch import metrics as M
+
+    kitti = os.path.join(OUT, "disk", "kitti")
+    args = ["--dataset", "kitti", "--data_path", kitti, "--val_list", "eval.txt",
+            "--calib_dir", os.path.join(kitti, "calib"), "--ckpt_dir",
+            os.path.join(OUT, "disk_host_fed"), "--eval_batch", str(DISK_EVAL_BATCH),
+            "--quantize", "int8"]
+    torch.cuda.synchronize()
+    reset_counts()
+    res = load_script("eval_torch").main(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    forwards = (len(DISK_EVAL_SIZES) * -(-DISK_EVAL_PER_SIZE // DISK_EVAL_BATCH)
+                + len(DISK_EVAL_SIZES))  # a warm-up batch a GT size
+    expect_counts("eval_torch.py --quantize int8", counts,
+                  group_norm_elu=n_gn * (TRAIN_CALIB_BATCHES + forwards))
+    if not all(np.isfinite(res[k]) for k in M.METRIC_NAMES):
+        raise AssertionError(f"eval_torch.py --quantize int8: {res}")
+    bf16 = disk["eval"]["host_fed"]
+    log("  (c) eval_torch.py --quantize int8 (calibrated on the train list), int8 / bf16: "
+        + ", ".join(f"{k} {res[k]:.4f} / {bf16[k]:.4f}" for k in M.METRIC_NAMES)
+        + f"; {res['fps']:.1f} / {bf16['fps']:.1f} images/s; launches {counts_text(counts)}")
+    return counts, {"int8": res, "bf16": bf16}
+
+
+def art_serve(path):
+    """Phase 24 (d): scripts/serve_torch.py --artifact answering one POST."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "scripts", "serve_torch.py"), "--artifact", path,
+         "--port", "0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+    try:
+        lines = []
+        deadline = time.time() + 180
+        while time.time() < deadline:
+            lines.append(proc.stdout.readline())
+            if "serving on" in lines[-1] or proc.poll() is not None:
+                break
+        if "serving on" not in lines[-1]:
+            raise AssertionError("serve_torch.py --artifact did not start: " + "".join(lines))
+        port = int(lines[-1].split("http://127.0.0.1:")[1].split(" ")[0])
+        buf = io.BytesIO()
+        Image.fromarray(np.random.default_rng(24).integers(0, 255, (128, 416, 3), np.uint8)
+                        ).save(buf, format="PNG")
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                     data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            depth = np.load(io.BytesIO(r.read()))
+        if depth.shape != (128, 416) or not np.isfinite(depth).all():
+            raise AssertionError(f"serve_torch.py --artifact answered {depth.shape}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    seconds = time.perf_counter() - t0
+    said = next((ln.strip() for ln in lines if ln.startswith("artifact:")), "")
+    log(f"  (d) serve_torch.py --artifact --port 0: answered one POST, depth {depth.shape}, "
+        f"mean {depth.mean():.3f} m ({seconds:.1f} s with its start; {said})")
+    return {"seconds": seconds, "mean_depth_m": float(depth.mean())}
+
+
+def phase_artifacts(cfgs, per_net, sd, disk):
+    """Phase 24: torch.export artifacts and int8 post-training
+    quantization (see the module docstring).  ``cfgs`` and ``per_net``
+    name the four configurations of (a) and their launches a net."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.serving import BatchedPredictor, export_model
+
+    root = os.path.join(OUT, "artifacts")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # depths compared bit for bit across processes: deterministic cuDNN
+    # algorithms here and in the loader
+    torch.backends.cudnn.deterministic = True
+    n_gn = len(gn_sites(cfgs["unfused"].model))
+    t0 = time.perf_counter()
+    out, launches = {"device": smi_line()}, {}
+    h, w = cfgs["unfused"].model.image_size
+    images = np.random.default_rng(24).integers(0, 256, (ART_IMAGES, h, w, 3), np.uint8)
+    batches = -(-ART_IMAGES // BATCH)
+    cfgs = {**cfgs, "int8": _with(cfgs["unfused"], **{"model.quant": "int8"})}
+    per_net = {**per_net, "int8": {"group_norm_elu": n_gn}}
+    by_dtype, launches["int8_calibration"], out["calibration"] = art_int8_scales(
+        cfgs["int8"], sd)
+    scales = by_dtype[cfgs["int8"].model.dtype]
+
+    # (a) export on the card, then the checkpoint predictor of each config
+    paths, eager, preds = {}, {}, {}
+    for name, cfg in cfgs.items():
+        paths[name] = os.path.join(root, f"{name}.pt2")
+        q = scales if name == "int8" else None
+        t1 = time.perf_counter()
+        export_model(cfg, sd, paths[name], batch_size=BATCH, quant_scales=q)
+        out[name] = {"export_s": time.perf_counter() - t1,
+                     "mb": os.path.getsize(paths[name]) / 1e6}
+        pred, f32, u16, counts = _eager(cfg, sd, images, q)
+        eager[name] = (f32, u16)
+        launches[f"artifact_eager_{name}"] = counts
+        expect_counts(f"{name} predictor", counts,
+                      **{k: v * batches for k, v in per_net[name].items()})
+        if name in ("unfused", "int8"):
+            preds[name] = pred
+        log(f"  (a) {name}: exported in {out[name]['export_s']:.2f} s, "
+            f"{out[name]['mb']:.1f} MB; predictor launches a batch "
+            f"{_per_batch(counts, batches)}")
+    np.save(os.path.join(root, "images.npy"), images)
+    t1 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", ART_LOADER, ROOT, os.path.join(root, "images.npy"),
+         os.path.join(root, "depths.npz"), json.dumps(paths)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    if run.returncode != 0:
+        raise AssertionError(f"the artifact loader failed: {run.stderr[-4000:]}")
+    loaded = json.loads(run.stdout.strip().splitlines()[-1])
+    out["loader_s"] = time.perf_counter() - t1
+    mods = loaded["port_modules"]
+    log(f"  (a) a fresh process loaded {len(paths)} artifacts in {out['loader_s']:.1f} s; "
+        f"port modules it imported: {mods}")
+    if any(m.startswith("gdn_tpu_torch.models") for m in mods) or any(
+            m == "gdn_tpu" or m.startswith("gdn_tpu.") for m in mods):
+        raise AssertionError(f"the artifact loader imported {mods}")
+    got = np.load(os.path.join(root, "depths.npz"))
+    for name in cfgs:
+        info = loaded["info"][name]
+        launches[f"artifact_{name}"] = counts = info["counts"]
+        want = launches[f"artifact_eager_{name}"]
+        if counts != want or info["batch"] != BATCH or info["image_size"] != [h, w]:
+            raise AssertionError(f"artifact {name}: {info} vs the predictor's launches {want}")
+        f32, u16 = got[f"{name}_f32"], got[f"{name}_u16"]
+        differ = int((f32 != eager[name][0]).sum())
+        np.testing.assert_allclose(f32, eager[name][0], rtol=1e-5, atol=0,
+                                   err_msg=f"artifact {name}")
+        du16 = int(np.abs(u16.astype(np.int64) - eager[name][1].astype(np.int64)).max())
+        if du16 > 1 or (differ == 0 and du16):
+            raise AssertionError(f"artifact {name}: u16 wire off by {du16}")
+        out[name].update(load_s=info["load_s"], pixels_differing=differ,
+                         launches_per_batch=_per_batch(counts, batches))
+        log(f"  (a) {name} artifact: {ART_IMAGES} images, depth "
+            + ("bit for bit" if differ == 0 else f"{differ} pixels differ (rtol 1e-5)")
+            + f" with the predictor, u16 max|d| {du16}; launches a batch "
+            f"{_per_batch(counts, batches)} = the predictor's")
+
+    # (b) int8 against the CPU: every site's conv on the same input
+    # exactly, then end to end at the relative mean |d| of int8 against
+    # bf16.  End to end the two runs quantize apart wherever an input
+    # lies within rounding of a .5 step (one ulp of fp32; in bf16 an ulp
+    # of a near-max input is half a step), and each flip moves what lies
+    # downstream into more flips: the depth differs at about the size of
+    # the quantization noise itself, in fp32 too
+    few = images[:INT8_CPU_IMAGES]
+    out["int8_vs"] = {}
+    for dtype, sc in by_dtype.items():
+        c = _with(cfgs["int8"], **{"model.dtype": dtype})
+        card = (eager["int8"][0][:INT8_CPU_IMAGES] if c == cfgs["int8"] else
+                BatchedPredictor(c, sd, batch_size=INT8_CPU_IMAGES,
+                                 quant_scales=sc).predict(few))
+        cpu, n_sites, site_rel = art_int8_sites(c, sd, sc, few)
+        d = np.abs(card - cpu)
+        rel = float(d.mean() / np.abs(cpu).mean())
+        out["int8_vs"][f"cpu_{dtype}"] = {"max_m": float(d.max()), "mean_m": float(d.mean()),
+                                          "rel_mean": rel, "site_max_rel": site_rel}
+        log(f"  (b) int8, {dtype}: the conv of all {n_sites} sites on the CPU forward's "
+            f"inputs, card vs CPU: int32 sums equal, output max rel {site_rel:.3g}; end to "
+            f"end max|d| {d.max():.3g} m, mean {d.mean():.3g} m, relative mean {rel:.4f}")
+        if rel >= INT8_VS_BF16:
+            raise AssertionError(f"int8 card vs CPU ({dtype}): {out['int8_vs']}")
+    q, bf16 = eager["int8"][0], eager["unfused"][0]
+    rel = float(np.abs(q - bf16).mean() / np.abs(bf16).mean())
+    out["int8_vs"]["bf16_rel_mean"] = rel
+    log(f"  (b) int8 vs the card's bf16 forward, {ART_IMAGES} images: relative mean |d| "
+        f"{rel:.4f}")
+    if rel >= INT8_VS_BF16:
+        raise AssertionError(f"int8 vs bf16: {rel} (bound {INT8_VS_BF16})")
+    out["timing"] = art_timing({"bf16": preds["unfused"], "int8": preds["int8"]}, images)
+    del preds
+    launches["artifact_eval_int8"], out["eval_int8"] = art_eval_int8(n_gn, disk)
+    out["serve"] = art_serve(paths["all"])
+    torch.backends.cudnn.deterministic = False
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 24 took {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main():
     log("== 1. device")
     if not torch.cuda.is_available():
@@ -3301,6 +3689,16 @@ def main():
         "guard, the convergence protocol, profile_step, the benches and the demo")
     tools, tools_launches = phase_tools(cfg, disk, training)
 
+    log("== 24. artifacts: torch.export of the serving forward with the kernels as "
+        "registered ops, and int8 post-training quantization")
+    artifacts, art_launches = phase_artifacts(
+        {"unfused": cfg, "all": cfg_all, "fusion": cfg_fusion, "v1": cfg_v1},
+        {"unfused": {"group_norm_elu": n_gn},
+         "all": {"group_norm_elu": 1, "conv_gn_elu_s2": 5, "conv_gn_elu_bt": 5,
+                 "fusion_bt": 5, "upsample": 5},
+         "fusion": fusion_per_net,
+         "v1": {"group_norm_elu": 16, "conv_gn_elu": 5}}, sd, disk)
+
     main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
     per_fwd = {k: sum(r[k] * r["sites"] for r in main_rows)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -3311,7 +3709,7 @@ def main():
                      "serving_fusion": fusion_counts, "serving_all": all_counts,
                      **{f"{k}_fusion": v for k, v in fusion_train_launches.items()},
                      **eval_launches, **life_launches, **disk_launches,
-                     **tools_launches}
+                     **tools_launches, **art_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in path_launches.values())
@@ -3362,7 +3760,7 @@ def main():
                    "serving_fusion": serving_fusion, "serving_all": serving_all,
                    "training_fusion": training_fusion, "vs_cpu_fusion": vs_cpu_fusion,
                    "eval": evaluation, "lifecycle": lifecycle, "disk": disk,
-                   "tools": tools,
+                   "tools": tools, "artifacts": artifacts,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
                    "sass_hmma": hmma_by_fn, "ptxas": ptxas,
                    "kernels": kernels}, f, indent=1)

@@ -10,8 +10,11 @@ Ported so far: the stage-2 G-net serving path (config, ops, models,
 checkpoint import, BatchedPredictor, the HTTP server) with the
 GroupNorm+ELU kernel; the training of both stages (losses with the
 fused loss kernels, train state/steps/loops, synthetic data) with
-checkpoints, resume, preemption, gradient accumulation and remat; and
-the eval protocol.  See ROADMAP.md for what comes next.
+checkpoints, resume, preemption, gradient accumulation and remat; the
+eval protocol; data from disk; the command line and tools; and
+deployment: ``torch.export`` artifacts whose graphs call the kernels as
+registered ops, and int8 post-training quantization.  See ROADMAP.md for
+what comes next.
 """
 
 __version__ = "0.1.0"

@@ -30,6 +30,7 @@ import os
 import re
 import tempfile
 import threading
+from collections.abc import Mapping
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -54,6 +55,25 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         if arr.ndim == 4:
             arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
         out[prefix] = torch.from_numpy(np.array(arr, copy=True, order="C"))
+
+    walk(tree, "")
+    return out
+
+
+def quant_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``"quant"`` collection (nested dict of numpy
+    scalars, from ``gdn_tpu.ops.quant.calibrate_quant``) -> the port's
+    scale dict for ``ops.quant.set_quant_scales``: path "a/b/x_scale"
+    becomes key "a.b.x_scale", each scale a float32 0-d tensor."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, f"{prefix}.{k}" if prefix else k)
+            return
+        out[prefix] = torch.tensor(float(np.asarray(node, dtype=np.float32)),
+                                   dtype=torch.float32)
 
     walk(tree, "")
     return out

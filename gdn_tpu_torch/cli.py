@@ -18,9 +18,11 @@ to a parser and ``build_config`` maps the parsed flags onto one
   item (``--upsample deconv``, ``--norm none``, ``--multiscale``,
   ``--steps_per_call`` > 1, ``--fused_guidance``, ``--num_devices`` > 1,
   ``--spatial_devices``, ``--model_devices``, ``--fsdp``,
-  ``--device_cache_sharded``, ``--quantize int8``); so does
-  ``build_config`` for ``--artifact``.  ``parse_or_exit`` turns that
-  refusal into the parser's error.
+  ``--device_cache_sharded``).  ``parse_or_exit`` turns that refusal
+  into the parser's error.
+- ``--quantize int8`` builds an int8 config (``model.quant``), which the
+  scripts calibrate (``ops/quant.py``); ``--artifact`` is read by the
+  serving script alone.
 
 ``apply_saved_model_config`` adopts the architecture saved next to a
 checkpoint.
@@ -35,9 +37,6 @@ from gdn_tpu_torch.checkpoint import load_config
 from gdn_tpu_torch.config import (
     Config, add_fused_kernel_flags, fused_kernel_overrides, kitti_config, nyu_config,
 )
-
-A11_ARTIFACT = "ROADMAP.md Queue A item 11 (serving export)"
-
 
 def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dataset", choices=["kitti", "nyu", "synthetic"], default="kitti")
@@ -181,9 +180,6 @@ def build_config(args: argparse.Namespace) -> Config:
     builds it (plus the port's ``--dtype``, ``--model.<flag>`` and
     ``model.use_pallas_gn``).  Raises NotImplementedError for a value
     the port does not run yet, naming its ROADMAP item."""
-    if getattr(args, "artifact", ""):
-        raise NotImplementedError(f"--artifact is not ported to gdn_tpu_torch yet; see "
-                                  f"{A11_ARTIFACT}")
     preset = nyu_config if args.dataset == "nyu" else kitti_config
     over = {
         "model.use_pallas_gn": True,

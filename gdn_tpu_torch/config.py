@@ -29,9 +29,13 @@ What differs:
   whatever ``use_pallas_gn`` says.  On the CPU each site runs its kernel's plain PyTorch form.
   Either way the GN backward is the analytic two-reduce one that
   ``gn_analytic_vjp`` selects in the JAX package.  The execution fields
-  ``gn_impl``, ``elu_outform_vjp``, ``convgn_bt_tile`` and
-  ``quant_min_channels`` select TPU/XLA formulations and change nothing
-  in the port.
+  ``gn_impl``, ``elu_outform_vjp`` and ``convgn_bt_tile`` select TPU/XLA
+  formulations and change nothing in the port.
+- ``quant="int8"`` (post-training, ``ops/quant.py``) runs every conv
+  whose input has at least ``quant_min_channels`` channels as an int8
+  product and turns the fused conv routes off, as in the JAX package;
+  the GroupNorm+ELU kernel stays.  It serves and scores only: the train
+  steps refuse it.
 - ``LossConfig.use_pallas`` routes the loss: set, the fused route
   (``kernels/fused_loss.py``: the CUDA kernels on the card, their plain
   version on the CPU); unset, the unfused plain-PyTorch terms.
@@ -68,7 +72,6 @@ _NOT_YET = (
     ("fusion", "concat", "Queue A item 3 (add FusionBlock)"),
     ("norm", "group", "Queue A item 3 (norm='none' ConvBlock)"),
     ("activation", "elu", "Queue A item 3 (non-ELU activations)"),
-    ("quant", "none", "Queue A item 11 (int8 PTQ)"),
     ("multiscale_heads", False, "Queue A item 3 (multi-scale heads)"),
 )
 _TRAIN_NOT_YET = (
@@ -142,6 +145,8 @@ class ModelConfig:
 
     def __post_init__(self):
         _refuse("ModelConfig", _NOT_YET)(self)
+        if self.quant not in ("none", "int8"):
+            raise ValueError(f"unknown quant {self.quant!r} (none|int8)")
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown dtype {self.dtype!r} (bfloat16|float32)")
 

@@ -1,4 +1,10 @@
-"""Hand-written CUDA kernels of the port and their wrappers."""
+"""Hand-written CUDA kernels of the port and their wrappers.
+
+Importing the package registers the kernels' inference forwards as the
+``gdn_tpu_torch::`` ops of ``kernels/ops.py``, which an exported
+artifact calls."""
+
+from gdn_tpu_torch.kernels import ops  # noqa: F401  (registers the ops)
 
 
 def load_all() -> None:

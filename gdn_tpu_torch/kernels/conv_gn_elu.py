@@ -52,7 +52,9 @@ their backward is the VJP of the fp32 reference on them, as the TPU
 kernels': whatever the tap dtype, the gradients are taken at the
 unrounded inputs, in fp32 (``FusedRecompute``).  A CPU tensor runs the
 plain version inside the same Functions; a CUDA tensor launches the
-kernels or raises.
+kernels or raises.  Without grad every entry point calls the registered
+op ``gdn_tpu_torch::conv_gn_elu`` (``kernels/ops.py``), which runs the
+same plain version or launch and which an exported graph holds.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from gdn_tpu_torch.kernels import build
+from gdn_tpu_torch.kernels import build, ops
 from gdn_tpu_torch.ops.conv import CL, conv_same, conv_same_backward, same_pads
 from gdn_tpu_torch.ops.groupnorm import _chanreduce_stats, gn_elu_backward
 
@@ -459,7 +461,8 @@ def fused_conv_gn_elu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
     if needs_grad(x, w, scale, bias):
         return FusedRecompute.apply(forward, reference, x, w, scale, bias)
-    return forward(x, w, scale, bias)
+    return ops.conv_gn_elu("fused_conv_gn_elu", x, None, w, None, scale, bias, groups,
+                           eps, 1, False, tap_dtype, torch.float32)
 
 
 def _analytic_entry(counter, x, w, scale, bias, groups, eps, stride, tap_dtype):
@@ -467,8 +470,8 @@ def _analytic_entry(counter, x, w, scale, bias, groups, eps, stride, tap_dtype):
     if needs_grad(x, w, scale, bias):
         return FusedConvGNELUAnalytic.apply(counter, x, None, w, None, scale, bias,
                                             groups, eps, stride, tap_dtype)
-    return forward_all(counter, x, None, w, None, scale, bias, groups, eps, stride,
-                       tap_dtype, x.dtype, False)[0]
+    return ops.conv_gn_elu(counter.__name__, x, None, w, None, scale, bias, groups, eps,
+                           stride, False, tap_dtype, x.dtype)
 
 
 def fused_conv_gn_elu_bt(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,

@@ -13,13 +13,15 @@ on them (``FusedRecompute``) instead of the analytic one.  The TPU
 kernel's lane and spatial padding and its VMEM gate have no counterpart:
 every site runs the kernel, the (16+32) -> 16 one at 128x416 included.
 A CPU tensor runs the plain version; a CUDA tensor launches the kernels
-or raises.
+or raises.  Without grad the call goes through the op
+``gdn_tpu_torch::conv_gn_elu`` (``kernels/ops.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from gdn_tpu_torch.kernels import ops
 from gdn_tpu_torch.kernels.conv_gn_elu import (
     FusedRecompute, _check, conv_gn_elu_plain, forward_all, needs_grad,
 )
@@ -56,7 +58,8 @@ def fused_fusion_block(x: torch.Tensor, lat: torch.Tensor, wx: torch.Tensor,
 
     if needs_grad(x, lat, wx, wl, scale, bias):
         return FusedRecompute.apply(forward, reference, x, lat, wx, wl, scale, bias)
-    return forward(x, lat, wx, wl, scale, bias)
+    return ops.conv_gn_elu("fused_fusion_block", x, lat, wx, wl, scale, bias, groups, eps,
+                           1, False, tap_dtype, torch.float32)
 
 
 fused_fusion_block.launches = 0

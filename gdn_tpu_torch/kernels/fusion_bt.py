@@ -17,13 +17,15 @@ and the backward is the JAX package's ``_fb_bwd``: ELU' from the output,
 the two-reduce GroupNorm backward, then input and weight gradients of
 the two convolutions separately (cuDNN; XLA's on the TPU).  A CPU
 tensor runs the plain version; a CUDA tensor launches the kernels or
-raises.
+raises.  Without grad the call goes through the op
+``gdn_tpu_torch::conv_gn_elu`` (``kernels/ops.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from gdn_tpu_torch.kernels import ops
 from gdn_tpu_torch.kernels.conv_gn_elu import (
     FusedConvGNELUAnalytic, Residuals, _check, conv_gn_elu_plain, forward_all,
     needs_grad,
@@ -52,8 +54,8 @@ def fused_fusion_bt(x: torch.Tensor, lat: torch.Tensor, wx: torch.Tensor,
     if needs_grad(x, lat, wx, wl, scale, bias):
         return FusedConvGNELUAnalytic.apply(fused_fusion_bt, x, lat, wx, wl, scale, bias,
                                             groups, eps, 1, tap_dtype)
-    return forward_all(fused_fusion_bt, x, lat, wx, wl, scale, bias, groups, eps, 1,
-                       tap_dtype, x.dtype, False)[0]
+    return ops.conv_gn_elu("fused_fusion_bt", x, lat, wx, wl, scale, bias, groups, eps,
+                           1, False, tap_dtype, x.dtype)
 
 
 def _fusion_bt_all(x, lat, wx, wl, scale, bias, groups=8, eps=1e-6,

@@ -24,7 +24,9 @@ keeps x and the fp32 (B, 2, G) mean and inverse std the kernel writes,
 and whose backward is the JAX package's analytic two-reduce backward in
 plain PyTorch (``ops.groupnorm.gn_elu_backward``; on the TPU that
 backward is XLA, not a Pallas kernel).  Without grad (serving, the
-frozen D-net) the kernel is called directly and nothing is kept.  On
+frozen D-net) the call goes through the registered op
+``gdn_tpu_torch::group_norm_elu`` (``kernels/ops.py``: the launch on
+the card, so that an exported graph holds it) and nothing is kept.  On
 the CPU every site runs ``group_norm_elu_analytic``.
 """
 
@@ -36,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from gdn_tpu_torch.kernels import build
+from gdn_tpu_torch.kernels import build, ops
 from gdn_tpu_torch.ops.groupnorm import gn_elu_backward, group_norm_elu_analytic
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -240,18 +242,18 @@ def group_norm_elu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    groups: int, eps: float = 1e-6) -> torch.Tensor:
     """GroupNorm + ELU of x (B, C, H, W), channels_last memory.
 
-    scale, bias: (C,).  Returns x's shape, dtype and memory format,
-    differentiable in x, scale and bias.  A CPU tensor runs the plain
+    scale, bias: (C,).  Returns x's shape and dtype in channels_last
+    memory, differentiable in x, scale and bias.  A CPU tensor runs the plain
     analytic form; a CUDA tensor launches the kernel or raises."""
     _check(x, scale, bias, groups)
-    if x.device.type == "cpu":
-        return group_norm_elu_analytic(x, scale, bias, groups, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     if torch.is_grad_enabled() and (
             x.requires_grad or scale.requires_grad or bias.requires_grad):
+        if x.device.type == "cpu":
+            return group_norm_elu_analytic(x, scale, bias, groups, eps)
         return _GroupNormELUKernel.apply(x, scale, bias, groups, eps)
-    return _launch(x, scale, bias, groups, eps)[0]
+    return ops.group_norm_elu(x, scale, bias, groups, eps)
 
 
 group_norm_elu.launches = 0

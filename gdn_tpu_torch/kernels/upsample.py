@@ -25,15 +25,17 @@ function is the exact-2x one only.
 
 Under grad the call runs inside ``FusedRecompute``: the inputs are kept
 and the backward is the VJP of the fp32 reference
-(``upsample_conv_reference``) on them, as the JAX package's.  A CPU
-tensor runs the plain version; a CUDA tensor launches the kernels or
-raises.
+(``upsample_conv_reference``) on them, as the JAX package's.  Without
+grad the call goes through the op ``gdn_tpu_torch::conv_gn_elu``
+(``kernels/ops.py``).  A CPU tensor runs the plain version; a CUDA
+tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gdn_tpu_torch.kernels import ops
 from gdn_tpu_torch.kernels.conv_gn_elu import (
     FusedRecompute, _check, _launch, conv_gn_elu_plain, needs_grad,
 )
@@ -84,7 +86,8 @@ def fused_upsample_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
     if needs_grad(x, w, scale, bias):
         return FusedRecompute.apply(forward, reference, x, w, scale, bias)
-    return forward(x, w, scale, bias)
+    return ops.conv_gn_elu("fused_upsample_conv", x, None, w, None, scale, bias, groups,
+                           eps, 1, True, tap_dtype, torch.float32)
 
 
 fused_upsample_conv.launches = 0

@@ -22,6 +22,16 @@ by ``use_pallas_fusion_bt`` and then ``use_pallas_fusion``, and the
 UpBlock's up-conv, at an exact 2x target, by ``use_pallas_fusion`` (the
 upsample kernel: bilinear 2x + conv3x3 + GroupNorm + ELU).  The 7x7 stem
 always takes the unfused route.
+
+Under ``quant="int8"`` (post-training, ``ops/quant.py``) every fused
+conv route and the composed up-conv are off, as the JAX package gates
+them on ``quant == "none"``, and each conv whose input has at least
+``quant_min_channels`` channels runs ``conv2d_int8``: the ConvBlocks, the
+FusionBlock's concat conv and the UpBlock's resize-then-conv.  Such a
+site holds its activation scale in a non-persistent buffer ``x_scale``
+(so its key is the flax path of the JAX package's ``"quant"``
+collection) and its ``calibrating`` flag, which ``ops.quant.
+calibrate_quant`` sets.  The GroupNorm+ELU kernel stays on at every site.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from gdn_tpu_torch.kernels.groupnorm import group_norm_elu
 from gdn_tpu_torch.kernels.upsample import fused_upsample_conv
 from gdn_tpu_torch.ops.conv import CL, conv_same
 from gdn_tpu_torch.ops.groupnorm import pick_groups
+from gdn_tpu_torch.ops.quant import conv2d_int8, init_act_scale
 from gdn_tpu_torch.ops.resize import composed_resize_conv2x, resize_bilinear
 
 GN_EPS = 1e-6
@@ -58,6 +69,27 @@ def gn_elu(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """GroupNorm + ELU epilogue of every block (the kernel on the card)."""
     y = y.to(cfg.compute_dtype).contiguous(memory_format=CL)
     return group_norm_elu(y, scale, bias, groups, GN_EPS)
+
+
+def _int8_site(block: nn.Module, cin: int, cfg: ModelConfig) -> bool:
+    """Make ``block`` an int8 conv site where ``cfg`` quantizes a conv of
+    ``cin`` input channels: give it the 0-d buffer ``x_scale`` and the
+    ``calibrating`` flag.  -> whether it did."""
+    if cfg.quant != "int8" or cin < cfg.quant_min_channels:
+        return False
+    block.register_buffer("x_scale", torch.zeros(()), persistent=False)
+    block.calibrating = False
+    return True
+
+
+def _conv_int8(block: nn.Module, x: torch.Tensor, kernel: torch.Tensor,
+               stride: int) -> torch.Tensor:
+    """``block``'s int8 conv of x at its scale; while calibrating, the
+    scale is first set from x (absmax / 127), as the JAX package's
+    ``"quant"`` variable initializes itself."""
+    if block.calibrating:
+        block.x_scale = init_act_scale(x)
+    return conv2d_int8(x, kernel, stride, block.x_scale)
 
 
 class _ConvKernel(nn.Module):
@@ -81,13 +113,14 @@ class ConvBlock(nn.Module):
         self.Conv_0 = _ConvKernel(cin, features, kernel)
         self.gn_scale = _param(features, fill=1.0)
         self.gn_bias = _param(features, fill=0.0)
+        self.quantized = _int8_site(self, cin, cfg)
 
     def _fused(self):
         """The fused kernel this block's config and shape select, in the
         JAX package's order (s2, then bt, then the per-image one), or
         None for the conv + GroupNorm+ELU route."""
         c = self.cfg
-        if not c.use_pallas or self.kernel_size != 3:
+        if not c.use_pallas or c.quant != "none" or self.kernel_size != 3:
             return None
         if self.stride == 2:
             return fused_conv_gn_elu_s2 if c.use_pallas_convgn_s2 else None
@@ -105,7 +138,10 @@ class ConvBlock(nn.Module):
             out = fused(x.to(dt).contiguous(memory_format=CL), self.Conv_0.kernel,
                         self.gn_scale, self.gn_bias, self.groups, GN_EPS, c.dtype)
             return out.to(dt)
-        y = conv_same(x.to(dt), self.Conv_0.kernel.to(dt), self.stride)
+        if self.quantized:
+            y = _conv_int8(self, x, self.Conv_0.kernel, self.stride).to(dt)
+        else:
+            y = conv_same(x.to(dt), self.Conv_0.kernel.to(dt), self.stride)
         return gn_elu(y, self.gn_scale, self.gn_bias, self.groups, c)
 
 
@@ -136,14 +172,15 @@ class FusionBlock(nn.Module):
         self.kernel = _param(features, cx + cl, 3, 3)
         self.scale = _param(features, fill=1.0)
         self.bias = _param(features, fill=0.0)
+        self.quantized = _int8_site(self, cx + cl, cfg)
 
     def forward(self, x: torch.Tensor, lateral: torch.Tensor) -> torch.Tensor:
         c = self.cfg
         dt = c.compute_dtype
         fused = None
-        if c.use_pallas and c.use_pallas_fusion_bt:
+        if c.use_pallas and c.quant == "none" and c.use_pallas_fusion_bt:
             fused = fused_fusion_bt
-        elif c.use_pallas and c.use_pallas_fusion:
+        elif c.use_pallas and c.quant == "none" and c.use_pallas_fusion:
             fused = fused_fusion_block
         if fused is not None:
             cx = x.shape[1]
@@ -153,8 +190,11 @@ class FusionBlock(nn.Module):
                 self.kernel[:, :cx], self.kernel[:, cx:], self.scale, self.bias,
                 self.groups, GN_EPS, c.dtype)
             return out.to(dt)
-        full = torch.cat([x, lateral.to(x.dtype)], dim=1).to(dt)
-        y = conv_same(full, self.kernel.to(dt))
+        full = torch.cat([x, lateral.to(x.dtype)], dim=1)
+        if self.quantized:
+            y = _conv_int8(self, full, self.kernel, 1).to(dt)
+        else:
+            y = conv_same(full.to(dt), self.kernel.to(dt))
         return gn_elu(y, self.scale, self.bias, self.groups, self.cfg)
 
 
@@ -177,6 +217,7 @@ class UpBlock(nn.Module):
         self.up_kernel = _param(features, cin, 3, 3)
         self.up_scale = _param(features, fill=1.0)
         self.up_bias = _param(features, fill=0.0)
+        self.quantized = _int8_site(self, cin, cfg)
         self.fuse = FusionBlock(features, lateral_channels, features, cfg)
 
     def forward(self, x: torch.Tensor, target_hw: Tuple[int, int],
@@ -185,16 +226,19 @@ class UpBlock(nn.Module):
         dt = c.compute_dtype
         h, w = x.shape[2], x.shape[3]
         exact2x = tuple(target_hw) == (2 * h, 2 * w)
-        if c.use_pallas and c.use_pallas_fusion and exact2x:
+        plain = c.quant == "none"  # int8 takes resize then conv, as the JAX package
+        if c.use_pallas and c.use_pallas_fusion and plain and exact2x:
             x = fused_upsample_conv(
                 x.to(dt).contiguous(memory_format=CL), self.up_kernel, self.up_scale,
                 self.up_bias, self.groups, GN_EPS, c.dtype).to(dt)
         else:
             k = self.up_kernel.to(dt)
-            if c.resize_conv_composed and exact2x and h >= 2 and w >= 2:
+            if c.resize_conv_composed and plain and exact2x and h >= 2 and w >= 2:
                 y = composed_resize_conv2x(x.to(dt), k.contiguous(memory_format=CL))
             else:
-                y = conv_same(resize_bilinear(x.to(dt), target_hw, precise=False), k)
+                u = resize_bilinear(x.to(dt), target_hw, precise=False)
+                y = (_conv_int8(self, u, self.up_kernel, 1).to(dt) if self.quantized
+                     else conv_same(u, k))
             x = gn_elu(y, self.up_scale, self.up_bias, self.groups, c)
         if lateral is not None:
             x = self.fuse(x, lateral)

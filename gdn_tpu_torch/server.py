@@ -214,8 +214,9 @@ class DepthServer:
                  warmup: bool = True, timeout_s: float = 600.0,
                  predictor: Optional[BatchedPredictor] = None,
                  wire: str = "f32", device=None):
-        """Either (cfg, state_dict) or a ready ``predictor`` (cfg
-        optional then — only max_depth for color rendering is taken
+        """Either (cfg, state_dict) or a ready ``predictor``, such as
+        ``BatchedPredictor.from_artifact(path)`` for an exported artifact
+        (cfg optional then — only max_depth for color rendering is taken
         from it; colorize falls back to per-image normalization without
         it).  ``wire`` selects the device fetch format ("f32" | "u16",
         see DynamicBatcher); ``device`` defaults to CUDA."""

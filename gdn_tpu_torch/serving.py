@@ -1,21 +1,31 @@
-"""In-process serving of the G-net: fixed-batch inference with
-partial-batch padding (port of ``gdn_tpu/serving.py::BatchedPredictor``).
+"""Serving the G-net: fixed-batch inference with partial-batch padding,
+and the deployable artifact (port of ``gdn_tpu/serving.py``).
 
-The StableHLO export (``export_model``, ``load_model``,
-``BatchedPredictor.from_artifact``) is not ported yet: ROADMAP Queue A
-item 11.
+``export_model`` writes the (B, H, W, 3) float32 -> (B, H, W, 1) depth
+forward, weights inside, as one ``torch.export`` program (``.pt2``, the
+counterpart of the JAX package's StableHLO bytes); ``load_model`` and
+``BatchedPredictor.from_artifact`` run it in a process that imports
+``torch`` and ``gdn_tpu_torch.kernels`` and nothing of
+``gdn_tpu_torch.models``: the graph calls the hand-written kernels as
+the registered ops of ``kernels/ops.py``, so an artifact launches the
+same kernels, as many times a batch, as the checkpoint's predictor.
+An artifact runs on the device it was exported on (``device``, which
+stands for the JAX package's lowering ``platforms``): its weights and
+the tensors its graph makes live there.  Under ``model.quant="int8"``
+the calibrated scales go in with ``quant_scales`` and become buffers of
+the program.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from gdn_tpu_torch.config import Config, resolve_device
 from gdn_tpu_torch import kernels
-from gdn_tpu_torch.models import RtoDNet
+from gdn_tpu_torch.config import Config, resolve_device
 
 
 def _prep_rgb(rgb: torch.Tensor) -> torch.Tensor:
@@ -33,6 +43,74 @@ def _encode_u16(depth: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(depth * 256.0), 0, 65535).to(torch.uint16)
 
 
+def _net(cfg: Config, state_dict: Dict[str, torch.Tensor], quant_scales,
+         device: torch.device) -> torch.nn.Module:
+    """The G-net of ``state_dict`` (and its int8 scales) on ``device``."""
+    from gdn_tpu_torch.models import RtoDNet
+    from gdn_tpu_torch.ops.quant import set_quant_scales
+
+    if cfg.model.quant != "none" and quant_scales is None:
+        raise ValueError("model.quant='int8' needs calibrated activation scales "
+                         "(ops.quant.calibrate_quant): pass quant_scales=")
+    net = RtoDNet(cfg.model)
+    net.load_state_dict(state_dict, strict=True)
+    if quant_scales is not None:
+        set_quant_scales(net, quant_scales)
+    return net.to(device).eval()
+
+
+class _Depth(torch.nn.Module):
+    """rgb (B, H, W, 3) float32 in [0, 1] -> depth (B, H, W, 1) float32:
+    the function an artifact holds."""
+
+    def __init__(self, net: torch.nn.Module):
+        super().__init__()
+        self.net = net
+
+    def forward(self, rgb: torch.Tensor) -> torch.Tensor:
+        return self.net(rgb)["depth"]
+
+
+def export_model(cfg: Config, state_dict: Dict[str, torch.Tensor], path: str,
+                 batch_size: int = 1, device=None, quant_scales=None) -> None:
+    """Write the forward pass, weights inside, to ``path`` (a ``.pt2`` of
+    ``torch.export.save``), pinned at (batch_size, H, W, 3) float32 on
+    ``device`` (CUDA unless the CPU is asked for), where it will run."""
+    device = resolve_device(device)
+    h, w = cfg.model.image_size
+    module = _Depth(_net(cfg, state_dict, quant_scales, device))
+    spec = torch.zeros((batch_size, h, w, 3), dtype=torch.float32, device=device)
+    with torch.no_grad():
+        program = torch.export.export(module, (spec,))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp.pt2"
+    torch.export.save(program, tmp)
+    os.replace(tmp, path)  # atomic: a reader never sees half a file
+
+
+def _load(path: str):
+    """(the artifact's callable, its input's placeholder value)."""
+    program = torch.export.load(path)
+    name = program.graph_signature.user_inputs[0]
+    spec = next(n.meta["val"] for n in program.graph.nodes
+                if n.op == "placeholder" and n.name == name)
+    if spec.device.type == "cuda":
+        kernels.load_all()
+    return program.module(), spec
+
+
+def load_model(path: str):
+    """Load an ``export_model`` artifact; returns a callable rgb ->
+    depth, run without autograd on the device it was exported on."""
+    fn = _load(path)[0]
+
+    def call(rgb: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return fn(rgb)
+
+    return call
+
+
 class BatchedPredictor:
     """Fixed-batch inference with partial-batch padding.
 
@@ -48,17 +126,30 @@ class BatchedPredictor:
     DEPTH = 2
 
     def __init__(self, cfg: Config, state_dict: Dict[str, torch.Tensor],
-                 batch_size: int = 8, device=None):
+                 batch_size: int = 8, device=None, quant_scales=None):
         self.cfg = cfg
         self.batch_size = batch_size
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             kernels.load_all()
-        net = RtoDNet(cfg.model)
-        net.load_state_dict(state_dict, strict=True)
-        self.net = net.to(self.device).eval()
+        self.net = _net(cfg, state_dict, quant_scales, self.device)
+        self._depth = _Depth(self.net)
         h, w = cfg.model.image_size
         self._shape = (batch_size, h, w, 3)
+
+    @classmethod
+    def from_artifact(cls, path: str) -> "BatchedPredictor":
+        """Serve an ``export_model`` artifact: weights, batch size and image
+        size are inside it (read from its input's placeholder), so this
+        needs no model code and no checkpoint; uint8 input and the u16
+        wire work as for a checkpoint."""
+        self = cls.__new__(cls)
+        self._depth, spec = _load(path)
+        self.cfg, self.net = None, None
+        self._shape = tuple(spec.shape)
+        self.batch_size = self._shape[0]
+        self.device = spec.device
+        return self
 
     @property
     def image_size(self):
@@ -66,7 +157,7 @@ class BatchedPredictor:
         return self._shape[1], self._shape[2]
 
     def _forward(self, rgb: torch.Tensor, wire: str) -> torch.Tensor:
-        depth = self.net(_prep_rgb(rgb))["depth"][..., 0]
+        depth = self._depth(_prep_rgb(rgb))[..., 0]
         return _encode_u16(depth) if wire == "u16" else depth
 
     def predict(self, rgbs: np.ndarray, wire: str = "f32") -> np.ndarray:

@@ -36,7 +36,9 @@ def _refuse_quant(cfg: Config) -> None:
     """Post-training quantization has a zero gradient: refuse to train."""
     if cfg.model.quant != "none":
         raise ValueError(
-            f"training with model.quant={cfg.model.quant!r} is not supported")
+            f"training with model.quant={cfg.model.quant!r} is not supported "
+            "(post-training quantization is inference-only; train with "
+            "quant='none' and quantize at deployment)")
 
 
 def _apply_update(state: TrainState, loss: torch.Tensor) -> None:
@@ -112,8 +114,8 @@ def make_stage2_step(cfg: Config) -> Callable[[TrainState, nn.Module, Batch],
     return step
 
 
-def make_eval_forward(cfg: Config, net: nn.Module,
-                      flip_tta: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_eval_forward(cfg: Config, net: nn.Module, flip_tta: bool = False,
+                      quant_scales=None) -> Callable[[torch.Tensor], torch.Tensor]:
     """The eval forward: rgb (B, H, W, 3) -> depth (B, H, W, 1) float32,
     under ``torch.inference_mode()``, with ``net``'s weights as they are
     at each call (in-training eval reads the live G-net).  The eval
@@ -121,11 +123,18 @@ def make_eval_forward(cfg: Config, net: nn.Module,
 
     ``flip_tta``: horizontal-flip test-time augmentation (predict on the
     image and its mirror, un-mirror, average), as ONE forward of 2B
-    images."""
+    images.  Under ``model.quant="int8"`` ``net`` is the int8 G-net and
+    ``quant_scales`` its calibrated activation scales
+    (``ops.quant.calibrate_quant``), set into it here; without them this
+    raises."""
     if cfg.model.quant != "none":
-        raise NotImplementedError(
-            f"eval with model.quant={cfg.model.quant!r} is not ported to "
-            "gdn_tpu_torch yet; see ROADMAP.md Queue A item 11 (int8 PTQ)")
+        if quant_scales is None:
+            raise ValueError(
+                "model.quant='int8' needs calibrated activation scales: pass "
+                "quant_scales=ops.quant.calibrate_quant(net, batches)")
+        from gdn_tpu_torch.ops.quant import set_quant_scales
+
+        set_quant_scales(net, quant_scales)
 
     @torch.inference_mode()
     def forward(rgb: torch.Tensor) -> torch.Tensor:

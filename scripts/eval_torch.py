@@ -6,8 +6,11 @@ protocol (forward at train size -> bilinear resize to the GT's size in
 fp32 -> crop/cap/mask -> the 8-metric table) and print the table, the
 images/s and one ``name=value`` line.  The flags are the JAX eval
 CLI's (gdn_tpu_torch/cli.py; ``--ckpt_dir`` is another name of
-``--model_dir``); ``--quantize int8`` and ``--num_devices`` > 1 end the
-run at parse time, naming their ROADMAP item.
+``--model_dir``); ``--num_devices`` > 1 ends the run at parse time,
+naming its ROADMAP item.  ``--quantize int8`` scores the int8 G-net
+(stage 2 only), its activation scales calibrated on held-in data: the
+images in ``--quant_calib_dir``, else the train split of ``--data_path``
+(``train.txt``), else synthetic scenes, never the images it scores.
 
 ``--stage 2`` (default) scores the G-net of the newest checkpoint in
 ``<model_dir>/stage2/`` (``--best``: ``stage2_best/``, the best eval RMSE
@@ -31,6 +34,8 @@ Examples:
   python scripts/eval_torch.py --dataset nyu --data_path data/nyu --val_list test.txt
   python scripts/eval_torch.py --dataset synthetic --ckpt_dir checkpoints
   python scripts/eval_torch.py --dataset synthetic --best --flip_tta --use_ema
+  python scripts/eval_torch.py --dataset kitti --data_path data/kitti \
+      --val_list eigen_test.txt --ckpt_dir checkpoints --quantize int8
   python scripts/eval_torch.py --dataset synthetic --stage 1 --device cpu \\
       --dtype float32      # CPU run of a tiny net trained on the CPU
 """
@@ -52,9 +57,13 @@ def parse_args(argv=None):
                    help="score the stage-2 G-net (default) or the stage-1 D-net's "
                         "reconstruction")
     p.add_argument("--quantize", choices=["none", "int8"], default="none",
-                   help="post-training int8 inference (not ported)")
+                   help="post-training int8 inference (gdn_tpu_torch/ops/quant.py), "
+                        "activation scales calibrated on held-in data (--quant_calib_dir "
+                        "images, else the train split, else synthetic scenes; never the "
+                        "images scored); stage-2 eval only")
     p.add_argument("--quant_calib_dir", default="",
-                   help="images to calibrate --quantize int8 on (not ported)")
+                   help="directory of representative RGB images for int8 calibration "
+                        "(distinct from --calib_dir, the KITTI velodyne calibration)")
     p.add_argument("--best", action="store_true",
                    help="read <model_dir>/stage2_best (train_torch.py --eval_every)")
     p.add_argument("--pth", type=str, default="",
@@ -65,8 +74,8 @@ def parse_args(argv=None):
         p.error("--use_ema reads the EMA of a checkpoint directory; an exported .pth "
                 "holds one set of weights (scripts/export_torch.py --use_ema exports "
                 "a JAX run's EMA)")
-    if args.stage == "1" and (args.best or args.flip_tta):
-        p.error("--best and --flip_tta apply to --stage 2 only")
+    if args.stage == "1" and (args.best or args.flip_tta or args.quantize != "none"):
+        p.error("--best, --flip_tta and --quantize apply to --stage 2 only")
     return args
 
 
@@ -101,17 +110,28 @@ def main(argv=None):
         except KeyError as e:
             raise SystemExit(f"eval_torch.py: --use_ema: {e.args[0]}") from None
     h, w = cfg.model.image_size
-    net = (DtoDNet if args.stage == "1" else RtoDNet)(cfg.model)
-    net.load_state_dict(sd, strict=True)
-    net = net.to(device)
     if device.type == "cuda":
         kernels.load_all()
+    scales = None
+    if args.quantize != "none":
+        from gdn_tpu_torch.ops.quant import quantized_model_and_scales
+
+        # held-in data only: the scored images never set a scale
+        net, scales = quantized_model_and_scales(
+            cfg, sd, calib_dir=args.quant_calib_dir or None, prefer_train_split=True,
+            device=device)
+    else:
+        net = (DtoDNet if args.stage == "1" else RtoDNet)(cfg.model)
+        net.load_state_dict(sd, strict=True)
+        net = net.to(device)
     split = make_loader(cfg, "eval", device=device)
     dataset = Stage1Split(split, (h, w)) if args.stage == "1" else split
     print(f"stage {args.stage} eval of {source}{' (EMA)' if args.use_ema else ''}: "
-          f"{h}x{w}, batch {cfg.eval.batch_size}, {cfg.model.dtype}, device {device}",
+          f"{h}x{w}, batch {cfg.eval.batch_size}, {cfg.model.dtype}"
+          f"{' with int8 convs' if scales else ''}, device {device}",
           flush=True)
-    results = evaluate(cfg, make_eval_forward(cfg, net, flip_tta=args.flip_tta), dataset,
+    forward = make_eval_forward(cfg, net, flip_tta=args.flip_tta, quant_scales=scales)
+    results = evaluate(cfg, forward, dataset,
                        max_images=args.max_images, save_preds=args.save_preds or None,
                        device_cache=args.device_cache, device=device)
     print(" ".join(f"{k}={v:.4f}" for k, v in results.items()), flush=True)

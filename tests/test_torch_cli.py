@@ -120,19 +120,31 @@ def test_unported_train_flags_are_refused_with_their_item(argv, item):
         tcli.build_config(_parse(tcli, argv))
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--num_devices", "4"], "Queue A item 10"),
-    (["--quantize", "int8"], "Queue A item 11"),
-    (["--artifact", "model.bin"], "Queue A item 11"),
-])
-def test_unported_eval_and_serve_flags_are_refused_with_their_item(argv, item):
+def _eval_serve_parser():
     p = argparse.ArgumentParser()
     tcli.add_common_args(p)
     tcli.add_eval_args(p)
     p.add_argument("--quantize", choices=["none", "int8"], default="none")
     p.add_argument("--artifact", default="")
+    return p
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--num_devices", "4"], "Queue A item 10"),
+])
+def test_unported_eval_and_serve_flags_are_refused_with_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
-        tcli.build_config(p.parse_args(argv))
+        tcli.build_config(_eval_serve_parser().parse_args(argv))
+
+
+@pytest.mark.parametrize("argv,quant,artifact", [
+    (["--quantize", "int8"], "int8", ""),
+    (["--artifact", "model.pt2"], "none", "model.pt2"),
+])
+def test_eval_and_serve_flags_build_int8_and_artifact_configs(argv, quant, artifact):
+    args = _eval_serve_parser().parse_args(argv)
+    cfg = tcli.build_config(args)
+    assert (cfg.model.quant, args.artifact) == (quant, artifact)
 
 
 def _load_script(name):
@@ -147,8 +159,6 @@ def _load_script(name):
     ("train_torch", ["--upsample", "deconv"], "Queue A item 3"),
     ("train_torch", ["--steps_per_call", "4"], "Queue A item 12"),
     ("train_torch", ["--fsdp"], "Queue A item 10"),
-    ("serve_torch", ["--init_random", "--quantize", "int8"], "Queue A item 11"),
-    ("serve_torch", ["--artifact", "m.bin"], "Queue A item 11"),
     ("demo_torch", ["--input", "x.png", "--norm", "none"], "Queue A item 3"),
     ("profile_step_torch", ["--upsample", "deconv"], "Queue A item 3"),
 ])
@@ -157,6 +167,39 @@ def test_scripts_turn_a_refusal_into_a_parser_error(script, argv, item, capsys):
         _load_script(script).parse_args(argv)
     assert e.value.code != 0
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("serve_torch", ["--init_random", "--quantize", "int8", "--quant_calib_dir", "frames"]),
+    ("eval_torch", ["--dataset", "synthetic", "--quantize", "int8"]),
+    ("export_artifact_torch", ["--output", "m.pt2", "--quantize", "int8"]),
+])
+def test_scripts_parse_quantize_into_an_int8_config(script, argv):
+    args = _load_script(script).parse_args(argv)
+    assert tcli.build_config(args).model.quant == "int8"
+
+
+@pytest.mark.parametrize("script,argv,error", [
+    ("serve_torch", ["--artifact", "m.pt2", "--quantize", "int8"],
+     "export_artifact_torch.py --quantize int8"),
+    ("serve_torch", ["--artifact", "m.pt2", "--use_ema"], "--use_ema reads"),
+    ("serve_torch", ["--artifact", "m.pt2", "--init_random"], "not allowed with"),
+    ("eval_torch", ["--dataset", "synthetic", "--stage", "1", "--quantize", "int8"],
+     "--stage 2 only"),
+])
+def test_scripts_refuse_quantize_and_artifact_where_they_do_not_apply(script, argv, error,
+                                                                      capsys):
+    with pytest.raises(SystemExit) as e:
+        _load_script(script).parse_args(argv)
+    assert e.value.code != 0
+    assert error in capsys.readouterr().err
+
+
+def test_serve_script_reaches_the_artifact_path(tmp_path):
+    """--artifact goes to BatchedPredictor.from_artifact (here: a missing file)."""
+    with pytest.raises(FileNotFoundError):
+        _load_script("serve_torch").main(
+            ["--artifact", str(tmp_path / "missing.pt2"), "--device", "cpu"])
 
 
 def test_every_model_config_field_is_categorized():

@@ -177,7 +177,7 @@ def test_eval_step_refuses_mesh_and_forward_refuses_quant():
     with pytest.raises(NotImplementedError, match="Queue A item 10"):
         TE.Evaluator(tc, _t_forward, mesh=object(), device="cpu")
     fake = type("Cfg", (), {"model": type("M", (), {"quant": "int8"})()})()
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+    with pytest.raises(ValueError, match="calibrated activation scales"):
         make_eval_forward(fake, torch.nn.Identity())
 
 
@@ -475,7 +475,7 @@ def test_eval_script_scores_what_train_script_wrote(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--quantize", "int8"], "Queue A item 11"),
+    (["--quantize", "int8", "--stage", "1"], "--stage 2 only"),
     (["--use_ema", "--pth", "w.pth"], "export_torch.py --use_ema"),
     (["--num_devices", "4"], "Queue A item 10"),
 ])

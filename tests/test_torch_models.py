@@ -112,7 +112,7 @@ def test_preset_configs_match_jax():
 
 @pytest.mark.parametrize("field,value", [
     ("upsample", "deconv"), ("fusion", "add"), ("norm", "none"),
-    ("quant", "int8"), ("multiscale_heads", True), ("activation", "relu"),
+    ("multiscale_heads", True), ("activation", "relu"),
 ])
 def test_unported_values_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -234,12 +234,43 @@ repository around this file.  Phases, each printed on its own lines:
               22's eval list, calibrated on its train list, beside phase
               22 (f)'s bf16 metrics; (d) scripts/serve_torch.py
               --artifact answering one POST.
+  25. variants  the model variants, full width: (a) serving at batch 8
+              (random weights of init_params, seed 0, the deconv init),
+              kitti_config with upsample="deconv", multiscale_heads
+              (the main path: bilinear init, no deconv GN, the bare ELU
+              through elu_saveout) unfused (16 GN+ELU launches a batch
+              and no other of the nine kernels), with the fused flags
+              (1 GN+ELU, 5 s2, 5 bt, 5 fusion_bt) and with
+              use_pallas_fusion (11 GN+ELU, 5 fusion-block, 0 upsample),
+              then phase 4's resize_conv net in the same call: ms a
+              batch, device busy, idle share and all launches a batch;
+              the deconv depth card vs CPU in fp32 (phase 4's bound) and
+              card bf16 vs CPU bf16 within 1% of max_depth; (b) both
+              training stages at B=32, 6 steps each, unfused and fused,
+              the scales term in the log, launches exact, then one
+              stage-2 step card vs CPU (phase 9, the scales term among
+              the terms); (c) the variant grid (VARIANT_GRID) at B=2:
+              add fusion unfused and with use_pallas_convgn_bt (10 bt a
+              net), norm="none" and relu / gelu / leaky_relu with every
+              fused flag on (no launch of the nine model kernels),
+              deconv_gn (21 GN+ELU a net), the lecun deconv init, and
+              deconv at NYU's 228x304 (the deconv output resized down to
+              the skips' odd sizes): one stage-2 step each, card (fp32)
+              vs CPU, depth, terms and stem gradients at phase 9's
+              bounds, launches exact; (d) scripts/train_torch.py
+              --upsample deconv --multiscale, 3 steps a stage,
+              scripts/eval_torch.py --ckpt_dir on it (config.json brings
+              the variant back), scripts/export_artifact_torch.py of its
+              stage 2 loaded in a fresh process (phase 24's loader):
+              depth and launches a batch against the checkpoint
+              predictor.
 
 Any failure ends the run with a nonzero exit.  The last lines are the
 kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape numbers also go to smoke_out/chip_smoke.json (phase 23's under
-"tools", phase 24's under "artifacts"), the profiles to
+"tools", phase 24's under "artifacts", phase 25's under "variants"), the
+profiles to
 smoke_out/{serving,training}{,_fused,_fusion}_profile.txt,
 smoke_out/eval_profile.txt and smoke_out/disk_*_profile.txt.
 """
@@ -727,10 +758,14 @@ def conv_sites(m):
             "fusion_bt": fusion, "fusion_block": fusion, "upsample": up}
 
 
-def phase_slice(cfg, sd, per_batch, tag="serving", n_images=20, timed=True):
+def phase_slice(cfg, sd, per_batch, tag="serving", n_images=20, timed=True,
+                bf16_cpu=False):
     """Serve ``n_images`` through BatchedPredictor under ``cfg``; the
     kernels must launch exactly ``per_batch`` times a batch; depth is
-    held against the same weights and flags on the CPU."""
+    held against the same weights and flags on the CPU.  With
+    ``bf16_cpu`` the card's bf16 depth is also held against the CPU's
+    bf16 forward of the same two images, within 1% of max_depth (the
+    bound of the CPU tests for the JAX package against the port)."""
     from gdn_tpu_torch.config import _with
     from gdn_tpu_torch.serving import BatchedPredictor
 
@@ -770,6 +805,14 @@ def phase_slice(cfg, sd, per_batch, tag="serving", n_images=20, timed=True):
             "card_fp32_vs_cpu_max_m": float(np.abs(gpu32 - cpu).max()),
             "card_bf16_vs_cpu_max_m": float(d.max()),
             "card_bf16_vs_cpu_mean_m": float(d.mean())}
+    if bf16_cpu:
+        cpu16 = BatchedPredictor(cfg, sd, batch_size=2, device="cpu").predict(images[:2])
+        d16 = np.abs(depth[:2] - cpu16)
+        info["card_bf16_vs_cpu_bf16_max_m"] = float(d16.max())
+        log(f"  vs CPU bf16: card bf16 max|d| {d16.max():.3g} m, mean {d16.mean():.3g} m "
+            f"(bound {0.01 * cfg.model.max_depth:.3g} m)")
+        if d16.max() > 0.01 * cfg.model.max_depth:
+            raise AssertionError("bf16 depth beyond 1% of max_depth of the CPU's bf16")
     if not timed:
         return pred, counts, info
 
@@ -3544,6 +3587,268 @@ def phase_artifacts(cfgs, per_net, sd, disk):
     return out, launches
 
 
+# --------------------------------------------------------------- phase 25
+
+VARIANT = {"model.upsample": "deconv", "model.multiscale_heads": True}  # the main path
+ALL_FLAGS = {**FUSED, **FUSION, **FUSED_V1}  # every fused flag
+VARIANT_STEPS = 6  # (b): steps a stage, the host clock over steps 2-6
+VARIANT_CLI_STEPS = 3  # (d): train_torch.py steps a stage
+VARIANT_GN_DECONV = 16  # GN+ELU sites a deconv net: stem, 10 encoder, 5 fusion
+# (c): (tag, preset, overrides, the model kernels' launches a net); every
+# case runs one forward and one stage-2 step at B=2, card against CPU
+VARIANT_GRID = (
+    ("add", "kitti", {"model.fusion": "add"}, {"group_norm_elu": 21}),
+    ("add_bt", "kitti", {"model.fusion": "add", "model.use_pallas_convgn_bt": True},
+     {"group_norm_elu": 11, "conv_gn_elu_bt": 10}),
+    ("norm_none", "kitti", {"model.norm": "none", **ALL_FLAGS}, {}),
+    ("relu", "kitti", {"model.activation": "relu", **ALL_FLAGS}, {}),
+    ("gelu", "kitti", {"model.activation": "gelu", **ALL_FLAGS}, {}),
+    ("leaky_relu", "kitti", {"model.activation": "leaky_relu", **ALL_FLAGS}, {}),
+    ("deconv_gn", "kitti", {**VARIANT, "model.deconv_gn": True}, {"group_norm_elu": 21}),
+    ("deconv_lecun", "kitti", {"model.upsample": "deconv", "model.deconv_init": "lecun"},
+     {"group_norm_elu": VARIANT_GN_DECONV}),
+    ("deconv_nyu", "nyu", VARIANT, {"group_norm_elu": VARIANT_GN_DECONV}),
+)
+
+
+def variant_vs_cpu(tag, cfg, per_net, seed):
+    """Phase 25 (c): one stage-2 step of a variant at B=2, full width, on
+    the card (fp32, TF32 off) and on the CPU (fp32), same weights
+    (init_params, the D-net's decoder in the G-net) and batch: the
+    G-net's depth (rtol 1e-4, atol 1e-3 m, phase 4's bound), the loss
+    terms (rtol 1e-4) and the stem's gradients (1e-3 of their largest
+    magnitude), phase 9's bounds; the card's launches exact."""
+    from gdn_tpu_torch.checkpoint import init_params, transfer_stage1_decoder
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.synthetic import synthetic_batch
+    from gdn_tpu_torch.models import DtoDNet, RtoDNet
+    from gdn_tpu_torch.train.steps import _stage2_loss
+
+    c = _with(cfg, **{"model.dtype": "float32"})
+    gen = torch.Generator()
+    d_sd = init_params(c.model, gen.manual_seed(seed), in_channels=1)
+    g_sd = transfer_stage1_decoder(init_params(c.model, gen.manual_seed(seed + 1)), d_sd)
+    batch = synthetic_batch(torch.Generator().manual_seed(3), 2, *c.model.image_size,
+                            c.model.max_depth)
+    watch = ("encoder.stem.Conv_0.kernel", "encoder.stem.gn_scale"
+             if c.model.norm == "group" else "encoder.stem.Conv_0.bias")
+    t0 = time.perf_counter()
+    res = {}
+    for dev in ("cpu", "cuda"):
+        g, d = RtoDNet(c.model), DtoDNet(c.model)
+        g.load_state_dict(g_sd)
+        d.load_state_dict(d_sd)
+        g, d = g.to(dev), d.to(dev).requires_grad_(False)
+        g.decoder.requires_grad_(False)
+        seen = {}
+        hook = g.register_forward_hook(
+            lambda m, i, o: seen.update(depth=o["depth"].detach().cpu().numpy()))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            reset_counts()
+        terms = _stage2_loss(g, d, {k: v.to(dev) for k, v in batch.items()}, c)
+        terms["total"].backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+        hook.remove()
+        params = dict(g.named_parameters())
+        res[dev] = (seen["depth"], {k: float(v.detach()) for k, v in terms.items()},
+                    {k: params[k].grad.detach().cpu() for k in watch})
+    expect_counts(f"variant {tag}", counts, fused_loss_fwd=1, fused_loss_bwd=1,
+                  **{k: 2 * v for k, v in per_net.items()})
+    (cpu_d, cpu_t, cpu_g), (card_d, card_t, card_g) = res["cpu"], res["cuda"]
+    np.testing.assert_allclose(card_d, cpu_d, rtol=1e-4, atol=1e-3,
+                               err_msg=f"variant {tag}: depth")
+    for k, v in card_t.items():
+        if abs(v - cpu_t[k]) > 1e-4 * abs(cpu_t[k]):
+            raise AssertionError(f"variant {tag}: card fp32 {k}={v} vs CPU {cpu_t[k]}")
+    rel = {}
+    for k in watch:
+        err = (card_g[k] - cpu_g[k]).abs().max().item()
+        scale = cpu_g[k].abs().max().item()
+        rel[k] = err / scale
+        if err > 1e-3 * scale:
+            raise AssertionError(f"variant {tag}: grad {k}: max|d| {err:.3g} of {scale:.3g}")
+    out = {"depth_max_abs_m": float(np.abs(card_d - cpu_d).max()),
+           "terms_card": card_t, "terms_cpu": cpu_t, "grad_rel_err": rel,
+           "launches_per_step": {k: v for k, v in counts.items() if v},
+           "seconds": time.perf_counter() - t0}
+    log(f"  (c) {tag}: depth max|card-CPU| {out['depth_max_abs_m']:.3g} m; terms within "
+        f"1e-4 ({', '.join(sorted(card_t))}); stem grads {max(rel.values()):.3g} of their "
+        f"largest; launches a step {counts_text(counts)} ({out['seconds']:.1f} s)")
+    return out, counts
+
+
+def variants_cli():
+    """Phase 25 (d): scripts/train_torch.py --upsample deconv --multiscale,
+    both stages; scripts/eval_torch.py on what it wrote (config.json
+    brings the variant back); scripts/export_artifact_torch.py of its
+    stage 2, loaded in a fresh process (phase 24's loader) and held
+    against the checkpoint predictor: depth and launches a batch."""
+    from gdn_tpu_torch import metrics as M
+    from gdn_tpu_torch.checkpoint import load_config, load_params
+    from gdn_tpu_torch.cli import apply_saved_model_config, build_config
+
+    root = os.path.join(OUT, "variants_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    steps, launches, out = VARIANT_CLI_STEPS, {}, {}
+    train = load_script("train_torch")
+    for mode, nets in (("DtoD", 1), ("RtoD", 2)):
+        torch.cuda.synchronize()
+        reset_counts()
+        train.main(["--mode", mode, "--dataset", "synthetic", "--upsample", "deconv",
+                    "--multiscale", "--epochs", "1", "--steps_per_epoch", str(steps),
+                    "--log_every", "1", "--ckpt_dir", root])
+        torch.cuda.synchronize()
+        launches[f"variants_cli_{mode}"] = counts = read_counts()
+        expect_counts(f"train_torch.py --upsample deconv --multiscale {mode}", counts,
+                      fused_loss_fwd=steps, fused_loss_bwd=steps,
+                      group_norm_elu=VARIANT_GN_DECONV * nets * steps)
+    stage2 = os.path.join(root, "stage2")
+    saved = load_config(stage2).model
+    recs = [json.loads(line) for line in open(os.path.join(root, "train_log.jsonl"))]
+    scales = [r["scales"] for r in recs if "scales" in r]
+    if (saved.upsample, saved.multiscale_heads) != ("deconv", True) or len(scales) != 2 * steps:
+        raise AssertionError(f"train_torch.py wrote {saved}, {len(scales)} scales terms")
+    torch.cuda.synchronize()
+    reset_counts()
+    ev = load_script("eval_torch").main(["--dataset", "synthetic", "--ckpt_dir", root,
+                                         "--max_images", "16"])
+    torch.cuda.synchronize()
+    launches["variants_cli_eval"] = counts = read_counts()
+    if not all(np.isfinite(ev[k]) for k in M.METRIC_NAMES):
+        raise AssertionError(f"eval_torch.py on the deconv checkpoint: {ev}")
+    out.update(scales_terms=scales, eval=ev)
+    log(f"  (d) train_torch.py --upsample deconv --multiscale: {steps} steps a stage, "
+        f"launches exact, scales terms {[f'{v:.4f}' for v in scales]}; eval_torch.py "
+        f"--ckpt_dir (config.json: upsample={saved.upsample}, multiscale_heads="
+        f"{saved.multiscale_heads}): rmse {ev['rmse']:.4f}, a1 {ev['a1']:.4f}, launches "
+        f"{counts_text(counts)}")
+
+    path = os.path.join(root, "deconv_multiscale.pt2")
+    argv = ["--ckpt_dir", root, "--output", path, "--export_batch", str(BATCH)]
+    ex = load_script("export_artifact_torch")
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        ex.main(argv)
+        out["export_s"] = time.perf_counter() - t0
+        args = ex.parse_args(argv)
+        cfg = apply_saved_model_config(build_config(args), args, stage2)
+        sd = load_params(stage2)
+        h, w = cfg.model.image_size
+        images = np.random.default_rng(25).integers(0, 256, (ART_IMAGES, h, w, 3), np.uint8)
+        batches = -(-ART_IMAGES // BATCH)
+        _, f32, u16, counts = _eager(cfg, sd, images)
+        launches["variants_artifact_eager"] = counts
+        expect_counts("deconv + multiscale predictor", counts,
+                      group_norm_elu=VARIANT_GN_DECONV * batches)
+        np.save(os.path.join(root, "images.npy"), images)
+        run = subprocess.run(
+            [sys.executable, "-c", ART_LOADER, ROOT, os.path.join(root, "images.npy"),
+             os.path.join(root, "depths.npz"), json.dumps({"deconv_multiscale": path})],
+            capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if run.returncode != 0:
+            raise AssertionError(f"the artifact loader failed: {run.stderr[-4000:]}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loaded = json.loads(run.stdout.strip().splitlines()[-1])
+    info = loaded["info"]["deconv_multiscale"]
+    launches["variants_artifact"] = info["counts"]
+    if info["counts"] != counts or info["batch"] != BATCH:
+        raise AssertionError(f"deconv artifact: {info} vs the predictor's launches {counts}")
+    got = np.load(os.path.join(root, "depths.npz"))
+    differ = int((got["deconv_multiscale_f32"] != f32).sum())
+    np.testing.assert_allclose(got["deconv_multiscale_f32"], f32, rtol=1e-5, atol=0,
+                               err_msg="deconv artifact")
+    du16 = int(np.abs(got["deconv_multiscale_u16"].astype(np.int64)
+                      - u16.astype(np.int64)).max())
+    if du16 > 1 or (differ == 0 and du16):
+        raise AssertionError(f"deconv artifact: u16 wire off by {du16}")
+    out.update(pixels_differing=differ, mb=os.path.getsize(path) / 1e6,
+               launches_per_batch=_per_batch(counts, batches))
+    log(f"  (d) export_artifact_torch.py: {out['mb']:.1f} MB in {out['export_s']:.1f} s; "
+        f"loaded in a fresh process: depth "
+        + ("bit for bit" if differ == 0 else f"{differ} pixels differ (rtol 1e-5)")
+        + f" with the checkpoint predictor, u16 max|d| {du16}; launches a batch "
+        f"{_per_batch(counts, batches)} = the predictor's")
+    return out, launches
+
+
+def phase_variants(cfg, sd):
+    """Phase 25: the model variants (see the module docstring).  ``cfg``
+    and ``sd``: phase 4's resize_conv configuration and weights, served
+    beside the deconv ones in the same call."""
+    from gdn_tpu_torch.checkpoint import init_params
+    from gdn_tpu_torch.config import _with, kitti_config, nyu_config
+
+    t0 = time.perf_counter()
+    out, launches = {"device": smi_line()}, {}
+    cfg_v = _with(cfg, **VARIANT)
+    cfg_vf = _with(cfg_v, **FUSED)
+    cfg_vu = _with(cfg_v, **FUSION)
+    sd_v = init_params(cfg_v.model, torch.Generator().manual_seed(0))
+    fused_per_net = {"group_norm_elu": 1, "conv_gn_elu_s2": 5, "conv_gn_elu_bt": 5,
+                     "fusion_bt": 5}
+    fusion_per_net = {"group_norm_elu": 11, "fusion_block": 5}
+
+    # (a) serving at batch 8: three deconv configurations and resize_conv
+    for tag, c, s, per_batch, extra in (
+            ("deconv", cfg_v, sd_v, {"group_norm_elu": VARIANT_GN_DECONV},
+             {"bf16_cpu": True}),
+            ("deconv_fused", cfg_vf, sd_v, fused_per_net, {}),
+            ("deconv_fusion", cfg_vu, sd_v, fusion_per_net, {}),
+            ("resize_conv", cfg, sd, {"group_norm_elu": 21}, {})):
+        log(f"  (a) serving, {tag}:")
+        _, counts, info = phase_slice(c, s, per_batch, f"serving_variant_{tag}", **extra)
+        launches[f"serving_variant_{tag}"] = counts
+        prof = info["profile"]
+        if prof is not None:
+            info["all_launches_per_batch"] = prof["kernel_launches"] / (64 // BATCH)
+        out[f"serving_{tag}"] = info
+    rows = {t: out[f"serving_{t}"] for t in ("deconv", "deconv_fused", "deconv_fusion",
+                                             "resize_conv")}
+    log("  (a) ms a batch of 8 (host clock) / device busy ms / idle / all launches a batch: "
+        + "; ".join(f"{t} {r['ms_per_batch']:.2f} / "
+                    + (f"{r['profile']['device_busy_ms'] / 8:.2f} / "
+                       f"{r['profile']['idle_share']:.1%} / "
+                       f"{r['all_launches_per_batch']:.0f}" if r["profile"] else "not measured")
+                    for t, r in rows.items()))
+
+    # (b) two-stage training, B=32, unfused and fused, then card vs CPU
+    for tag, c, per_net in (("deconv", cfg_v, {"group_norm_elu": VARIANT_GN_DECONV}),
+                            ("deconv_fused", cfg_vf, fused_per_net)):
+        log(f"  (b) training, {tag}:")
+        tr, tl, _, s2, d_net = phase_train(c, VARIANT_STEPS, per_net, f"training_variant_{tag}")
+        for stage in ("stage1", "stage2"):
+            if "scales" not in tr[stage]["last_terms"]:
+                raise AssertionError(f"{tag} {stage}: no scales term in the log")
+        launches.update({f"training_variant_{tag}_{k}": v for k, v in tl.items()})
+        out[f"training_{tag}"] = tr
+        if tag == "deconv":
+            log("  (b) one stage-2 step, card vs CPU, B=2:")
+            out["vs_cpu"] = phase_vs_cpu(c, s2, d_net)
+            if "scales" not in out["vs_cpu"]["terms"]["card32"]:
+                raise AssertionError("the stage-2 step vs the CPU has no scales term")
+        del s2, d_net
+
+    # (c) the variant grid at B=2, card against CPU
+    out["grid"] = {}
+    for i, (tag, preset, over, per_net) in enumerate(VARIANT_GRID):
+        c = (kitti_config if preset == "kitti" else nyu_config)(
+            **{"model.use_pallas_gn": True, **over})
+        out["grid"][tag], launches[f"variant_{tag}"] = variant_vs_cpu(tag, c, per_net,
+                                                                      100 + 2 * i)
+
+    # (d) the entry points
+    out["cli"], cli_launches = variants_cli()
+    launches.update(cli_launches)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 25 took {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main():
     log("== 1. device")
     if not torch.cuda.is_available():
@@ -3699,6 +4004,10 @@ def main():
          "fusion": fusion_per_net,
          "v1": {"group_norm_elu": 16, "conv_gn_elu": 5}}, sd, disk)
 
+    log("== 25. model variants: the deconv decoder with multi-scale heads served and "
+        "trained at full width, the variant grid against the CPU, the entry points")
+    variants, variant_launches = phase_variants(cfg, sd)
+
     main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
     per_fwd = {k: sum(r[k] * r["sites"] for r in main_rows)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -3709,7 +4018,7 @@ def main():
                      "serving_fusion": fusion_counts, "serving_all": all_counts,
                      **{f"{k}_fusion": v for k, v in fusion_train_launches.items()},
                      **eval_launches, **life_launches, **disk_launches,
-                     **tools_launches, **art_launches}
+                     **tools_launches, **art_launches, **variant_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in path_launches.values())
@@ -3760,7 +4069,7 @@ def main():
                    "serving_fusion": serving_fusion, "serving_all": serving_all,
                    "training_fusion": training_fusion, "vs_cpu_fusion": vs_cpu_fusion,
                    "eval": evaluation, "lifecycle": lifecycle, "disk": disk,
-                   "tools": tools, "artifacts": artifacts,
+                   "tools": tools, "artifacts": artifacts, "variants": variants,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
                    "sass_hmma": hmma_by_fn, "ptxas": ptxas,
                    "kernels": kernels}, f, indent=1)

@@ -118,26 +118,37 @@ def transfer_stage1_decoder(g_sd: Dict[str, torch.Tensor],
     return {**g_sd, **{k: v.detach().clone() for k, v in d_dec.items()}}
 
 
+def _lecun(shape, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax's lecun_normal: a normal truncated at 2 std of the untruncated
+    one and rescaled so the draw keeps variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    t = torch.empty(shape)
+    torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+    return t
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 in_channels: int = 3) -> Dict[str, torch.Tensor]:
-    """Random weights for an RtoDNet (in_channels=3) or DtoDNet (1):
-    lecun-normal conv kernels (truncated normal, variance 1/fan_in, as
-    flax's initializer), GN scales 1, biases 0.  The numbers are not
-    flax's: a JAX key and a torch generator give different draws."""
+    """Random weights for an RtoDNet (in_channels=3) or DtoDNet (1),
+    drawn as the JAX package's initializers draw them: lecun-normal conv
+    kernels (fan-in cin * kh * kw; a 4x4 lecun ConvTranspose 16 * cin,
+    a 1x1 ``lateral_proj`` cin), the bilinear-init ConvTranspose as
+    ``compose_bilinear_deconv_kernel`` of a lecun 3x3 draw (fan-in
+    9 * cin), GN scales 1, biases 0.  The numbers are not flax's: a JAX
+    key and a torch generator give different draws."""
     from gdn_tpu_torch.models import DtoDNet, RtoDNet
+    from gdn_tpu_torch.ops.resize import compose_bilinear_deconv_kernel
 
     net = (RtoDNet if in_channels == 3 else DtoDNet)(cfg)
     sd = {}
     for name, p in net.state_dict().items():
         leaf = name.rsplit(".", 1)[1]
-        if p.dim() == 4:
-            fan_in = p.shape[1] * p.shape[2] * p.shape[3]
-            # flax truncates at 2 std of the untruncated normal and
-            # rescales so the truncated draw keeps variance 1/fan_in
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            t = torch.empty(p.shape)
-            torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
-                                        generator=generator)
+        if p.dim() == 4 and name.endswith("ConvTranspose_0.kernel") and (
+                cfg.deconv_init == "bilinear"):
+            cout, cin = p.shape[:2]
+            t = compose_bilinear_deconv_kernel(_lecun((cout, cin, 3, 3), 9 * cin, generator))
+        elif p.dim() == 4:
+            t = _lecun(p.shape, p.shape[1] * p.shape[2] * p.shape[3], generator)
         elif leaf.endswith("scale"):
             t = torch.ones(p.shape)
         else:

@@ -15,11 +15,11 @@ to a parser and ``build_config`` maps the parsed flags onto one
   GroupNorm+ELU kernel at every unfused site on the card.
 - Flags for what the port does not run yet parse, and the Config
   refuses their values with ``NotImplementedError`` naming the ROADMAP
-  item (``--upsample deconv``, ``--norm none``, ``--multiscale``,
-  ``--steps_per_call`` > 1, ``--fused_guidance``, ``--num_devices`` > 1,
+  item (``--steps_per_call`` > 1, ``--fused_guidance``, ``--num_devices`` > 1,
   ``--spatial_devices``, ``--model_devices``, ``--fsdp``,
   ``--device_cache_sharded``).  ``parse_or_exit`` turns that refusal
-  into the parser's error.
+  into the parser's error, as it does a combination neither package
+  runs (``--quantize int8 --norm none``: a ``ValueError``).
 - ``--quantize int8`` builds an int8 config (``model.quant``), which the
   scripts calibrate (``ops/quant.py``); ``--artifact`` is read by the
   serving script alone.
@@ -51,11 +51,11 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="turn the fused kernels off: the plain loss terms and the "
                         "conv-then-GroupNorm route (the GroupNorm+ELU kernel stays)")
     p.add_argument("--upsample", choices=["resize_conv", "deconv"], default=None,
-                   help="decoder upsampling style (deconv: not ported)")
+                   help="decoder upsampling style")
     p.add_argument("--deconv_init", choices=["lecun", "bilinear"], default=None,
                    help="deconv kernel init (used with --upsample deconv only)")
     p.add_argument("--norm", choices=["group", "none"], default=None,
-                   help="conv-block normalization (none: not ported)")
+                   help="conv-block normalization")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda (default) or cpu")
@@ -121,7 +121,7 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fused_guidance", action="store_true",
                    help="stage 2: one decoder pass over the D+G batch (not ported)")
     p.add_argument("--multiscale", action="store_true",
-                   help="supervise depth at every decoder scale (not ported)")
+                   help="supervise depth at every decoder scale (multi-scale heads)")
     p.add_argument("--loader", choices=["native", "grain"], default="native",
                    help="host loader: the native loaders, or the grain loader's "
                         "counterpart (grain's order, a checkpointed cursor exact at "
@@ -257,11 +257,11 @@ def build_config(args: argparse.Namespace) -> Config:
 def parse_or_exit(p: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
     """Parse ``argv`` and check that the port runs what it asks for: a
     value the Config refuses ends the run through ``p.error`` with its
-    ROADMAP item."""
+    ROADMAP item, and so does a combination the Config rejects."""
     args = p.parse_args(argv)
     try:
         build_config(args)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         p.error(str(e))
     return args
 

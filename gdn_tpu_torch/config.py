@@ -12,30 +12,52 @@ What differs:
 - ``ModelConfig.compute_dtype`` returns a ``torch.dtype``.
 - Values the port does not run yet raise ``NotImplementedError`` at
   construction, naming the ROADMAP item that will port them, instead
-  of being silently ignored.
+  of being silently ignored.  Values neither package runs raise
+  ``ValueError`` at construction (``norm``, ``upsample``,
+  ``deconv_init``, ``fusion``, ``activation``, ``quant``, ``dtype``),
+  where the JAX package raises when the net is traced; so does
+  ``quant="int8"`` with ``norm="none"`` (the int8 sites live on the
+  GroupNorm paths).
+- Every model variant of the JAX package runs: ``norm`` "group" or
+  "none" (a biased conv, then the activation), ``activation`` "elu",
+  "relu", "gelu" (flax's tanh form) or "leaky_relu" (slope 0.2),
+  ``upsample`` "resize_conv" or "deconv" (a stride-2 transposed conv,
+  ``deconv_init`` "bilinear" or "lecun", optional ``deconv_gn``),
+  ``fusion`` "concat" or "add" (a 1x1 ``lateral_proj``, then a
+  ConvBlock) and ``multiscale_heads`` (a depth head at each coarse
+  decoder scale, supervised by ``losses.multiscale_depth_loss``).
 - The model's Pallas flags keep their names and route to the port's
   CUDA kernels.  ``use_pallas_convgn_s2``, ``use_pallas_convgn_bt`` and
   ``use_pallas_convgn`` send the 3x3 ConvBlocks (stride 2; stride 1;
   stride 1, tried in that order as in the JAX package) and
-  ``use_pallas_fusion_bt`` the FusionBlocks to the fused
+  ``use_pallas_fusion_bt`` the concat FusionBlocks to the fused
   conv3x3+GroupNorm+ELU kernels (``kernels/conv_gn_elu.py``,
-  ``kernels/fusion_bt.py``); ``use_pallas_fusion`` sends the UpBlock
-  up-convs at an exact 2x target to the upsample kernel
-  (``kernels/upsample.py``) and the FusionBlocks that
+  ``kernels/fusion_bt.py``); ``use_pallas_fusion`` sends the
+  resize_conv UpBlock up-convs at an exact 2x target to the upsample
+  kernel (``kernels/upsample.py``) and the concat FusionBlocks that
   ``use_pallas_fusion_bt`` has not taken to the per-image fusion kernel
   (``kernels/fusion_block.py``); ``use_pallas=False`` turns all five
-  off.  Every GroupNorm+ELU site that stays unfused launches the
-  GroupNorm+ELU kernel (``kernels/groupnorm.py``) on a CUDA device
-  whatever ``use_pallas_gn`` says.  On the CPU each site runs its kernel's plain PyTorch form.
-  Either way the GN backward is the analytic two-reduce one that
-  ``gn_analytic_vjp`` selects in the JAX package.  The execution fields
-  ``gn_impl``, ``elu_outform_vjp`` and ``convgn_bt_tile`` select TPU/XLA
-  formulations and change nothing in the port.
+  off.  As in the JAX package every fused route needs ``activation=
+  "elu"`` and GroupNorm (the kernels compute ELU only): a net with
+  another activation or ``norm="none"`` launches none of them, and the
+  deconv branch never takes the upsample kernel.  Every GroupNorm+ELU
+  site that stays unfused launches the GroupNorm+ELU kernel
+  (``kernels/groupnorm.py``) on a CUDA device whatever
+  ``use_pallas_gn`` says.  On the CPU each site runs its kernel's plain
+  PyTorch form.  Either way the GN backward is the analytic two-reduce
+  one that ``gn_analytic_vjp`` selects in the JAX package.  A
+  GroupNorm site with another activation runs the plain
+  ``ops.groupnorm.group_norm_act`` in the formulation ``gn_impl``
+  names, as the JAX package routes it; ``elu_outform_vjp`` sends the
+  deconv branch's bare ELU through ``ops.elu.elu_saveout`` (its
+  backward reads the output only).  ``convgn_bt_tile`` selects a TPU
+  tiling and changes nothing in the port.
 - ``quant="int8"`` (post-training, ``ops/quant.py``) runs every conv
   whose input has at least ``quant_min_channels`` channels as an int8
   product and turns the fused conv routes off, as in the JAX package;
-  the GroupNorm+ELU kernel stays.  It serves and scores only: the train
-  steps refuse it.
+  the GroupNorm+ELU kernel stays, and the transposed conv of the deconv
+  branch and the ``lateral_proj`` of add fusion stay in float.  It
+  serves and scores only: the train steps refuse it.
 - ``LossConfig.use_pallas`` routes the loss: set, the fused route
   (``kernels/fused_loss.py``: the CUDA kernels on the card, their plain
   version on the CPU); unset, the unfused plain-PyTorch terms.
@@ -67,13 +89,6 @@ def _exec_field(default):
 
 
 # (field, value the port runs, ROADMAP item that ports the others)
-_NOT_YET = (
-    ("upsample", "resize_conv", "Queue A item 3 (deconv UpBlock branch)"),
-    ("fusion", "concat", "Queue A item 3 (add FusionBlock)"),
-    ("norm", "group", "Queue A item 3 (norm='none' ConvBlock)"),
-    ("activation", "elu", "Queue A item 3 (non-ELU activations)"),
-    ("multiscale_heads", False, "Queue A item 3 (multi-scale heads)"),
-)
 _TRAIN_NOT_YET = (
     ("remat_policy", ("nothing_saveable",), "Queue A item 5 (remat policies)"),
     ("steps_per_call", 1, "Queue A item 12 (multistep)"),
@@ -110,6 +125,18 @@ def _refuse(cls: str, table) -> Callable:
     return post_init
 
 
+# (field, the values either package runs)
+_MODEL_CHOICES = (
+    ("norm", ("group", "none")),
+    ("activation", ("elu", "relu", "gelu", "leaky_relu")),
+    ("upsample", ("resize_conv", "deconv")),
+    ("deconv_init", ("bilinear", "lecun")),
+    ("fusion", ("concat", "add")),
+    ("quant", ("none", "int8")),
+    ("dtype", ("bfloat16", "float32")),
+)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture of the two-stage guided depth network."""
@@ -144,11 +171,13 @@ class ModelConfig:
     use_pallas_fusion_bt: bool = _exec_field(False)
 
     def __post_init__(self):
-        _refuse("ModelConfig", _NOT_YET)(self)
-        if self.quant not in ("none", "int8"):
-            raise ValueError(f"unknown quant {self.quant!r} (none|int8)")
-        if self.dtype not in ("bfloat16", "float32"):
-            raise ValueError(f"unknown dtype {self.dtype!r} (bfloat16|float32)")
+        for name, allowed in _MODEL_CHOICES:
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"unknown {name} {getattr(self, name)!r} "
+                                 f"({'|'.join(allowed)})")
+        if self.quant != "none" and self.norm != "group":
+            raise ValueError("quant='int8' requires norm='group' (the quantized "
+                             "conv sites live on the group-norm paths)")
 
     @property
     def num_scales(self) -> int:

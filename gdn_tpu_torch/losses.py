@@ -6,7 +6,9 @@ the stage-2 latent feature matching, composed by ``total_loss``.
 the scale-0 gradient + SSIM come from ``kernels/fused_loss.py`` (the
 CUDA kernels for CUDA tensors, their plain version for CPU tensors) and
 the coarser gradient scales stay here; unset, every term is the plain
-PyTorch below.  Maps are (B, H, W) or (B, H, W, 1).
+PyTorch below.  The coarse heads' term (``multiscale_depth_loss``) is
+plain on either route, as in the JAX package.  Maps are (B, H, W) or
+(B, H, W, 1).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from gdn_tpu_torch.config import LossConfig
 from gdn_tpu_torch.kernels.fused_loss import fused_loss_terms
+from gdn_tpu_torch.ops.resize import resize_nearest
 from gdn_tpu_torch.ops.ssim import ssim
 
 
@@ -95,6 +98,30 @@ def ssim_loss(pred, gt, max_depth: float, window: int = 11, sigma: float = 1.5,
     return (1.0 - s) / 2.0
 
 
+def multiscale_depth_loss(scale_preds: Sequence[torch.Tensor], gt: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Masked L1 supervision of the coarse decoder heads
+    (``ModelConfig.multiscale_heads``).  ``scale_preds`` are ordered
+    coarse->fine; scale j of n weighs 0.5^(n-1-j), and the weights are
+    normalized by their sum.  GT and mask go to each head's size by
+    ``ops.resize.resize_nearest`` (the JAX package's half-pixel nearest,
+    which keeps sparse validity; ``F.interpolate`` picks other pixels)."""
+    gt4 = _squeeze(gt).float()[:, None]
+    m4 = _squeeze(mask).float()[:, None]
+    n = len(scale_preds)
+    total = gt4.new_zeros(())
+    wsum = 0.0
+    for j, p in enumerate(scale_preds):
+        p3 = _squeeze(p).float()
+        hw = tuple(p3.shape[1:3])
+        g = resize_nearest(gt4, hw)[:, 0]
+        m = resize_nearest(m4, hw)[:, 0]
+        w = 0.5 ** (n - 1 - j)
+        total = total + w * masked_l1(p3, g, m)
+        wsum += w
+    return total / wsum
+
+
 def latent_loss(feats_a: Sequence[torch.Tensor],
                 feats_b: Sequence[torch.Tensor]) -> torch.Tensor:
     """Guidance feature matching: mean L1 between feature pyramids;
@@ -118,11 +145,8 @@ def total_loss(
     target_latents: Sequence[torch.Tensor] = (),
     scale_preds: Sequence[torch.Tensor] = (),
 ) -> Dict[str, torch.Tensor]:
-    """Composite loss: a dict with 'total' and each term."""
-    if scale_preds:
-        raise NotImplementedError(
-            "multiscale_depth_loss is not ported yet; see ROADMAP.md Queue A "
-            "item 4")
+    """Composite loss: a dict with 'total' and each term; ``scale_preds``
+    (the coarse heads' depths, coarse->fine) add ``scales``."""
     if cfg.use_pallas:
         fused = fused_loss_terms(pred, gt, mask, max_depth, cfg.ssim_window,
                                  cfg.ssim_sigma, precision=cfg.ssim_precision)
@@ -148,5 +172,8 @@ def total_loss(
     if pred_latents and target_latents:
         terms["latent"] = latent_loss(pred_latents, target_latents)
         total = total + cfg.w_latent * terms["latent"]
+    if scale_preds:
+        terms["scales"] = multiscale_depth_loss(scale_preds, gt, mask)
+        total = total + cfg.w_scales * terms["scales"]
     terms["total"] = total
     return terms

@@ -1,44 +1,61 @@
 """Building blocks of the D-net / G-net encoder-decoders.
 
-Port of ``gdn_tpu/models/blocks.py`` for the configuration the port
-runs (group norm, ELU, resize_conv upsampling, concat fusion; see
+Port of ``gdn_tpu/models/blocks.py``, every variant of it (see
 config.py).  Layout: NCHW-shaped tensors in channels_last memory, so
 memory stays NHWC as in the JAX package and as the GroupNorm+ELU kernel
 expects; fp32 parameters; compute in ``cfg.compute_dtype``; the depth
 head in fp32.
 
 Attribute names follow the flax parameter paths (``Conv_0.kernel``,
-``gn_scale``, ``up_kernel``, ``fuse.kernel``, ...) and conv kernels are
-stored OIHW, so a state_dict from ``gdn_tpu.checkpoint.params_to_torch``
-loads with ``strict=True`` and no key map.
+``gn_scale``, ``up_kernel``, ``fuse.kernel``, ``ConvTranspose_0.kernel``,
+``fuse.lateral_proj.bias``, ...) and every 4-D kernel is stored as
+``gdn_tpu.checkpoint.params_to_torch`` writes it (HWIO -> OIHW; a
+ConvTranspose's (kh, kw, cin, cout) thus becomes (cout, cin, kh, kw)),
+so its state_dict loads with ``strict=True`` and no key map.
 
-Every GroupNorm+ELU site calls ``kernels.groupnorm.group_norm_elu``
-after a convolution from ``torch.nn.functional`` (cuDNN on the card, as
-the JAX package leaves it to XLA), unless the config sends it to a
-fused conv3x3+GroupNorm+ELU kernel: the 3x3 ConvBlocks by
+With ``norm="group"`` every GroupNorm site with ELU calls
+``kernels.groupnorm.group_norm_elu`` after a convolution from
+``torch.nn.functional`` (cuDNN on the card, as the JAX package leaves
+it to XLA), unless the config sends it to a fused
+conv3x3+GroupNorm+ELU kernel: the 3x3 ConvBlocks by
 ``use_pallas_convgn_s2`` / ``use_pallas_convgn_bt`` /
-``use_pallas_convgn`` (the JAX package's precedence), the FusionBlocks
-by ``use_pallas_fusion_bt`` and then ``use_pallas_fusion``, and the
-UpBlock's up-conv, at an exact 2x target, by ``use_pallas_fusion`` (the
-upsample kernel: bilinear 2x + conv3x3 + GroupNorm + ELU).  The 7x7 stem
-always takes the unfused route.
+``use_pallas_convgn`` (the JAX package's precedence), the concat
+FusionBlocks by ``use_pallas_fusion_bt`` and then ``use_pallas_fusion``,
+and the resize_conv UpBlock's up-conv, at an exact 2x target, by
+``use_pallas_fusion`` (the upsample kernel: bilinear 2x + conv3x3 +
+GroupNorm + ELU).  The 7x7 stem always takes the unfused route.  With
+another activation a GroupNorm site runs the plain
+``ops.groupnorm.group_norm_act`` (``gn_impl``'s formulation) and no
+fused route is taken, as in the JAX package: its kernels compute ELU
+only.  ``norm="none"`` blocks are a biased conv and the activation.
+
+The deconv UpBlock is ``F.conv_transpose2d`` (cuDNN, as the JAX package
+leaves ``nn.ConvTranspose`` to XLA): flax's transposed conv correlates
+the stride-dilated input with the kernel unflipped at SAME pads (3, 3)
+for 6x6 and (2, 2) for 4x4, and torch's correlates with the kernel
+flipped at pads k - 1 - padding, so the kernel goes in as
+``k.transpose(0, 1).flip(2, 3)`` with padding 2 (6x6) or 1 (4x4).
 
 Under ``quant="int8"`` (post-training, ``ops/quant.py``) every fused
 conv route and the composed up-conv are off, as the JAX package gates
 them on ``quant == "none"``, and each conv whose input has at least
-``quant_min_channels`` channels runs ``conv2d_int8``: the ConvBlocks, the
-FusionBlock's concat conv and the UpBlock's resize-then-conv.  Such a
-site holds its activation scale in a non-persistent buffer ``x_scale``
-(so its key is the flax path of the JAX package's ``"quant"``
-collection) and its ``calibrating`` flag, which ``ops.quant.
-calibrate_quant`` sets.  The GroupNorm+ELU kernel stays on at every site.
+``quant_min_channels`` channels runs ``conv2d_int8``: the ConvBlocks
+(the add FusionBlock's ``ConvBlock_0`` too), the concat FusionBlock's
+conv and the resize_conv UpBlock's resize-then-conv.  The transposed
+conv and ``lateral_proj`` stay in float.  Such a site holds its
+activation scale in a non-persistent buffer ``x_scale`` (so its key is
+the flax path of the JAX package's ``"quant"`` collection) and its
+``calibrating`` flag, which ``ops.quant.calibrate_quant`` sets.  The
+GroupNorm+ELU kernel stays on at every site.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gdn_tpu_torch.config import ModelConfig
@@ -50,11 +67,23 @@ from gdn_tpu_torch.kernels.fusion_bt import fused_fusion_bt
 from gdn_tpu_torch.kernels.groupnorm import group_norm_elu
 from gdn_tpu_torch.kernels.upsample import fused_upsample_conv
 from gdn_tpu_torch.ops.conv import CL, conv_same
-from gdn_tpu_torch.ops.groupnorm import pick_groups
+from gdn_tpu_torch.ops.elu import elu_saveout
+from gdn_tpu_torch.ops.groupnorm import group_norm_act, pick_groups
 from gdn_tpu_torch.ops.quant import conv2d_int8, init_act_scale
 from gdn_tpu_torch.ops.resize import composed_resize_conv2x, resize_bilinear
 
 GN_EPS = 1e-6
+
+
+def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The activation flax's ``nn.<name>`` computes: flax's gelu is the
+    tanh approximation, its leaky_relu here has slope 0.2."""
+    return {
+        "elu": F.elu,
+        "relu": F.relu,
+        "gelu": functools.partial(F.gelu, approximate="tanh"),
+        "leaky_relu": functools.partial(F.leaky_relu, negative_slope=0.2),
+    }[name]
 
 
 def _param(*shape, fill: Optional[float] = None) -> nn.Parameter:
@@ -64,11 +93,22 @@ def _param(*shape, fill: Optional[float] = None) -> nn.Parameter:
     return nn.Parameter(t)
 
 
-def gn_elu(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+def gn_act(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
            groups: int, cfg: ModelConfig) -> torch.Tensor:
-    """GroupNorm + ELU epilogue of every block (the kernel on the card)."""
+    """GroupNorm + activation epilogue of a block: ELU on the GroupNorm+ELU
+    kernel, any other activation through the plain ``group_norm_act``."""
     y = y.to(cfg.compute_dtype).contiguous(memory_format=CL)
-    return group_norm_elu(y, scale, bias, groups, GN_EPS)
+    if cfg.activation == "elu":
+        return group_norm_elu(y, scale, bias, groups, GN_EPS)
+    return group_norm_act(y, scale, bias, groups, activation_fn(cfg.activation),
+                          cfg.gn_impl, GN_EPS)
+
+
+def _fusable(cfg: ModelConfig) -> bool:
+    """Whether a GroupNorm site may take a fused kernel at all: the JAX
+    package's gates (Pallas on, no int8, GroupNorm, ELU)."""
+    return (cfg.use_pallas and cfg.quant == "none" and cfg.norm == "group"
+            and cfg.activation == "elu")
 
 
 def _int8_site(block: nn.Module, cin: int, cfg: ModelConfig) -> bool:
@@ -93,8 +133,9 @@ def _conv_int8(block: nn.Module, x: torch.Tensor, kernel: torch.Tensor,
 
 
 class _ConvKernel(nn.Module):
-    """Bare conv parameter holder, named ``Conv_0`` by its caller to keep
-    the flax path ``.../Conv_0/kernel``."""
+    """Bare conv parameter holder, named ``Conv_0`` (``ConvTranspose_0``,
+    ``lateral_proj``) by its caller to keep the flax path
+    ``.../Conv_0/kernel``."""
 
     def __init__(self, cin: int, cout: int, k: int, use_bias: bool = False):
         super().__init__()
@@ -103,24 +144,28 @@ class _ConvKernel(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """Conv(k, k) -> GroupNorm -> ELU."""
+    """Conv(k, k) -> GroupNorm -> activation, or with ``norm="none"`` a
+    biased conv -> activation."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  stride: int = 1, cfg: ModelConfig = ModelConfig()):
         super().__init__()
         self.cfg, self.stride, self.kernel_size = cfg, stride, kernel
-        self.groups = pick_groups(features, cfg.group_norm_groups)
-        self.Conv_0 = _ConvKernel(cin, features, kernel)
-        self.gn_scale = _param(features, fill=1.0)
-        self.gn_bias = _param(features, fill=0.0)
-        self.quantized = _int8_site(self, cin, cfg)
+        self.use_gn = cfg.norm == "group"
+        self.Conv_0 = _ConvKernel(cin, features, kernel, use_bias=not self.use_gn)
+        self.quantized = False
+        if self.use_gn:
+            self.groups = pick_groups(features, cfg.group_norm_groups)
+            self.gn_scale = _param(features, fill=1.0)
+            self.gn_bias = _param(features, fill=0.0)
+            self.quantized = _int8_site(self, cin, cfg)
 
     def _fused(self):
         """The fused kernel this block's config and shape select, in the
         JAX package's order (s2, then bt, then the per-image one), or
         None for the conv + GroupNorm+ELU route."""
         c = self.cfg
-        if not c.use_pallas or c.quant != "none" or self.kernel_size != 3:
+        if not _fusable(c) or self.kernel_size != 3:
             return None
         if self.stride == 2:
             return fused_conv_gn_elu_s2 if c.use_pallas_convgn_s2 else None
@@ -133,6 +178,10 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
         dt = c.compute_dtype
+        if not self.use_gn:
+            y = conv_same(x.to(dt), self.Conv_0.kernel.to(dt), self.stride,
+                          self.Conv_0.bias.to(dt))
+            return activation_fn(c.activation)(y)
         fused = self._fused()
         if fused is not None:
             out = fused(x.to(dt).contiguous(memory_format=CL), self.Conv_0.kernel,
@@ -142,7 +191,7 @@ class ConvBlock(nn.Module):
             y = _conv_int8(self, x, self.Conv_0.kernel, self.stride).to(dt)
         else:
             y = conv_same(x.to(dt), self.Conv_0.kernel.to(dt), self.stride)
-        return gn_elu(y, self.gn_scale, self.gn_bias, self.groups, c)
+        return gn_act(y, self.gn_scale, self.gn_bias, self.groups, c)
 
 
 class DownBlock(nn.Module):
@@ -158,29 +207,45 @@ class DownBlock(nn.Module):
 
 
 class FusionBlock(nn.Module):
-    """Concat fusion: concat(x, lateral) -> conv3x3 -> GroupNorm -> ELU.
+    """Merge a lateral feature map into the decoder stream.
 
-    ``use_pallas_fusion_bt`` sends it to ``fused_fusion_bt``, else
-    ``use_pallas_fusion`` to ``fused_fusion_block`` (the JAX package's
-    order); neither builds the concatenated tensor."""
+    ``fusion="concat"``: concat(x, lateral) -> conv3x3 -> GroupNorm ->
+    activation (with ``norm="none"``: conv3x3 -> + bias -> activation).
+    ``use_pallas_fusion_bt`` sends a GroupNorm+ELU one to
+    ``fused_fusion_bt``, else ``use_pallas_fusion`` to
+    ``fused_fusion_block`` (the JAX package's order); neither builds the
+    concatenated tensor.  ``fusion="add"``: a 1x1 ``lateral_proj`` (with
+    bias) of the lateral is added to x, then ``ConvBlock_0``, which takes
+    the ConvBlock routes (the bt kernel under ``use_pallas_convgn_bt``)."""
 
     def __init__(self, cx: int, cl: int, features: int,
                  cfg: ModelConfig = ModelConfig()):
         super().__init__()
         self.cfg = cfg
-        self.groups = pick_groups(features, cfg.group_norm_groups)
+        self.quantized = False
+        if cfg.fusion == "add":
+            self.lateral_proj = _ConvKernel(cl, cx, 1, use_bias=True)
+            self.ConvBlock_0 = ConvBlock(cx, features, 3, 1, cfg)
+            return
+        self.use_gn = cfg.norm == "group"
         self.kernel = _param(features, cx + cl, 3, 3)
-        self.scale = _param(features, fill=1.0)
+        if self.use_gn:
+            self.groups = pick_groups(features, cfg.group_norm_groups)
+            self.scale = _param(features, fill=1.0)
+            self.quantized = _int8_site(self, cx + cl, cfg)
         self.bias = _param(features, fill=0.0)
-        self.quantized = _int8_site(self, cx + cl, cfg)
 
     def forward(self, x: torch.Tensor, lateral: torch.Tensor) -> torch.Tensor:
         c = self.cfg
         dt = c.compute_dtype
+        if c.fusion == "add":
+            p = self.lateral_proj
+            proj = conv_same(lateral.to(dt), p.kernel.to(dt), 1, p.bias.to(dt))
+            return self.ConvBlock_0(x + proj)
         fused = None
-        if c.use_pallas and c.quant == "none" and c.use_pallas_fusion_bt:
+        if _fusable(c) and c.use_pallas_fusion_bt:
             fused = fused_fusion_bt
-        elif c.use_pallas and c.quant == "none" and c.use_pallas_fusion:
+        elif _fusable(c) and c.use_pallas_fusion:
             fused = fused_fusion_block
         if fused is not None:
             cx = x.shape[1]
@@ -195,51 +260,98 @@ class FusionBlock(nn.Module):
             y = _conv_int8(self, full, self.kernel, 1).to(dt)
         else:
             y = conv_same(full.to(dt), self.kernel.to(dt))
-        return gn_elu(y, self.scale, self.bias, self.groups, self.cfg)
+        if self.use_gn:
+            return gn_act(y, self.scale, self.bias, self.groups, c)
+        return activation_fn(c.activation)(y + self.bias.to(y.dtype)[:, None, None])
 
 
 class UpBlock(nn.Module):
-    """One decoder scale: bilinear upsample to an exact target size,
-    conv3x3 -> GroupNorm -> ELU, then concat fusion of the lateral.
+    """One decoder scale: a 2x upsample to an exact target size, then the
+    fusion of the lateral.  Three branches, as in the JAX package:
 
-    At an exact 2x target ``use_pallas_fusion`` sends upsample, conv,
-    GroupNorm and ELU to the upsample kernel as one call.  Otherwise, at
-    an exact 2x target with H, W >= 2 (and ``resize_conv_composed``) the
-    upsample and conv run as one composed transposed conv (ops/resize.py);
-    otherwise resize (in the compute dtype) then conv.
+    - resize_conv with GroupNorm: bilinear resize, conv3x3 -> GroupNorm
+      -> activation, its own ``up_kernel`` / ``up_scale`` / ``up_bias``.
+      At an exact 2x target ``use_pallas_fusion`` (with ELU) sends the
+      four to the upsample kernel as one call; otherwise, at an exact 2x
+      target with H, W >= 2 (and ``resize_conv_composed``) the upsample
+      and conv run as one composed transposed conv (ops/resize.py);
+      otherwise resize (in the compute dtype) then conv.
+    - resize_conv with ``norm="none"``: the fp32 bilinear resize, then
+      ``ConvBlock_0``.
+    - deconv: a stride-2 ``ConvTranspose_0`` (6x6 for the bilinear
+      init, 4x4 for lecun; biased unless ``deconv_gn``), the bilinear
+      resize to the target where the output misses it (it shrinks, and
+      so antialiases, at NYU's odd sizes), then the GroupNorm epilogue
+      (``deconv_gn``), or ELU through ``elu_saveout``
+      (``elu_outform_vjp``), or the bare activation.
     """
 
     def __init__(self, cin: int, features: int, lateral_channels: int,
                  cfg: ModelConfig = ModelConfig()):
         super().__init__()
         self.cfg = cfg
-        self.groups = pick_groups(features, cfg.group_norm_groups)
-        self.up_kernel = _param(features, cin, 3, 3)
-        self.up_scale = _param(features, fill=1.0)
-        self.up_bias = _param(features, fill=0.0)
-        self.quantized = _int8_site(self, cin, cfg)
+        self.quantized = False
+        if cfg.upsample == "deconv":
+            self.deconv_gn = cfg.norm == "group" and cfg.deconv_gn
+            k = 6 if cfg.deconv_init == "bilinear" else 4
+            self.ConvTranspose_0 = _ConvKernel(cin, features, k,
+                                               use_bias=not self.deconv_gn)
+            if self.deconv_gn:
+                self.groups = pick_groups(features, cfg.group_norm_groups)
+                self.deconv_gn_scale = _param(features, fill=1.0)
+                self.deconv_gn_bias = _param(features, fill=0.0)
+        elif cfg.norm != "group":
+            self.ConvBlock_0 = ConvBlock(cin, features, 3, 1, cfg)
+        else:
+            self.groups = pick_groups(features, cfg.group_norm_groups)
+            self.up_kernel = _param(features, cin, 3, 3)
+            self.up_scale = _param(features, fill=1.0)
+            self.up_bias = _param(features, fill=0.0)
+            self.quantized = _int8_site(self, cin, cfg)
         self.fuse = FusionBlock(features, lateral_channels, features, cfg)
 
-    def forward(self, x: torch.Tensor, target_hw: Tuple[int, int],
-                lateral: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _deconv(self, x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
+        c = self.cfg
+        dt = c.compute_dtype
+        k, b = self.ConvTranspose_0.kernel, self.ConvTranspose_0.bias
+        w = k.to(dt).transpose(0, 1).flip(2, 3).contiguous(memory_format=CL)
+        y = F.conv_transpose2d(x.to(dt), w, None if b is None else b.to(dt),
+                               stride=2, padding=2 if k.shape[-1] == 6 else 1)
+        if tuple(y.shape[2:]) != tuple(target_hw):
+            y = resize_bilinear(y, target_hw)
+        if self.deconv_gn:
+            return gn_act(y, self.deconv_gn_scale, self.deconv_gn_bias, self.groups, c)
+        if c.activation == "elu" and c.elu_outform_vjp:
+            return elu_saveout(y)
+        return activation_fn(c.activation)(y)
+
+    def _resize_conv(self, x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
         c = self.cfg
         dt = c.compute_dtype
         h, w = x.shape[2], x.shape[3]
         exact2x = tuple(target_hw) == (2 * h, 2 * w)
         plain = c.quant == "none"  # int8 takes resize then conv, as the JAX package
-        if c.use_pallas and c.use_pallas_fusion and plain and exact2x:
-            x = fused_upsample_conv(
+        if _fusable(c) and c.use_pallas_fusion and exact2x:
+            return fused_upsample_conv(
                 x.to(dt).contiguous(memory_format=CL), self.up_kernel, self.up_scale,
                 self.up_bias, self.groups, GN_EPS, c.dtype).to(dt)
+        k = self.up_kernel.to(dt)
+        if c.resize_conv_composed and plain and exact2x and h >= 2 and w >= 2:
+            y = composed_resize_conv2x(x.to(dt), k.contiguous(memory_format=CL))
         else:
-            k = self.up_kernel.to(dt)
-            if c.resize_conv_composed and plain and exact2x and h >= 2 and w >= 2:
-                y = composed_resize_conv2x(x.to(dt), k.contiguous(memory_format=CL))
-            else:
-                u = resize_bilinear(x.to(dt), target_hw, precise=False)
-                y = (_conv_int8(self, u, self.up_kernel, 1).to(dt) if self.quantized
-                     else conv_same(u, k))
-            x = gn_elu(y, self.up_scale, self.up_bias, self.groups, c)
+            u = resize_bilinear(x.to(dt), target_hw, precise=False)
+            y = (_conv_int8(self, u, self.up_kernel, 1).to(dt) if self.quantized
+                 else conv_same(u, k))
+        return gn_act(y, self.up_scale, self.up_bias, self.groups, c)
+
+    def forward(self, x: torch.Tensor, target_hw: Tuple[int, int],
+                lateral: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.cfg.upsample == "deconv":
+            x = self._deconv(x, target_hw)
+        elif self.cfg.norm != "group":
+            x = self.ConvBlock_0(resize_bilinear(x, target_hw))
+        else:
+            x = self._resize_conv(x, target_hw)
         if lateral is not None:
             x = self.fuse(x, lateral)
         return x

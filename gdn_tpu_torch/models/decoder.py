@@ -20,8 +20,11 @@ from gdn_tpu_torch.models.encoder import skip_channels
 class Decoder(nn.Module):
     """len(dec_channels) x2 upsampling scales with skip fusion, then the
     depth head.  Returns (depth, dec_feats, depth_scales) with dec_feats
-    ordered coarse->fine; depth_scales stays empty (multi-scale heads
-    are not ported yet, config.py refuses them)."""
+    ordered coarse->fine.  With ``multiscale_heads`` a DepthHead
+    ``head{i}`` reads each decoder scale but the finest, and
+    depth_scales holds their depths coarse->fine followed by the main
+    depth (the train steps supervise ``depth_scales[:-1]``); without, it
+    is empty."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
@@ -35,22 +38,32 @@ class Decoder(nn.Module):
                 f"encoder produces only {len(skips)} skips"
             )
         cin = cfg.enc_channels[-1]
+        n = len(cfg.dec_channels)
         for i, ch in enumerate(cfg.dec_channels):
             lat = skips[len(skips) - 1 - i]
             self.add_module(f"up{i}", UpBlock(cin, ch, lat, cfg))
+            if cfg.multiscale_heads and i < n - 1:
+                self.add_module(f"head{i}", DepthHead(ch, cfg))
             cin = ch
         self.head = DepthHead(cin, cfg)
 
     def forward(
         self, latent: torch.Tensor, skips: Sequence[torch.Tensor]
     ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
-        x = latent.to(self.cfg.compute_dtype)
-        dec_feats = []
+        c = self.cfg
+        x = latent.to(c.compute_dtype)
+        dec_feats, depth_scales = [], []
+        n = len(c.dec_channels)
         # skips are fine->coarse; consume coarse->fine.
-        for i in range(len(self.cfg.dec_channels)):
+        for i in range(n):
             skip = skips[len(skips) - 1 - i]
             x = getattr(self, f"up{i}")(
                 x, target_hw=tuple(skip.shape[2:4]), lateral=skip
             )
             dec_feats.append(x)
-        return self.head(x), dec_feats, []
+            if c.multiscale_heads and i < n - 1:
+                depth_scales.append(getattr(self, f"head{i}")(x))
+        depth = self.head(x)
+        if c.multiscale_heads:
+            depth_scales.append(depth)
+        return depth, dec_feats, depth_scales

@@ -11,9 +11,8 @@ rounded as the JAX script does, ``seconds`` unrounded) and then the
 The flags and defaults are the JAX script's (300 steps a stage, batch
 16, lr 5e-4, 32x64, 30 eval images); ``--platform`` is ``--device``
 here, and ``--dtype`` picks the compute dtype (bfloat16, the JAX
-default).  Flags for what the port does not run yet (``--norm none``,
-``--upsample deconv``, ``--multiscale``) are refused with their ROADMAP
-item.
+default).  ``--norm none``, ``--upsample deconv [--deconv_init]`` and
+``--multiscale`` train the model variants.
 
 Examples:
   python scripts/convergence_torch.py --seeds 0 1 2
@@ -47,12 +46,7 @@ def parse_args(argv=None):
     p.add_argument("--multiscale", action="store_true")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
-    args = p.parse_args(argv)
-    try:
-        protocol_config(args, args.seeds[0])
-    except NotImplementedError as e:
-        p.error(str(e))
-    return args
+    return p.parse_args(argv)
 
 
 def protocol_config(args, seed: int):

@@ -44,9 +44,11 @@ validates on N held-out synthetic batches (seed + 1).  ``--eval_every N``
 (RtoD) scores the G-net every N epochs with the full eval protocol on the
 ``--val_list`` split (the synthetic eval split on synthetic data) and
 keeps the best eval RMSE's checkpoint in ``<model_dir>/stage2_best/``
-(scripts/eval_torch.py --best).  A flag for what the port does not run
-yet (``--upsample deconv``, ``--steps_per_call``, ``--fsdp``, ...) ends
-the run at parse time, naming its ROADMAP item.
+(scripts/eval_torch.py --best).  ``--upsample deconv [--deconv_init
+lecun]``, ``--norm none`` and ``--multiscale`` train the model
+variants.  A flag for what the port does not run yet
+(``--steps_per_call``, ``--fsdp``, ...) ends the run at parse time,
+naming its ROADMAP item.
 
 Examples:
   python scripts/make_fixture.py --out data/kitti --n 512 --style scene

@@ -76,8 +76,8 @@ def test_config_json_both_ways(tmp_path, preset, case):
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"model.upsample": "deconv"}, "Queue A item 3"),
-    ({"model.norm": "none"}, "Queue A item 3"),
+    ({"train.fused_encoders": True}, "Queue A item 12"),
+    ({"mesh.num_devices": 2}, "Queue A item 10"),
     ({"train.remat_policy": "dots_saveable"}, "Queue A item 5"),
     ({"train.steps_per_call": 4}, "Queue A item 12"),
 ])
@@ -145,13 +145,14 @@ def test_apply_saved_model_config_without_config_json(tmp_path):
 
 def test_apply_saved_model_config_flag_for_an_unported_branch(tmp_path):
     """--upsample deconv on a resize_conv checkpoint: the JAX CLI honors
-    the flag; the port refuses the branch, naming its ROADMAP item."""
+    the flag, and so does the port, now that the deconv branch is
+    ported (the two adopted model configs are equal)."""
     d = str(tmp_path)
     jckpt.save_config(d, jcfg.kitti_config(**SMALL))
     want = jcli.apply_saved_model_config(jcfg.kitti_config(), _args(upsample="deconv"), d)
     assert want.model.upsample == "deconv" and want.model.enc_channels == (8, 16)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        tcli.apply_saved_model_config(tcfg.kitti_config(), _args(upsample="deconv"), d)
+    got = tcli.apply_saved_model_config(tcfg.kitti_config(), _args(upsample="deconv"), d)
+    assert dataclasses.asdict(got.model) == dataclasses.asdict(want.model)
 
 
 # ------------------------------------- a JAX checkpoint through export_torch

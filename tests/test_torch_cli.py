@@ -9,7 +9,8 @@ package's (gdn_tpu/cli.py), on the CPU.
 - Every flag for what the port does not run yet parses in both
   packages, and the port's Config refuses it with NotImplementedError
   naming its ROADMAP item; the scripts turn that into their parser's
-  error.
+  error.  The model variants' flags (``--upsample deconv``, ``--norm
+  none``, ``--multiscale``) build the JAX package's config.
 - Every ModelConfig field of the port is categorized as architecture or
   execution (as tests/test_cli.py does for the JAX package's).
 - The port's own flags: ``--ckpt_dir`` is ``--model_dir``, ``--device``,
@@ -100,9 +101,6 @@ def test_build_config_equals_the_jax_one(argv, evalargs):
 
 
 UNPORTED = [
-    (["--upsample", "deconv"], "Queue A item 3"),
-    (["--norm", "none"], "Queue A item 3"),
-    (["--multiscale"], "Queue A item 3"),
     (["--steps_per_call", "2"], "Queue A item 12"),
     (["--fused_guidance"], "Queue A item 12"),
     (["--num_devices", "2"], "Queue A item 10"),
@@ -118,6 +116,21 @@ def test_unported_train_flags_are_refused_with_their_item(argv, item):
     jcli.build_config(_parse(jcli, argv))  # a flag the JAX package runs
     with pytest.raises(NotImplementedError, match=item):
         tcli.build_config(_parse(tcli, argv))
+
+
+@pytest.mark.parametrize("argv", [
+    ["--upsample", "deconv", "--deconv_init", "lecun"],
+    ["--norm", "none", "--mode", "RtoD"],
+    ["--multiscale", "--upsample", "deconv"],
+])
+def test_variant_train_flags_parse_to_the_jax_config(argv):
+    """The model variants' flags, which the port once refused: they build
+    the JAX package's config (the stated exception aside)."""
+    fields = _same_fields(tcli.build_config(_parse(tcli, argv)),
+                          jcli.build_config(_parse(jcli, argv)))
+    diff = {k: v for k, v in fields.items() if v[0] != v[1] and k not in STATED_EXCEPTIONS}
+    assert diff == {} and len(fields) > 80
+    assert fields[("model", "upsample")][0] == ("deconv" if "deconv" in argv else "resize_conv")
 
 
 def _eval_serve_parser():
@@ -156,17 +169,29 @@ def _load_script(name):
 
 
 @pytest.mark.parametrize("script,argv,item", [
-    ("train_torch", ["--upsample", "deconv"], "Queue A item 3"),
+    ("train_torch", ["--spatial_devices", "2"], "Queue A item 10"),
     ("train_torch", ["--steps_per_call", "4"], "Queue A item 12"),
     ("train_torch", ["--fsdp"], "Queue A item 10"),
-    ("demo_torch", ["--input", "x.png", "--norm", "none"], "Queue A item 3"),
-    ("profile_step_torch", ["--upsample", "deconv"], "Queue A item 3"),
+    ("eval_torch", ["--quantize", "int8", "--norm", "none"], "requires norm='group'"),
+    ("train_torch", ["--fused_guidance"], "Queue A item 12"),
 ])
 def test_scripts_turn_a_refusal_into_a_parser_error(script, argv, item, capsys):
     with pytest.raises(SystemExit) as e:
         _load_script(script).parse_args(argv)
     assert e.value.code != 0
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("script,argv,field,value", [
+    ("train_torch", ["--upsample", "deconv", "--multiscale"], "multiscale_heads", True),
+    ("demo_torch", ["--input", "x.png", "--norm", "none"], "norm", "none"),
+    ("profile_step_torch", ["--upsample", "deconv"], "upsample", "deconv"),
+])
+def test_scripts_take_the_variant_flags(script, argv, field, value):
+    """Flags the scripts once refused (Queue A item 3): they now parse
+    and reach the model config."""
+    args = _load_script(script).parse_args(argv)
+    assert getattr(tcli.build_config(args).model, field) == value
 
 
 @pytest.mark.parametrize("script,argv", [

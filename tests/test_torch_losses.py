@@ -509,8 +509,14 @@ def test_loss_pieces_match_jax():
         float(jl.latent_loss([jnp.asarray(x) for x in a], [jnp.asarray(x) for x in t])), **VAL)
     with pytest.raises(ValueError, match="depth"):
         tl.latent_loss(_t(*a), _t(*t)[:2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.total_loss(tp, tg, tm, tcfg.LossConfig(), 80.0, scale_preds=[tp])
+    # the multi-scale heads' term, once refused: total_loss adds it as JAX does
+    coarse = [tp[:, ::2, ::2], tp[:, ::4, ::4]]
+    got = tl.total_loss(tp, tg, tm, tcfg.LossConfig(), 80.0, scale_preds=coarse)
+    want = jl.total_loss(jp, jg, jm, jcfg.LossConfig(), 80.0,
+                         scale_preds=[jnp.asarray(c.numpy()) for c in coarse])
+    assert set(got) == set(want) and "scales" in got
+    for k in ("scales", "total"):
+        assert float(got[k]) == pytest.approx(float(want[k]), **VAL), k
 
 
 # ------------------------------------------------------- GroupNorm + ELU

@@ -115,8 +115,12 @@ def test_preset_configs_match_jax():
     ("multiscale_heads", True), ("activation", "relu"),
 ])
 def test_unported_values_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcfg.ModelConfig(**{field: value})
+    """The model variants, which the port once refused: each now builds,
+    and its fields equal the JAX config's (tests/test_torch_variants.py
+    holds the nets they build against flax)."""
+    t = tcfg.ModelConfig(**{field: value})
+    assert getattr(t, field) == value
+    assert t.__dict__ == jcfg.ModelConfig(**{field: value}).__dict__
 
 
 # ----------------------------------------------------------------- weights

@@ -208,8 +208,15 @@ def test_convergence_script_prints_its_lines_on_the_cpu():
     assert set(seed["metrics"]) == jax_keys
     assert done["DONE"] and done["seeds"] == [0] and done["a1_mean"] == seed["metrics"]["a1"]
     assert 0.0 <= done["a1_mean"] <= 1.0
-    bad = _run("convergence_torch.py", "--norm", "none", "--device", "cpu")
-    assert bad.returncode != 0 and "Queue A item 3" in bad.stderr
+    # --norm none, once refused, now builds the variant's protocol config
+    spec = importlib.util.spec_from_file_location(
+        "convergence_torch", os.path.join(REPO, "scripts", "convergence_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    args = script.parse_args(["--norm", "none", "--upsample", "deconv", "--multiscale"])
+    cfg = script.protocol_config(args, 0)
+    assert (cfg.model.norm, cfg.model.upsample, cfg.model.multiscale_heads) == (
+        "none", "deconv", True)
 
 
 def test_profile_step_script_on_the_cpu(tmp_path):

@@ -26,7 +26,9 @@ repository around this file.  Phases, each printed on its own lines:
               the library yardstick's (F.group_norm + F.elu) times, the
               bound and the share of it reached; then at every training
               shape (B=32, bf16) and at the ragged set GN_RAGGED, the
-              same checks;
+              same checks, the training shapes' times also from CUDA
+              events with the calls queued back to back behind a spin
+              (queued_ms, phase 26 (f)'s route);
   4. slice    the full-width KITTI G-net (random weights from seed 0,
               batch 8, bf16) serves 20 uint8 images through
               BatchedPredictor; the kernel must launch 21 times a batch;
@@ -264,14 +266,46 @@ repository around this file.  Phases, each printed on its own lines:
               stage 2 loaded in a fresh process (phase 24's loader):
               depth and launches a batch against the checkpoint
               predictor.
+  26. knobs  the training knobs at full width (kitti_config, bf16,
+              random weights: the D-net's and the G-net's init_params
+              draws of seeds 26 and 27, the G-net holding the D-net's
+              decoder): (a) one stage-2 step at B=32 from the same
+              weights in each configuration of KNOBS, the two-net step
+              (phase 8's) first, then fused_guidance, with
+              fused_guidance_vjp, with fused_encoders, with
+              fused_encoders and the fused flags (fusion_bt at 2B = 64),
+              and fused_guidance with use_pallas_fusion (the upsample and
+              fusion-block kernels at 2B): launches a step exact, ms/step
+              (host clock, 5 steps after one), peak allocated memory, one
+              profiled step (device busy, idle share, all launches); (b)
+              each of them at B=2, card (fp32, TF32 off) against the CPU
+              at phase 9's bounds, and each fused one against the
+              two-net step with the same model flags on the card (terms
+              rtol 1e-5, stem gradients phase 9's bound); (c)
+              steps_per_call=4 in both stages, unfused, B=32, EMA 0.99,
+              cuDNN deterministic: one call against 4 single steps from
+              the same state, parameters, EMA and Adam moments
+              bit-identical, launches a call exact, ms an update; (d)
+              stage 2 at B=32, unfused, remat off and each remat_policy
+              the port runs (REMAT_RUNS): gradients against remat off
+              within 5% of each tensor's largest (bit-identical where
+              so), launches a step exact with the recompute's, ms/step,
+              peak memory and a profiled step; (e) scripts/train_torch.py
+              --steps_per_call 2 --fused_guidance, 4 steps a stage; (f)
+              the GroupNorm+ELU kernel against its plain version at every
+              shape of the paired encoder ladder (B=32, C = 2 x the
+              encoder's width, 16 groups, bf16), as phase 3, the time
+              from queued events (late in the process CUPTI has recorded
+              none of these launches).
 
 Any failure ends the run with a nonzero exit.  The last lines are the
 kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape numbers also go to smoke_out/chip_smoke.json (phase 23's under
-"tools", phase 24's under "artifacts", phase 25's under "variants"), the
-profiles to
+"tools", phase 24's under "artifacts", phase 25's under "variants",
+phase 26's under "knobs"), the profiles to
 smoke_out/{serving,training}{,_fused,_fusion}_profile.txt,
+smoke_out/knobs_*_profile.txt,
 smoke_out/eval_profile.txt and smoke_out/disk_*_profile.txt.
 """
 
@@ -351,6 +385,35 @@ def cuda_ms(fns, iters=20):
     return start.elapsed_time(end) / n
 
 
+SPIN_CYCLES = 200_000_000  # ~100 ms of torch.cuda._sleep at the H100's ~2 GHz
+
+
+def queued_ms(fns, iters=20):
+    """Mean device ms of one call, the calls queued back to back: they are
+    enqueued behind a spin kernel (``torch.cuda._sleep``), so CUDA events
+    around them time the card alone, not the host's pace between
+    launches.  Raises when the host took longer to enqueue them than the
+    spin lasted (the queue ran dry: the time would include the host)."""
+    for f in fns[:3]:
+        f()
+    torch.cuda.synchronize()
+    n = max(iters, len(fns))
+    spun, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    spun.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fns[i % len(fns)]()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    end.record()
+    end.synchronize()
+    if host_ms >= spun.elapsed_time(start):
+        raise RuntimeError(f"queued_ms: the host took {host_ms:.1f} ms to enqueue {n} calls, "
+                           f"longer than the {spun.elapsed_time(start):.1f} ms spin")
+    return start.elapsed_time(end) / n
+
+
 def _device_us(prof):
     """{kernel name: (device us, calls)} of a torch.profiler run: the
     kernels' own rows only (an operator's row repeats its kernels' time,
@@ -401,11 +464,12 @@ def profiled(run, cpu=False, tries=4, min_calls=1):
 def device_ms(fns, iters=20, what="", split=None):
     """Mean device ms of one call, from the profiler: the sum of the
     card's kernel times over a loop, whatever the host's pace.  Where
-    the profiler keeps coming back short, the call is timed with CUDA
-    events around the loop instead (an upper bound: it includes the gaps
-    between launches), and ``what`` is noted in EVENT_TIMED.  A dict
-    given as ``split`` receives {kernel name: device ms of one call}
-    and, under "launches", the kernels one call launches."""
+    the profiler keeps coming back short, the calls are timed with CUDA
+    events instead, queued back to back behind a spin (``queued_ms``:
+    the card's time with no gaps between launches), and ``what`` is
+    noted in EVENT_TIMED.  A dict given as ``split`` receives {kernel
+    name: device ms of one call} and, under "launches", the kernels one
+    call launches."""
     for f in fns[:3]:
         f()
     n = max(iters, len(fns))
@@ -417,13 +481,14 @@ def device_ms(fns, iters=20, what="", split=None):
     try:
         # every call launches a kernel; CUPTI on the H100 has recorded one
         # kernel fewer than launched in a loop of one-kernel calls, session
-        # after session, so one short is taken and each kernel is averaged
-        # over its own recorded launches
-        _, kernels, _ = profiled(loop, min_calls=n - 1)
+        # after session, and three fewer of 20 late in a long process, so
+        # up to a fifth short is taken and each kernel is averaged over its
+        # own recorded launches
+        _, kernels, _ = profiled(loop, min_calls=n - max(1, n // 5))
     except ProfilerShort:
         EVENT_TIMED.append(what)
         log(f"  (timing {what or 'this call'} with CUDA events instead)")
-        return cuda_ms(fns, iters)
+        return queued_ms(fns, iters)
     # a kernel launched L times a call: its time over its recorded launches,
     # times L (= its launches over n, rounded)
     per_call = {k: us / 1e3 / calls * max(1, round(calls / n))
@@ -683,9 +748,13 @@ def phase_kernels_train(cfg, gn):
                "bound_ms": bound_ms(*gn_work(shape, x.element_size()))}
         row["ms"] = device_ms([lambda: gn(x, scale, bias, g)], what=what,
                               split=row["split_ms"])
+        # the same calls queued back to back, timed with events (phase 26
+        # (f)'s route), beside the profiler's time
+        row["queued_ms"] = queued_ms([lambda: gn(x, scale, bias, g)])
         rows.append(row)
         log(f"  {what}: max|k-p| {err:.3g}, stats {serr:.3g}; {plan_text(plan)}")
-        log(f"    device us: kernel {row['ms']*1e3:.1f} bound {row['bound_ms']*1e3:.1f} "
+        log(f"    device us: kernel {row['ms']*1e3:.1f} (queued events "
+            f"{row['queued_ms']*1e3:.1f}) bound {row['bound_ms']*1e3:.1f} "
             f"({row['bound_ms'] / row['ms']:.0%} of it reached); kernel split: "
             f"{split_text(row['split_ms'])}")
         del x
@@ -3849,6 +3918,422 @@ def phase_variants(cfg, sd):
     return out, launches
 
 
+# --------------------------------------------------------------- phase 26
+
+FG = {"train.fused_guidance": True}
+# (a), (b): (tag, overrides of phase 8's configuration, the model kernels'
+# launches a stage-2 step at B=32; each step also launches the two loss
+# kernels once).  The D-net's encoder runs without grad (11 GN+ELU), the
+# G-net's under grad (11), the shared decoder at 2B (10); the VJP runs the
+# decoder again on the G half (10); the paired ladder is one ladder (11).
+KNOBS = (
+    ("two_net", {}, {"group_norm_elu": 42}),
+    ("fused_guidance", FG, {"group_norm_elu": 32}),
+    ("fused_guidance_vjp", {**FG, "train.fused_guidance_vjp": True}, {"group_norm_elu": 42}),
+    ("fused_encoders", {**FG, "train.fused_encoders": True}, {"group_norm_elu": 21}),
+    ("fused_encoders_fused", {**FG, "train.fused_encoders": True, **FUSED},
+     {"group_norm_elu": 16, "fusion_bt": 5}),
+    ("fused_guidance_fusion", {**FG, **FUSION},
+     {"group_norm_elu": 22, "upsample": 5, "fusion_block": 5}),
+)
+KNOB_TIMED = 5  # (a): timed steps, after one untimed
+KNOB_K = 4  # (c): steps_per_call
+KNOB_CLI_STEPS = 4  # (e): train_torch.py steps a stage
+# (d): remat_policy -> how many times the G-net's GroupNorm+ELU sites
+# launch a step (the D-net's 21 launch once): the kernels launch through
+# ctypes, so every policy that recomputes launches them again
+REMAT_RUNS = {"off": 1, "nothing_saveable": 2, "dots_saveable": 2, "checkpoint_dots": 2,
+              "dots_with_no_batch_dims_saveable": 2,
+              "checkpoint_dots_with_no_batch_dims": 2, "everything_saveable": 1}
+
+
+def _knob_nets(c, g_sd, d_sd, dev="cuda"):
+    """A G-net (decoder frozen) and a frozen D-net of config ``c`` on
+    ``dev`` from the state dicts."""
+    from gdn_tpu_torch.models import DtoDNet, RtoDNet
+
+    g, d = RtoDNet(c.model), DtoDNet(c.model)
+    g.load_state_dict(g_sd)
+    d.load_state_dict(d_sd)
+    g, d = g.to(dev), d.to(dev).requires_grad_(False)
+    g.decoder.requires_grad_(False)
+    return g, d
+
+
+def _knob_weights(cfg, seed):
+    """(G-net state dict with the D-net's decoder, D-net state dict):
+    init_params draws of seeds ``seed`` + 1 and ``seed``."""
+    from gdn_tpu_torch.checkpoint import init_params, transfer_stage1_decoder
+
+    gen = torch.Generator()
+    d_sd = init_params(cfg.model, gen.manual_seed(seed), in_channels=1)
+    return transfer_stage1_decoder(init_params(cfg.model, gen.manual_seed(seed + 1)),
+                                   d_sd), d_sd
+
+
+def knobs_steps(cfg, g_sd, d_sd):
+    """Phase 26 (a): each KNOBS configuration's stage-2 step at B=32, bf16,
+    from the same weights: launches a step exact, ms/step (host clock,
+    KNOB_TIMED steps after one), peak allocated memory, one profiled
+    step (device busy, idle share, all launches)."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.synthetic import synthetic_batch
+    from gdn_tpu_torch.train.state import TrainState
+    from gdn_tpu_torch.train.steps import make_stage2_step
+
+    h, w = cfg.model.image_size
+    batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(26), TRAIN_BATCH,
+                            h, w, cfg.model.max_depth)
+    out, launches = {}, {}
+    for tag, over, per_step in KNOBS:
+        c = _with(cfg, **over)
+        g, d = _knob_nets(c, g_sd, d_sd)
+        state = TrainState(g, c.train, 10, freeze_decoder=True)
+        step = make_stage2_step(c)
+        step(state, d, batch)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(KNOB_TIMED):
+            step(state, d, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / KNOB_TIMED
+        peak = torch.cuda.max_memory_allocated()
+        counts = read_counts()
+        expect_counts(f"knobs {tag}", counts, fused_loss_fwd=KNOB_TIMED,
+                      fused_loss_bwd=KNOB_TIMED,
+                      **{k: v * KNOB_TIMED for k, v in per_step.items()})
+        launches[f"knobs_{tag}"] = counts
+        prof = profile_train_step(c, state, d, batch, f"knobs_{tag}")
+        out[tag] = {"ms_per_step": ms, "peak_allocated_bytes": peak,
+                    "allocated_before_bytes": base,
+                    "launches_per_step": {k: v // KNOB_TIMED for k, v in counts.items() if v},
+                    "profile": prof}
+        log(f"  (a) {tag}: {ms:.1f} ms/step (host clock, {KNOB_TIMED} steps), peak "
+            f"{peak / 2**30:.2f} GiB allocated ({(peak - base) / 2**30:.2f} above the "
+            f"state), launches a step {out[tag]['launches_per_step']}"
+            + (f"; profiled step: wall {prof['wall_ms']:.1f} ms, busy "
+               f"{prof['device_busy_ms']:.2f} ms (idle {prof['idle_share']:.1%}), "
+               f"{prof['kernel_launches']} launches" if prof else "; profile not measured"))
+        del g, d, state, step
+    return out, launches
+
+
+def knobs_vs_cpu(cfg, g_sd, d_sd):
+    """Phase 26 (b): one stage-2 step of each KNOBS configuration at B=2,
+    card (fp32, TF32 off) against CPU (fp32), phase 9's bounds (terms
+    rtol 1e-4, stem gradients 1e-3 of their largest); and each fused
+    configuration against the two-net step with the same model flags on
+    the card, fp32: terms rtol 1e-5, gradients phase 9's bound."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.synthetic import synthetic_batch
+    from gdn_tpu_torch.train.steps import _stage2_loss_fn
+
+    batch = synthetic_batch(torch.Generator().manual_seed(3), 2, *cfg.model.image_size,
+                            cfg.model.max_depth)
+    watch = ("encoder.stem.Conv_0.kernel", "encoder.stem.gn_scale")
+
+    def run(c, dev):
+        g, d = _knob_nets(c, g_sd, d_sd, dev)
+        terms = _stage2_loss_fn(c)(g, d, {k: v.to(dev) for k, v in batch.items()}, c)
+        terms["total"].backward()
+        params = dict(g.named_parameters())
+        return ({k: float(v.detach()) for k, v in terms.items()},
+                {k: params[k].grad.detach().cpu() for k in watch})
+
+    def held(got, want, rtol, what):
+        for k, v in got[0].items():
+            if abs(v - want[0][k]) > rtol * abs(want[0][k]):
+                raise AssertionError(f"{what}: {k}={v} vs {want[0][k]}")
+        rel = {}
+        for k in watch:
+            err = (got[1][k] - want[1][k]).abs().max().item()
+            scale = want[1][k].abs().max().item()
+            rel[k] = err / scale
+            if err > 1e-3 * scale:
+                raise AssertionError(f"{what}: grad {k} max|d| {err:.3g} of {scale:.3g}")
+        return rel
+
+    out, two_net = {}, {}
+    for tag, over, _ in KNOBS:
+        t0 = time.perf_counter()
+        c = _with(cfg, **{**over, "model.dtype": "float32"})
+        card, cpu = run(c, "cuda"), run(c, "cpu")
+        row = {"terms_card": card[0], "terms_cpu": cpu[0],
+               "grad_rel_err_cpu": held(card, cpu, 1e-4, f"knobs {tag} card vs CPU")}
+        flags = {k: v for k, v in over.items() if k.startswith("model.")}
+        if tag == "two_net":
+            two_net[()] = card
+        else:
+            if tuple(flags) not in two_net:
+                two_net[tuple(flags)] = run(_with(cfg, **flags, **{"model.dtype": "float32"}),
+                                            "cuda")
+            ref = two_net[tuple(flags)]
+            row["grad_rel_err_two_net"] = held(card, ref, 1e-5,
+                                               f"knobs {tag} vs the two-net step")
+            row["terms_rel_two_net"] = max(abs(v - ref[0][k]) / abs(ref[0][k])
+                                           for k, v in card[0].items())
+        row["seconds"] = time.perf_counter() - t0
+        out[tag] = row
+        log(f"  (b) {tag}: card vs CPU terms within 1e-4, stem grads "
+            f"{max(row['grad_rel_err_cpu'].values()):.3g} of their largest"
+            + (f"; vs the two-net step on the card: terms {row['terms_rel_two_net']:.3g} "
+               f"relative, grads {max(row['grad_rel_err_two_net'].values()):.3g}"
+               if "terms_rel_two_net" in row else "") + f" ({row['seconds']:.1f} s)")
+    return out
+
+
+def knobs_multistep(cfg, g_sd, d_sd):
+    """Phase 26 (c): steps_per_call=KNOB_K in both stages, unfused, B=32,
+    bf16, EMA 0.99, cuDNN's deterministic algorithms: one multistep call
+    against KNOB_K single steps from the same state, parameters, EMA and
+    Adam moments bit-identical; launches a call; ms an update of each."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.synthetic import synthetic_batch
+    from gdn_tpu_torch.models import DtoDNet
+    from gdn_tpu_torch.train.state import TrainState
+    from gdn_tpu_torch.train.steps import (
+        make_stage1_multistep, make_stage1_step, make_stage2_multistep, make_stage2_step,
+    )
+
+    c = _with(cfg, **{"train.ema_decay": 0.99, "train.steps_per_call": KNOB_K})
+    h, w = c.model.image_size
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    batches = [synthetic_batch(gen, TRAIN_BATCH, h, w, c.model.max_depth)
+               for _ in range(KNOB_K)]
+    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    n_gn = len(gn_sites(cfg.model))
+    out, launches = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for stage, nets in (("stage1", 1), ("stage2", 2)):
+            def fresh():
+                if stage == "stage1":
+                    d = DtoDNet(c.model)
+                    d.load_state_dict(d_sd)
+                    return TrainState(d.cuda(), c.train, 10), ()
+                g, d = _knob_nets(c, g_sd, d_sd)
+                return TrainState(g, c.train, 10, freeze_decoder=True), (d,)
+
+            single = make_stage1_step(c) if stage == "stage1" else make_stage2_step(c)
+            multi = (make_stage1_multistep(c, KNOB_K) if stage == "stage1"
+                     else make_stage2_multistep(c, KNOB_K))
+            st, extra = fresh()
+            single(st, *extra, batches[0])  # cuDNN's first calls, off the clock
+            row = {}
+            for how in ("single", "multi"):
+                st, extra = fresh()
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                if how == "single":
+                    for b in batches:
+                        st, _ = single(st, *extra, b)
+                else:
+                    st, _ = multi(st, *extra, stacked)
+                torch.cuda.synchronize()
+                row[f"{how}_ms_per_update"] = 1e3 * (time.perf_counter() - t0) / KNOB_K
+                counts = read_counts()
+                expect_counts(f"knobs multistep {stage} {how}", counts,
+                              group_norm_elu=n_gn * nets * KNOB_K,
+                              fused_loss_fwd=KNOB_K, fused_loss_bwd=KNOB_K)
+                launches[f"knobs_multistep_{stage}_{how}"] = counts
+                row[how] = _snapshot(st)
+            diff = _snap_diff(row.pop("single"), row.pop("multi"))
+            if any(diff.values()):
+                raise AssertionError(f"{stage}: multistep vs single steps differ: {diff}")
+            row.update(max_diff=diff, launches_per_call={k: v for k, v in counts.items() if v})
+            out[stage] = row
+            log(f"  (c) {stage}, steps_per_call={KNOB_K}: one call vs {KNOB_K} single steps "
+                f"bit-identical {diff}; launches a call {row['launches_per_call']}; "
+                f"{row['multi_ms_per_update']:.1f} ms an update in the call, "
+                f"{row['single_ms_per_update']:.1f} single (host clock, one pass each)")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out, launches
+
+
+def knobs_remat(cfg, g_sd, d_sd):
+    """Phase 26 (d): stage 2 at B=32, bf16, unfused, remat off and each
+    ported policy: gradients of one step against remat off (within
+    GRAD_TOL_BF16 of each tensor's largest; where bit-identical, said),
+    launches a step exact (the recompute's included), then peak allocated
+    memory and ms/step of LIFE_TIMED steps and one profiled step."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.synthetic import synthetic_batch
+    from gdn_tpu_torch.train.state import TrainState
+    from gdn_tpu_torch.train.steps import _stage2_loss, make_stage2_step
+
+    h, w = cfg.model.image_size
+    batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(28), TRAIN_BATCH,
+                            h, w, cfg.model.max_depth)
+    n_gn = len(gn_sites(cfg.model))
+    out, launches, ref = {}, {}, None
+    for policy, runs in REMAT_RUNS.items():
+        over = ({"train.remat": False} if policy == "off"
+                else {"train.remat": True, "train.remat_policy": policy})
+        c = _with(cfg, **over)
+        torch.backends.cudnn.deterministic = True
+        g, d = _knob_nets(c, g_sd, d_sd)
+        _stage2_loss(g, d, batch, c)["total"].backward()  # cuDNN's first calls
+        g.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        terms = _stage2_loss(g, d, batch, c)
+        terms["total"].backward()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        torch.backends.cudnn.deterministic = False
+        expect_counts(f"knobs remat {policy}", counts, fused_loss_fwd=1, fused_loss_bwd=1,
+                      group_norm_elu=n_gn * (runs + 1))
+        grads = {k: p.grad.detach().clone() for k, p in g.named_parameters()
+                 if p.requires_grad}
+        terms = {k: float(v.detach()) for k, v in terms.items()}
+        row = {"launches_per_step": {k: v for k, v in counts.items() if v}}
+        if ref is None:
+            ref = (terms, grads)
+        else:
+            rel = max(((grads[k] - ref[1][k]).abs().max()
+                       / ref[1][k].abs().max().clamp_min(1e-30)).item() for k in grads)
+            if rel > GRAD_TOL_BF16:
+                raise AssertionError(f"remat {policy}: gradients off by {rel:.3g} of their max")
+            row.update(grad_max_rel_diff=rel, terms_equal=terms == ref[0],
+                       grads_bit_identical=all(torch.equal(grads[k], ref[1][k])
+                                               for k in grads))
+        launches[f"knobs_remat_{policy}"] = counts
+        del g, d, grads
+        g, d = _knob_nets(c, g_sd, d_sd)
+        state = TrainState(g, c.train, 10, freeze_decoder=True)
+        step = make_stage2_step(c)
+        step(state, d, batch)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(LIFE_TIMED):
+            step(state, d, batch)
+        torch.cuda.synchronize()
+        row["ms_per_step"] = 1e3 * (time.perf_counter() - t0) / LIFE_TIMED
+        row["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        row["peak_above_before_bytes"] = row["peak_allocated_bytes"] - base
+        counts = read_counts()
+        expect_counts(f"knobs remat {policy} timed", counts, fused_loss_fwd=LIFE_TIMED,
+                      fused_loss_bwd=LIFE_TIMED, group_norm_elu=n_gn * (runs + 1) * LIFE_TIMED)
+        launches[f"knobs_remat_{policy}_timed"] = counts
+        row["profile"] = prof = profile_train_step(c, state, d, batch, f"knobs_remat_{policy}")
+        out[policy] = row
+        log(f"  (d) remat {policy}: "
+            + ("" if policy == "off" else
+               f"grads within {row['grad_max_rel_diff']:.3g} of their max"
+               + (" (bit-identical)" if row["grads_bit_identical"] else "")
+               + f", terms {'equal' if row['terms_equal'] else 'differ'}; ")
+            + f"launches a step {row['launches_per_step']}; {row['ms_per_step']:.1f} ms/step"
+            f" (host clock, {LIFE_TIMED} steps); peak {row['peak_allocated_bytes'] / 2**30:.2f}"
+            f" GiB ({row['peak_above_before_bytes'] / 2**30:.2f} above the state)"
+            + (f"; profiled step: busy {prof['device_busy_ms']:.2f} ms (idle "
+               f"{prof['idle_share']:.1%}), {prof['kernel_launches']} launches"
+               if prof else ""))
+        del g, d, state, step
+    return out, launches
+
+
+def knobs_cli():
+    """Phase 26 (e): scripts/train_torch.py --steps_per_call 2
+    --fused_guidance, KNOB_CLI_STEPS steps a stage: launches exact, the
+    log's steps, the saved config."""
+    from gdn_tpu_torch.checkpoint import load_config
+
+    root = os.path.join(OUT, "knobs_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    train = load_script("train_torch")
+    launches, out = {}, {}
+    for mode, gn in (("DtoD", 21), ("RtoD", 32)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        st = train.main(["--mode", mode, "--dataset", "synthetic", "--epochs", "1",
+                         "--steps_per_epoch", str(KNOB_CLI_STEPS), "--steps_per_call", "2",
+                         "--fused_guidance", "--log_every", "2", "--ckpt_dir", root])
+        torch.cuda.synchronize()
+        launches[f"knobs_cli_{mode}"] = counts = read_counts()
+        expect_counts(f"train_torch.py --steps_per_call 2 --fused_guidance {mode}", counts,
+                      group_norm_elu=gn * KNOB_CLI_STEPS, fused_loss_fwd=KNOB_CLI_STEPS,
+                      fused_loss_bwd=KNOB_CLI_STEPS)
+        if st.step != KNOB_CLI_STEPS:
+            raise AssertionError(f"{mode}: stopped at step {st.step}")
+        out[mode] = {"seconds": time.perf_counter() - t0, "launches": counts}
+    recs = [json.loads(line) for line in open(os.path.join(root, "train_log.jsonl"))]
+    saved = load_config(os.path.join(root, "stage2")).train
+    if [r["step"] for r in recs] != [2, 4, 2, 4] or not (
+            saved.fused_guidance and saved.steps_per_call == 2):
+        raise AssertionError(f"train_torch.py log steps {[r['step'] for r in recs]}, "
+                             f"saved {saved}")
+    out["log"] = recs
+    log(f"  (e) train_torch.py --steps_per_call 2 --fused_guidance: {KNOB_CLI_STEPS} steps a "
+        f"stage, logged at steps {[r['step'] for r in recs]}, launches "
+        f"{counts_text(launches['knobs_cli_DtoD'])} / {counts_text(launches['knobs_cli_RtoD'])}"
+        f", config.json keeps both knobs ({out['DtoD']['seconds']:.1f} + "
+        f"{out['RtoD']['seconds']:.1f} s)")
+    return out, launches
+
+
+def knobs_gn_paired(cfg):
+    """Phase 26 (f): the GroupNorm+ELU kernel against its plain version at
+    every shape of the paired encoder ladder (B=32, C = 2 x the encoder's
+    width, 2G = 16 groups, bf16), as phase 3: values, (B, 2, G)
+    statistics, plan, device time (``queued_ms``) and bound."""
+    from gdn_tpu_torch.kernels import groupnorm as gnk
+    from gdn_tpu_torch.ops.groupnorm import pick_groups
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    shapes = sorted({(2 * c, h, w) for c, h, w in gn_sites(cfg.model)[:11]}, reverse=True)
+    for c, h, w in shapes:
+        g = 2 * pick_groups(c // 2, cfg.model.group_norm_groups)
+        shape = (TRAIN_BATCH, c, h, w)
+        x = _gn_input(shape, torch.bfloat16, gen)
+        scale = torch.rand(c, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(c, device="cuda", generator=gen)
+        what = f"group_norm_elu {shape} bf16, {g} groups (paired ladder)"
+        err, serr, plan = gn_check(gnk.group_norm_elu, x, scale, bias, g, what)
+        row = {"B": TRAIN_BATCH, "C": c, "H": h, "W": w, "groups": g, "dtype": "bfloat16",
+               "max_abs_err": err, "stats_max_abs_err": serr, "plan": plan._asdict(),
+               "bound_ms": bound_ms(*gn_work(shape, 2))}
+        # late in the process CUPTI has recorded none of these launches
+        # (PR 16's proof runs): the card's time comes from queued events
+        row["ms"] = queued_ms([lambda: gnk.group_norm_elu(x, scale, bias, g)])
+        rows.append(row)
+        log(f"  (f) {what}: max|k-p| {err:.3g}, stats {serr:.3g}; {plan_text(plan)}; "
+            f"device {row['ms'] * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.1f} us "
+            f"({row['bound_ms'] / row['ms']:.0%} of it reached)")
+        del x
+    return rows
+
+
+def phase_knobs(cfg):
+    """Phase 26: the training knobs of the JAX package's TrainConfig (see
+    the module docstring).  ``cfg``: phase 8's configuration."""
+    t0 = time.perf_counter()
+    out, launches = {"device": smi_line()}, {}
+    g_sd, d_sd = _knob_weights(cfg, 26)
+    out["steps"], more = knobs_steps(cfg, g_sd, d_sd)
+    launches.update(more)
+    out["vs_cpu"] = knobs_vs_cpu(cfg, g_sd, d_sd)
+    out["multistep"], more = knobs_multistep(cfg, g_sd, d_sd)
+    launches.update(more)
+    out["remat"], more = knobs_remat(cfg, g_sd, d_sd)
+    launches.update(more)
+    out["cli"], more = knobs_cli()
+    launches.update(more)
+    out["gn_paired"] = knobs_gn_paired(cfg)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 26 took {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main():
     log("== 1. device")
     if not torch.cuda.is_available():
@@ -4008,6 +4493,10 @@ def main():
         "trained at full width, the variant grid against the CPU, the entry points")
     variants, variant_launches = phase_variants(cfg, sd)
 
+    log("== 26. knobs: fused guidance, its hand-written backward, paired encoders, "
+        "multistep and the remat policies, trained at full width")
+    knobs, knob_launches = phase_knobs(cfg)
+
     main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
     per_fwd = {k: sum(r[k] * r["sites"] for r in main_rows)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -4018,7 +4507,8 @@ def main():
                      "serving_fusion": fusion_counts, "serving_all": all_counts,
                      **{f"{k}_fusion": v for k, v in fusion_train_launches.items()},
                      **eval_launches, **life_launches, **disk_launches,
-                     **tools_launches, **art_launches, **variant_launches}
+                     **tools_launches, **art_launches, **variant_launches,
+                     **knob_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in path_launches.values())
@@ -4070,6 +4560,7 @@ def main():
                    "training_fusion": training_fusion, "vs_cpu_fusion": vs_cpu_fusion,
                    "eval": evaluation, "lifecycle": lifecycle, "disk": disk,
                    "tools": tools, "artifacts": artifacts, "variants": variants,
+                   "knobs": knobs,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
                    "sass_hmma": hmma_by_fn, "ptxas": ptxas,
                    "kernels": kernels}, f, indent=1)

@@ -15,11 +15,14 @@ to a parser and ``build_config`` maps the parsed flags onto one
   GroupNorm+ELU kernel at every unfused site on the card.
 - Flags for what the port does not run yet parse, and the Config
   refuses their values with ``NotImplementedError`` naming the ROADMAP
-  item (``--steps_per_call`` > 1, ``--fused_guidance``, ``--num_devices`` > 1,
-  ``--spatial_devices``, ``--model_devices``, ``--fsdp``,
-  ``--device_cache_sharded``).  ``parse_or_exit`` turns that refusal
-  into the parser's error, as it does a combination neither package
-  runs (``--quantize int8 --norm none``: a ``ValueError``).
+  item (``--num_devices`` > 1, ``--spatial_devices``, ``--model_devices``,
+  ``--fsdp``, ``--device_cache_sharded``).  ``parse_or_exit`` turns that
+  refusal into the parser's error, as it does a combination neither
+  package runs (``--quantize int8 --norm none``: a ``ValueError``).
+  ``--steps_per_call`` and ``--fused_guidance`` run as in the JAX
+  package; ``fused_guidance_vjp``, ``fused_encoders`` and
+  ``remat_policy`` have no flag in either package and come through
+  config.json and the config API.
 - ``--quantize int8`` builds an int8 config (``model.quant``), which the
   scripts calibrate (``ops/quant.py``); ``--artifact`` is read by the
   serving script alone.
@@ -101,7 +104,8 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--steps_per_epoch", type=int, default=1000,
                    help="steps per epoch for synthetic/unbounded data")
     p.add_argument("--steps_per_call", type=int, default=1,
-                   help="optimizer steps fused into one call (only 1 is ported)")
+                   help="optimizer steps a call of the train step (K batches "
+                        "stacked on the device). Must divide steps_per_epoch")
     p.add_argument("--stage1_ckpt", type=str, default="",
                    help="(RtoD) stage-1 checkpoint dir; default <model_dir>/stage1")
     p.add_argument("--no_freeze_decoder", action="store_true")
@@ -119,7 +123,8 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint of this stage")
     p.add_argument("--fused_guidance", action="store_true",
-                   help="stage 2: one decoder pass over the D+G batch (not ported)")
+                   help="stage 2: run the shared frozen decoder ONCE on the "
+                        "concatenated D+G batch (requires freeze_decoder)")
     p.add_argument("--multiscale", action="store_true",
                    help="supervise depth at every decoder scale (multi-scale heads)")
     p.add_argument("--loader", choices=["native", "grain"], default="native",

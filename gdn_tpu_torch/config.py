@@ -66,8 +66,16 @@ What differs:
   leaves on the TPU) and is accepted as a no-op.
 - ``TrainConfig.grad_accum`` averages the gradients of k micro-steps as
   ``optax.MultiSteps`` does and ``remat`` recomputes the trained net's
-  forward in its backward (``torch.utils.checkpoint``); of the remat
-  policies only ``"nothing_saveable"`` (recompute everything) is ported.
+  forward in its backward (``torch.utils.checkpoint``) under the policy
+  ``remat_policy`` names: one of ``REMAT_POLICIES``, jax's own policies
+  (``train.steps.REMAT_SAVED`` says what each keeps).  The names of
+  jax's policy factories (``REMAT_FACTORIES``) and unknown names raise
+  ``ValueError``: neither package's step can run them.
+  ``fused_guidance`` (one pass of the frozen decoder over both nets'
+  encodings in stage 2), ``fused_guidance_vjp`` (its hand-written
+  backward), ``fused_encoders`` (both encoders as one grouped ladder)
+  and ``steps_per_call`` (K steps a call of the train step) run as in
+  the JAX package (``train/steps.py``, ``train/loop.py``).
   ``keep_ckpts`` and ``async_ckpt`` drive ``checkpoint.save_checkpoint``
   (keep the newest k files of a stage; write them on a background
   thread after a copy to the host).  ``check_numerics`` wraps the train
@@ -88,14 +96,19 @@ def _exec_field(default):
     return dataclasses.field(default=default, metadata={"execution": True})
 
 
-# (field, value the port runs, ROADMAP item that ports the others)
-_TRAIN_NOT_YET = (
-    ("remat_policy", ("nothing_saveable",), "Queue A item 5 (remat policies)"),
-    ("steps_per_call", 1, "Queue A item 12 (multistep)"),
-    ("fused_guidance", False, "Queue A item 12 (fused guidance)"),
-    ("fused_guidance_vjp", False, "Queue A item 12 (fused guidance)"),
-    ("fused_encoders", False, "Queue A item 12 (fused encoders)"),
+# jax.checkpoint_policies' policies (TrainConfig.remat_policy), and its
+# factories, which build a policy from arguments and are none themselves
+REMAT_POLICIES = (
+    "nothing_saveable", "dots_saveable", "checkpoint_dots",
+    "dots_with_no_batch_dims_saveable", "checkpoint_dots_with_no_batch_dims",
+    "everything_saveable",
 )
+REMAT_FACTORIES = (
+    "save_only_these_names", "save_any_names_but_these",
+    "save_anything_except_these_names", "save_and_offload_only_these_names",
+    "save_from_both_policies", "offload_dot_with_no_batch_dims",
+)
+# (field, value the port runs, ROADMAP item that ports the others)
 _DATA_NOT_YET = (
     ("loader", ("native", "grain"), "Queue A item 8 (the host loaders)"),
     ("device_cache_sharded", False, "Queue A item 10 (parallel)"),
@@ -273,7 +286,18 @@ class TrainConfig:
     steps_per_epoch: int = 1000
     steps_per_call: int = 1
 
-    __post_init__ = _refuse("TrainConfig", _TRAIN_NOT_YET)
+    def __post_init__(self):
+        if self.remat_policy in REMAT_FACTORIES:
+            raise ValueError(
+                f"remat_policy={self.remat_policy!r} is a factory of jax.checkpoint_"
+                "policies, not a policy: it builds one from names or policies given "
+                "to it, and neither package's train step can run it (one of "
+                f"{'|'.join(REMAT_POLICIES)})")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r} "
+                             f"({'|'.join(REMAT_POLICIES)})")
+        if self.steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be >= 1, not {self.steps_per_call}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,14 +24,15 @@ def same_pads(n: int, k: int, stride: int) -> Tuple[int, int]:
 
 
 def conv_same(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
-              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """XLA "SAME" convolution of NCHW x with an OIHW kernel."""
+              bias: Optional[torch.Tensor] = None, groups: int = 1) -> torch.Tensor:
+    """XLA "SAME" convolution of NCHW x with an OIHW kernel; ``groups``
+    is XLA's ``feature_group_count`` (kernel (Cout, Cin / groups, kh, kw))."""
     (t, b), (l, r) = (same_pads(x.shape[2], kernel.shape[2], stride),
                       same_pads(x.shape[3], kernel.shape[3], stride))
     kernel = kernel.contiguous(memory_format=CL)
     if t == b and l == r:
-        return F.conv2d(x, kernel, bias, stride, padding=(t, l))
-    return F.conv2d(F.pad(x, (l, r, t, b)), kernel, bias, stride)
+        return F.conv2d(x, kernel, bias, stride, padding=(t, l), groups=groups)
+    return F.conv2d(F.pad(x, (l, r, t, b)), kernel, bias, stride, groups=groups)
 
 
 def conv_same_backward(

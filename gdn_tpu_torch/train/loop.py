@@ -22,6 +22,11 @@ best eval RMSE saves one to ``<ckpt_dir>/stage2_best``.  SIGTERM or
 SIGINT (``PreemptionHandler``) ends the epoch after the step in flight:
 the loop skips validation and eval, checkpoints and returns, and every
 write is on disk before it does.
+
+With ``cfg.train.steps_per_call`` = K > 1 the loops run the multistep
+steps (``train.steps.make_stage{1,2}_multistep``) on K batches a call,
+stacked on the device; the data cursor still counts batches, so a
+resumed run continues bit for bit.
 """
 
 from __future__ import annotations
@@ -42,7 +47,10 @@ from gdn_tpu_torch.evaluate import Evaluator
 from gdn_tpu_torch.losses import total_loss
 from gdn_tpu_torch.models import DtoDNet, RtoDNet
 from gdn_tpu_torch.train.state import TrainState
-from gdn_tpu_torch.train.steps import make_eval_forward, make_stage1_step, make_stage2_step
+from gdn_tpu_torch.train.steps import (
+    make_eval_forward, make_stage1_multistep, make_stage1_step, make_stage2_multistep,
+    make_stage2_step,
+)
 from gdn_tpu_torch.utils.logging import MetricLogger
 
 
@@ -87,29 +95,42 @@ def _floats(terms: Dict[str, torch.Tensor]) -> Dict[str, float]:
 
 def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
                 logger: MetricLogger, batch_size: int, log_every: int,
-                device: torch.device, extra_args=(),
+                device: torch.device, extra_args=(), steps_per_call: int = 1,
                 preemption: Optional[PreemptionHandler] = None) -> TrainState:
     """Drive ``steps`` micro-steps, fewer when preemption is requested.
-    The clock restarts after the first step, so its one-time costs
-    (cuDNN's algorithm search, the allocator's growth) stay out of
+    With ``steps_per_call`` = K > 1, ``step_fn`` is a multistep: each
+    call takes K batches stacked on a leading axis on the device; K must
+    divide ``steps``, the log comes every ``max(1, log_every // K)``
+    calls, and preemption is checked after each call.  The clock
+    restarts after the first call, so its one-time costs (cuDNN's
+    algorithm search, the allocator's growth) stay out of
     ``imgs_per_sec``."""
+    if steps % steps_per_call != 0:
+        raise ValueError(f"steps_per_epoch={steps} not divisible by "
+                         f"steps_per_call={steps_per_call}")
+    n_calls = steps // steps_per_call
+    log_calls = max(1, log_every // steps_per_call)
     t_start = time.perf_counter()
     timed_from = 0
-    for i in range(steps):
-        batch = _batch_to(next(data_iter), device)
+    for i in range(n_calls):
+        if steps_per_call == 1:
+            batch = _batch_to(next(data_iter), device)
+        else:
+            group = [_batch_to(next(data_iter), device) for _ in range(steps_per_call)]
+            batch = {k: torch.stack([b[k] for b in group]) for k in group[0]}
         state, terms = step_fn(state, *extra_args, batch)
         if i == 0:
             _floats(terms)
             t_start = time.perf_counter()
             timed_from = 1
-        if (i + 1) % log_every == 0 or i == steps - 1:
+        if (i + 1) % log_calls == 0 or i == n_calls - 1:
             vals = _floats(terms)
             elapsed = max(time.perf_counter() - t_start, 1e-9)
             timed = i + 1 - timed_from
             # the LR of the last update applied (the schedule's value at it)
             log_kw = dict(step=state.step, **vals, lr=state.optimizer.param_groups[0]["lr"])
             if timed > 0:
-                log_kw["imgs_per_sec"] = batch_size * timed / elapsed
+                log_kw["imgs_per_sec"] = batch_size * steps_per_call * timed / elapsed
             logger.log(**log_kw)
         if preemption is not None and preemption.requested:
             break
@@ -228,7 +249,8 @@ def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
     dev = _prepare(device)
     if state is None:
         state = stage1_state(cfg, dev)
-    step_fn = _guarded(cfg, make_stage1_step(cfg))
+    k = cfg.train.steps_per_call
+    step_fn = _guarded(cfg, make_stage1_multistep(cfg, k) if k > 1 else make_stage1_step(cfg))
     logger = logger or MetricLogger(prefix="stage1")
     data_iter = iter(data_iter)
     preempt = PreemptionHandler().install()
@@ -236,7 +258,7 @@ def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
         for _ in range(epochs if epochs is not None else cfg.train.epochs):
             state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
                                 logger, cfg.data.batch_size, cfg.train.log_every, dev,
-                                preemption=preempt)
+                                steps_per_call=k, preemption=preempt)
             if val_iter is not None and not preempt.requested:
                 _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step, dev)
             if cfg.train.ckpt_dir:
@@ -284,7 +306,8 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
              else _net(DtoDNet, cfg, d_params, dev)).requires_grad_(False)
     if state is None:
         state = stage2_state(cfg, d_net.state_dict(), dev)
-    step_fn = _guarded(cfg, make_stage2_step(cfg))
+    k = cfg.train.steps_per_call
+    step_fn = _guarded(cfg, make_stage2_multistep(cfg, k) if k > 1 else make_stage2_step(cfg))
     logger = logger or MetricLogger(prefix="stage2")
     data_iter = iter(data_iter)
     evaluator, eval_cached, best_rmse = None, False, float("inf")
@@ -293,7 +316,8 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
         for epoch in range(epochs if epochs is not None else cfg.train.epochs):
             state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
                                 logger, cfg.data.batch_size, cfg.train.log_every, dev,
-                                extra_args=(d_net,), preemption=preempt)
+                                extra_args=(d_net,), steps_per_call=k,
+                                preemption=preempt)
             if val_iter is not None and not preempt.requested:
                 _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step,
                           dev, input_key="rgb")

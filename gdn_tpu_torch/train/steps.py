@@ -4,13 +4,21 @@ A step is forward, ``total_loss``, backward and one micro-step of the
 optimizer (an update on every ``grad_accum``-th; ``TrainState``), run
 eagerly.  With ``cfg.train.remat`` the trained net's forward (the D-net
 in stage 1, the G-net in stage 2; not the frozen D-net of stage 2) runs
-under ``torch.utils.checkpoint``: its backward recomputes the forward
-instead of keeping its activations.  Batches are dicts of tensors on
-the net's device:
+under ``torch.utils.checkpoint`` with the policy ``remat_policy`` names
+(``REMAT_SAVED``): its backward recomputes what the policy does not
+save.  Batches are dicts of tensors on the net's device:
 
   depth: (B, H, W, 1) float32 metric depth (GT)
   mask:  (B, H, W, 1) float32 validity
   rgb:   (B, H, W, 3) float32 in [0, 1]  (stage 2)
+
+``fused_guidance`` runs stage 2 with one pass of the frozen decoder over
+the D and G encoders' outputs (``_stage2_loss_fused``), through
+``train.guided_decoder`` with ``fused_guidance_vjp`` and after one
+paired encoder ladder (``train.fused_encoders``) with
+``fused_encoders``.  That path applies no remat, as in the JAX package.
+The multistep builders run ``steps_per_call`` steps a call on batches
+stacked on a leading axis.
 
 Each step returns the loss terms as detached 0-d tensors (reading them
 waits for the card).
@@ -18,18 +26,44 @@ waits for the card).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from gdn_tpu_torch.config import Config
 from gdn_tpu_torch.losses import total_loss
+from gdn_tpu_torch.models.rtod import to_nhwc
+from gdn_tpu_torch.train.fused_encoders import paired_encoders
+from gdn_tpu_torch.train.guided_decoder import decode_concat, shared_guided_decoder
 from gdn_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
 Terms = Dict[str, torch.Tensor]
+
+_aten = torch.ops.aten
+_DOTS = (_aten.convolution.default, _aten.mm.default, _aten.addmm.default,
+         _aten.bmm.default)
+_DOTS_NO_BATCH = (_aten.mm.default, _aten.addmm.default)
+# remat_policy -> the ops whose outputs the checkpoint keeps (jax 0.9.0's
+# policies: dots_saveable keeps dot_general and conv_general_dilated, the
+# no-batch-dims one only dot_generals without batch dims, so this all-conv
+# net recomputes its convs under it).  nothing_saveable keeps none (the
+# plain checkpoint) and everything_saveable all (no checkpoint).  The
+# kernels launch through ctypes, outside the dispatcher: no policy can
+# keep their outputs, and every recompute launches them again.
+REMAT_SAVED = {
+    "nothing_saveable": (),
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": _DOTS_NO_BATCH,
+    "checkpoint_dots_with_no_batch_dims": _DOTS_NO_BATCH,
+    "everything_saveable": None,
+}
 
 
 def _refuse_quant(cfg: Config) -> None:
@@ -46,14 +80,28 @@ def _apply_update(state: TrainState, loss: torch.Tensor) -> None:
     state.apply_gradients()
 
 
+def _keep(saved, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _maybe_remat(net: nn.Module, cfg: Config) -> Callable:
     """``net``, or with cfg.train.remat ``net`` under a non-reentrant
-    checkpoint: the forward keeps only its inputs, and the backward runs
-    it again (the JAX package's ``jax.checkpoint`` with the
-    ``nothing_saveable`` policy)."""
+    checkpoint with the policy cfg.train.remat_policy names (the JAX
+    package's ``jax.checkpoint(policy=getattr(jax.checkpoint_policies,
+    name))``): the forward keeps its inputs and the outputs of the ops
+    the policy saves (``REMAT_SAVED``), and the backward runs the rest
+    again."""
     if not cfg.train.remat:
         return net
-    return lambda x: checkpoint(net, x, use_reentrant=False)
+    saved = REMAT_SAVED[cfg.train.remat_policy]
+    if saved is None:
+        return net
+    if not saved:
+        return lambda x: checkpoint(net, x, use_reentrant=False)
+    context = functools.partial(create_selective_checkpoint_contexts,
+                                functools.partial(_keep, saved))
+    return lambda x: checkpoint(net, x, use_reentrant=False, context_fn=context)
 
 
 def _stage1_loss(net: nn.Module, batch: Batch, cfg: Config) -> Terms:
@@ -81,6 +129,38 @@ def _stage2_loss(net: nn.Module, d_net: nn.Module, batch: Batch,
     )
 
 
+def _stage2_loss_fused(net: nn.Module, d_net: nn.Module, batch: Batch,
+                       cfg: Config) -> Terms:
+    """The stage-2 loss with ONE pass of the frozen decoder
+    (``fused_guidance``): the D encoder (no grad) and the G encoder, or
+    with ``fused_encoders`` one paired ladder, then the G-net's decoder
+    on the batch-concatenated latents and skips, through
+    ``shared_guided_decoder`` with ``fused_guidance_vjp``.  The G half
+    is ``[B:]``, the detached D half ``[:B]``; the terms are the two-net
+    step's (convs and GroupNorm work image by image).  The D-net's own
+    decoder is not called: under ``freeze_decoder`` both nets hold the
+    stage-1 decoder.  No remat on this path, as in the JAX package."""
+    mc = cfg.model
+    b = batch["depth"].shape[0]
+    depth_norm = batch["depth"].permute(0, 3, 1, 2).detach() / mc.max_depth
+    rgb_centered = batch["rgb"].permute(0, 3, 1, 2) * 2.0 - 1.0
+    if cfg.train.fused_encoders:
+        d_latent, g_latent, d_skips, g_skips = paired_encoders(
+            depth_norm, rgb_centered, d_net.encoder, net.encoder, mc)
+    else:
+        with torch.no_grad():
+            d_latent, d_skips = d_net.encoder(depth_norm)
+        g_latent, g_skips = net.encoder(rgb_centered)
+    decode = shared_guided_decoder if cfg.train.fused_guidance_vjp else decode_concat
+    depth, feats, scales = decode(net.decoder, d_latent, g_latent, d_skips, g_skips)
+    return total_loss(
+        to_nhwc(depth[b:]), batch["depth"], batch["mask"], cfg.loss, mc.max_depth,
+        pred_latents=[to_nhwc(g_latent), *(to_nhwc(f[b:]) for f in feats)],
+        target_latents=[to_nhwc(d_latent), *(to_nhwc(f[:b].detach()) for f in feats)],
+        scale_preds=[to_nhwc(p[b:]) for p in scales[:-1]],
+    )
+
+
 def _detached(terms: Terms) -> Terms:
     return {k: v.detach() for k, v in terms.items()}
 
@@ -98,18 +178,79 @@ def make_stage1_step(cfg: Config) -> Callable[[TrainState, Batch],
     return step
 
 
+def _stage2_loss_fn(cfg: Config) -> Callable:
+    """``_stage2_loss`` or, with fused_guidance, ``_stage2_loss_fused``;
+    refuses the combinations the JAX package asserts against."""
+    t = cfg.train
+    if t.fused_encoders and not t.fused_guidance:
+        raise ValueError("fused_encoders requires fused_guidance (it feeds the "
+                         "shared decoder pass)")
+    if not t.fused_guidance:
+        return _stage2_loss
+    if not t.freeze_decoder:
+        raise ValueError("fused_guidance requires freeze_decoder: the shared-decoder "
+                         "pass is only valid while both nets' decoder params stay equal")
+    if t.fused_encoders and cfg.model.norm != "group":
+        raise ValueError("fused_encoders pairs GroupNorm blocks: it needs "
+                         f"model.norm='group', not {cfg.model.norm!r}")
+    return _stage2_loss_fused
+
+
 def make_stage2_step(cfg: Config) -> Callable[[TrainState, nn.Module, Batch],
                                               Tuple[TrainState, Terms]]:
     """The stage-2 (G-net) step: step(state, d_net, batch) -> (state,
     terms).  ``d_net`` is the frozen stage-1 DtoDNet (guidance targets);
     the G-net's decoder is frozen inside ``state`` when
-    cfg.train.freeze_decoder."""
+    cfg.train.freeze_decoder.  With cfg.train.fused_guidance the decoder
+    runs once on both nets' encodings (``_stage2_loss_fused``)."""
     _refuse_quant(cfg)
+    loss_fn = _stage2_loss_fn(cfg)
 
     def step(state: TrainState, d_net: nn.Module, batch: Batch):
-        terms = _stage2_loss(state.net, d_net, batch, cfg)
+        terms = loss_fn(state.net, d_net, batch, cfg)
         _apply_update(state, terms["total"])
         return state, _detached(terms)
+
+    return step
+
+
+def _unstack(batches: Batch, steps_per_call: int):
+    """The ``steps_per_call`` batches of a stacked {k: (K, B, ...)}."""
+    k = next(iter(batches.values())).shape[0]
+    if k != steps_per_call:
+        raise ValueError(f"stacked batch has {k} steps, expected "
+                         f"steps_per_call={steps_per_call}")
+    return [{key: v[i] for key, v in batches.items()} for i in range(k)]
+
+
+def make_stage1_multistep(cfg: Config, steps_per_call: int) -> Callable[
+        [TrainState, Batch], Tuple[TrainState, Terms]]:
+    """``steps_per_call`` stage-1 steps a call: step(state, batches) ->
+    (state, the last step's terms), batches stacked {k: (K, B, ...)}.
+    Each step is one micro-step of ``state``, in order, so grad_accum
+    and the EMA run as in K calls of ``make_stage1_step``'s step (the
+    JAX package's ``jax.lax.scan``)."""
+    single = make_stage1_step(cfg)
+
+    def step(state: TrainState, batches: Batch):
+        for batch in _unstack(batches, steps_per_call):
+            state, terms = single(state, batch)
+        return state, terms
+
+    return step
+
+
+def make_stage2_multistep(cfg: Config, steps_per_call: int) -> Callable[
+        [TrainState, nn.Module, Batch], Tuple[TrainState, Terms]]:
+    """``steps_per_call`` stage-2 steps a call: step(state, d_net,
+    batches) -> (state, the last step's terms); see
+    ``make_stage1_multistep``."""
+    single = make_stage2_step(cfg)
+
+    def step(state: TrainState, d_net: nn.Module, batches: Batch):
+        for batch in _unstack(batches, steps_per_call):
+            state, terms = single(state, d_net, batch)
+        return state, terms
 
     return step
 

@@ -20,7 +20,11 @@ takes an exported ``--stage1_pth`` described by the flags.  The
 optimizer: ``--lr`` with ``--lr_schedule step|cosine|constant``
 (``--decay_epochs``, ``--decay_gamma``) after ``--warmup_steps``,
 ``--grad_clip``, ``--ema_decay`` (``--use_ema`` in eval and serve),
-``--grad_accum N`` (one update every N batches on their mean gradient).
+``--grad_accum N`` (one update every N batches on their mean gradient),
+``--steps_per_call K`` (K steps a call of the train step, on K batches
+stacked on the device; K divides ``--steps_per_epoch``).
+``--fused_guidance`` (RtoD) runs the frozen decoder once a step over the
+D-net's and the G-net's encodings together.
 ``--tensorboard`` also writes the step scalars under ``<model_dir>/tb``.
 
 Runs on the card (``--device cuda``, the default) or, when asked, on
@@ -47,7 +51,7 @@ keeps the best eval RMSE's checkpoint in ``<model_dir>/stage2_best/``
 (scripts/eval_torch.py --best).  ``--upsample deconv [--deconv_init
 lecun]``, ``--norm none`` and ``--multiscale`` train the model
 variants.  A flag for what the port does not run yet
-(``--steps_per_call``, ``--fsdp``, ...) ends the run at parse time,
+(``--num_devices`` > 1, ``--fsdp``, ...) ends the run at parse time,
 naming its ROADMAP item.
 
 Examples:
@@ -76,6 +80,9 @@ Examples:
   python scripts/train_torch.py --mode RtoD --dataset synthetic \\
       --epochs 4 --steps_per_epoch 50 --val_steps 5 --eval_every 1
           # validation and in-training eval with best-model tracking
+  python scripts/train_torch.py --mode RtoD --dataset synthetic \\
+      --epochs 1 --steps_per_epoch 50 --steps_per_call 2 --fused_guidance
+          # two steps a call, one decoder pass a step over both nets
   python scripts/train_torch.py --mode DtoD --dataset kitti --data_path data/kitti \\
       --loader grain --workers 4 --lr_schedule cosine --warmup_steps 100 \\
       --grad_clip 1.0 --tensorboard --model_dir runs/grain

@@ -1,8 +1,11 @@
 """Checkpoints of the PyTorch port against the JAX package.
 
 - ``config.json`` both ways: a Config written by either package's
-  ``save_config`` rebuilds the same Config in the other; an unported
-  value raises the port's NotImplementedError naming its ROADMAP item.
+  ``save_config`` rebuilds the same Config in the other (the training
+  knobs fused guidance, multistep and the remat policies included); an
+  unported value raises the port's NotImplementedError naming its
+  ROADMAP item, and a remat policy factory, which neither package's
+  step runs, a ValueError.
 - ``cli.apply_saved_model_config`` against the JAX package's on the
   cases of tests/test_cli.py (adopt the architecture, keep the
   execution fields of the environment, flags win, no config.json).
@@ -47,6 +50,9 @@ TRAINED = [  # configs a run may have saved: architecture, loss, data and train 
     {"model.dtype": "float32", "model.use_pallas_convgn_bt": True,
      "model.resize_conv_composed": False, "eval.crop": "eigen", "train.keep_ckpts": 1,
      "train.async_ckpt": False},
+    dict(SMALL, **{"train.fused_guidance": True, "train.fused_guidance_vjp": True,
+                   "train.fused_encoders": True, "train.steps_per_call": 4,
+                   "train.remat": True, "train.remat_policy": "dots_saveable"}),
 ]
 
 
@@ -75,15 +81,15 @@ def test_config_json_both_ways(tmp_path, preset, case):
         assert json.load(a) == json.load(b)
 
 
-@pytest.mark.parametrize("over,item", [
-    ({"train.fused_encoders": True}, "Queue A item 12"),
-    ({"mesh.num_devices": 2}, "Queue A item 10"),
-    ({"train.remat_policy": "dots_saveable"}, "Queue A item 5"),
-    ({"train.steps_per_call": 4}, "Queue A item 12"),
+@pytest.mark.parametrize("over,error,match", [
+    ({"mesh.spatial_devices": 2}, NotImplementedError, "Queue A item 10"),
+    ({"mesh.num_devices": 2}, NotImplementedError, "Queue A item 10"),
+    ({"train.remat_policy": "save_only_these_names"}, ValueError, "not a policy"),
+    ({"mesh.fsdp": True}, NotImplementedError, "Queue A item 10"),
 ])
-def test_config_json_refuses_what_the_port_does_not_run(tmp_path, over, item):
+def test_config_json_refuses_what_the_port_does_not_run(tmp_path, over, error, match):
     jckpt.save_config(str(tmp_path), jcfg.kitti_config(**over))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         tckpt.load_config(str(tmp_path))
 
 

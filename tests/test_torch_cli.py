@@ -10,7 +10,9 @@ package's (gdn_tpu/cli.py), on the CPU.
   packages, and the port's Config refuses it with NotImplementedError
   naming its ROADMAP item; the scripts turn that into their parser's
   error.  The model variants' flags (``--upsample deconv``, ``--norm
-  none``, ``--multiscale``) build the JAX package's config.
+  none``, ``--multiscale``) and the training knobs'
+  (``--steps_per_call``, ``--fused_guidance``) build the JAX package's
+  config.
 - Every ModelConfig field of the port is categorized as architecture or
   execution (as tests/test_cli.py does for the JAX package's).
 - The port's own flags: ``--ckpt_dir`` is ``--model_dir``, ``--device``,
@@ -61,6 +63,7 @@ TRAIN_ARGV = [
     ["--ssim_precision", "highest", "--max_depth", "50"],
     ["--num_devices", "1", "--data_path", "/data/kitti"],
     ["--upsample", "resize_conv", "--norm", "group", "--deconv_init", "lecun"],
+    ["--mode", "RtoD", "--steps_per_call", "2", "--fused_guidance", "--steps_per_epoch", "8"],
 ]
 EVAL_ARGV = [
     [],
@@ -101,8 +104,6 @@ def test_build_config_equals_the_jax_one(argv, evalargs):
 
 
 UNPORTED = [
-    (["--steps_per_call", "2"], "Queue A item 12"),
-    (["--fused_guidance"], "Queue A item 12"),
     (["--num_devices", "2"], "Queue A item 10"),
     (["--spatial_devices", "2"], "Queue A item 10"),
     (["--model_devices", "2"], "Queue A item 10"),
@@ -116,6 +117,19 @@ def test_unported_train_flags_are_refused_with_their_item(argv, item):
     jcli.build_config(_parse(jcli, argv))  # a flag the JAX package runs
     with pytest.raises(NotImplementedError, match=item):
         tcli.build_config(_parse(tcli, argv))
+
+
+@pytest.mark.parametrize("argv,field,value", [
+    (["--steps_per_call", "2"], "steps_per_call", 2),
+    (["--fused_guidance"], "fused_guidance", True),
+])
+def test_training_knob_flags_reach_the_config(argv, field, value):
+    """``--steps_per_call`` and ``--fused_guidance``, which the port once
+    refused (Queue A item 12): they build the JAX package's config."""
+    tc = tcli.build_config(_parse(tcli, argv))
+    fields = _same_fields(tc, jcli.build_config(_parse(jcli, argv)))
+    diff = {k: v for k, v in fields.items() if v[0] != v[1] and k not in STATED_EXCEPTIONS}
+    assert diff == {} and getattr(tc.train, field) == value
 
 
 @pytest.mark.parametrize("argv", [
@@ -170,16 +184,25 @@ def _load_script(name):
 
 @pytest.mark.parametrize("script,argv,item", [
     ("train_torch", ["--spatial_devices", "2"], "Queue A item 10"),
-    ("train_torch", ["--steps_per_call", "4"], "Queue A item 12"),
     ("train_torch", ["--fsdp"], "Queue A item 10"),
     ("eval_torch", ["--quantize", "int8", "--norm", "none"], "requires norm='group'"),
-    ("train_torch", ["--fused_guidance"], "Queue A item 12"),
 ])
 def test_scripts_turn_a_refusal_into_a_parser_error(script, argv, item, capsys):
     with pytest.raises(SystemExit) as e:
         _load_script(script).parse_args(argv)
     assert e.value.code != 0
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,field,value", [
+    (["--steps_per_call", "4"], "steps_per_call", 4),
+    (["--fused_guidance", "--mode", "RtoD"], "fused_guidance", True),
+])
+def test_train_script_takes_the_training_knob_flags(argv, field, value):
+    """The flags train_torch.py once refused (Queue A item 12) parse and
+    reach the train config."""
+    args = _load_script("train_torch").parse_args(argv)
+    assert getattr(tcli.build_config(args).train, field) == value
 
 
 @pytest.mark.parametrize("script,argv,field,value", [

@@ -297,13 +297,49 @@ repository around this file.  Phases, each printed on its own lines:
               encoder's width, 16 groups, bf16), as phase 3, the time
               from queued events (late in the process CUPTI has recorded
               none of these launches).
+  27. parallel  data parallel and FSDP (gdn_tpu_torch/parallel), full
+              width, bf16, random weights (init_params seeds 27 and 28,
+              the G-net holding the D-net's decoder), P27_STEPS batches of
+              32 drawn on the host with sparse masks, rows 0-15 ~15%
+              valid and rows 16-31 ~40% (the ranks' counts differ by more
+              than 2x), against one process in the same phase: (a)
+              train_stage1 then train_stage2 over two ranks that share the
+              card (spawned by parallel.multihost.run_ranks, gloo, 16 rows
+              a rank): each rank's launches a stage equal to one
+              process's (kernels 1-3 in both ranks), the first step's
+              terms within phase 9's fp32 rtol 1e-4, every step's within
+              1e-3 (bf16 Adam updates flip the sign of near-zero
+              gradients; phase 9's bf16 bound is 5%), the first update's
+              gradients within 5% of each tensor's largest (the bf16
+              gradient bound of phases 21 (d) and 26 (d)), and one
+              stage-2 step in fp32 (TF32 off) at phase 9's fp32 bounds:
+              terms rtol 1e-4, gradients 1e-3 of each tensor's largest;
+              ms/step on
+              each rank's host clock and a profiled stage-2 step on each
+              rank (device busy, idle share, and kernels 1-3 by name in
+              its own profile) beside one process's; (b)
+              stage 2 under FSDP (FSDP2 over the same two ranks): the same
+              checks, and each rank's bytes of the trained parameters and
+              their Adam moments against one process's (about half);
+              (c) one DP stage-2 step with every fused flag, and one with
+              use_pallas_convgn + use_pallas_fusion: kernels 4-9 launch in
+              the ranks, as many as in one process; (d) one rank over
+              NCCL: a stage-1 step through the data-parallel path against
+              the plain step, cuDNN deterministic: gradients and terms
+              bit for bit; (e) evaluate() of the G-net (fp32) on 16 images
+              of the synthetic eval split, batch 8, over the two ranks:
+              the metrics of one process within 1e-5, a1-a3 within one
+              pixel; (f) ShardedDeviceDataset over the two ranks on phase
+              22's corpus (each rank through a decode cache of its own):
+              its index stream and the rows of its first batches on the
+              card equal the CPU port's.
 
 Any failure ends the run with a nonzero exit.  The last lines are the
 kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape numbers also go to smoke_out/chip_smoke.json (phase 23's under
 "tools", phase 24's under "artifacts", phase 25's under "variants",
-phase 26's under "knobs"), the profiles to
+phase 26's under "knobs", phase 27's under "parallel"), the profiles to
 smoke_out/{serving,training}{,_fused,_fusion}_profile.txt,
 smoke_out/knobs_*_profile.txt,
 smoke_out/eval_profile.txt and smoke_out/disk_*_profile.txt.
@@ -4334,6 +4370,540 @@ def phase_knobs(cfg):
     return out, launches
 
 
+# --------------------------------------------------------------- phase 27
+
+P27_STEPS = 3  # (a), (b): steps a stage
+# (a), (b): bf16 gradients against one process, of each tensor's largest:
+# the bound phases 21 (d) and 26 (d) hold bf16 gradients to (each rank's
+# bf16 weight gradients round before the sum; one process rounds the sum)
+BF16_GRAD_TOL = 0.05
+P27_RANKS = 2  # ranks sharing the one card over gloo
+P27_EVAL = (16, 8)  # (e): synthetic eval images (phase 23's split), eval batch
+P27_CACHE_BATCHES = 4  # (f): sharded-cache batches whose rows are compared
+# (a): kernels 1-3 by the name of their kernel in a rank's profile
+P27_PROFILED = (("group_norm_elu", "gn_elu_coop"), ("fused_loss_fwd", "loss_forward"),
+                ("fused_loss_bwd", "loss_backward"))
+P27_VALID = (0.15, 0.40)  # mask density of rows 0-15 (rank 0) and 16-31 (rank 1)
+# (c): the fused configurations whose one DP step launches kernels 4-9
+P27_FUSED = (("all_flags", {**FUSED, **FUSION}),
+             ("convgn_fusion", {**FUSED_V1, **FUSION}))
+
+
+def p27_batches(cfg, n=P27_STEPS, seed=27):
+    """Global batches of TRAIN_BATCH drawn on the host (numpy, seed):
+    continuous depth in [1, 79] m and RGB, masks sparse as velodyne GT,
+    the first half's ~P27_VALID[0] valid and the second half's
+    ~P27_VALID[1]: rank 1 holds more than twice rank 0's valid pixels."""
+    h, w = cfg.model.image_size
+    rng = np.random.default_rng(seed)
+    half = TRAIN_BATCH // 2
+    p = np.repeat(np.float32(P27_VALID), half)[:, None, None, None]
+    out = []
+    for _ in range(n):
+        out.append({
+            "depth": torch.from_numpy(rng.uniform(1.0, 79.0, (TRAIN_BATCH, h, w, 1))
+                                      .astype(np.float32)),
+            "mask": torch.from_numpy((rng.random((TRAIN_BATCH, h, w, 1), np.float32) < p)
+                                     .astype(np.float32)),
+            "rgb": torch.from_numpy(rng.random((TRAIN_BATCH, h, w, 3), np.float32))})
+    return out
+
+
+def _p27_weights(cfg):
+    """(D-net state dict, G-net state dict holding the D-net's decoder):
+    init_params draws of seeds 27 and 28."""
+    from gdn_tpu_torch.checkpoint import init_params, transfer_stage1_decoder
+
+    gen = torch.Generator()
+    d_sd = init_params(cfg.model, gen.manual_seed(27), in_channels=1)
+    return d_sd, transfer_stage1_decoder(init_params(cfg.model, gen.manual_seed(28)), d_sd)
+
+
+def _first_grads(state, out):
+    """Keep in ``out`` the whole gradients of the first update (after the
+    ranks' sum), by parameter name: an optimizer pre-step hook."""
+    from gdn_tpu_torch.parallel.mesh import full_tensor
+
+    names = [k for k, p in state.net.named_parameters() if p.requires_grad]
+
+    def hook(opt, args, kwargs):
+        if not out:
+            out.update({k: full_tensor(p.grad).detach().float().cpu()
+                        for k, p in zip(names, state.params)})
+
+    state.optimizer.register_step_pre_hook(hook)
+
+
+def _timed_rows(batches, mesh, dev, stamps):
+    """This rank's rows of each batch, uploaded, with the host clock at
+    each draw in ``stamps`` (the steps' spacing)."""
+    from gdn_tpu_torch.parallel.mesh import shard_batch
+
+    for b in batches:
+        stamps.append(time.perf_counter())
+        yield {k: v.to(dev, non_blocking=True) for k, v in shard_batch(b, mesh).items()}
+    stamps.append(time.perf_counter())
+
+
+def _state_bytes(state):
+    """(this rank's bytes of the trained parameters, of their Adam moments)."""
+    from gdn_tpu_torch.parallel.mesh import local
+
+    pb = sum(local(p).nbytes for p in state.params)
+    ob = sum(local(v).nbytes for st in state.optimizer.state.values()
+             for n, v in st.items() if n != "step")
+    return pb, ob
+
+
+def p27_train(cfg, d_sd, g_sd, batches, mesh, tag, stages=(1, 2), profile=True):
+    """Stage 1 then stage 2 (or ``stages``) through train_stage1/2 from
+    the same weights on ``batches`` (global), data parallel over ``mesh``
+    (None: one process), the state placed by ``cfg.mesh``: the terms of
+    every step (the loop's log, rank 0's under a mesh), the first
+    update's gradients, ms/step on this rank's host clock (steps 2 on),
+    the launches of each stage, the state's bytes on this rank, and one
+    profiled stage-2 step (device busy)."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.models import DtoDNet, RtoDNet
+    from gdn_tpu_torch.parallel import multihost
+    from gdn_tpu_torch.parallel.mesh import (
+        data_group, param_mode, shard_batch, shard_frozen, shard_state,
+    )
+    from gdn_tpu_torch.train.loop import train_stage1, train_stage2
+    from gdn_tpu_torch.train.state import TrainState
+    from gdn_tpu_torch.train.steps import make_stage2_step
+    from gdn_tpu_torch.utils.logging import MetricLogger
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = _with(cfg, **{"train.steps_per_epoch": len(batches), "train.log_every": 1,
+                        "train.ckpt_dir": "", "data.batch_size": TRAIN_BATCH})
+    out = {}
+    for stage in stages:
+        net = (DtoDNet if stage == 1 else RtoDNet)(cfg.model)
+        net.load_state_dict(d_sd if stage == 1 else g_sd)
+        state = TrainState(net.to(dev), cfg.train, len(batches), freeze_decoder=stage == 2)
+        state, _ = shard_state(state, mesh, param_mode(cfg.mesh))
+        grads, stamps = {}, []
+        _first_grads(state, grads)
+        jsonl = os.path.join(OUT, f"p27_{tag}_stage{stage}.jsonl")
+        if os.path.exists(jsonl) and multihost.rank() == 0:
+            os.remove(jsonl)
+        logger = MetricLogger(prefix=f"{tag} stage{stage}", jsonl_path=jsonl)
+        data = _timed_rows(batches, mesh, dev, stamps)
+        torch.cuda.synchronize()
+        reset_counts()
+        if stage == 1:
+            state = train_stage1(cfg, data, epochs=1, state=state, logger=logger, mesh=mesh,
+                                 device=dev)
+        else:
+            d_net = DtoDNet(cfg.model)
+            d_net.load_state_dict(d_sd)
+            d_net = shard_frozen(d_net.to(dev).requires_grad_(False), mesh,
+                                 param_mode(cfg.mesh))
+            state = train_stage2(cfg, data, d_net, epochs=1, state=state, logger=logger,
+                                 mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        logger.close()
+        steps_ms = [1e3 * (b - a) for a, b in zip(stamps[1:-1], stamps[2:])]
+        rec = {"launches": counts, "grads": grads,
+               "ms_per_step": sum(steps_ms) / max(len(steps_ms), 1),
+               "bytes": _state_bytes(state)}
+        if multihost.rank() == 0:
+            rec["terms"] = [{k: v for k, v in json.loads(line).items()
+                             if k not in ("t", "step", "imgs_per_sec", "lr")}
+                            for line in open(jsonl)]
+        if stage == 2 and profile:
+            step = make_stage2_step(cfg, **({} if mesh is None else dict(
+                mesh=mesh, state_sharding=state.specs)))
+            b = {k: v.to(dev) for k, v in shard_batch(batches[0], mesh).items()}
+            try:  # one session on every rank: a retry on one alone would hang
+                _, kernels, wall = profiled(lambda: step(state, d_net, b),
+                                            tries=1 if mesh is not None else 4)
+                busy = sum(us for us, _ in kernels.values()) / 1e3
+                rec["profile"] = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+                                  "idle_share": 1 - busy / (wall * 1e3),
+                                  "kernel_launches": sum(n for _, n in kernels.values()),
+                                  "calls": {name: sum(n for k, (_, n) in kernels.items()
+                                                      if part in k)
+                                            for name, part in P27_PROFILED}}
+            except ProfilerShort as e:
+                rec["profile"] = None
+                log(f"  {tag} rank {multihost.rank()}: profile not measured ({e})")
+            if mesh is not None:
+                torch.distributed.barrier(group=data_group(mesh))
+        out[f"stage{stage}"] = rec
+    return out
+
+
+def p27_rank(out_dir, weights):
+    """The ranks of phase 27 (a)-(c), (e), (f): every result into
+    ``out_dir/rank<r>.pt``."""
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from gdn_tpu_torch import kernels as port_kernels
+    from gdn_tpu_torch.config import _with, kitti_config
+    from gdn_tpu_torch.parallel import multihost
+    from gdn_tpu_torch.parallel.mesh import create_mesh
+
+    port_kernels.load_all()  # built by the parent: loads
+    r = multihost.rank()
+    cfg = kitti_config(**{"model.use_pallas_gn": True})
+    mesh = create_mesh(0, device_type="cuda")
+    d_sd, g_sd = torch.load(weights, weights_only=True).values()
+    batches = p27_batches(cfg)
+    res = {"rank": r, "backend": torch.distributed.get_backend(),
+           "device": str(torch.cuda.current_device())}
+    res["dp"] = p27_train(cfg, d_sd, g_sd, batches, mesh, f"dp_rank{r}")
+    res["dp32"] = p27_train(_with(cfg, **{"model.dtype": "float32"}), d_sd, g_sd,
+                            batches[:1], mesh, f"dp32_rank{r}", stages=(2,), profile=False)
+    res["fsdp"] = p27_train(_with(cfg, **{"mesh.fsdp": True}), d_sd, g_sd, batches,
+                            mesh, f"fsdp_rank{r}", stages=(2,), profile=False)
+    res["fused"] = {}
+    for tag, over in P27_FUSED:
+        res["fused"][tag] = p27_train(_with(cfg, **over), d_sd, g_sd, batches[:1], mesh,
+                                      f"{tag}_rank{r}", stages=(2,), profile=False)
+    res["eval"] = p27_eval(cfg, g_sd, mesh)
+    res["cache"] = p27_cache(cfg, mesh)
+    torch.save(res, os.path.join(out_dir, f"rank{r}.pt"))
+
+
+def p27_eval(cfg, g_sd, mesh):
+    """(e): the G-net (fp32, TF32 off) on phase 23's synthetic eval
+    split through evaluate(), data parallel over ``mesh``."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.data.synthetic import SyntheticEvalDataset
+    from gdn_tpu_torch.evaluate import evaluate
+    from gdn_tpu_torch.models import RtoDNet
+    from gdn_tpu_torch.train.steps import make_eval_forward
+
+    n, bs = P27_EVAL
+    c = _with(cfg, **{"model.dtype": "float32", "eval.batch_size": bs})
+    g = RtoDNet(c.model)
+    g.load_state_dict(g_sd)
+    g = g.to(torch.device("cuda", torch.cuda.current_device()))
+    h, w = c.model.image_size
+    reset_counts()
+    res = evaluate(c, make_eval_forward(c, g), SyntheticEvalDataset(n, h, w), verbose=False,
+                   mesh=mesh, device=torch.device("cuda", torch.cuda.current_device()))
+    return {"metrics": res, "launches": read_counts()}
+
+
+def p27_cache(cfg, mesh):
+    """(f): the sharded device cache over ``mesh`` on phase 22's corpus
+    (through a decode cache of this rank's own: a cache directory is held
+    by one process), on the card and on the CPU: the index streams, and
+    this rank's rows of the first batches."""
+    from gdn_tpu_torch.data.device_cache import ShardedDeviceDataset
+    from gdn_tpu_torch.data.kitti import KittiTrainDataset
+    from gdn_tpu_torch.parallel.multihost import rank
+
+    kitti = os.path.join(OUT, "disk", "kitti")
+    cache = os.path.join(OUT, "p27", f"decode_cache_rank{rank()}")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ds = ShardedDeviceDataset(KittiTrainDataset(kitti, "train.txt", cfg.model.image_size,
+                                                    TRAIN_BATCH, loop=False, seed=7,
+                                                    cache_dir=cache), mesh,
+                                  device=torch.device(dev, torch.cuda.current_device())
+                                  if dev == "cuda" else dev)
+        stream = [i.tolist() for i in ds._index_iter()]
+        rows = [{k: v.cpu() for k, v in b.items()}
+                for _, b in zip(range(P27_CACHE_BATCHES), ds)]
+        out[dev] = {"stream": stream, "rows": rows, "resident_bytes": ds.resident_bytes}
+    return out
+
+
+def p27_nccl(out_dir, weights):
+    """(d): one rank over NCCL (world size 1): a stage-1 step through
+    the data-parallel path (the state placed, the gradients all-reduced
+    over the group) against the plain step, from the same weights and
+    batch, cuDNN deterministic: gradients and terms bit for bit."""
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    from gdn_tpu_torch import kernels as port_kernels
+    from gdn_tpu_torch.config import kitti_config
+    from gdn_tpu_torch.models import DtoDNet
+    from gdn_tpu_torch.parallel.mesh import create_mesh, shard_state
+    from gdn_tpu_torch.train.state import TrainState
+    from gdn_tpu_torch.train.steps import make_stage1_step
+
+    port_kernels.load_all()
+    cfg = kitti_config(**{"model.use_pallas_gn": True})
+    mesh = create_mesh(0, device_type="cuda")
+    d_sd = torch.load(weights, weights_only=True)["d"]
+    batch = {k: v.cuda() for k, v in p27_batches(cfg, 1)[0].items()}
+    res = {"backend": torch.distributed.get_backend()}
+    for name, m in (("plain", None), ("dp", mesh)):
+        net = DtoDNet(cfg.model)
+        net.load_state_dict(d_sd)
+        state = TrainState(net.cuda(), cfg.train, 10)
+        kw = {}
+        if m is not None:
+            state, specs = shard_state(state, m, "replicated")
+            kw = dict(mesh=m, state_sharding=specs)
+        grads = {}
+        _first_grads(state, grads)
+        reset_counts()
+        _, terms = make_stage1_step(cfg, **kw)(state, batch)
+        torch.cuda.synchronize()
+        res[name] = {"grads": grads, "terms": {k: float(v) for k, v in terms.items()},
+                     "launches": read_counts()}
+    torch.save(res, os.path.join(out_dir, "nccl.pt"))
+
+
+def _grad_gap(got, want):
+    """max over tensors of max|got - want| / max|want|."""
+    worst = 0.0
+    for k, w in want.items():
+        scale = w.abs().max().item() or 1.0
+        worst = max(worst, (got[k] - w).abs().max().item() / scale)
+    return worst
+
+
+def _terms_gap(got, want):
+    """(the first step's, every step's) largest relative difference of
+    the loss terms."""
+    gaps = [max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in w)
+            for g, w in zip(got, want)]
+    return gaps[0], max(gaps)
+
+
+def _terms_problem(what, gaps):
+    """The first step's terms come from the same weights: phase 9's fp32
+    rtol 1e-4.  Later steps follow bf16 Adam updates, where a gradient
+    near zero may flip sign between two summation orders (ROADMAP's
+    parity notes): 1e-3, within phase 9's 5% bf16 bound."""
+    first, every = gaps
+    if first > 1e-4 or every > 1e-3:
+        return (f"{what} terms: first step {first:.3g} (bound 1e-4), every step "
+                f"{every:.3g} (bound 1e-3)")
+    return None
+
+
+def phase_parallel(cfg):
+    """Phase 27: data parallel and FSDP (see the module docstring).
+    ``cfg``: phase 8's configuration."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.parallel.multihost import run_ranks
+
+    t0 = time.perf_counter()
+    out, launches = {"device": smi_line()}, {}
+    log(f"  {out['device']}")
+    d_sd, g_sd = _p27_weights(cfg)
+    work = os.path.join(OUT, "p27")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    weights = os.path.join(work, "weights.pt")
+    torch.save({"d": d_sd, "g": g_sd}, weights)
+    batches = p27_batches(cfg)
+    valid = [float(batches[0]["mask"][i * 16:(i + 1) * 16].sum()) for i in (0, 1)]
+    log(f"  valid pixels of the first batch: rank 0's rows {valid[0]:.0f}, rank 1's "
+        f"{valid[1]:.0f} ({valid[1] / valid[0]:.2f}x)")
+    if valid[1] < 2 * valid[0]:
+        raise AssertionError(f"the ranks' valid counts differ by less than 2x: {valid}")
+
+    single = p27_train(cfg, d_sd, g_sd, batches, None, "single")
+    single32 = p27_train(_with(cfg, **{"model.dtype": "float32"}), d_sd, g_sd, batches[:1],
+                         None, "single32", stages=(2,), profile=False)
+    fused_single = {tag: p27_train(_with(cfg, **over), d_sd, g_sd, batches[:1], None,
+                                   f"{tag}_single", stages=(2,), profile=False)
+                    for tag, over in P27_FUSED}
+    eval_single = p27_eval(cfg, g_sd, None)
+    launches["parallel_single32"] = single32["stage2"]["launches"]
+    for stage in (1, 2):
+        launches[f"parallel_single_stage{stage}"] = single[f"stage{stage}"]["launches"]
+    for tag in fused_single:
+        launches[f"parallel_single_{tag}"] = fused_single[tag]["stage2"]["launches"]
+    launches["parallel_single_eval"] = eval_single["launches"]
+
+    ts = time.perf_counter()
+    run_ranks(p27_rank, P27_RANKS, (work, weights), device_type="cuda", timeout=600)
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(P27_RANKS)]
+    out["ranks_seconds"] = time.perf_counter() - ts
+    tn = time.perf_counter()
+    run_ranks(p27_nccl, 1, (work, weights), device_type="cuda", timeout=300)
+    nccl = torch.load(os.path.join(work, "nccl.pt"), weights_only=False)
+    out["nccl_seconds"] = time.perf_counter() - tn
+
+    problems = []
+    # (a) data parallel: launches, terms, gradients, time
+    out["dp"] = {}
+    for stage in (1, 2):
+        key = f"stage{stage}"
+        one = single[key]
+        row = {"single_ms_per_step": one["ms_per_step"],
+               "single_profile": one.get("profile"), "ranks": []}
+        for rk in ranks:
+            rec = rk["dp"][key]
+            launches[f"parallel_dp_rank{rk['rank']}_{key}"] = rec["launches"]
+            row["ranks"].append({"rank": rk["rank"], "backend": rk["backend"],
+                                 "ms_per_step": rec["ms_per_step"],
+                                 "profile": rec.get("profile"),
+                                 "launches": {k: v for k, v in rec["launches"].items() if v}})
+            if rec["launches"] != one["launches"]:
+                problems.append(f"(a) {key} rank {rk['rank']} launches {rec['launches']} "
+                                f"!= one process's {one['launches']}")
+            for k in ("group_norm_elu", "fused_loss_fwd", "fused_loss_bwd"):
+                if rec["launches"][k] < 1:
+                    problems.append(f"(a) {key} rank {rk['rank']}: {k} not launched")
+        r0 = ranks[0]["dp"][key]
+        row["terms_rel_gap"] = _terms_gap(r0["terms"], one["terms"])
+        row["grad_rel_gap"] = _grad_gap(r0["grads"], one["grads"])
+        row["terms"] = {"dp": r0["terms"], "single": one["terms"]}
+        problems.append(_terms_problem(f"(a) {key}", row["terms_rel_gap"]))
+        if row["grad_rel_gap"] > BF16_GRAD_TOL:
+            problems.append(f"(a) {key} bf16 gradients beyond {BF16_GRAD_TOL} of their "
+                            f"largest: {row['grad_rel_gap']:.3g}")
+        out["dp"][key] = row
+        log(f"  (a) DP {key}: terms max rel gap {row['terms_rel_gap'][0]:.3g} at step 1, "
+            f"{row['terms_rel_gap'][1]:.3g} over {P27_STEPS} steps, first-step "
+            f"gradients {row['grad_rel_gap']:.3g} of each tensor's largest; ms/step "
+            f"(host clock, steps 2-{P27_STEPS}): one process {one['ms_per_step']:.1f}, "
+            + ", ".join(f"rank {x['rank']} {x['ms_per_step']:.1f}" for x in row["ranks"]))
+        if stage == 2:
+            for who, prof in [("one process", one.get("profile"))] + [
+                    (f"rank {x['rank']}", x["profile"]) for x in row["ranks"]]:
+                log(f"      profiled stage-2 step, {who}: " + (
+                    f"wall {prof['wall_ms']:.1f} ms, busy {prof['device_busy_ms']:.2f} ms "
+                    f"(idle {prof['idle_share']:.1%}), {prof['kernel_launches']} kernel "
+                    f"launches, kernels 1-3 {prof['calls']}" if prof else "not measured"))
+                if prof and min(prof["calls"].values()) < 1:
+                    problems.append(f"(a) {who}'s profiler recorded no launch of a kernel "
+                                    f"of 1-3: {prof['calls']}")
+    # (a), fp32: one stage-2 step at phase 9's fp32 bounds
+    one32 = single32["stage2"]
+    fp32 = {"terms_rel_gap": _terms_gap(ranks[0]["dp32"]["stage2"]["terms"],
+                                        one32["terms"])[0],
+            "grad_rel_gap": _grad_gap(ranks[0]["dp32"]["stage2"]["grads"], one32["grads"])}
+    for rk in ranks:
+        launches[f"parallel_dp32_rank{rk['rank']}"] = rk["dp32"]["stage2"]["launches"]
+    out["dp"]["stage2_fp32"] = fp32
+    if fp32["terms_rel_gap"] > 1e-4 or fp32["grad_rel_gap"] > 1e-3:
+        problems.append(f"(a) fp32 stage-2 step: terms {fp32['terms_rel_gap']:.3g} (bound "
+                        f"1e-4), gradients {fp32['grad_rel_gap']:.3g} (bound 1e-3)")
+    log(f"  (a) DP stage-2 step in fp32 (TF32 off): terms max rel gap "
+        f"{fp32['terms_rel_gap']:.3g}, gradients {fp32['grad_rel_gap']:.3g} of each "
+        "tensor's largest")
+    # (b) FSDP
+    fsdp_runs = [(rk["rank"], rk["fsdp"]["stage2"]) for rk in ranks]
+    one = single["stage2"]
+    fs = {"backend": ranks[0]["backend"], "single_bytes": one["bytes"], "per_rank": []}
+    for r, rec in fsdp_runs:
+        launches[f"parallel_fsdp_rank{r}"] = rec["launches"]
+        fs["per_rank"].append({"rank": r, "bytes": rec["bytes"],
+                               "param_share": rec["bytes"][0] / one["bytes"][0],
+                               "optimizer_share": rec["bytes"][1] / one["bytes"][1],
+                               "ms_per_step": rec["ms_per_step"]})
+        if rec["launches"] != one["launches"]:
+            problems.append(f"(b) rank {r} launches {rec['launches']} != {one['launches']}")
+    r0 = fsdp_runs[0][1]
+    fs["terms_rel_gap"] = _terms_gap(r0["terms"], one["terms"])
+    fs["grad_rel_gap"] = _grad_gap(r0["grads"], one["grads"])
+    problems.append(_terms_problem("(b) FSDP", fs["terms_rel_gap"]))
+    if fs["grad_rel_gap"] > BF16_GRAD_TOL:
+        problems.append(f"(b) FSDP bf16 gradients {fs['grad_rel_gap']:.3g} beyond "
+                        f"{BF16_GRAD_TOL} of their largest")
+    for x in fs["per_rank"]:
+        if not (0.45 < x["param_share"] < 0.55 and 0.45 < x["optimizer_share"] < 0.55):
+            problems.append(f"(b) rank {x['rank']} holds {x['param_share']:.3f} of the "
+                            f"parameter and {x['optimizer_share']:.3f} of the optimizer "
+                            "bytes, not about half")
+    out["fsdp"] = fs
+    log(f"  (b) FSDP over {P27_RANKS} ranks ({fs['backend']}): terms max rel gap "
+        f"{fs['terms_rel_gap'][0]:.3g} at step 1, {fs['terms_rel_gap'][1]:.3g} over "
+        f"{P27_STEPS}, gradients {fs['grad_rel_gap']:.3g}; " + ", ".join(
+            f"rank {x['rank']} holds {x['bytes'][0] / 2**20:.2f} MiB of parameters "
+            f"({x['param_share']:.3f}) and {x['bytes'][1] / 2**20:.2f} MiB of Adam moments "
+            f"({x['optimizer_share']:.3f}), {x['ms_per_step']:.1f} ms/step"
+            for x in fs["per_rank"])
+        + f" (one process {one['bytes'][0] / 2**20:.2f} / {one['bytes'][1] / 2**20:.2f} MiB)")
+    # (c) the fused configurations' step inside the ranks
+    out["fused"] = {}
+    for tag, _ in P27_FUSED:
+        want = fused_single[tag]["stage2"]["launches"]
+        got = [rk["fused"][tag]["stage2"]["launches"] for rk in ranks]
+        for rk, g in zip(ranks, got):
+            launches[f"parallel_{tag}_rank{rk['rank']}"] = g
+            if g != want:
+                problems.append(f"(c) {tag} rank {rk['rank']} launches {g} != {want}")
+        gap = _terms_gap(ranks[0]["fused"][tag]["stage2"]["terms"],
+                         fused_single[tag]["stage2"]["terms"])
+        out["fused"][tag] = {"launches": {k: v for k, v in want.items() if v},
+                             "terms_rel_gap": gap[0]}
+        problems.append(_terms_problem(f"(c) {tag}", gap))
+        log(f"  (c) {tag}: one DP step, launches a rank "
+            f"{ {k: v for k, v in got[0].items() if v} }, terms max rel gap {gap[0]:.3g}")
+    for k in COUNTERS[3:]:
+        if not any(rk["fused"][t]["stage2"]["launches"][k] for rk in ranks
+                   for t, _ in P27_FUSED):
+            problems.append(f"(c) {k} launched in no rank")
+    # (d) world size 1 over NCCL
+    same = (nccl["dp"]["terms"] == nccl["plain"]["terms"]
+            and all(torch.equal(nccl["dp"]["grads"][k], v)
+                    for k, v in nccl["plain"]["grads"].items()))
+    launches["parallel_nccl_plain"] = nccl["plain"]["launches"]
+    launches["parallel_nccl_dp"] = nccl["dp"]["launches"]
+    out["nccl"] = {"backend": nccl["backend"], "bit_identical": same}
+    if nccl["backend"] != "nccl" or not same:
+        problems.append(f"(d) {nccl['backend']}: DP gradients not bit-identical to the "
+                        "plain step's")
+    log(f"  (d) world size 1 over {nccl['backend']}: DP step's gradients and terms "
+        f"{'bit-identical to' if same else 'DIFFER from'} the plain step's")
+    # (e) DP eval
+    want = eval_single["metrics"]
+    gaps = {}
+    for rk in ranks:
+        got = rk["eval"]["metrics"]
+        launches[f"parallel_eval_rank{rk['rank']}"] = rk["eval"]["launches"]
+        for k in ("abs_rel", "sq_rel", "rmse", "rmse_log", "log10", "a1", "a2", "a3"):
+            gaps[k] = max(gaps.get(k, 0.0), abs(got[k] - want[k]))
+    from gdn_tpu_torch.data.synthetic import SyntheticEvalDataset
+    from gdn_tpu_torch.metrics import crop_mask
+
+    h, w = cfg.model.image_size
+    one_pixel = 1.0 / min(  # of the sparsest image: valid GT within the cap and crop
+        int(((s["gt"][0] > cfg.model.min_depth) & (s["gt"][0] < cfg.eval.cap)
+             & crop_mask(h, w, cfg.eval.crop)).sum())
+        for s in SyntheticEvalDataset(P27_EVAL[0], h, w))
+    out["eval"] = {"abs_gaps": gaps, "single": want,
+                   "ranks": [rk["eval"]["metrics"] for rk in ranks]}
+    for k, g in gaps.items():
+        if g > (max(1e-5, one_pixel) if k.startswith("a") and k[1:].isdigit()
+                else 1e-5 * max(1.0, abs(want[k]))):
+            problems.append(f"(e) DP eval {k} differs by {g:.3g}")
+    log(f"  (e) DP eval of {P27_EVAL[0]} synthetic images, batch {P27_EVAL[1]}, fp32: max "
+        "|rank - one process| " + ", ".join(f"{k} {v:.2g}" for k, v in gaps.items()))
+    # (f) the sharded device cache
+    streams_equal = all(rk["cache"]["cuda"]["stream"] == rk["cache"]["cpu"]["stream"]
+                        == ranks[0]["cache"]["cpu"]["stream"] for rk in ranks)
+    rows_equal = all(torch.equal(a[k], b[k]) for rk in ranks
+                     for a, b in zip(rk["cache"]["cuda"]["rows"], rk["cache"]["cpu"]["rows"])
+                     for k in a)
+    out["cache"] = {"streams_equal": streams_equal, "rows_equal": rows_equal,
+                    "batches": len(ranks[0]["cache"]["cpu"]["stream"]),
+                    "resident_bytes_a_rank": ranks[0]["cache"]["cuda"]["resident_bytes"]}
+    if not (streams_equal and rows_equal):
+        problems.append(f"(f) sharded cache: streams equal {streams_equal}, rows equal "
+                        f"{rows_equal}")
+    log(f"  (f) sharded device cache over {P27_RANKS} ranks: "
+        f"{out['cache']['batches']} batches, index streams card = CPU port: "
+        f"{streams_equal}, rows of {P27_CACHE_BATCHES} batches equal: {rows_equal}, "
+        f"{out['cache']['resident_bytes_a_rank'] / 2**20:.1f} MiB resident a rank")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 27 took {out['seconds']:.1f} s (ranks {out['ranks_seconds']:.1f} s, "
+        f"NCCL rank {out['nccl_seconds']:.1f} s)")
+    problems = [p for p in problems if p]
+    if problems:
+        raise AssertionError("phase 27: " + "; ".join(problems))
+    return out, launches
+
+
 def main():
     log("== 1. device")
     if not torch.cuda.is_available():
@@ -4497,6 +5067,10 @@ def main():
         "multistep and the remat policies, trained at full width")
     knobs, knob_launches = phase_knobs(cfg)
 
+    log(f"== 27. parallel: data parallel and FSDP over {P27_RANKS} ranks sharing the card "
+        "(gloo), DP at world size 1 over NCCL, DP eval, the sharded device cache")
+    parallel, parallel_launches = phase_parallel(cfg)
+
     main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
     per_fwd = {k: sum(r[k] * r["sites"] for r in main_rows)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -4508,7 +5082,7 @@ def main():
                      **{f"{k}_fusion": v for k, v in fusion_train_launches.items()},
                      **eval_launches, **life_launches, **disk_launches,
                      **tools_launches, **art_launches, **variant_launches,
-                     **knob_launches}
+                     **knob_launches, **parallel_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in path_launches.values())
@@ -4560,7 +5134,7 @@ def main():
                    "training_fusion": training_fusion, "vs_cpu_fusion": vs_cpu_fusion,
                    "eval": evaluation, "lifecycle": lifecycle, "disk": disk,
                    "tools": tools, "artifacts": artifacts, "variants": variants,
-                   "knobs": knobs,
+                   "knobs": knobs, "parallel": parallel,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
                    "sass_hmma": hmma_by_fn, "ptxas": ptxas,
                    "kernels": kernels}, f, indent=1)

@@ -282,12 +282,20 @@ def save_checkpoint(ckpt_dir: str, step: int, state, keep: int = 3,
 
     The payload is copied to the host before this returns.  With
     ``use_async`` a background thread then writes it;
-    :func:`wait_for_checkpoints` waits for it and raises its error."""
+    :func:`wait_for_checkpoints` waits for it and raises its error.
+
+    In a process group every rank calls this (an FSDP state is gathered
+    to the single-device layout by all of them) and rank 0 writes: the
+    file is the one a single-device run writes."""
+    from gdn_tpu_torch.parallel.multihost import rank
+
+    payload = _to_host(state.state_dict())
+    if rank() != 0:
+        return
     ckpt_dir = os.path.abspath(ckpt_dir)
     os.makedirs(ckpt_dir, exist_ok=True)
     if cfg is not None:
         save_config(ckpt_dir, cfg)
-    payload = _to_host(state.state_dict())
     if loader_state is not None:
         payload["loader"] = dict(loader_state)
     if use_async:

@@ -15,10 +15,16 @@ to a parser and ``build_config`` maps the parsed flags onto one
   GroupNorm+ELU kernel at every unfused site on the card.
 - Flags for what the port does not run yet parse, and the Config
   refuses their values with ``NotImplementedError`` naming the ROADMAP
-  item (``--num_devices`` > 1, ``--spatial_devices``, ``--model_devices``,
-  ``--fsdp``, ``--device_cache_sharded``).  ``parse_or_exit`` turns that
-  refusal into the parser's error, as it does a combination neither
-  package runs (``--quantize int8 --norm none``: a ``ValueError``).
+  item (``--spatial_devices`` > 1, ``--model_devices`` > 1: Queue A item
+  10b).  ``parse_or_exit`` turns that refusal into the parser's error,
+  as it does a combination neither package runs (``--quantize int8
+  --norm none``: a ``ValueError``).
+- ``--num_devices N`` runs N data-parallel ranks (0: every visible card;
+  one process on the CPU), ``--fsdp`` shards the parameters and
+  optimizer state over them and ``--device_cache_sharded`` the device
+  cache.  One command runs the job: ``start_ranks`` spawns the N ranks
+  when the script was started alone, and joins the group torchrun gives
+  it when torchrun started it.
   ``--steps_per_call`` and ``--fused_guidance`` run as in the JAX
   package; ``fused_guidance_vjp``, ``fused_encoders`` and
   ``remat_policy`` have no flag in either package and come through
@@ -97,7 +103,8 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="keep the decoded wire corpus on the card and gather batches "
                         "there (2 GiB gate)")
     p.add_argument("--device_cache_sharded", action="store_true",
-                   help="shard the device-resident corpus over a mesh (not ported)")
+                   help="shard the device-resident corpus over the data ranks (each "
+                        "holds 1/D, per-shard sample order)")
     p.add_argument("--train_wire", choices=["auto", "f32"], default="auto",
                    help="upload format: auto ships uint8 RGB + uint16 depth counts "
                         "and decodes them on the card; f32 converts on the host")
@@ -112,13 +119,15 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ssim_precision", choices=["default", "high", "highest"], default=None,
                    help="precision of the SSIM blurs on the TPU; the port's SSIM is fp32")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="mesh size (0 = all devices; only one card is ported)")
+                   help="data-parallel ranks (0 = every visible card; the script "
+                        "starts them, or joins torchrun's)")
     p.add_argument("--spatial_devices", type=int, default=1,
-                   help="height-sharding mesh axis (not ported)")
+                   help="height-sharding mesh axis (not ported: Queue A item 10b)")
     p.add_argument("--model_devices", type=int, default=1,
-                   help="tensor-parallel mesh axis (not ported)")
+                   help="tensor-parallel mesh axis (not ported: Queue A item 10b)")
     p.add_argument("--fsdp", action="store_true",
-                   help="shard parameters and optimizer state (not ported)")
+                   help="shard parameters and optimizer/EMA state over the data ranks "
+                        "(FSDP2); mutually exclusive with --model_devices")
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint of this stage")
@@ -172,7 +181,8 @@ def add_eval_args(p: argparse.ArgumentParser) -> None:
                    help="RGB upload format: auto (default) ships bfloat16 when the "
                         "model computes in bfloat16 (bit-identical)")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="data-parallel eval over this many cards (only 1 is ported)")
+                   help="data-parallel eval over this many ranks (1 = single device; "
+                        "0 = every visible card; eval_batch must divide by it)")
     p.add_argument("--use_ema", action="store_true",
                    help="score the EMA weights of an --ema_decay training run")
     p.add_argument("--device_cache", action="store_true",
@@ -323,3 +333,38 @@ def apply_saved_model_config(cfg: Config, args: argparse.Namespace,
               f"(differs from the command line's defaults in: {', '.join(diffs)})",
               flush=True)
     return dataclasses.replace(cfg, model=model)
+
+
+def start_ranks(args: argparse.Namespace, main, argv) -> bool:
+    """Start the data-parallel ranks of a script run: returns True in a
+    parent that ran ``main(argv)`` in its spawned ranks (it has nothing
+    left to do), False in the process that goes on as a rank or alone.
+
+    Under torchrun (``RANK`` and ``WORLD_SIZE`` set) the process joins
+    the group torchrun describes.  Otherwise ``--num_devices`` N > 1
+    (0: every visible card; one on the CPU) spawns N ranks over a
+    ``file://`` rendezvous (``parallel.multihost.run_ranks``), after the
+    kernels are built once here so that the ranks load them."""
+    import os
+
+    import torch
+
+    from gdn_tpu_torch.parallel import multihost
+
+    device_type = args.device
+    if torch.distributed.is_initialized():
+        return False
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        multihost.maybe_initialize(device_type=device_type)
+        return False
+    n = args.num_devices
+    if n == 0:
+        n = torch.cuda.device_count() if device_type == "cuda" else 1
+    if n <= 1:
+        return False
+    if device_type == "cuda":
+        from gdn_tpu_torch import kernels
+
+        kernels.load_all()
+    multihost.run_ranks(main, n, (argv,), device_type=device_type)
+    return True

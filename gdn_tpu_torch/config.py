@@ -111,13 +111,10 @@ REMAT_FACTORIES = (
 # (field, value the port runs, ROADMAP item that ports the others)
 _DATA_NOT_YET = (
     ("loader", ("native", "grain"), "Queue A item 8 (the host loaders)"),
-    ("device_cache_sharded", False, "Queue A item 10 (parallel)"),
 )
 _MESH_NOT_YET = (
-    ("num_devices", (0, 1), "Queue A item 10 (parallel)"),
-    ("spatial_devices", (1,), "Queue A item 10 (parallel)"),
-    ("model_devices", (1,), "Queue A item 10 (parallel)"),
-    ("fsdp", (False,), "Queue A item 10 (parallel)"),
+    ("spatial_devices", (1,), "Queue A item 10b (tensor and spatial parallelism)"),
+    ("model_devices", (1,), "Queue A item 10b (tensor and spatial parallelism)"),
 )
 
 
@@ -222,12 +219,13 @@ class DataConfig:
     """Data pipeline settings (``data/``): the synthetic source, or the
     KITTI and NYU loaders on disk through the prefetch pipeline, with the
     decode cache (``decode_cache``) and the device-resident corpus
-    (``device_cache``).  ``loader="grain"`` takes the grain loader's
-    counterpart (``data/grain_loader.py``: grain's batch order and
-    cursor, ``grain_workers`` decode threads).  ``num_workers`` changes
-    nothing in the port: the native decoder sizes its own thread pool.
-    The sharded device cache is refused until it is ported (ROADMAP.md
-    Queue A item 10)."""
+    (``device_cache``; ``device_cache_sharded``: 1/D of it on each of D
+    ranks).  ``loader="grain"`` takes the grain loader's counterpart
+    (``data/grain_loader.py``: grain's batch order and cursor,
+    ``grain_workers`` decode threads).  ``num_workers`` changes nothing
+    in the port: the native decoder sizes its own thread pool.
+    ``batch_size`` is the global batch: each of D ranks takes 1/D of
+    its rows."""
 
     dataset: str = "kitti"  # "kitti" | "nyu" | "synthetic"
     data_path: str = ""
@@ -312,8 +310,11 @@ class EvalConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device layout: one device until the parallel slice (ROADMAP
-    Queue A item 10); num_devices 0 means all, that is the one."""
+    """Device layout: ``num_devices`` data-parallel ranks (0: all the
+    ranks that run), ``fsdp`` to shard the parameters and optimizer
+    state over them.  The spatial and model axes are refused (ROADMAP
+    Queue A item 10b); TP and FSDP exclude each other as in the JAX
+    package (``parallel.mesh.param_mode``)."""
 
     data_axis: str = "data"
     num_devices: int = 0
@@ -321,7 +322,13 @@ class MeshConfig:
     model_devices: int = 1
     fsdp: bool = False
 
-    __post_init__ = _refuse("MeshConfig", _MESH_NOT_YET)
+    def __post_init__(self):
+        if self.num_devices < 0:
+            raise ValueError(f"num_devices must be >= 0, not {self.num_devices}")
+        if self.model_devices > 1 and self.fsdp:
+            raise ValueError("model_devices>1 (tensor parallel) and fsdp are mutually "
+                             "exclusive parameter placements")
+        _refuse("MeshConfig", _MESH_NOT_YET)(self)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -393,12 +400,18 @@ def fused_kernel_overrides(args) -> dict:
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks
-    for another.  Raises when CUDA is asked for and absent — the port
-    never moves to the CPU on its own."""
+    for another; in a rank of a process group, that rank's card
+    (``cuda:{local_rank % device_count}``) when no index is given.
+    Raises when CUDA is asked for and absent — the port never moves to
+    the CPU on its own."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None and torch.distributed.is_initialized():
+        from gdn_tpu_torch.parallel.multihost import rank_device
+
+        dev = rank_device("cuda")
     return dev

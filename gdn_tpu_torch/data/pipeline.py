@@ -19,6 +19,8 @@ augmentation; ``make_loader`` builds the loader that
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import queue
 import threading
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional
@@ -144,8 +146,8 @@ def prefetch_to_device(iterator: Iterable[Any], size: int = 2, device=None,
 
 
 def make_train_pipeline(cfg: Config, loader: Iterable[Batch], augment: bool = True,
-                        skip: int = 0, device=None,
-                        seed: Optional[int] = None) -> Iterator[Dict[str, torch.Tensor]]:
+                        skip: int = 0, device=None, seed: Optional[int] = None,
+                        mesh=None) -> Iterator[Dict[str, torch.Tensor]]:
     """loader -> prefetch to ``device`` -> wire decode -> augmentation.
 
     Batch i (counted from ``skip``, the batches a resumed run has
@@ -153,20 +155,34 @@ def make_train_pipeline(cfg: Config, loader: Iterable[Batch], augment: bool = Tr
     by (seed, i), ``seed`` defaulting to cfg.train.seed: a resumed stream
     equals an unbroken one when the caller has also ``seek(skip)``-ed the
     loader.  The wire's counts-to-meters scale is the loader's
-    (``wire_depth_scale``: 256 KITTI, 1000 NYU)."""
+    (``wire_depth_scale``: 256 KITTI, 1000 NYU).
+
+    With a data ``mesh`` the pipeline yields this rank's rows: a global
+    host batch (``cfg.data.batch_size`` rows) is cut before the upload,
+    and a batch of the rank's rows (a device cache over the mesh) is
+    taken as it is.  The augmentation values are drawn for the global
+    batch and cut the same way, so row i is cropped, flipped and
+    jittered as on one device."""
+    from gdn_tpu_torch.parallel.mesh import local_batch, local_rows
+
     dev = resolve_device(device)
     seed = cfg.train.seed if seed is None else seed
     depth_scale = float(getattr(loader, "wire_depth_scale", 256.0))
     max_depth = float(cfg.model.max_depth)
+    b = cfg.data.batch_size
+    start, end = local_rows(b, mesh)
 
     def prepare(host: Batch, i: int) -> Dict[str, torch.Tensor]:
+        host = local_batch(host, mesh, b)
         batch = decode_wire_batch({k: upload(v, dev) for k, v in host.items()},
                                   max_depth=max_depth, depth_scale=depth_scale)
         if augment:
             gen = torch.Generator().manual_seed(_image_seed(seed, i))
-            params = augment_params(gen, batch["rgb"].shape[0], cfg.data)
-            # the seven values in one upload
-            flat = upload(torch.stack(list(params.values())), dev)
+            rows = b if mesh is not None else batch["rgb"].shape[0]
+            params = augment_params(gen, rows, cfg.data)
+            # the seven values in one upload, this rank's rows
+            flat = torch.stack(list(params.values()))
+            flat = upload(flat[:, start:end].contiguous() if mesh is not None else flat, dev)
             batch = apply_augment(batch, dict(zip(params, flat)), cfg.data)
         return batch
 
@@ -233,11 +249,19 @@ def make_loader(cfg: Config, split: str = "train", device=None):
     """The loader named by cfg.data.dataset: for ``split="train"`` the
     batched training loader (``cfg.data.loader``: the native loaders, or
     the grain loader's counterpart), for ``"eval"`` the per-image eval
-    split.  The synthetic training source draws on ``device`` (CUDA
+    split.  In a process group of more than one rank each rank keeps its
+    own decode cache, ``<decode_cache>/rank<r>`` (a cache directory is
+    held by one process).  The synthetic training source draws on ``device`` (CUDA
     unless asked otherwise); its eval split and the disk loaders yield
     host arrays."""
     h, w = cfg.model.image_size
     d = cfg.data
+    if d.decode_cache:
+        from gdn_tpu_torch.parallel import multihost
+
+        if multihost.world_size() > 1:  # a decode cache is held by one process
+            d = dataclasses.replace(d, decode_cache=os.path.join(
+                d.decode_cache, f"rank{multihost.rank()}"))
     if split == "train" and d.loader == "grain" and d.dataset in ("kitti", "nyu"):
         return _grain_loader(cfg)
     if d.dataset == "synthetic":

@@ -15,8 +15,15 @@ optionally the whole split resident on the device across passes.
 The forward (``train.steps.make_eval_forward``) closes over its net, so
 no parameters are passed here: a pass scores the net's weights as they
 are when it runs.  Entry points run on CUDA unless the caller passes
-``device="cpu"``.  Data-parallel eval (``mesh``) is not ported yet
-(ROADMAP.md Queue A item 10).
+``device="cpu"``.
+
+Data-parallel eval (``mesh``, a ``parallel.mesh`` data mesh over the
+ranks of a process group): ``eval.batch_size`` divides by the D ranks,
+each rank uploads and scores its rows of each batch, and the per-image
+metric columns (and the predictions, with ``save_preds``) are
+all-gathered in rank order, so every rank accumulates, and returns, the
+single-device result; the padding rows are dropped by ``n_real`` as on
+one device.  Rank 0 prints and writes the predictions.
 """
 
 from __future__ import annotations
@@ -32,14 +39,19 @@ from gdn_tpu_torch import metrics as M
 from gdn_tpu_torch.config import Config, resolve_device
 from gdn_tpu_torch.data.pipeline import prefetch_to_device, upload as _upload
 from gdn_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+from gdn_tpu_torch.parallel import multihost
+from gdn_tpu_torch.parallel.mesh import data_group, data_size, local_rows
 
 Forward = Callable[[torch.Tensor], torch.Tensor]
 HostBatch = Tuple[Tuple[int, int], torch.Tensor, torch.Tensor, int, Tuple[int, ...]]
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("data-parallel eval is not ported to gdn_tpu_torch "
-                                  "yet; see ROADMAP.md Queue A item 10 (parallel)")
+def _gathered(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The ranks' ``t`` concatenated on ``dim`` in rank order."""
+    if mesh is None:
+        return t
+    parts = [torch.empty_like(t) for _ in range(data_size(mesh))]
+    torch.distributed.all_gather(parts, t.contiguous(), group=data_group(mesh))
+    return torch.cat(parts, dim=dim)
 
 
 def make_eval_step(cfg: Config, forward: Forward, gt_shape: Tuple[int, int],
@@ -47,8 +59,9 @@ def make_eval_step(cfg: Config, forward: Forward, gt_shape: Tuple[int, int],
     """step(rgb (B, H, W, 3), gt (B, Hg, Wg)) -> stacked (n_metrics, B)
     per-image metrics [, the train-size predictions (B, H, W) when
     ``return_preds``], on ``device``.  A uint16 GT is the "u16" wire and
-    is decoded on the device (counts / 256)."""
-    _refuse_mesh(mesh)
+    is decoded on the device (counts / 256).  With a ``mesh``, rgb and
+    gt are this rank's rows and the outputs are the ranks' gathered in
+    rank order (every rank's are the single-device step's)."""
     dev = resolve_device(device)
     crop = torch.from_numpy(M.crop_mask(gt_shape[0], gt_shape[1], cfg.eval.crop)).to(dev)
     min_depth, cap = cfg.model.min_depth, cfg.eval.cap
@@ -65,8 +78,8 @@ def make_eval_step(cfg: Config, forward: Forward, gt_shape: Tuple[int, int],
             # scale the RAW pred (apply_cap clips; see median_scale)
             pred_ = M.median_scale(pred_gt, gt_, mask, min_depth, cap)
         per_image = M.compute_errors(gt_, pred_, mask)
-        stacked = torch.stack([per_image[k] for k in M.METRIC_NAMES])
-        return (stacked, pred) if return_preds else stacked
+        stacked = _gathered(torch.stack([per_image[k] for k in M.METRIC_NAMES]), mesh, 1)
+        return (stacked, _gathered(pred, mesh, 0)) if return_preds else stacked
 
     return step
 
@@ -133,15 +146,16 @@ def _batch_iter(dataset: Iterable[Dict[str, np.ndarray]], bs: int,
 
 
 def _prefetch(batches: Iterator[HostBatch], device: torch.device,
-              size: int = 2) -> Iterator[HostBatch]:
+              size: int = 2, rows: Optional[Tuple[int, int]] = None) -> Iterator[HostBatch]:
     """Assemble and upload host batches in a background thread, ahead of
     the consumer (``data.pipeline.prefetch_to_device``: on CUDA through
     pinned memory on the thread's own stream, the consumer waiting on
-    each batch's upload)."""
+    each batch's upload); ``rows`` [start, end): only those rows."""
+    s, e = rows if rows is not None else (0, None)
 
     def prepare(item: HostBatch, i: int):
         shape, rgb, gt, n_real, idxs = item
-        return {"rgb": _upload(rgb, device), "gt": _upload(gt, device),
+        return {"rgb": _upload(rgb[s:e], device), "gt": _upload(gt[s:e], device),
                 "meta": (shape, n_real, idxs)}
 
     for b in prefetch_to_device(batches, size, device, prepare):
@@ -173,10 +187,14 @@ class Evaluator:
     CACHE_MAX_BYTES = 2 << 30  # wire-format payload of a device-cached split
 
     def __init__(self, cfg: Config, forward: Forward, mesh=None, device=None):
-        _refuse_mesh(mesh)
         self.cfg = cfg
         self.forward = forward
+        self.mesh = mesh
         self.device = resolve_device(device)
+        bs = max(1, cfg.eval.batch_size)
+        assert bs % data_size(mesh) == 0, (
+            f"eval.batch_size {bs} must be divisible by the mesh size {data_size(mesh)}")
+        self._rows = local_rows(bs, mesh)  # this rank's rows of each batch
         self._encoders = _wire_encoders(cfg)  # raises on an unknown wire
         self._steps: Dict[Tuple[Tuple[int, int], bool], Callable] = {}
         self._warm: set = set()
@@ -188,7 +206,7 @@ class Evaluator:
         key = (shape, return_preds)
         if key not in self._steps:
             self._steps[key] = make_eval_step(self.cfg, self.forward, shape,
-                                              return_preds=return_preds,
+                                              return_preds=return_preds, mesh=self.mesh,
                                               device=self.device)
         return self._steps[key]
 
@@ -212,8 +230,9 @@ class Evaluator:
                         f"eval device cache exceeds {max_bytes / 2**30:.2f} GiB "
                         f"at image {sum(b[3] for b in batches)}: use the host-fed "
                         "path or bound the split with max_images")
-                batches.append((shape, _upload(rgb, self.device),
-                                _upload(gt, self.device), n_real, idxs))
+                s, e = self._rows
+                batches.append((shape, _upload(rgb[s:e], self.device),
+                                _upload(gt[s:e], self.device), n_real, idxs))
         except BaseException:
             batches.clear()  # the traceback keeps this frame, and so the list, alive
             raise
@@ -253,11 +272,12 @@ class Evaluator:
         acc = M.MetricAccumulator()
         bs = max(1, self.cfg.eval.batch_size)
         return_preds = bool(save_preds)
+        writer = multihost.rank() == 0  # prints and writes the predictions
         n = 0
         t0 = None
         warm_s = 0.0  # warm-up batches after the first, left out of the fps window
         in_flight: list = []  # (host tensors, their copy's event, n_real, idxs)
-        if save_preds:
+        if save_preds and writer:
             os.makedirs(save_preds, exist_ok=True)
 
         def fetch(outs):
@@ -282,7 +302,7 @@ class Evaluator:
                 for i in range(n_real):
                     acc.update({k: float(cols[j, i]) for j, k in enumerate(M.METRIC_NAMES)})
                     n += 1
-                if return_preds:
+                if return_preds and writer:
                     preds = hosts[1].numpy()
                     for i in range(n_real):
                         np.save(os.path.join(save_preds, f"pred_{idxs[i]:06d}.npy"),
@@ -294,7 +314,7 @@ class Evaluator:
             batches = _first_images(self._cached, max_images)
         else:
             batches = _prefetch(_batch_iter(dataset, bs, max_images, *self._encoders),
-                                self.device)
+                                self.device, rows=self._rows)
         for shape, rgb, gt, n_real, idxs in batches:
             key = (shape, return_preds)
             step = self._step(*key)
@@ -320,7 +340,7 @@ class Evaluator:
         result = acc.result()
         if n > 0 and t0 is not None:
             result["fps"] = n / max(time.perf_counter() - t0 - warm_s, 1e-9)
-        if verbose:
+        if verbose and writer:
             print(acc.table())
             if "fps" in result:
                 print(f"eval fps: {result['fps']:.1f}")

@@ -7,7 +7,8 @@ compiled on its own into ``gdn_tpu_torch/_build/lib<name>-<hash>.so``:
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 The hash is that of the source, so an edited source builds anew and an
-unchanged one is loaded from the earlier build.  A build takes seconds
+unchanged one is loaded from the earlier build, by every process: a
+lock file in ``_build/`` lets one process build at a time.  A build takes seconds
 (the sources include no PyTorch header); ``build_all`` starts one nvcc
 per missing library, all together.  A missing ``nvcc`` or a failed
 build raises; nothing falls back.
@@ -73,9 +74,18 @@ def _finish(job) -> None:
 
 def build_all(names: Iterable[str]) -> None:
     """Build the missing libraries of ``names``, one nvcc each, all
-    started together; raises the first failure after all have ended."""
-    with _lock:
-        targets = [(n, target(n)) for n in names]
+    started together; raises the first failure after all have ended.
+    The build directory's lock file serializes processes (the ranks of a
+    run started by torchrun): the first builds, the others then find its
+    libraries and build nothing."""
+    import fcntl
+
+    targets = [(n, target(n)) for n in names]
+    if all(os.path.exists(out) for _, out in targets):
+        return
+    os.makedirs(BUILD, exist_ok=True)
+    with _lock, open(os.path.join(BUILD, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
         jobs = [_start(n, out) for n, out in targets if not os.path.exists(out)]
         errors = []
         for job in jobs:

@@ -35,6 +35,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from gdn_tpu_torch.kernels import build
+from gdn_tpu_torch.parallel.mesh import global_sum, group_size
 from gdn_tpu_torch.ops.ssim import (
     blur, blur_matrices, check_precision, gaussian_kernel_1d,
 )
@@ -282,32 +283,39 @@ def fused_loss_bwd_plain(pred, gt, mask, cts, max_val: float,
 
 # ------------------------------------------------- normalization, autograd
 
-def _normalize(raw: torch.Tensor) -> torch.Tensor:
-    """(B, 8) sums -> (recon, grad0, ssim_mean).  Images with no valid
-    pixel are left out of the SSIM mean."""
+def _counts(raw: torch.Tensor, group=None) -> torch.Tensor:
+    """The four denominators of the (B, 8) sums: valid pixels, valid x
+    and y pairs, and the pixels of the images with a valid pixel; with a
+    data-parallel ``group``, summed over its ranks (detached)."""
     tot = raw.sum(0)
-    recon = tot[_L1] / torch.clamp(tot[_NM], min=1.0)
-    grad = tot[_GX] / torch.clamp(tot[_NGX], min=1.0) + tot[_GY] / torch.clamp(
-        tot[_NGY], min=1.0)
     valid = (raw[:, _NM] > 0).float()
-    ssim_mean = (raw[:, _SSIM] * valid).sum() / torch.clamp(
-        (raw[:, _NPIX] * valid).sum(), min=1.0)
+    return global_sum(torch.stack([tot[_NM], tot[_NGX], tot[_NGY],
+                                   (raw[:, _NPIX] * valid).sum()]), group)
+
+
+def _normalize(raw: torch.Tensor, counts=None) -> torch.Tensor:
+    """(B, 8) sums -> (recon, grad0, ssim_mean) over ``counts``
+    (``_counts``; the batch's own by default).  Images with no valid
+    pixel are left out of the SSIM mean."""
+    c = torch.clamp(_counts(raw) if counts is None else counts, min=1.0)
+    tot = raw.sum(0)
+    recon = tot[_L1] / c[0]
+    grad = tot[_GX] / c[1] + tot[_GY] / c[2]
+    valid = (raw[:, _NM] > 0).float()
+    ssim_mean = (raw[:, _SSIM] * valid).sum() / c[3]
     return torch.stack([recon, grad, ssim_mean])
 
 
-def _cotangents(raw: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+def _cotangents(raw: torch.Tensor, ct: torch.Tensor, counts=None) -> torch.Tensor:
     """Upstream ct (3,) of (recon, grad0, ssim_mean) -> per-image (B, 4)
-    cotangents of the L1, GX, GY and SSIM sums (the counts are not
-    differentiable; all-masked images get no SSIM cotangent)."""
-    tot = raw.sum(0)
+    cotangents of the L1, GX, GY and SSIM sums over ``counts`` (the
+    counts are not differentiable; all-masked images get no SSIM
+    cotangent)."""
+    c = torch.clamp(_counts(raw) if counts is None else counts, min=1.0)
     b = raw.shape[0]
-    ct_l1 = ct[0] / torch.clamp(tot[_NM], min=1.0)
-    ct_gx = ct[1] / torch.clamp(tot[_NGX], min=1.0)
-    ct_gy = ct[1] / torch.clamp(tot[_NGY], min=1.0)
     valid = (raw[:, _NM] > 0).float()
-    denom = torch.clamp((raw[:, _NPIX] * valid).sum(), min=1.0)
-    ct_ssim = ct[2] * valid / denom
-    shared = torch.stack([ct_l1, ct_gx, ct_gy]).expand(b, 3)
+    ct_ssim = ct[2] * valid / c[3]
+    shared = torch.stack([ct[0] / c[0], ct[1] / c[1], ct[1] / c[2]]).expand(b, 3)
     return torch.cat([shared, ct_ssim[:, None]], dim=1).float().contiguous()
 
 
@@ -316,40 +324,46 @@ class _FusedTerms(torch.autograd.Function):
     backward kernel for dL/dpred."""
 
     @staticmethod
-    def forward(ctx, pred, gt, mask, max_val, window, sigma):
+    def forward(ctx, pred, gt, mask, max_val, window, sigma, group):
         raw = fused_loss_fwd(pred, gt, mask, max_val, window, sigma)
-        ctx.save_for_backward(pred, gt, mask, raw)
+        counts = _counts(raw, group)
+        ctx.save_for_backward(pred, gt, mask, raw, counts)
         ctx.args = (max_val, window, sigma)
-        return _normalize(raw)
+        return _normalize(raw, counts)
 
     @staticmethod
     def backward(ctx, ct):
-        pred, gt, mask, raw = ctx.saved_tensors
-        cts = _cotangents(raw, ct)
+        pred, gt, mask, raw, counts = ctx.saved_tensors
+        cts = _cotangents(raw, ct, counts)
         dpred = fused_loss_bwd(pred, gt, mask, cts, *ctx.args)
-        return dpred, None, None, None, None, None
+        return dpred, None, None, None, None, None, None
 
 
 def fused_loss_terms_plain(pred, gt, mask, max_val: float, window: int = 11,
-                           sigma: float = 1.5) -> torch.Tensor:
+                           sigma: float = 1.5, group=None) -> torch.Tensor:
     """Plain version of ``_FusedTerms``: (recon, grad0, ssim_mean)."""
-    return _normalize(loss_sums_plain(pred, gt, mask, max_val, window, sigma))
+    raw = loss_sums_plain(pred, gt, mask, max_val, window, sigma)
+    return _normalize(raw, _counts(raw, group))
 
 
 def fused_loss_terms(pred, gt, mask, max_val: float, window: int = 11,
                      sigma: float = 1.5,
-                     precision: str = "highest") -> Dict[str, torch.Tensor]:
+                     precision: str = "highest", group=None) -> Dict[str, torch.Tensor]:
     """Fused (recon, grad-scale-0, ssim) losses of (B, H, W[, 1]) maps.
 
     Returns {'recon', 'grad0', 'ssim'} with ssim = (1 - mean SSIM) / 2;
     differentiable with respect to pred.  CPU tensors run the plain
-    version; CUDA tensors the kernels."""
+    version; CUDA tensors the kernels.  With a data-parallel ``group``
+    the terms are this rank's shares (``losses``): the counts are summed
+    over the ranks in ``_counts``, around the kernels, which see only
+    the rank's rows."""
     check_precision(precision)
     pred, gt, mask = _prep(pred, gt, mask)
     args = (float(max_val), int(window), float(sigma))
     if pred.device.type == "cpu":
-        out = fused_loss_terms_plain(pred, gt, mask, *args)
+        out = fused_loss_terms_plain(pred, gt, mask, *args, group=group)
     else:
-        out = _FusedTerms.apply(pred, gt, mask, *args)
-    return {"recon": out[0], "grad0": out[1], "ssim": (1.0 - out[2]) / 2.0}
+        out = _FusedTerms.apply(pred, gt, mask, *args, group)
+    return {"recon": out[0], "grad0": out[1],
+            "ssim": (1.0 / group_size(group) - out[2]) / 2.0}
 

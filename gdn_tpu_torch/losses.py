@@ -9,6 +9,18 @@ the coarser gradient scales stay here; unset, every term is the plain
 PyTorch below.  The coarse heads' term (``multiscale_depth_loss``) is
 plain on either route, as in the JAX package.  Maps are (B, H, W) or
 (B, H, W, 1).
+
+Data parallel (``group``, the process group of the mesh's ``"data"``
+dim): each rank holds its rows of the global batch, and every term is
+that rank's SHARE of the global term, so the shares over the ranks add
+up to the JAX package's value on the whole batch.  A term normalized by
+a count (valid pixels, valid gradient pairs, valid images) divides the
+rank's numerator by the count summed over the ranks
+(``parallel.mesh.global_sum``: detached, the counts come from GT only);
+a mean over equal-size shards (``latent_loss``, the SSIM of unweighted
+images) and a constant divide by the number of ranks.  The mean of
+per-rank ratios would not be the global ratio: sparse GT gives the
+ranks different valid counts.
 """
 
 from __future__ import annotations
@@ -20,6 +32,7 @@ import torch
 from gdn_tpu_torch.config import LossConfig
 from gdn_tpu_torch.kernels.fused_loss import fused_loss_terms
 from gdn_tpu_torch.ops.resize import resize_nearest
+from gdn_tpu_torch.parallel.mesh import global_sum, group_size
 from gdn_tpu_torch.ops.ssim import ssim
 
 
@@ -34,11 +47,11 @@ def _avgpool2(x: torch.Tensor) -> torch.Tensor:
     return x[:, : h2 * 2, : w2 * 2].reshape(b, h2, 2, w2, 2).mean(dim=(2, 4))
 
 
-def masked_l1(pred, gt, mask) -> torch.Tensor:
-    """Mean |pred - gt| over valid pixels."""
+def masked_l1(pred, gt, mask, group=None) -> torch.Tensor:
+    """Mean |pred - gt| over valid pixels (of the global batch)."""
     mask = mask.float()
     diff = torch.abs(pred.float() - gt.float()) * mask
-    return diff.sum() / torch.clamp(mask.sum(), min=1.0)
+    return diff.sum() / torch.clamp(global_sum(mask.sum(), group), min=1.0)
 
 
 def _grads(x: torch.Tensor):
@@ -47,7 +60,7 @@ def _grads(x: torch.Tensor):
 
 
 def _gradient_scale_losses(pred, gt, mask, num_scales: int,
-                           skip_first: bool = False):
+                           skip_first: bool = False, group=None):
     """Per-scale gradient L1 terms (a list of scalars), fine to coarse.
     With ``skip_first`` the scale-0 term (the fused kernel's) is left
     out; the pooling chain is the same either way.  A coarse pixel is
@@ -66,40 +79,44 @@ def _gradient_scale_losses(pred, gt, mask, num_scales: int,
         gdx, gdy = _grads(gt)
         mdx = mask[:, :, 1:] * mask[:, :, :-1]
         mdy = mask[:, 1:, :] * mask[:, :-1, :]
-        nx = torch.clamp(mdx.sum(), min=1.0)
-        ny = torch.clamp(mdy.sum(), min=1.0)
+        counts = global_sum(torch.stack([mdx.sum(), mdy.sum()]), group)
+        nx = torch.clamp(counts[0], min=1.0)
+        ny = torch.clamp(counts[1], min=1.0)
         terms.append((torch.abs(pdx - gdx) * mdx).sum() / nx
                      + (torch.abs(pdy - gdy) * mdy).sum() / ny)
     return terms
 
 
-def gradient_loss(pred, gt, mask, num_scales: int = 4) -> torch.Tensor:
+def gradient_loss(pred, gt, mask, num_scales: int = 4, group=None) -> torch.Tensor:
     """Multi-scale L1 on spatial gradients of pred vs gt."""
     pred = _squeeze(pred).float()
     gt = _squeeze(gt).float()
     mask = _squeeze(mask).float()
-    return sum(_gradient_scale_losses(pred, gt, mask, num_scales)) / num_scales
+    return sum(_gradient_scale_losses(pred, gt, mask, num_scales,
+                                      group=group)) / num_scales
 
 
 def ssim_loss(pred, gt, max_depth: float, window: int = 11, sigma: float = 1.5,
               precision: str = "highest",
-              image_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+              image_weights: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """(1 - SSIM) / 2 on depth normalized by max_depth; ``image_weights``
     (B,) drops whole images (all-masked ones) from the mean."""
     p = _squeeze(pred).float() / max_depth
     g = _squeeze(gt).float() / max_depth
     s_map = ssim(p, g, max_val=1.0, window=window, sigma=sigma,
                  precision=precision, mean=False)
+    d = group_size(group)
     if image_weights is None:
-        s = s_map.mean()
+        s = s_map.mean() / d
     else:
         w = image_weights.float()
-        s = (s_map.mean(dim=(1, 2)) * w).sum() / torch.clamp(w.sum(), min=1.0)
-    return (1.0 - s) / 2.0
+        s = (s_map.mean(dim=(1, 2)) * w).sum() / torch.clamp(global_sum(w.sum(), group),
+                                                              min=1.0)
+    return (1.0 / d - s) / 2.0
 
 
 def multiscale_depth_loss(scale_preds: Sequence[torch.Tensor], gt: torch.Tensor,
-                          mask: torch.Tensor) -> torch.Tensor:
+                          mask: torch.Tensor, group=None) -> torch.Tensor:
     """Masked L1 supervision of the coarse decoder heads
     (``ModelConfig.multiscale_heads``).  ``scale_preds`` are ordered
     coarse->fine; scale j of n weighs 0.5^(n-1-j), and the weights are
@@ -117,13 +134,13 @@ def multiscale_depth_loss(scale_preds: Sequence[torch.Tensor], gt: torch.Tensor,
         g = resize_nearest(gt4, hw)[:, 0]
         m = resize_nearest(m4, hw)[:, 0]
         w = 0.5 ** (n - 1 - j)
-        total = total + w * masked_l1(p3, g, m)
+        total = total + w * masked_l1(p3, g, m, group)
         wsum += w
     return total / wsum
 
 
 def latent_loss(feats_a: Sequence[torch.Tensor],
-                feats_b: Sequence[torch.Tensor]) -> torch.Tensor:
+                feats_b: Sequence[torch.Tensor], group=None) -> torch.Tensor:
     """Guidance feature matching: mean L1 between feature pyramids;
     ``feats_b`` is the (no-grad) target."""
     if len(feats_a) != len(feats_b):
@@ -132,7 +149,7 @@ def latent_loss(feats_a: Sequence[torch.Tensor],
     total = 0.0
     for a, b in zip(feats_a, feats_b):
         total = total + torch.abs(a.float() - b.float()).mean()
-    return total / max(len(feats_a), 1)
+    return total / max(len(feats_a), 1) / group_size(group)
 
 
 def total_loss(
@@ -144,15 +161,17 @@ def total_loss(
     pred_latents: Sequence[torch.Tensor] = (),
     target_latents: Sequence[torch.Tensor] = (),
     scale_preds: Sequence[torch.Tensor] = (),
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """Composite loss: a dict with 'total' and each term; ``scale_preds``
-    (the coarse heads' depths, coarse->fine) add ``scales``."""
+    (the coarse heads' depths, coarse->fine) add ``scales``.  With
+    ``group`` each term is this rank's share of the global one."""
     if cfg.use_pallas:
         fused = fused_loss_terms(pred, gt, mask, max_depth, cfg.ssim_window,
-                                 cfg.ssim_sigma, precision=cfg.ssim_precision)
+                                 cfg.ssim_sigma, precision=cfg.ssim_precision, group=group)
         coarse = _gradient_scale_losses(
             _squeeze(pred).float(), _squeeze(gt).float(), _squeeze(mask).float(),
-            cfg.grad_scales, skip_first=True)
+            cfg.grad_scales, skip_first=True, group=group)
         terms = {
             "recon": fused["recon"],
             "grad": (fused["grad0"] + sum(coarse)) / cfg.grad_scales,
@@ -161,19 +180,19 @@ def total_loss(
     else:
         valid = (_squeeze(mask).float().sum(dim=(1, 2)) > 0).float()
         terms = {
-            "recon": masked_l1(pred, gt, mask),
-            "grad": gradient_loss(pred, gt, mask, cfg.grad_scales),
+            "recon": masked_l1(pred, gt, mask, group),
+            "grad": gradient_loss(pred, gt, mask, cfg.grad_scales, group),
             "ssim": ssim_loss(pred, gt, max_depth, cfg.ssim_window,
                               cfg.ssim_sigma, precision=cfg.ssim_precision,
-                              image_weights=valid),
+                              image_weights=valid, group=group),
         }
     total = (cfg.w_recon * terms["recon"] + cfg.w_grad * terms["grad"]
              + cfg.w_ssim * terms["ssim"])
     if pred_latents and target_latents:
-        terms["latent"] = latent_loss(pred_latents, target_latents)
+        terms["latent"] = latent_loss(pred_latents, target_latents, group)
         total = total + cfg.w_latent * terms["latent"]
     if scale_preds:
-        terms["scales"] = multiscale_depth_loss(scale_preds, gt, mask)
+        terms["scales"] = multiscale_depth_loss(scale_preds, gt, mask, group)
         total = total + cfg.w_scales * terms["scales"]
     terms["total"] = total
     return terms

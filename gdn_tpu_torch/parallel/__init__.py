@@ -1,0 +1,17 @@
+"""Data parallelism and FSDP over ``torch.distributed`` (port of
+``gdn_tpu/parallel/``): ``mesh`` (the data mesh, batch rows, the
+placement rules and placement), ``multihost`` (process-group start-up)."""
+
+from gdn_tpu_torch.parallel.mesh import (
+    create_mesh,
+    fsdp_spec,
+    model_size,
+    param_mode,
+    shard_batch,
+    shard_stacked_batch,
+    shard_state,
+    spatial_size,
+    tensor_parallel_spec,
+    tree_shardings,
+)
+from gdn_tpu_torch.parallel.multihost import local_batch_slice, maybe_initialize

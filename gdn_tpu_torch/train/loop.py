@@ -27,6 +27,20 @@ With ``cfg.train.steps_per_call`` = K > 1 the loops run the multistep
 steps (``train.steps.make_stage{1,2}_multistep``) on K batches a call,
 stacked on the device; the data cursor still counts batches, so a
 resumed run continues bit for bit.
+
+In a process group (``parallel.multihost``) the loops build the
+``"data"`` mesh from ``cfg.mesh`` (or take ``mesh``), place the state
+(``parallel.mesh.shard_state``: replicated, or FSDP with ``cfg.mesh.
+fsdp``) and stage 2's D-net, and run the mesh steps.  ``data_iter``
+yields the global batch (``cfg.data.batch_size`` rows; the loop keeps
+this rank's rows) or this rank's rows already (the batch size / D),
+as ``data.pipeline.make_train_pipeline`` with a mesh yields them;
+``imgs_per_sec`` counts the global batch.  Logging and checkpoint
+writes happen on rank 0 (every rank gathers an FSDP state), the ranks
+meet at a barrier before a stage returns, and a preemption request on
+any rank stops every rank after the same step (the flag is combined
+with an all-reduce MAX at each check).  Validation and in-training
+eval run data parallel too.
 """
 
 from __future__ import annotations
@@ -46,10 +60,14 @@ from gdn_tpu_torch.config import Config, resolve_device
 from gdn_tpu_torch.evaluate import Evaluator
 from gdn_tpu_torch.losses import total_loss
 from gdn_tpu_torch.models import DtoDNet, RtoDNet
+from gdn_tpu_torch.parallel import multihost
+from gdn_tpu_torch.parallel.mesh import (
+    create_mesh, data_group, local_batch, param_mode, shard_frozen, shard_state,
+)
 from gdn_tpu_torch.train.state import TrainState
 from gdn_tpu_torch.train.steps import (
-    make_eval_forward, make_stage1_multistep, make_stage1_step, make_stage2_multistep,
-    make_stage2_step,
+    _reported, make_eval_forward, make_stage1_multistep, make_stage1_step,
+    make_stage2_multistep, make_stage2_step,
 )
 from gdn_tpu_torch.utils.logging import MetricLogger
 
@@ -85,6 +103,26 @@ class PreemptionHandler:
             signal.signal(sig, prev)
         self._prev = {}
 
+    def stop(self, mesh=None, device=None) -> bool:
+        """Whether to stop after this step: the flag of any rank (an
+        all-reduce MAX over the mesh), so that every rank stops at the
+        same step; one rank stopping alone would leave the others
+        waiting in the next collective."""
+        if mesh is None:
+            return self.requested
+        flag = torch.tensor([float(self.requested)], device=device)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX,
+                                     group=data_group(mesh))
+        self.requested = bool(flag.item())
+        return self.requested
+
+
+class _Quiet:
+    """The logger of ranks other than 0."""
+
+    def log(self, **kw) -> None:
+        pass
+
 
 def _floats(terms: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """The terms as floats, in one device-to-host copy (waits for the card)."""
@@ -96,7 +134,7 @@ def _floats(terms: Dict[str, torch.Tensor]) -> Dict[str, float]:
 def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
                 logger: MetricLogger, batch_size: int, log_every: int,
                 device: torch.device, extra_args=(), steps_per_call: int = 1,
-                preemption: Optional[PreemptionHandler] = None) -> TrainState:
+                preemption: Optional[PreemptionHandler] = None, mesh=None) -> TrainState:
     """Drive ``steps`` micro-steps, fewer when preemption is requested.
     With ``steps_per_call`` = K > 1, ``step_fn`` is a multistep: each
     call takes K batches stacked on a leading axis on the device; K must
@@ -104,7 +142,8 @@ def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
     calls, and preemption is checked after each call.  The clock
     restarts after the first call, so its one-time costs (cuDNN's
     algorithm search, the allocator's growth) stay out of
-    ``imgs_per_sec``."""
+    ``imgs_per_sec``.  With a ``mesh`` each batch is cut to this rank's
+    rows (``parallel.mesh.local_batch``)."""
     if steps % steps_per_call != 0:
         raise ValueError(f"steps_per_epoch={steps} not divisible by "
                          f"steps_per_call={steps_per_call}")
@@ -114,9 +153,10 @@ def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
     timed_from = 0
     for i in range(n_calls):
         if steps_per_call == 1:
-            batch = _batch_to(next(data_iter), device)
+            batch = _batch_to(local_batch(next(data_iter), mesh, batch_size), device)
         else:
-            group = [_batch_to(next(data_iter), device) for _ in range(steps_per_call)]
+            group = [_batch_to(local_batch(next(data_iter), mesh, batch_size), device)
+                     for _ in range(steps_per_call)]
             batch = {k: torch.stack([b[k] for b in group]) for k in group[0]}
         state, terms = step_fn(state, *extra_args, batch)
         if i == 0:
@@ -132,7 +172,7 @@ def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
             if timed > 0:
                 log_kw["imgs_per_sec"] = batch_size * steps_per_call * timed / elapsed
             logger.log(**log_kw)
-        if preemption is not None and preemption.requested:
+        if preemption is not None and preemption.stop(mesh, device):
             break
     return state
 
@@ -148,23 +188,26 @@ def _batch_to(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Te
 
 def _validate(cfg: Config, net: torch.nn.Module, val_iter, steps: int,
               logger: MetricLogger, step: int, device: torch.device,
-              input_key: str = "depth") -> Dict[str, float]:
+              input_key: str = "depth", mesh=None) -> Dict[str, float]:
     """Periodic validation: the loss terms averaged over ``steps``
     held-out batches (fewer if ``val_iter`` ends first), without
     gradients, logged as ``val_*``.  Stage 2 feeds the G-net RGB
-    (``input_key="rgb"``) and scores its depth alone: no guidance term."""
+    (``input_key="rgb"``) and scores its depth alone: no guidance term.
+    With a ``mesh`` each rank scores its rows and the terms are the
+    global batch's."""
     sums: Dict[str, float] = {}
     n = 0
     for _ in range(steps):
         try:
-            batch = _batch_to(next(val_iter), device)
+            batch = _batch_to(local_batch(next(val_iter), mesh, cfg.data.batch_size), device)
         except StopIteration:
             break
         with torch.no_grad():
             out = net(batch[input_key])
             terms = total_loss(out["depth"], batch["depth"], batch["mask"], cfg.loss,
-                               cfg.model.max_depth, scale_preds=out["depth_scales"][:-1])
-        for k, v in _floats(terms).items():
+                               cfg.model.max_depth, scale_preds=out["depth_scales"][:-1],
+                               group=data_group(mesh))
+        for k, v in _floats(_reported(terms, data_group(mesh))).items():
             sums[k] = sums.get(k, 0.0) + v
         n += 1
     avg = {f"val_{k}": v / max(n, 1) for k, v in sums.items()}
@@ -227,8 +270,35 @@ def _guarded(cfg: Config, step_fn):
 
 
 def _preempted(state: TrainState) -> None:
-    print(f"[train] preempted: checkpoint saved at step {state.step}; "
-          "resume with --resume", flush=True)
+    if multihost.rank() == 0:
+        print(f"[train] preempted: checkpoint saved at step {state.step}; "
+              "resume with --resume", flush=True)
+
+
+def _mesh(cfg: Config, mesh, dev: torch.device):
+    """The mesh a loop runs on: ``mesh``, or the one ``cfg.mesh``
+    describes over the process group (None for one process)."""
+    if mesh is not None:
+        return mesh
+    return create_mesh(cfg.mesh.num_devices, spatial=cfg.mesh.spatial_devices,
+                       model=cfg.mesh.model_devices, device_type=dev.type)
+
+
+def _place(cfg: Config, state: TrainState, mesh):
+    """The state placed on ``mesh`` (left as it is when it already is)
+    and the specs for the step builders."""
+    if mesh is None or state.mesh is not None:
+        return state, state.specs
+    return shard_state(state, mesh, param_mode(cfg.mesh))
+
+
+def _finish(cfg: Config, mesh) -> None:
+    """Every write on disk, then the ranks meet: no rank returns before
+    rank 0's checkpoints are readable."""
+    if cfg.train.ckpt_dir:
+        wait_for_checkpoints(cfg.train.ckpt_dir)
+    if mesh is not None:
+        torch.distributed.barrier(group=data_group(mesh))
 
 
 def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
@@ -236,10 +306,11 @@ def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
                  logger: Optional[MetricLogger] = None,
                  val_iter: Optional[Iterable[Dict[str, Any]]] = None,
                  val_steps: int = 10, device=None,
-                 loader_state_fn: Optional[Callable[[int], Optional[Dict[str, Any]]]] = None
-                 ) -> TrainState:
+                 loader_state_fn: Optional[Callable[[int], Optional[Dict[str, Any]]]] = None,
+                 mesh=None) -> TrainState:
     """D-net pretraining; returns the final TrainState.  Starts from
-    ``stage1_state`` unless ``state`` is given.  ``val_iter``: held-out
+    ``stage1_state`` unless ``state`` is given.  ``mesh``: the data mesh
+    (default: ``cfg.mesh`` over the process group, if any).  ``val_iter``: held-out
     batches, validated after each epoch (``val_steps`` of them, from the
     start of the iterable each time).  ``loader_state_fn(step)``: the
     data cursor each checkpoint saves as its ``loader`` entry (default
@@ -247,20 +318,27 @@ def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
     FloatingPointError at the first step whose loss terms are not
     finite."""
     dev = _prepare(device)
+    mesh = _mesh(cfg, mesh, dev)
     if state is None:
         state = stage1_state(cfg, dev)
+    state, specs = _place(cfg, state, mesh)
     k = cfg.train.steps_per_call
-    step_fn = _guarded(cfg, make_stage1_multistep(cfg, k) if k > 1 else make_stage1_step(cfg))
+    mesh_kw = {} if mesh is None else dict(mesh=mesh, state_sharding=specs)
+    step_fn = _guarded(cfg, make_stage1_multistep(cfg, k, **mesh_kw) if k > 1
+                       else make_stage1_step(cfg, **mesh_kw))
     logger = logger or MetricLogger(prefix="stage1")
+    if multihost.rank() != 0:
+        logger = _Quiet()
     data_iter = iter(data_iter)
     preempt = PreemptionHandler().install()
     try:
         for _ in range(epochs if epochs is not None else cfg.train.epochs):
             state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
                                 logger, cfg.data.batch_size, cfg.train.log_every, dev,
-                                steps_per_call=k, preemption=preempt)
+                                steps_per_call=k, preemption=preempt, mesh=mesh)
             if val_iter is not None and not preempt.requested:
-                _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step, dev)
+                _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step, dev,
+                          mesh=mesh)
             if cfg.train.ckpt_dir:
                 _save(cfg, state, "stage1", loader_state_fn=loader_state_fn)
             if preempt.requested:
@@ -268,8 +346,7 @@ def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
                 break
     finally:
         preempt.uninstall()
-        if cfg.train.ckpt_dir:
-            wait_for_checkpoints(cfg.train.ckpt_dir)
+        _finish(cfg, mesh)
     return state
 
 
@@ -282,8 +359,8 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
                  eval_dataset: Optional[Callable[[], Iterable[Dict[str, Any]]]] = None,
                  eval_every: int = 1, eval_max_images: Optional[int] = None,
                  device=None,
-                 loader_state_fn: Optional[Callable[[int], Optional[Dict[str, Any]]]] = None
-                 ) -> TrainState:
+                 loader_state_fn: Optional[Callable[[int], Optional[Dict[str, Any]]]] = None,
+                 mesh=None) -> TrainState:
     """Guided G-net training; returns the final TrainState.
 
     ``d_params``: the trained stage-1 D-net, as its state_dict or as the
@@ -291,8 +368,8 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
     ``state`` is given, the G-net starts from ``stage2_state``: fresh
     weights with the D-net's decoder.  The D-net runs without grad.
 
-    ``val_iter``, ``val_steps``, ``loader_state_fn``: as in
-    :func:`train_stage1`.
+    ``val_iter``, ``val_steps``, ``loader_state_fn``, ``mesh``: as in
+    :func:`train_stage1`; the D-net is placed as the G-net's state.
     ``eval_dataset``: a zero-argument callable returning the eval split
     ({'rgb' (1, H, W, 3), 'gt' (1, Hg, Wg)}); every ``eval_every``
     epochs the full eval protocol runs on it (at most
@@ -302,13 +379,20 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
     of memory.  Each new best eval RMSE saves a checkpoint to
     ``<ckpt_dir>/stage2_best``, which keeps one."""
     dev = _prepare(device)
+    mesh = _mesh(cfg, mesh, dev)
     d_net = (d_params if isinstance(d_params, torch.nn.Module)
              else _net(DtoDNet, cfg, d_params, dev)).requires_grad_(False)
     if state is None:
         state = stage2_state(cfg, d_net.state_dict(), dev)
+    state, specs = _place(cfg, state, mesh)
+    d_net = shard_frozen(d_net, mesh, param_mode(cfg.mesh))
     k = cfg.train.steps_per_call
-    step_fn = _guarded(cfg, make_stage2_multistep(cfg, k) if k > 1 else make_stage2_step(cfg))
+    mesh_kw = {} if mesh is None else dict(mesh=mesh, state_sharding=specs)
+    step_fn = _guarded(cfg, make_stage2_multistep(cfg, k, **mesh_kw) if k > 1
+                       else make_stage2_step(cfg, **mesh_kw))
     logger = logger or MetricLogger(prefix="stage2")
+    if multihost.rank() != 0:
+        logger = _Quiet()
     data_iter = iter(data_iter)
     evaluator, eval_cached, best_rmse = None, False, float("inf")
     preempt = PreemptionHandler().install()
@@ -317,14 +401,15 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
             state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
                                 logger, cfg.data.batch_size, cfg.train.log_every, dev,
                                 extra_args=(d_net,), steps_per_call=k,
-                                preemption=preempt)
+                                preemption=preempt, mesh=mesh)
             if val_iter is not None and not preempt.requested:
                 _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step,
-                          dev, input_key="rgb")
+                          dev, input_key="rgb", mesh=mesh)
             if (eval_dataset is not None and (epoch + 1) % max(eval_every, 1) == 0
                     and not preempt.requested):
                 if evaluator is None:
-                    evaluator = Evaluator(cfg, make_eval_forward(cfg, state.net), device=dev)
+                    evaluator = Evaluator(cfg, make_eval_forward(cfg, state.net), mesh=mesh,
+                                          device=dev)
                     eval_cached = evaluator.cache_or_host_fed(eval_dataset(),
                                                               eval_max_images)
                 out = evaluator.run(None if eval_cached else eval_dataset(),
@@ -342,6 +427,5 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
                 break
     finally:
         preempt.uninstall()
-        if cfg.train.ckpt_dir:
-            wait_for_checkpoints(cfg.train.ckpt_dir)
+        _finish(cfg, mesh)
     return state

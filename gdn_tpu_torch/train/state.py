@@ -21,10 +21,21 @@ the JAX package does:
   the k-th hands the mean to clip, Adam and the EMA and clears it.
   ``step`` counts micro-steps (batches consumed, the data cursor) and
   ``updates`` the updates applied; the schedule runs in updates.
+- Data parallel and FSDP (``parallel.mesh.shard_state`` sets ``mesh``):
+  each micro-step sums the gradients of the ranks' loss shares, which
+  is the single-device gradient of the global batch.  The plain
+  (replicated) gradients go through one all-reduce of their
+  concatenation; FSDP2 has reduce-scattered the sharded ones in the
+  backward.  A trainable parameter that got no gradient is zero-filled
+  first, so every rank reduces the same buffer.  Clipping takes the norm
+  over the whole of each parameter; the EMA and the accumulator follow
+  their parameter's placement; ``state_dict`` gathers the single-device
+  layout (every rank must call it) and ``load_state_dict`` scatters it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional
 
@@ -33,6 +44,9 @@ from torch import nn
 from torch.utils._pytree import tree_map
 
 from gdn_tpu_torch.config import TrainConfig
+from gdn_tpu_torch.parallel.mesh import (
+    data_group, full_tensor, global_sum, is_sharded, local, shard_of,
+)
 
 Schedule = Callable[[int], float]
 
@@ -83,13 +97,28 @@ def lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Schedule:
 
 def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float) -> torch.Tensor:
     """Scale the grads of ``params`` in place by max_norm / norm when
-    their global norm reaches max_norm (optax's rule).  Returns the norm."""
+    their global norm reaches max_norm (optax's rule).  Returns the norm.
+    A sharded grad's norm is that of the whole parameter: the squares of
+    the local shards are summed over the ranks."""
     grads = [p.grad for p in params]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    norms = [torch.linalg.vector_norm(local(g).float()) for g in grads]
+    sharded = [n for n, g in zip(norms, grads) if is_sharded(g)]
+    if sharded:
+        group = next(g for g in grads if is_sharded(g)).device_mesh.get_group()
+        whole = [n for n, g in zip(norms, grads) if not is_sharded(g)]
+        sq = global_sum(torch.stack(sharded).square().sum(), group)
+        if whole:
+            sq = sq + torch.stack(whole).square().sum()
+        norm = torch.sqrt(sq)
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, factor)
+    torch._foreach_mul_([local(g) for g in grads], factor)
     return norm
+
+
+def _clone(obj):
+    return tree_map(lambda v: v.clone() if isinstance(v, torch.Tensor) else v, obj)
 
 
 class TrainState:
@@ -108,15 +137,26 @@ class TrainState:
         self.cfg = cfg
         if freeze_decoder:
             net.decoder.requires_grad_(False)
-        self.params = [p for p in net.parameters() if p.requires_grad]
         self.schedule = lr_schedule(cfg, steps_per_epoch)
+        self.step = 0  # micro-steps
+        self.updates = 0
+        self.accum = max(1, cfg.grad_accum)
+        # placement (parallel.mesh.shard_state): the mesh, the mode, the specs
+        self.mesh = None
+        self.mode = "single"
+        self.specs: Optional[Dict[str, tuple]] = None
+        self.rebuild()
+
+    def rebuild(self) -> None:
+        """The optimizer, the accumulator and the EMA built anew on the
+        net's current parameters (after FSDP2 has replaced them by
+        sharded ones), fresh: ``load_state_dict`` puts values back."""
+        cfg, net = self.cfg, self.net
+        self.params = [p for p in net.parameters() if p.requires_grad]
         opt = torch.optim.AdamW if cfg.weight_decay else torch.optim.Adam
         kw = dict(weight_decay=cfg.weight_decay) if cfg.weight_decay else {}
         self.optimizer = opt(self.params, lr=self.schedule(0),
                              betas=(cfg.beta1, cfg.beta2), eps=cfg.eps, **kw)
-        self.step = 0  # micro-steps
-        self.updates = 0
-        self.accum = max(1, cfg.grad_accum)
         self.acc: Optional[Dict[str, torch.Tensor]] = (
             {k: torch.zeros_like(p) for k, p in net.named_parameters() if p.requires_grad}
             if self.accum > 1 else None
@@ -126,6 +166,19 @@ class TrainState:
             if cfg.ema_decay else None
         )
 
+    def _sync_grads(self) -> None:
+        """Sum the plain (not sharded) gradients over the data ranks: one
+        all-reduce of their concatenation."""
+        if self.mesh is None:
+            return
+        grads = [p.grad for p in self.params if not is_sharded(p.grad)]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        torch.distributed.all_reduce(flat, group=data_group(self.mesh))
+        torch._foreach_copy_(grads, [t.view_as(g) for t, g in
+                                     zip(flat.split([g.numel() for g in grads]), grads)])
+
     def apply_gradients(self) -> None:
         """One micro-step from the grads on the trainable parameters,
         which it clears.  Every grad_accum-th micro-step (each one
@@ -134,18 +187,19 @@ class TrainState:
         for p in self.params:
             if p.grad is None:  # optax updates with a zero gradient
                 p.grad = torch.zeros_like(p)
+        self._sync_grads()
         n = self.step % self.accum  # micro-steps already in the mean
         self.step += 1
         if self.acc is not None:
-            acc = list(self.acc.values())
-            diff = torch._foreach_sub([p.grad for p in self.params], acc)
+            acc = [local(a) for a in self.acc.values()]
+            diff = torch._foreach_sub([local(p.grad) for p in self.params], acc)
             torch._foreach_div_(diff, n + 1)
             torch._foreach_add_(acc, diff)
             self.optimizer.zero_grad(set_to_none=True)
             if n + 1 < self.accum:
                 return
-            for p, a in zip(self.params, acc):
-                p.grad = a
+            for p, a in zip(self.params, self.acc.values()):
+                p.grad = a  # placed as its parameter
         if self.cfg.grad_clip:
             clip_by_global_norm_(self.params, self.cfg.grad_clip)
         for group in self.optimizer.param_groups:
@@ -153,25 +207,36 @@ class TrainState:
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         if self.acc is not None:
-            torch._foreach_zero_(list(self.acc.values()))
+            torch._foreach_zero_([local(a) for a in self.acc.values()])
         self.updates += 1
         d = self.cfg.ema_decay
         if d and self.ema is not None:
             with torch.no_grad():
                 for k, p in self.net.named_parameters():
-                    self.ema[k].mul_(d).add_(p.detach(), alpha=1.0 - d)
+                    local(self.ema[k]).mul_(d).add_(local(p.detach()), alpha=1.0 - d)
 
-    def state_dict(self) -> Dict[str, Any]:
-        """Everything a resumed run needs, as references to the live
-        tensors (``checkpoint.save_checkpoint`` copies them): ``params``
-        under the flax-path keys, ``optimizer``, ``step``, ``updates``,
-        and ``ema`` and ``accum`` where the run keeps them."""
-        out = {"params": self.net.state_dict(), "optimizer": self.optimizer.state_dict(),
+    @property
+    def sharded(self) -> bool:
+        return self.mode == "fsdp"
+
+    def state_dict(self, copy: bool = False) -> Dict[str, Any]:
+        """Everything a resumed run needs, in the single-device layout:
+        ``params`` under the flax-path keys, ``optimizer``, ``step``,
+        ``updates``, and ``ema`` and ``accum`` where the run keeps them.
+        References to the live tensors (``checkpoint.save_checkpoint``
+        copies them) unless ``copy``; under FSDP gathered whole
+        (``parallel.mesh.full_tensor``), which every rank must call."""
+        if self.sharded:
+            gather = functools.partial(tree_map, full_tensor)
+        else:
+            gather = _clone if copy else (lambda x: x)
+        out = {"params": gather(self.net.state_dict()),
+               "optimizer": gather(self.optimizer.state_dict()),
                "step": self.step, "updates": self.updates}
         if self.ema is not None:
-            out["ema"] = dict(self.ema)
+            out["ema"] = gather(dict(self.ema))
         if self.acc is not None:
-            out["accum"] = dict(self.acc)
+            out["accum"] = gather(dict(self.acc))
         return out
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
@@ -188,17 +253,41 @@ class TrainState:
             raise ValueError("the checkpoint holds gradient accumulation buffers "
                              "(grad_accum > 1); this run has grad_accum 1")
         with torch.inference_mode(False), torch.no_grad():
-            self.net.load_state_dict(sd["params"], strict=True)
+            if self.sharded:
+                mine = self.net.state_dict()
+                if set(mine) != set(sd["params"]):
+                    raise ValueError("checkpoint 'params' keys differ from the net's")
+                for k, t in mine.items():
+                    local(t).copy_(shard_of(sd["params"][k], t))
+            else:
+                self.net.load_state_dict(sd["params"], strict=True)
             for key, mine in (("ema", self.ema), ("accum", self.acc)):
                 if mine is not None:
                     if set(sd[key]) != set(mine):
                         raise ValueError(f"checkpoint {key!r} keys differ from the net's")
                     for k, t in mine.items():
-                        t.copy_(sd[key][k])
+                        local(t).copy_(shard_of(sd[key][k], t))
             # cloned here: a tensor read in inference mode is an inference
             # tensor, and Optimizer.load_state_dict keeps one already on
             # the right device as it is
-            self.optimizer.load_state_dict(tree_map(
-                lambda v: v.clone() if isinstance(v, torch.Tensor) else v, sd["optimizer"]))
+            self.optimizer.load_state_dict(self._placed_optimizer_state(_clone(sd["optimizer"])))
         self.step = int(sd["step"])
         self.updates = int(sd["updates"])
+
+    def _placed_optimizer_state(self, osd: Dict[str, Any]) -> Dict[str, Any]:
+        """A single-device optimizer state_dict with each moment of a
+        sharded parameter cut to this rank's shard, as a sharded tensor
+        like the parameter."""
+        if not self.sharded:
+            return osd
+        from torch.distributed.tensor import DTensor
+
+        for i, st in osd["state"].items():
+            p = self.params[int(i)]
+            if not is_sharded(p):
+                continue
+            for k, v in st.items():
+                if isinstance(v, torch.Tensor) and v.shape == p.shape:
+                    st[k] = DTensor.from_local(shard_of(v.to(local(p).device), p),
+                                               p.device_mesh, p.placements)
+        return osd

@@ -22,6 +22,17 @@ stacked on a leading axis.
 
 Each step returns the loss terms as detached 0-d tensors (reading them
 waits for the card).
+
+With a ``mesh`` (``parallel.mesh.create_mesh``) a step is data
+parallel, as the JAX package's step on a mesh: the batch it is given is
+this rank's rows of the global batch (``parallel.mesh.shard_batch``),
+the loss terms are the rank's shares of the global terms
+(``losses.total_loss(group=)``), the state (placed by
+``parallel.mesh.shard_state``, replicated or FSDP) sums the ranks'
+gradients, and the terms it returns are the global ones on every rank.
+``fused_guidance`` is refused under FSDP: it reads the encoders' and the
+decoder's weights outside their blocks' forwards, where FSDP2 holds
+them sharded.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from torch.utils.checkpoint import (
 from gdn_tpu_torch.config import Config
 from gdn_tpu_torch.losses import total_loss
 from gdn_tpu_torch.models.rtod import to_nhwc
+from gdn_tpu_torch.parallel.mesh import data_group, global_sum
 from gdn_tpu_torch.train.fused_encoders import paired_encoders
 from gdn_tpu_torch.train.guided_decoder import decode_concat, shared_guided_decoder
 from gdn_tpu_torch.train.state import TrainState
@@ -104,16 +116,16 @@ def _maybe_remat(net: nn.Module, cfg: Config) -> Callable:
     return lambda x: checkpoint(net, x, use_reentrant=False, context_fn=context)
 
 
-def _stage1_loss(net: nn.Module, batch: Batch, cfg: Config) -> Terms:
+def _stage1_loss(net: nn.Module, batch: Batch, cfg: Config, group=None) -> Terms:
     out = _maybe_remat(net, cfg)(batch["depth"])
     return total_loss(
         out["depth"], batch["depth"], batch["mask"], cfg.loss,
-        cfg.model.max_depth, scale_preds=out["depth_scales"][:-1],
+        cfg.model.max_depth, scale_preds=out["depth_scales"][:-1], group=group,
     )
 
 
 def _stage2_loss(net: nn.Module, d_net: nn.Module, batch: Batch,
-                 cfg: Config) -> Terms:
+                 cfg: Config, group=None) -> Terms:
     """The G-net's loss with the frozen D-net's guidance targets: the
     D-net runs on GT depth without grad; the G-net's latent and decoder
     features are held against the D-net's."""
@@ -125,12 +137,12 @@ def _stage2_loss(net: nn.Module, d_net: nn.Module, batch: Batch,
         cfg.model.max_depth,
         pred_latents=[g_out["latent"], *g_out["dec_feats"]],
         target_latents=[d_out["latent"], *d_out["dec_feats"]],
-        scale_preds=g_out["depth_scales"][:-1],
+        scale_preds=g_out["depth_scales"][:-1], group=group,
     )
 
 
 def _stage2_loss_fused(net: nn.Module, d_net: nn.Module, batch: Batch,
-                       cfg: Config) -> Terms:
+                       cfg: Config, group=None) -> Terms:
     """The stage-2 loss with ONE pass of the frozen decoder
     (``fused_guidance``): the D encoder (no grad) and the G encoder, or
     with ``fused_encoders`` one paired ladder, then the G-net's decoder
@@ -157,36 +169,62 @@ def _stage2_loss_fused(net: nn.Module, d_net: nn.Module, batch: Batch,
         to_nhwc(depth[b:]), batch["depth"], batch["mask"], cfg.loss, mc.max_depth,
         pred_latents=[to_nhwc(g_latent), *(to_nhwc(f[b:]) for f in feats)],
         target_latents=[to_nhwc(d_latent), *(to_nhwc(f[:b].detach()) for f in feats)],
-        scale_preds=[to_nhwc(p[b:]) for p in scales[:-1]],
+        scale_preds=[to_nhwc(p[b:]) for p in scales[:-1]], group=group,
     )
 
 
-def _detached(terms: Terms) -> Terms:
-    return {k: v.detach() for k, v in terms.items()}
+def _reported(terms: Terms, group=None) -> Terms:
+    """The terms detached; with a data-parallel group the global terms,
+    the ranks' shares summed (one all-reduce)."""
+    if group is None:
+        return {k: v.detach() for k, v in terms.items()}
+    total = global_sum(torch.stack([v.detach().float() for v in terms.values()]), group)
+    return dict(zip(terms, total))
 
 
-def make_stage1_step(cfg: Config) -> Callable[[TrainState, Batch],
-                                              Tuple[TrainState, Terms]]:
-    """The stage-1 (D-net) step: step(state, batch) -> (state, terms)."""
+def _placed(state: TrainState, mesh, state_sharding) -> None:
+    """Refuse a state the mesh step cannot train: unplaced (its
+    gradients would not be summed) or placed otherwise than asked."""
+    if mesh is None:
+        return
+    if state.mesh is None:
+        raise ValueError("a mesh step needs a placed state: parallel.mesh.shard_state")
+    if state_sharding is not None and state.specs != state_sharding:
+        raise ValueError("the state's placement differs from state_sharding")
+
+
+def make_stage1_step(cfg: Config, mesh=None, state_sharding=None) -> Callable[
+        [TrainState, Batch], Tuple[TrainState, Terms]]:
+    """The stage-1 (D-net) step: step(state, batch) -> (state, terms).
+    ``mesh``: data parallel over its ``"data"`` dim, ``batch`` this
+    rank's rows; ``state_sharding``: the specs ``shard_state`` returned,
+    checked against the state's."""
     _refuse_quant(cfg)
+    group = data_group(mesh)
 
     def step(state: TrainState, batch: Batch):
-        terms = _stage1_loss(state.net, batch, cfg)
+        _placed(state, mesh, state_sharding)
+        terms = _stage1_loss(state.net, batch, cfg, group)
         _apply_update(state, terms["total"])
-        return state, _detached(terms)
+        return state, _reported(terms, group)
 
     return step
 
 
-def _stage2_loss_fn(cfg: Config) -> Callable:
+def _stage2_loss_fn(cfg: Config, mesh=None) -> Callable:
     """``_stage2_loss`` or, with fused_guidance, ``_stage2_loss_fused``;
-    refuses the combinations the JAX package asserts against."""
+    refuses the combinations the JAX package asserts against, and
+    fused_guidance under FSDP."""
     t = cfg.train
     if t.fused_encoders and not t.fused_guidance:
         raise ValueError("fused_encoders requires fused_guidance (it feeds the "
                          "shared decoder pass)")
     if not t.fused_guidance:
         return _stage2_loss
+    if mesh is not None and cfg.mesh.fsdp:
+        raise ValueError("fused_guidance reads the encoders' and the decoder's weights "
+                         "outside their blocks' forwards, where FSDP2 holds them "
+                         "sharded: train it data parallel (fsdp off)")
     if not t.freeze_decoder:
         raise ValueError("fused_guidance requires freeze_decoder: the shared-decoder "
                          "pass is only valid while both nets' decoder params stay equal")
@@ -196,20 +234,24 @@ def _stage2_loss_fn(cfg: Config) -> Callable:
     return _stage2_loss_fused
 
 
-def make_stage2_step(cfg: Config) -> Callable[[TrainState, nn.Module, Batch],
-                                              Tuple[TrainState, Terms]]:
+def make_stage2_step(cfg: Config, mesh=None, state_sharding=None) -> Callable[
+        [TrainState, nn.Module, Batch], Tuple[TrainState, Terms]]:
     """The stage-2 (G-net) step: step(state, d_net, batch) -> (state,
     terms).  ``d_net`` is the frozen stage-1 DtoDNet (guidance targets);
     the G-net's decoder is frozen inside ``state`` when
     cfg.train.freeze_decoder.  With cfg.train.fused_guidance the decoder
-    runs once on both nets' encodings (``_stage2_loss_fused``)."""
+    runs once on both nets' encodings (``_stage2_loss_fused``).
+    ``mesh``, ``state_sharding``: as in :func:`make_stage1_step`; the
+    D-net is placed as the state (``parallel.mesh.shard_frozen``)."""
     _refuse_quant(cfg)
-    loss_fn = _stage2_loss_fn(cfg)
+    loss_fn = _stage2_loss_fn(cfg, mesh)
+    group = data_group(mesh)
 
     def step(state: TrainState, d_net: nn.Module, batch: Batch):
-        terms = loss_fn(state.net, d_net, batch, cfg)
+        _placed(state, mesh, state_sharding)
+        terms = loss_fn(state.net, d_net, batch, cfg, group)
         _apply_update(state, terms["total"])
-        return state, _detached(terms)
+        return state, _reported(terms, group)
 
     return step
 
@@ -223,14 +265,16 @@ def _unstack(batches: Batch, steps_per_call: int):
     return [{key: v[i] for key, v in batches.items()} for i in range(k)]
 
 
-def make_stage1_multistep(cfg: Config, steps_per_call: int) -> Callable[
+def make_stage1_multistep(cfg: Config, steps_per_call: int, mesh=None,
+                          state_sharding=None) -> Callable[
         [TrainState, Batch], Tuple[TrainState, Terms]]:
     """``steps_per_call`` stage-1 steps a call: step(state, batches) ->
     (state, the last step's terms), batches stacked {k: (K, B, ...)}.
     Each step is one micro-step of ``state``, in order, so grad_accum
     and the EMA run as in K calls of ``make_stage1_step``'s step (the
-    JAX package's ``jax.lax.scan``)."""
-    single = make_stage1_step(cfg)
+    JAX package's ``jax.lax.scan``).  With a ``mesh``, ``batches`` are
+    this rank's rows of each step's batch (dim 1)."""
+    single = make_stage1_step(cfg, mesh, state_sharding)
 
     def step(state: TrainState, batches: Batch):
         for batch in _unstack(batches, steps_per_call):
@@ -240,12 +284,13 @@ def make_stage1_multistep(cfg: Config, steps_per_call: int) -> Callable[
     return step
 
 
-def make_stage2_multistep(cfg: Config, steps_per_call: int) -> Callable[
+def make_stage2_multistep(cfg: Config, steps_per_call: int, mesh=None,
+                          state_sharding=None) -> Callable[
         [TrainState, nn.Module, Batch], Tuple[TrainState, Terms]]:
     """``steps_per_call`` stage-2 steps a call: step(state, d_net,
     batches) -> (state, the last step's terms); see
     ``make_stage1_multistep``."""
-    single = make_stage2_step(cfg)
+    single = make_stage2_step(cfg, mesh, state_sharding)
 
     def step(state: TrainState, d_net: nn.Module, batches: Batch):
         for batch in _unstack(batches, steps_per_call):

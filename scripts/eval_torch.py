@@ -6,8 +6,10 @@ protocol (forward at train size -> bilinear resize to the GT's size in
 fp32 -> crop/cap/mask -> the 8-metric table) and print the table, the
 images/s and one ``name=value`` line.  The flags are the JAX eval
 CLI's (gdn_tpu_torch/cli.py; ``--ckpt_dir`` is another name of
-``--model_dir``); ``--num_devices`` > 1 ends the run at parse time,
-naming its ROADMAP item.  ``--quantize int8`` scores the int8 G-net
+``--model_dir``); ``--num_devices N`` scores data parallel over N ranks
+(0: every visible card; the script spawns them, or joins torchrun's),
+each on its rows of every ``--eval_batch`` batch, the metrics gathered:
+the same table as one device's.  ``--quantize int8`` scores the int8 G-net
 (stage 2 only), its activation scales calibrated on held-in data: the
 images in ``--quant_calib_dir``, else the train split of ``--data_path``
 (``train.txt``), else synthetic scenes, never the images it scores.
@@ -86,19 +88,25 @@ def build_config(args):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
 
     from gdn_tpu_torch import kernels
     from gdn_tpu_torch.checkpoint import load_params, load_pth
-    from gdn_tpu_torch.cli import apply_saved_model_config
+    from gdn_tpu_torch.cli import apply_saved_model_config, start_ranks
     from gdn_tpu_torch.config import resolve_device
     from gdn_tpu_torch.data.pipeline import make_loader
     from gdn_tpu_torch.evaluate import Stage1Split, evaluate
     from gdn_tpu_torch.models import DtoDNet, RtoDNet
+    from gdn_tpu_torch.parallel.mesh import create_mesh
     from gdn_tpu_torch.train.steps import make_eval_forward
 
+    if start_ranks(args, main, argv):
+        return None
     device = resolve_device(args.device)
     cfg = build_config(args)
+    mesh = None if args.num_devices == 1 else create_mesh(cfg.mesh.num_devices,
+                                                          device_type=device.type)
     if args.pth:
         source, sd = args.pth, load_pth(args.pth)
     else:
@@ -133,7 +141,7 @@ def main(argv=None):
     forward = make_eval_forward(cfg, net, flip_tta=args.flip_tta, quant_scales=scales)
     results = evaluate(cfg, forward, dataset,
                        max_images=args.max_images, save_preds=args.save_preds or None,
-                       device_cache=args.device_cache, device=device)
+                       device_cache=args.device_cache, mesh=mesh, device=device)
     print(" ".join(f"{k}={v:.4f}" for k, v in results.items()), flush=True)
     return results
 

@@ -50,9 +50,18 @@ validates on N held-out synthetic batches (seed + 1).  ``--eval_every N``
 keeps the best eval RMSE's checkpoint in ``<model_dir>/stage2_best/``
 (scripts/eval_torch.py --best).  ``--upsample deconv [--deconv_init
 lecun]``, ``--norm none`` and ``--multiscale`` train the model
-variants.  A flag for what the port does not run yet
-(``--num_devices`` > 1, ``--fsdp``, ...) ends the run at parse time,
-naming its ROADMAP item.
+variants.  ``--num_devices N`` trains data parallel over N ranks
+(0: every visible card): started alone the script spawns them, each on
+``cuda:{rank % cards}`` (nccl when each has a card of its own, gloo
+when they share one; ``--device cpu``: gloo), and under torchrun it joins
+the group torchrun starts; ``--batch_size`` stays the global batch, each
+rank trains on 1/N of its rows, and rank 0 logs and writes the
+checkpoints (the same files as one device's).  ``--fsdp`` shards the
+parameters and optimizer state over the ranks (FSDP2);
+``--device_cache_sharded`` (with ``--device_cache``) holds 1/N of the
+corpus on each rank.  A flag for what the port does not run yet
+(``--spatial_devices``, ``--model_devices``) ends the run at parse
+time, naming its ROADMAP item.
 
 Examples:
   python scripts/make_fixture.py --out data/kitti --n 512 --style scene
@@ -86,6 +95,10 @@ Examples:
   python scripts/train_torch.py --mode DtoD --dataset kitti --data_path data/kitti \\
       --loader grain --workers 4 --lr_schedule cosine --warmup_steps 100 \\
       --grad_clip 1.0 --tensorboard --model_dir runs/grain
+  python scripts/train_torch.py --mode RtoD --dataset synthetic --num_devices 2 \\
+      --fsdp --epochs 1 --steps_per_epoch 50   # two ranks, FSDP
+  torchrun --nproc_per_node 8 scripts/train_torch.py --mode DtoD \\
+      --dataset synthetic --epochs 1 --steps_per_epoch 50   # under torchrun
 """
 
 import argparse
@@ -124,13 +137,15 @@ def build_config(args):
     return build_config(args)
 
 
-def build_data(cfg, device, skip: int = 0, loader_state=None):
+def build_data(cfg, device, skip: int = 0, loader_state=None, mesh=None):
     """(the training batches from batch ``skip`` on, the host loader):
     the synthetic source on the device, or the disk loader behind the
     prefetch pipeline (wire decode and augmentation on the device).  A
     grain cursor saved at step ``skip`` (``loader_state``, the
     checkpoint's ``loader`` entry) restores the grain loader's
-    counterpart; every other loader seeks."""
+    counterpart; every other loader seeks.  With a data ``mesh`` the
+    pipeline yields this rank's rows (the synthetic source yields the
+    global batch, which the loop cuts)."""
     from gdn_tpu_torch.data.pipeline import make_loader, make_train_pipeline
 
     loader = make_loader(cfg, "train", device=device)
@@ -144,13 +159,21 @@ def build_data(cfg, device, skip: int = 0, loader_state=None):
     print(f"{cfg.data.dataset}: {len(loader)} pairs, decoder {loader.decoder}, "
           f"wire {cfg.data.train_wire}", flush=True)
     host = loader
-    if cfg.data.device_cache:
+    if cfg.data.device_cache and cfg.data.device_cache_sharded:
+        from gdn_tpu_torch.data.device_cache import ShardedDeviceDataset
+
+        loader = ShardedDeviceDataset(loader, mesh, device=device)
+        loader.seek(skip)
+        print(f"device_cache (sharded): {len(loader)} samples, "
+              f"{loader.resident_bytes / 2**20:.1f} MiB resident on {device}", flush=True)
+    elif cfg.data.device_cache:
         from gdn_tpu_torch.data.device_cache import DeviceResidentDataset
 
-        loader = DeviceResidentDataset(loader, device=device)
+        loader = DeviceResidentDataset(loader, device=device, mesh=mesh)
         print(f"device_cache: {len(loader)} samples, {loader.resident_bytes / 2**20:.1f} "
               f"MiB resident on {device}", flush=True)
-    return make_train_pipeline(cfg, loader, augment=True, skip=skip, device=device), host
+    return make_train_pipeline(cfg, loader, augment=True, skip=skip, device=device,
+                               mesh=mesh), host
 
 
 def grain_state_fn(cfg, loader):
@@ -199,17 +222,23 @@ def build_val(cfg, args, device):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
 
     from gdn_tpu_torch import checkpoint as ckpt
-    from gdn_tpu_torch.cli import apply_saved_model_config
+    from gdn_tpu_torch.cli import apply_saved_model_config, start_ranks
     from gdn_tpu_torch.config import resolve_device
     from gdn_tpu_torch.data.pipeline import CachedSampleIterable, make_loader
+    from gdn_tpu_torch.parallel.mesh import create_mesh
     from gdn_tpu_torch.train.loop import stage1_state, stage2_state, train_stage1, train_stage2
     from gdn_tpu_torch.utils.logging import MetricLogger
 
+    if start_ranks(args, main, argv):
+        return None
     device = resolve_device(args.device)
     cfg = build_config(args)
+    mesh = create_mesh(cfg.mesh.num_devices, spatial=cfg.mesh.spatial_devices,
+                       model=cfg.mesh.model_devices, device_type=device.type)
     n = "1" if args.mode == "DtoD" else "2"
     root = cfg.train.ckpt_dir
     stage_dir = os.path.join(root, f"stage{n}")
@@ -241,10 +270,10 @@ def main(argv=None):
         print(f"resumed stage {n} at step {state.step}", flush=True)
     # the batch stream continues where a resumed run stopped
     data, loader = build_data(cfg, device, skip=state.step if state is not None else 0,
-                              loader_state=loader_state)
+                              loader_state=loader_state, mesh=mesh)
     val = build_val(cfg, args, device)
     kw = dict(state=state, logger=logger, device=device,
-              loader_state_fn=grain_state_fn(cfg, loader), **val)
+              loader_state_fn=grain_state_fn(cfg, loader), mesh=mesh, **val)
     if args.mode == "DtoD":
         state = train_stage1(cfg, data, **kw)
     else:

@@ -82,15 +82,28 @@ def test_config_json_both_ways(tmp_path, preset, case):
 
 
 @pytest.mark.parametrize("over,error,match", [
-    ({"mesh.spatial_devices": 2}, NotImplementedError, "Queue A item 10"),
-    ({"mesh.num_devices": 2}, NotImplementedError, "Queue A item 10"),
+    ({"mesh.spatial_devices": 2}, NotImplementedError, "Queue A item 10b"),
+    ({"mesh.model_devices": 2}, NotImplementedError, "Queue A item 10b"),
     ({"train.remat_policy": "save_only_these_names"}, ValueError, "not a policy"),
-    ({"mesh.fsdp": True}, NotImplementedError, "Queue A item 10"),
+    ({"mesh.model_devices": 2, "mesh.fsdp": True}, ValueError, "mutually exclusive"),
 ])
 def test_config_json_refuses_what_the_port_does_not_run(tmp_path, over, error, match):
     jckpt.save_config(str(tmp_path), jcfg.kitti_config(**over))
     with pytest.raises(error, match=match):
         tckpt.load_config(str(tmp_path))
+
+
+@pytest.mark.parametrize("over", [
+    {"mesh.num_devices": 2},
+    {"mesh.num_devices": 8, "mesh.fsdp": True},
+    {"mesh.num_devices": 4, "data.device_cache_sharded": True, "data.device_cache": True},
+])
+def test_config_json_of_a_multi_chip_run_loads(tmp_path, over):
+    """A config.json the JAX package wrote for a data-parallel or FSDP
+    run, refused until A10 was ported, loads as the same config."""
+    jckpt.save_config(str(tmp_path), jcfg.kitti_config(**over))
+    tc = tckpt.load_config(str(tmp_path))
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jcfg.kitti_config(**over))
 
 
 def test_config_json_drops_unknown_keys(tmp_path, capsys):

@@ -104,11 +104,8 @@ def test_build_config_equals_the_jax_one(argv, evalargs):
 
 
 UNPORTED = [
-    (["--num_devices", "2"], "Queue A item 10"),
-    (["--spatial_devices", "2"], "Queue A item 10"),
-    (["--model_devices", "2"], "Queue A item 10"),
-    (["--fsdp"], "Queue A item 10"),
-    (["--device_cache_sharded"], "Queue A item 10"),
+    (["--spatial_devices", "2"], "Queue A item 10b"),
+    (["--model_devices", "2"], "Queue A item 10b"),
 ]
 
 
@@ -117,6 +114,21 @@ def test_unported_train_flags_are_refused_with_their_item(argv, item):
     jcli.build_config(_parse(jcli, argv))  # a flag the JAX package runs
     with pytest.raises(NotImplementedError, match=item):
         tcli.build_config(_parse(tcli, argv))
+
+
+@pytest.mark.parametrize("argv,field,value", [
+    (["--num_devices", "2"], ("mesh", "num_devices"), 2),
+    (["--fsdp"], ("mesh", "fsdp"), True),
+    (["--device_cache_sharded"], ("data", "device_cache_sharded"), True),
+])
+def test_parallel_train_flags_reach_the_config(argv, field, value):
+    """The data-parallel and FSDP flags, which the port refused until
+    A10 was ported: they build the JAX package's config."""
+    tc = tcli.build_config(_parse(tcli, argv))
+    fields = _same_fields(tc, jcli.build_config(_parse(jcli, argv)))
+    assert fields[field] == (value, value)
+    assert {k: v for k, v in fields.items() if v[0] != v[1]
+            and k not in STATED_EXCEPTIONS} == {}
 
 
 @pytest.mark.parametrize("argv,field,value", [
@@ -160,8 +172,11 @@ def _eval_serve_parser():
     (["--num_devices", "4"], "Queue A item 10"),
 ])
 def test_unported_eval_and_serve_flags_are_refused_with_their_item(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.build_config(_eval_serve_parser().parse_args(argv))
+    """``--num_devices`` (data-parallel eval), refused until A10 (``item``)
+    was ported, now builds its mesh size into the config."""
+    cfg = tcli.build_config(_eval_serve_parser().parse_args(argv))
+    assert cfg.mesh.num_devices == int(argv[1])
+    assert cfg.mesh.spatial_devices == cfg.mesh.model_devices == 1
 
 
 @pytest.mark.parametrize("argv,quant,artifact", [
@@ -183,8 +198,8 @@ def _load_script(name):
 
 
 @pytest.mark.parametrize("script,argv,item", [
-    ("train_torch", ["--spatial_devices", "2"], "Queue A item 10"),
-    ("train_torch", ["--fsdp"], "Queue A item 10"),
+    ("train_torch", ["--spatial_devices", "2"], "Queue A item 10b"),
+    ("train_torch", ["--model_devices", "2"], "Queue A item 10b"),
     ("eval_torch", ["--quantize", "int8", "--norm", "none"], "requires norm='group'"),
 ])
 def test_scripts_turn_a_refusal_into_a_parser_error(script, argv, item, capsys):

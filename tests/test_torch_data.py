@@ -50,6 +50,8 @@ from gdn_tpu_torch.data.device_cache import (
 )
 from gdn_tpu_torch.data.synthetic import SyntheticDataset, SyntheticEvalDataset, _image_seed
 
+from torch_parallel_ranks import StubMesh
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_PAIRS = 7  # not a multiple of the batch: a padded tail, a dropped one
 RAW_HW = (40, 60)  # the PNGs' size; the loaders resize to TRAIN_HW
@@ -604,10 +606,12 @@ def test_device_resident_dataset_refusals(kitti_root, tmp_path):
     with pytest.raises(ValueError, match="wire-format"):
         DeviceResidentDataset(TK.KittiTrainDataset(kitti_root, "train.txt", TRAIN_HW,
                                                    batch_size=3, wire="f32"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        DeviceResidentDataset(loader, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        ShardedDeviceDataset(loader, object())
+    with pytest.raises(AssertionError, match="not divisible"):  # batch 3 over 2 ranks
+        DeviceResidentDataset(loader, device="cpu", mesh=StubMesh(2))
+    with pytest.raises(ValueError, match="requires a mesh"):
+        ShardedDeviceDataset(loader, None)
+    with pytest.raises(ValueError, match="not divisible"):
+        ShardedDeviceDataset(loader, StubMesh(2), device="cpu")
     # through a decode cache: the corpus warms it
     warm = TK.KittiTrainDataset(kitti_root, "train.txt", TRAIN_HW, batch_size=3,
                                 cache_dir=str(tmp_path))
@@ -759,5 +763,4 @@ def test_make_loader_selects_and_refuses(kitti_root, nyu_root):
         TP.make_loader(cfg("kitti", kitti_root, loader="grain", decode_cache="c"))
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         tcfg.DataConfig(loader="bogus")
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        tcfg.DataConfig(device_cache_sharded=True)
+    assert tcfg.DataConfig(device_cache_sharded=True).device_cache_sharded  # A10

@@ -54,6 +54,8 @@ from gdn_tpu_torch.train import loop as tloop
 from gdn_tpu_torch.train.steps import make_eval_forward
 from gdn_tpu_torch.utils.logging import MetricLogger
 
+from torch_parallel_ranks import StubMesh
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_RES = (32, 104)
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -171,11 +173,16 @@ def test_eval_step_per_image_matches_jax(gt_shape, eval_kw):
 
 
 def test_eval_step_refuses_mesh_and_forward_refuses_quant():
+    """A data mesh, refused until A10 was ported: the step builds, and the
+    Evaluator takes each rank's rows of a batch that divides by the mesh
+    and refuses one that does not (the JAX package's assertion)."""
     _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        TE.make_eval_step(tc, _t_forward, (8, 8), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        TE.Evaluator(tc, _t_forward, mesh=object(), device="cpu")
+    TE.make_eval_step(tc, _t_forward, (8, 8), mesh=StubMesh(2), device="cpu")
+    assert [TE.Evaluator(tc, _t_forward, mesh=StubMesh(2, r), device="cpu")._rows
+            for r in (0, 1)] == [(0, 1), (1, 2)]
+    _, odd = _cfgs(batch_size=3)
+    with pytest.raises(AssertionError, match="divisible by the mesh size 2"):
+        TE.Evaluator(odd, _t_forward, mesh=StubMesh(2), device="cpu")
     fake = type("Cfg", (), {"model": type("M", (), {"quant": "int8"})()})()
     with pytest.raises(ValueError, match="calibrated activation scales"):
         make_eval_forward(fake, torch.nn.Identity())
@@ -477,7 +484,7 @@ def test_eval_script_scores_what_train_script_wrote(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--quantize", "int8", "--stage", "1"], "--stage 2 only"),
     (["--use_ema", "--pth", "w.pth"], "export_torch.py --use_ema"),
-    (["--num_devices", "4"], "Queue A item 10"),
+    (["--num_devices", "-1"], "num_devices must be >= 0"),
 ])
 def test_eval_script_refuses_unported_flags(flags, item, capsys):
     mod = _load_script("eval_torch")

@@ -333,13 +333,51 @@ repository around this file.  Phases, each printed on its own lines:
               22's corpus (each rank through a decode cache of its own):
               its index stream and the rows of its first batches on the
               card equal the CPU port's.
+  28. tp_sp  tensor and spatial parallelism (gdn_tpu_torch/parallel/
+              tensor.py, spatial.py), full width, bf16, phase 27's
+              weights and batches, two ranks sharing the card over gloo
+              (one spawn): first, in this process, the split GN+ELU
+              kernel (gn_rows_sums + gn_rows_apply, on a spatial axis of
+              extent 1) against its plain version and the plain fp32
+              statistics at every site shape a spatial rank of the B=32
+              128x416 nets holds (half the rows), with device times and
+              bounds; then (a) TP, model_devices=2: train_stage1 then
+              train_stage2 against phase 27's one process, bf16 at phase
+              9's 5% (the terms of every step, the first update's
+              gradients of each tensor's largest), and one fp32 step a
+              stage at phase 9's fp32 bounds (terms 1e-4, gradients
+              1e-3), each rank launching the
+              GN+ELU kernel as often as one process (42 a stage-2 step)
+              on half the channels of each site and the loss kernels once
+              each a step, and holding half the parameter and Adam bytes
+              (0.45-0.55); (b) one TP stage-2 step with every fused flag
+              and one with use_pallas_convgn + use_pallas_fusion:
+              kernels 4-9 launch in both ranks, terms against one
+              process; (c) SP, spatial_devices=2 at 128x416: both stages
+              against one process as (a), the bf16 gradients at 5% with
+              the loss's multi-scale gradient term off (with it a few
+              sparse coarse pixels weigh 1/count each, and bf16 flips
+              their signs: see NO_GRAD_TERM; the fp32 step holds the full
+              loss's gradients), the split GN+ELU
+              kernel launched (42 a stage-2 step) and neither the
+              one-launch GN+ELU kernel nor the loss kernels (the loss
+              takes its plain terms on a spatial mesh, as in the JAX
+              package); (d) a tall image (B=8, 512x416) under SP: each
+              rank's peak allocated memory above its state below 0.65x
+              one process's; (e) scripts/train_torch.py --model_devices
+              2 and --spatial_devices 2, stage 1, P28_SCRIPT_STEPS steps
+              each at batch 8, the two commands at once (each spawning
+              its two ranks), and both checkpoints restored in this
+              process (one device's layout) and run once.  ms/step
+              and device busy are printed per rank, with no bound.
 
 Any failure ends the run with a nonzero exit.  The last lines are the
 kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape numbers also go to smoke_out/chip_smoke.json (phase 23's under
 "tools", phase 24's under "artifacts", phase 25's under "variants",
-phase 26's under "knobs", phase 27's under "parallel"), the profiles to
+phase 26's under "knobs", phase 27's under "parallel", phase 28's under
+"tp_sp"), the profiles to
 smoke_out/{serving,training}{,_fused,_fusion}_profile.txt,
 smoke_out/knobs_*_profile.txt,
 smoke_out/eval_profile.txt and smoke_out/disk_*_profile.txt.
@@ -377,7 +415,9 @@ FUSED = {"model.use_pallas_convgn_bt": True, "model.use_pallas_convgn_s2": True,
 FUSED_V1 = {"model.use_pallas_convgn": True}
 FUSION = {"model.use_pallas_fusion": True}
 COUNTERS = ("group_norm_elu", "fused_loss_fwd", "fused_loss_bwd", "conv_gn_elu",
-            "conv_gn_elu_bt", "conv_gn_elu_s2", "fusion_bt", "fusion_block", "upsample")
+            "conv_gn_elu_bt", "conv_gn_elu_s2", "fusion_bt", "fusion_block", "upsample",
+            "group_norm_elu_rows")
+FUSED_COUNTERS = COUNTERS[3:9]  # kernels 4-9: the fused conv family
 FP32_OUT = ("conv_gn_elu", "fusion_block", "upsample")  # store fp32 a, no residuals
 FMA_TIMING = types.SimpleNamespace(launches=0)  # counter of the FMA comparison launches
 # Fused loss operation counts per pixel for an 11-tap window, the least
@@ -821,7 +861,8 @@ def _counted():
 
     fns = (gnk.group_norm_elu, fl.fused_loss_fwd, fl.fused_loss_bwd,
            ck.fused_conv_gn_elu, ck.fused_conv_gn_elu_bt, ck.fused_conv_gn_elu_s2,
-           fk.fused_fusion_bt, fb.fused_fusion_block, uk.fused_upsample_conv)
+           fk.fused_fusion_bt, fb.fused_fusion_block, uk.fused_upsample_conv,
+           gnk.group_norm_elu_rows)
     return dict(zip(COUNTERS, fns))
 
 
@@ -4421,15 +4462,19 @@ def _p27_weights(cfg):
 
 def _first_grads(state, out):
     """Keep in ``out`` the whole gradients of the first update (after the
-    ranks' sum), by parameter name: an optimizer pre-step hook."""
+    ranks' sum; tensor-parallel slices gathered), by parameter name: an
+    optimizer pre-step hook."""
     from gdn_tpu_torch.parallel.mesh import full_tensor
 
     names = [k for k, p in state.net.named_parameters() if p.requires_grad]
 
     def hook(opt, args, kwargs):
-        if not out:
-            out.update({k: full_tensor(p.grad).detach().float().cpu()
-                        for k, p in zip(names, state.params)})
+        if out:
+            return
+        grads = {k: p.grad for k, p in zip(names, state.params)}
+        if state.mode == "tp":
+            grads = state._whole(grads)
+        out.update({k: full_tensor(g).detach().float().cpu() for k, g in grads.items()})
 
     state.optimizer.register_step_pre_hook(hook)
 
@@ -4455,14 +4500,17 @@ def _state_bytes(state):
     return pb, ob
 
 
-def p27_train(cfg, d_sd, g_sd, batches, mesh, tag, stages=(1, 2), profile=True):
+def p27_train(cfg, d_sd, g_sd, batches, mesh, tag, stages=(1, 2), profile=True,
+              record=None):
     """Stage 1 then stage 2 (or ``stages``) through train_stage1/2 from
     the same weights on ``batches`` (global), data parallel over ``mesh``
     (None: one process), the state placed by ``cfg.mesh``: the terms of
     every step (the loop's log, rank 0's under a mesh), the first
     update's gradients, ms/step on this rank's host clock (steps 2 on),
     the launches of each stage, the state's bytes on this rank, and one
-    profiled stage-2 step (device busy)."""
+    profiled stage-2 step (device busy).  ``record``: a list some probe
+    fills during the steps (phase 28's GN+ELU channels), emptied at each
+    stage and kept in the stage's record."""
     from gdn_tpu_torch.config import _with
     from gdn_tpu_torch.models import DtoDNet, RtoDNet
     from gdn_tpu_torch.parallel import multihost
@@ -4492,6 +4540,8 @@ def p27_train(cfg, d_sd, g_sd, batches, mesh, tag, stages=(1, 2), profile=True):
         data = _timed_rows(batches, mesh, dev, stamps)
         torch.cuda.synchronize()
         reset_counts()
+        if record is not None:
+            record.clear()
         if stage == 1:
             state = train_stage1(cfg, data, epochs=1, state=state, logger=logger, mesh=mesh,
                                  device=dev)
@@ -4509,6 +4559,8 @@ def p27_train(cfg, d_sd, g_sd, batches, mesh, tag, stages=(1, 2), profile=True):
         rec = {"launches": counts, "grads": grads,
                "ms_per_step": sum(steps_ms) / max(len(steps_ms), 1),
                "bytes": _state_bytes(state)}
+        if record is not None:
+            rec["recorded"] = list(record)
         if multihost.rank() == 0:
             rec["terms"] = [{k: v for k, v in json.loads(line).items()
                              if k not in ("t", "step", "imgs_per_sec", "lr")}
@@ -4709,7 +4761,7 @@ def phase_parallel(cfg):
 
     single = p27_train(cfg, d_sd, g_sd, batches, None, "single")
     single32 = p27_train(_with(cfg, **{"model.dtype": "float32"}), d_sd, g_sd, batches[:1],
-                         None, "single32", stages=(2,), profile=False)
+                         None, "single32", profile=False)  # stage 1 for phase 28
     fused_single = {tag: p27_train(_with(cfg, **over), d_sd, g_sd, batches[:1], None,
                                    f"{tag}_single", stages=(2,), profile=False)
                     for tag, over in P27_FUSED}
@@ -4839,7 +4891,7 @@ def phase_parallel(cfg):
         problems.append(_terms_problem(f"(c) {tag}", gap))
         log(f"  (c) {tag}: one DP step, launches a rank "
             f"{ {k: v for k, v in got[0].items() if v} }, terms max rel gap {gap[0]:.3g}")
-    for k in COUNTERS[3:]:
+    for k in FUSED_COUNTERS:
         if not any(rk["fused"][t]["stage2"]["launches"][k] for rk in ranks
                    for t, _ in P27_FUSED):
             problems.append(f"(c) {k} launched in no rank")
@@ -4901,6 +4953,389 @@ def phase_parallel(cfg):
     problems = [p for p in problems if p]
     if problems:
         raise AssertionError("phase 27: " + "; ".join(problems))
+    return out, launches, {"single": single, "single32": single32,
+                           "fused_single": fused_single}
+
+
+P28_RANKS = 2  # ranks sharing the one card over gloo
+BF16_TERMS_TOL = 0.05  # phase 9's bf16 bound: a rank's convs round in other places
+# (c): the loss without its multi-scale gradient term.  Its coarse scales
+# keep only pixels whose four children are valid (a few at these masks'
+# densities), each weighing 1/count: where bf16 moves the prediction, the
+# sign of such a pixel's difference flips and moves a tensor's gradient by
+# tens of percent in one process as in the ranks (measured on the H100).
+# The SP bf16 gradients are held to one process without it; with it, the
+# fp32 step holds them.
+NO_GRAD_TERM = {"loss.w_grad": 0.0}
+P28_TALL = (8, 512, 416)  # (d): batch and image size of the tall image
+P28_MEM_SHARE = 0.65  # (d): a spatial rank's peak activations against one process's
+P28_SCRIPT_STEPS = 2  # (e): steps a script runs, at batch 8
+P28_PROFILED = (("group_norm_elu", "gn_elu_coop"), ("group_norm_elu_rows", "gn_rows_"),
+                ("fused_loss_fwd", "loss_forward"), ("fused_loss_bwd", "loss_backward"))
+
+
+def _gn_channels(record):
+    """Record the channels of every launch of the one-launch GN+ELU
+    kernel in ``record`` (both its autograd and its registered-op route
+    call ``groupnorm._launch``)."""
+    from gdn_tpu_torch.kernels import groupnorm as gnk
+
+    launch = gnk._launch
+
+    def recorded(x, *args):
+        record.append(int(x.shape[1]))
+        return launch(x, *args)
+
+    gnk._launch = recorded
+
+
+def p28_tall(cfg, d_sd, g_sd, mesh):
+    """(d): one stage-2 step at P28_TALL, its peak allocated memory above
+    the placed state (this process's allocator), and its terms."""
+    from gdn_tpu_torch.config import _with
+    from gdn_tpu_torch.models import DtoDNet, RtoDNet
+    from gdn_tpu_torch.parallel.mesh import param_mode, shard_batch, shard_frozen, shard_state
+    from gdn_tpu_torch.train.state import TrainState
+    from gdn_tpu_torch.train.steps import make_stage2_step
+
+    b, h, w = P28_TALL
+    dev = torch.device("cuda", torch.cuda.current_device())
+    c = _with(cfg, **{"model.image_size": (h, w)})
+    g = RtoDNet(c.model)
+    g.load_state_dict(g_sd)
+    state = TrainState(g.to(dev), c.train, 10, freeze_decoder=True)
+    state, specs = shard_state(state, mesh, param_mode(c.mesh))
+    d = DtoDNet(c.model)
+    d.load_state_dict(d_sd)
+    d = shard_frozen(d.to(dev).requires_grad_(False), mesh, param_mode(c.mesh))
+    rng = np.random.default_rng(28)
+    batch = {"depth": torch.from_numpy(rng.uniform(1, 79, (b, h, w, 1)).astype(np.float32)),
+             "mask": torch.from_numpy((rng.random((b, h, w, 1)) < 0.3).astype(np.float32)),
+             "rgb": torch.from_numpy(rng.random((b, h, w, 3)).astype(np.float32))}
+    batch = {k: v.to(dev) for k, v in shard_batch(batch, mesh).items()}
+    step = make_stage2_step(c, **({} if mesh is None else dict(mesh=mesh,
+                                                               state_sharding=specs)))
+    step(state, d, batch)  # the allocator's and cuDNN's first-use costs
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, terms = step(state, d, batch)
+    torch.cuda.synchronize()
+    return {"peak_above_state": torch.cuda.max_memory_allocated() - base,
+            "state": base, "terms": {k: float(v) for k, v in terms.items()}}
+
+
+def p28_rank(out_dir, weights):
+    """The ranks of phase 28 (a)-(d): every result into
+    ``out_dir/rank<r>.pt``."""
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from gdn_tpu_torch import kernels as port_kernels
+    from gdn_tpu_torch.config import _with, kitti_config
+    from gdn_tpu_torch.parallel import multihost
+    from gdn_tpu_torch.parallel.mesh import create_mesh
+
+    port_kernels.load_all()  # built by the parent: loads
+    r = multihost.rank()
+    cfg = kitti_config(**{"model.use_pallas_gn": True})
+    tp, sp = (_with(cfg, **{f"mesh.{k}_devices": 2}) for k in ("model", "spatial"))
+    cols = create_mesh(0, model=2, device_type="cuda")
+    rows = create_mesh(0, spatial=2, device_type="cuda")
+    d_sd, g_sd = torch.load(weights, weights_only=True).values()
+    batches = p27_batches(cfg)
+    res = {"rank": r, "backend": torch.distributed.get_backend()}
+    channels = []
+    _gn_channels(channels)
+    res["tp"] = p27_train(tp, d_sd, g_sd, batches, cols, f"tp_rank{r}", record=channels)
+    res["tp32"] = p27_train(_with(tp, **{"model.dtype": "float32"}), d_sd, g_sd, batches[:1],
+                            cols, f"tp32_rank{r}", profile=False)
+    res["tp_fused"] = {tag: p27_train(_with(tp, **over), d_sd, g_sd, batches[:1], cols,
+                                      f"tp_{tag}_rank{r}", stages=(2,), profile=False)
+                       for tag, over in P27_FUSED}
+    res["sp"] = p27_train(sp, d_sd, g_sd, batches, rows, f"sp_rank{r}", record=channels)
+    res["sp32"] = p27_train(_with(sp, **{"model.dtype": "float32"}), d_sd, g_sd, batches[:1],
+                            rows, f"sp32_rank{r}", profile=False)
+    res["sp_nograd"] = p27_train(_with(sp, **NO_GRAD_TERM), d_sd, g_sd, batches[:1], rows,
+                                 f"sp_nograd_rank{r}", profile=False)
+    res["tall"] = p28_tall(sp, d_sd, g_sd, rows)
+    torch.save(res, os.path.join(out_dir, f"rank{r}.pt"))
+
+
+def p28_split_gn(cfg):
+    """The split GN+ELU kernel (on a spatial axis of extent 1: both
+    launches, no collective) against its plain version and the plain
+    fp32 statistics, at every site shape a spatial rank of the B=32
+    128x416 nets holds; with the kernel's and the plain version's device
+    times and the bound."""
+    from gdn_tpu_torch.kernels import groupnorm as gnk
+    from gdn_tpu_torch.ops.groupnorm import (
+        _chanreduce_stats, group_norm_elu_plain, pick_groups,
+    )
+    from gdn_tpu_torch.parallel.mesh import Axis
+
+    alone = Axis(None, 1, 0)
+    rows, gen = [], torch.Generator(device="cuda").manual_seed(28)
+    sites = [(c, h // 2, w) for c, h, w in gn_sites(cfg.model)]
+    for c, h, w in sorted(set(sites), reverse=True):
+        g = pick_groups(c, cfg.model.group_norm_groups)
+        shape = (TRAIN_BATCH, c, h, w)
+        x = _gn_input(shape, torch.bfloat16, gen)
+        scale = torch.rand(c, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(c, device="cuda", generator=gen)
+        what = f"group_norm_elu_rows {shape} bf16"
+        out, stats = gnk._launch_rows(x, scale, bias, g, 1e-6, alone)
+        torch.cuda.synchronize()
+        err = check_close(out, group_norm_elu_plain(x, scale, bias, g), x.dtype, what)
+        mean_c, inv_c = _chanreduce_stats(x, g, 1e-6)
+        cg = c // g
+        serr = check_tol(stats, torch.stack([mean_c[:, ::cg], inv_c[:, ::cg]], 1), 1e-5,
+                         1e-6, f"{what} statistics")
+        row = {"B": TRAIN_BATCH, "C": c, "H": h, "W": w, "groups": g,
+               "sites": sites.count((c, h, w)), "max_abs_err": err,
+               "stats_max_abs_err": serr, "split_ms": {},
+               "bound_ms": bound_ms(*gn_work(shape, x.element_size()))}
+        row["ms"] = device_ms([lambda: gnk._launch_rows(x, scale, bias, g, 1e-6, alone)],
+                              what=what, split=row["split_ms"])
+        row["plain_ms"] = device_ms([lambda: group_norm_elu_plain(x, scale, bias, g)],
+                                    what=f"{what} plain")
+        sc, bi = scale.to(x.dtype), bias.to(x.dtype)  # on one rank, the same function
+        row["library_ms"] = device_ms([lambda: F.elu(F.group_norm(x, g, sc, bi, 1e-6))],
+                                      what=f"{what} library")
+        rows.append(row)
+        log(f"  {what}: max|k-p| {err:.3g}, stats {serr:.3g}; device us: kernel "
+            f"{row['ms'] * 1e3:.1f} ({split_text(row['split_ms'])}), plain "
+            f"{row['plain_ms'] * 1e3:.1f}, library {row['library_ms'] * 1e3:.1f}, bound "
+            f"{row['bound_ms'] * 1e3:.1f} "
+            f"({row['bound_ms'] / row['ms']:.0%} of it reached)  x{row['sites']} sites")
+        del x
+    return rows
+
+
+def p28_scripts(work):
+    """(e): train_torch.py stage 1 under TP and under SP, the two commands
+    at once (each spawns its two ranks); both checkpoints restored in
+    this process (one device's layout) and run once."""
+    from gdn_tpu_torch.checkpoint import latest_step, load_config, restore_checkpoint
+    from gdn_tpu_torch.models import DtoDNet
+    from gdn_tpu_torch.train.state import TrainState
+
+    out, procs = {}, {}
+    t0 = time.perf_counter()
+    for flag in ("--model_devices", "--spatial_devices"):
+        # a process of its own: the script spawns its ranks, which import it
+        log_file = open(os.path.join(work, f"train{flag[1:]}.log"), "w")
+        procs[flag] = (subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "scripts", "train_torch.py"), "--mode",
+             "DtoD", flag, "2", "--dataset", "synthetic", "--epochs", "1",
+             "--steps_per_epoch", str(P28_SCRIPT_STEPS), "--batch_size", "8",
+             "--log_every", "1", "--ckpt_dir", os.path.join(work, flag[2:])],
+            cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT), log_file)
+    for flag, (proc, log_file) in procs.items():
+        rc = proc.wait(timeout=300)
+        log_file.close()
+        if rc != 0:
+            raise AssertionError(f"(e) train_torch.py {flag} 2 failed: see {log_file.name}")
+    dev = torch.device("cuda")
+    for flag in procs:
+        d = os.path.join(work, flag[2:], "stage1")
+        cfg = load_config(d)
+        net = DtoDNet(cfg.model).to(dev)
+        state = restore_checkpoint(d, TrainState(net, cfg.train, 10))
+        h, w = cfg.model.image_size
+        with torch.no_grad():
+            depth = net(torch.rand(2, h, w, 1, device=dev))["depth"]
+        torch.cuda.synchronize()
+        ok = bool(torch.isfinite(depth).all()) and tuple(depth.shape) == (2, h, w, 1)
+        out[flag[2:]] = {"step": state.step, "latest": latest_step(d), "finite": ok,
+                         "mesh": {"model": cfg.mesh.model_devices,
+                                  "spatial": cfg.mesh.spatial_devices}}
+        if not ok or state.step != P28_SCRIPT_STEPS:
+            raise AssertionError(f"(e) {flag} checkpoint: step {state.step}, forward finite "
+                                 f"and shaped {ok}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_tp_sp(cfg, refs):
+    """Phase 28: tensor and spatial parallelism (see the module
+    docstring).  ``refs``: phase 27's one-process runs on the same
+    weights and batches."""
+    from gdn_tpu_torch.parallel.multihost import run_ranks
+
+    t0 = time.perf_counter()
+    out, launches, problems = {"device": smi_line()}, {}, []
+    log(f"  {out['device']}")
+    work = os.path.join(OUT, "p28")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    weights = os.path.join(work, "weights.pt")
+    d_sd, g_sd = _p27_weights(cfg)
+    torch.save({"d": d_sd, "g": g_sd}, weights)
+    log("  the split GN+ELU kernel vs plain, a spatial rank's shapes (B=32, half the rows)")
+    out["split_gn"] = p28_split_gn(cfg)
+    from gdn_tpu_torch.config import _with
+
+    refs = {**refs, "single_nograd": p27_train(
+        _with(cfg, **NO_GRAD_TERM), d_sd, g_sd, p27_batches(cfg)[:1], None, "single_nograd",
+        profile=False)}
+    reset_counts()
+    tall = p28_tall(cfg, d_sd, g_sd, None)
+    launches["tp_sp_tall_single"] = read_counts()
+
+    ts = time.perf_counter()
+    run_ranks(p28_rank, P28_RANKS, (work, weights), device_type="cuda", timeout=900)
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(P28_RANKS)]
+    out["ranks_seconds"] = time.perf_counter() - ts
+    single, single32, fused_single = refs["single"], refs["single32"], refs["fused_single"]
+    site_c = [c for c, _, _ in gn_sites(cfg.model)]
+
+    def held(tag, got, want, grads=True):
+        """bf16 against one process: the terms of every step within phase
+        9's bf16 bound and, where ``grads``, the first update's gradients
+        within it of each tensor's largest, as phase 27 holds DP."""
+        row = {"terms_rel_gap": _terms_gap(got["terms"], want["terms"]),
+               "grad_rel_gap": _grad_gap(got["grads"], want["grads"])}
+        if max(row["terms_rel_gap"]) > BF16_TERMS_TOL:
+            problems.append(f"{tag} bf16 terms {max(row['terms_rel_gap']):.3g} beyond "
+                            f"{BF16_TERMS_TOL}")
+        if grads and row["grad_rel_gap"] > BF16_GRAD_TOL:
+            problems.append(f"{tag} bf16 gradients {row['grad_rel_gap']:.3g} beyond "
+                            f"{BF16_GRAD_TOL} of their largest")
+        return row
+
+    def fp32_gap(tag, got, want):
+        row = {"terms_rel_gap": _terms_gap(got["terms"], want["terms"])[0],
+               "grad_rel_gap": _grad_gap(got["grads"], want["grads"])}
+        if row["terms_rel_gap"] > 1e-4 or row["grad_rel_gap"] > 1e-3:
+            problems.append(f"{tag} fp32: terms {row['terms_rel_gap']:.3g} (bound 1e-4), "
+                            f"gradients {row['grad_rel_gap']:.3g} (bound 1e-3)")
+        return row
+
+    # (a) TP and (c) SP: both stages against one process, in bf16 and fp32
+    for mode, letter in (("tp", "a"), ("sp", "c")):
+        out[mode] = {}
+        for stage in (1, 2):
+            key = f"stage{stage}"
+            one = single[key]
+            tag = f"({letter}) {mode} {key}"
+            row = {**held(tag, ranks[0][mode][key], one, grads=mode == "tp"),
+                   "single_ms_per_step": one["ms_per_step"], "ranks": []}
+            row["fp32"] = fp32_gap(tag, ranks[0][f"{mode}32"][key], single32[key])
+            if mode == "sp":
+                row["no_grad_term"] = held(f"{tag} without the gradient term",
+                                           ranks[0]["sp_nograd"][key],
+                                           refs["single_nograd"][key])
+            gn_per_step = (1 if stage == 1 else 2) * len(site_c)
+            for rk in ranks:
+                rec = rk[mode][key]
+                launches[f"tp_sp_{mode}_rank{rk['rank']}_{key}"] = rec["launches"]
+                launches[f"tp_sp_{mode}32_rank{rk['rank']}_{key}"] = (
+                    rk[f"{mode}32"][key]["launches"])
+                row["ranks"].append({"rank": rk["rank"], "ms_per_step": rec["ms_per_step"],
+                                     "profile": rec.get("profile"), "bytes": rec["bytes"],
+                                     "launches": {k: v for k, v in rec["launches"].items()
+                                                  if v}})
+                got = rec["launches"]
+                if mode == "tp":
+                    want = one["launches"]
+                    if got != want:
+                        problems.append(f"(a) {key} rank {rk['rank']} launches {got} != "
+                                        f"one process's {want}")
+                    halves = sorted(c // 2 for c in site_c * (got["group_norm_elu"]
+                                                              // len(site_c)))
+                    if sorted(rec["recorded"]) != halves:
+                        problems.append(f"(a) {key} rank {rk['rank']}: the GN+ELU kernel ran "
+                                        "on other than half of each site's channels")
+                    if got["fused_loss_fwd"] != P27_STEPS or got["fused_loss_bwd"] != P27_STEPS:
+                        problems.append(f"(a) {key} rank {rk['rank']}: loss kernels {got}")
+                    share = [rec["bytes"][i] / one["bytes"][i] for i in (0, 1)]
+                    row["ranks"][-1]["shares"] = share
+                    if not all(0.45 < x < 0.55 for x in share):
+                        problems.append(f"(a) {key} rank {rk['rank']} holds {share} of the "
+                                        "parameter and Adam bytes, not about half")
+                else:
+                    want = {k: 0 for k in COUNTERS}
+                    want["group_norm_elu_rows"] = gn_per_step * P27_STEPS
+                    if got != want:
+                        problems.append(f"(c) {key} rank {rk['rank']} launches {got}, "
+                                        f"expected {want}")
+            out[mode][key] = row
+            log(f"  ({letter}) {mode.upper()} {key}: bf16 terms max rel gap "
+                f"{row['terms_rel_gap'][0]:.3g} at step 1, {row['terms_rel_gap'][1]:.3g} "
+                f"over {P27_STEPS} steps, first-step gradients {row['grad_rel_gap']:.3g} of "
+                f"each tensor's largest" + (
+                    f" ({row['no_grad_term']['grad_rel_gap']:.3g} without the gradient "
+                    "term)" if mode == "sp" else "")
+                + f"; the fp32 step: terms {row['fp32']['terms_rel_gap']:.3g}, gradients "
+                f"{row['fp32']['grad_rel_gap']:.3g}")
+            log(f"      ms/step (host clock, steps 2-{P27_STEPS}): one process "
+                f"{one['ms_per_step']:.1f}, " + ", ".join(
+                    f"rank {x['rank']} {x['ms_per_step']:.1f}" for x in row["ranks"])
+                + "; launches a rank: " + str(row["ranks"][0]["launches"]) + (
+                    "; shares of the parameter / Adam bytes: " + ", ".join(
+                        f"rank {x['rank']} {x['shares'][0]:.3f} / {x['shares'][1]:.3f}"
+                        for x in row["ranks"]) if mode == "tp" else ""))
+            if stage == 2:
+                for x in row["ranks"]:
+                    prof = x["profile"]
+                    log(f"      profiled stage-2 step, rank {x['rank']}: " + (
+                        f"wall {prof['wall_ms']:.1f} ms, busy {prof['device_busy_ms']:.2f} "
+                        f"ms (idle {prof['idle_share']:.1%}), {prof['kernel_launches']} "
+                        f"kernel launches" if prof else "not measured"))
+    # (b) TP with the fused conv kernels
+    out["tp_fused"] = {}
+    for tag, _ in P27_FUSED:
+        gap = _terms_gap(ranks[0]["tp_fused"][tag]["stage2"]["terms"],
+                         fused_single[tag]["stage2"]["terms"])
+        if gap[0] > BF16_TERMS_TOL:
+            problems.append(f"(b) {tag} bf16 terms {gap[0]:.3g} beyond {BF16_TERMS_TOL}")
+        got = [rk["tp_fused"][tag]["stage2"]["launches"] for rk in ranks]
+        for rk, g in zip(ranks, got):
+            launches[f"tp_sp_tp_{tag}_rank{rk['rank']}"] = g
+        out["tp_fused"][tag] = {"terms_rel_gap": gap[0],
+                                "launches": [{k: v for k, v in g.items() if v} for g in got]}
+        log(f"  (b) TP {tag}: one stage-2 step, launches a rank "
+            f"{ {k: v for k, v in got[0].items() if v} }, terms max rel gap {gap[0]:.3g}")
+    for k in FUSED_COUNTERS:
+        for rk in ranks:
+            if not any(rk["tp_fused"][t]["stage2"]["launches"][k] for t, _ in P27_FUSED):
+                problems.append(f"(b) {k} launched in no TP step of rank {rk['rank']}")
+    # (d) the tall image under SP
+    out["tall"] = {"single": tall, "ranks": [rk["tall"] for rk in ranks]}
+    for rk in ranks:
+        share = rk["tall"]["peak_above_state"] / tall["peak_above_state"]
+        rk["tall"]["share"] = share
+        if share >= P28_MEM_SHARE:
+            problems.append(f"(d) rank {rk['rank']}'s peak activations {share:.3f} of one "
+                            f"process's (bound {P28_MEM_SHARE})")
+    gap = max(abs(ranks[0]["tall"]["terms"][k] - tall["terms"][k])
+              / max(abs(tall["terms"][k]), 1e-12) for k in tall["terms"])
+    out["tall"]["terms_rel_gap"] = gap
+    if gap > BF16_TERMS_TOL:
+        problems.append(f"(d) tall image terms {gap:.3g} from one process's (bound "
+                        f"{BF16_TERMS_TOL})")
+    b, h, w = P28_TALL
+    log(f"  (d) SP stage-2 step at B={b}, {h}x{w}: peak allocated above the state, one "
+        f"process {tall['peak_above_state'] / 2**30:.2f} GiB; " + ", ".join(
+            f"rank {rk['rank']} {rk['tall']['peak_above_state'] / 2**30:.2f} GiB "
+            f"({rk['tall']['share']:.3f})" for rk in ranks)
+        + f"; terms max rel gap {gap:.3g}")
+    # (e) the scripts
+    reset_counts()
+    out["scripts"] = p28_scripts(work)
+    launches["tp_sp_scripts_parent"] = read_counts()
+    sc = out["scripts"]
+    log(f"  (e) train_torch.py --model_devices 2 and --spatial_devices 2 (stage 1, at "
+        f"once): {sc['seconds']:.1f} s; " + ", ".join(
+            f"{m}: restored at step {r['step']} in one process, forward finite "
+            f"{r['finite']}" for m, r in sc.items() if m != "seconds"))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 28 took {out['seconds']:.1f} s (ranks {out['ranks_seconds']:.1f} s)")
+    problems = [p for p in problems if p]
+    if problems:
+        raise AssertionError("phase 28: " + "; ".join(problems))
     return out, launches
 
 
@@ -5069,7 +5504,13 @@ def main():
 
     log(f"== 27. parallel: data parallel and FSDP over {P27_RANKS} ranks sharing the card "
         "(gloo), DP at world size 1 over NCCL, DP eval, the sharded device cache")
-    parallel, parallel_launches = phase_parallel(cfg)
+    parallel, parallel_launches, refs = phase_parallel(cfg)
+
+    log(f"== 28. tp_sp: tensor and spatial parallelism over {P28_RANKS} ranks sharing the "
+        "card (gloo): the split GN+ELU kernel, TP and SP training against one process, "
+        "kernels 4-9 under TP, a tall image's memory, the script")
+    tp_sp, tp_sp_launches = phase_tp_sp(cfg, refs)
+    del refs
 
     main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
     per_fwd = {k: sum(r[k] * r["sites"] for r in main_rows)
@@ -5082,7 +5523,7 @@ def main():
                      **{f"{k}_fusion": v for k, v in fusion_train_launches.items()},
                      **eval_launches, **life_launches, **disk_launches,
                      **tools_launches, **art_launches, **variant_launches,
-                     **knob_launches, **parallel_launches}
+                     **knob_launches, **parallel_launches, **tp_sp_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in path_launches.values())
@@ -5118,6 +5559,18 @@ def main():
                        ("fusion_block", "gdn_tpu/kernels/fusion_block.py:235"),
                        ("upsample", "gdn_tpu/kernels/upsample.py:148")):
         kernels.append(_family_entry(name, line, conv_rows, total(name), hmma))
+    split_rows = tp_sp["split_gn"]
+    kernels.append({
+        "name": "group_norm_elu_rows",
+        "route": "cuda",
+        "source": "gdn_tpu_torch/csrc/group_norm_elu.cu",
+        "replaces": "gdn_tpu/kernels/groupnorm.py:133",
+        "launches": total("group_norm_elu_rows"),
+        "max_abs_err": max(r["max_abs_err"] for r in split_rows),
+        **{k: sum(r[k] * r["sites"] for r in split_rows)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "bound_by": "bytes",
+    })
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on any main path")
@@ -5134,7 +5587,7 @@ def main():
                    "training_fusion": training_fusion, "vs_cpu_fusion": vs_cpu_fusion,
                    "eval": evaluation, "lifecycle": lifecycle, "disk": disk,
                    "tools": tools, "artifacts": artifacts, "variants": variants,
-                   "knobs": knobs, "parallel": parallel,
+                   "knobs": knobs, "parallel": parallel, "tp_sp": tp_sp,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
                    "sass_hmma": hmma_by_fn, "ptxas": ptxas,
                    "kernels": kernels}, f, indent=1)

@@ -15,16 +15,20 @@ to a parser and ``build_config`` maps the parsed flags onto one
   GroupNorm+ELU kernel at every unfused site on the card.
 - Flags for what the port does not run yet parse, and the Config
   refuses their values with ``NotImplementedError`` naming the ROADMAP
-  item (``--spatial_devices`` > 1, ``--model_devices`` > 1: Queue A item
-  10b).  ``parse_or_exit`` turns that refusal into the parser's error,
-  as it does a combination neither package runs (``--quantize int8
-  --norm none``: a ``ValueError``).
-- ``--num_devices N`` runs N data-parallel ranks (0: every visible card;
-  one process on the CPU), ``--fsdp`` shards the parameters and
-  optimizer state over them and ``--device_cache_sharded`` the device
-  cache.  One command runs the job: ``start_ranks`` spawns the N ranks
-  when the script was started alone, and joins the group torchrun gives
-  it when torchrun started it.
+  item (a model variant or ``--fused_guidance`` with
+  ``--spatial_devices`` or ``--model_devices`` > 1: Queue A item 10c).
+  ``parse_or_exit`` turns that refusal into the parser's error, as it
+  does a combination neither package runs (``--quantize int8 --norm
+  none``: a ``ValueError``).
+- ``--num_devices N`` runs N ranks (0: every visible card, at least
+  ``--spatial_devices`` x ``--model_devices``; one process on the CPU
+  otherwise), ``--spatial_devices S`` shards each image's height over S
+  of them and ``--model_devices M`` each layer's output channels over M,
+  the rest split the batch; ``--fsdp`` shards the parameters and
+  optimizer state over the data ranks and ``--device_cache_sharded``
+  the device cache.  One command runs the job: ``start_ranks`` spawns
+  the N ranks when the script was started alone, and joins the group
+  torchrun gives it when torchrun started it.
   ``--steps_per_call`` and ``--fused_guidance`` run as in the JAX
   package; ``fused_guidance_vjp``, ``fused_encoders`` and
   ``remat_policy`` have no flag in either package and come through
@@ -119,12 +123,14 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ssim_precision", choices=["default", "high", "highest"], default=None,
                    help="precision of the SSIM blurs on the TPU; the port's SSIM is fp32")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="data-parallel ranks (0 = every visible card; the script "
-                        "starts them, or joins torchrun's)")
+                   help="ranks (0 = every visible card, at least spatial x model "
+                        "devices; the script starts them, or joins torchrun's)")
     p.add_argument("--spatial_devices", type=int, default=1,
-                   help="height-sharding mesh axis (not ported: Queue A item 10b)")
+                   help="spatial-partitioning mesh axis: shard each image's height over "
+                        "this many ranks (mesh = data x spatial x model)")
     p.add_argument("--model_devices", type=int, default=1,
-                   help="tensor-parallel mesh axis (not ported: Queue A item 10b)")
+                   help="tensor-parallel mesh axis: shard each layer's output channels "
+                        "over this many ranks")
     p.add_argument("--fsdp", action="store_true",
                    help="shard parameters and optimizer/EMA state over the data ranks "
                         "(FSDP2); mutually exclusive with --model_devices")
@@ -342,7 +348,8 @@ def start_ranks(args: argparse.Namespace, main, argv) -> bool:
 
     Under torchrun (``RANK`` and ``WORLD_SIZE`` set) the process joins
     the group torchrun describes.  Otherwise ``--num_devices`` N > 1
-    (0: every visible card; one on the CPU) spawns N ranks over a
+    (0: every visible card, one on the CPU, raised to ``--spatial_devices``
+    x ``--model_devices`` where it is not a multiple) spawns N ranks over a
     ``file://`` rendezvous (``parallel.multihost.run_ranks``), after the
     kernels are built once here so that the ranks load them."""
     import os
@@ -360,6 +367,9 @@ def start_ranks(args: argparse.Namespace, main, argv) -> bool:
     n = args.num_devices
     if n == 0:
         n = torch.cuda.device_count() if device_type == "cuda" else 1
+        inner = getattr(args, "spatial_devices", 1) * getattr(args, "model_devices", 1)
+        if n % inner:
+            n = inner
     if n <= 1:
         return False
     if device_type == "cuda":

@@ -112,9 +112,12 @@ REMAT_FACTORIES = (
 _DATA_NOT_YET = (
     ("loader", ("native", "grain"), "Queue A item 8 (the host loaders)"),
 )
-_MESH_NOT_YET = (
-    ("spatial_devices", (1,), "Queue A item 10b (tensor and spatial parallelism)"),
-    ("model_devices", (1,), "Queue A item 10b (tensor and spatial parallelism)"),
+_SPLIT_LATER = "ROADMAP.md Queue A item 10c (knobs under tensor and spatial parallelism)"
+# ModelConfig fields and the values tensor and spatial parallelism run:
+# the default architecture (the model variants take other sites)
+_SPLIT_MODEL = (
+    ("upsample", "resize_conv"), ("fusion", "concat"), ("norm", "group"),
+    ("activation", "elu"), ("multiscale_heads", False), ("quant", "none"),
 )
 
 
@@ -312,9 +315,11 @@ class EvalConfig:
 class MeshConfig:
     """Device layout: ``num_devices`` data-parallel ranks (0: all the
     ranks that run), ``fsdp`` to shard the parameters and optimizer
-    state over them.  The spatial and model axes are refused (ROADMAP
-    Queue A item 10b); TP and FSDP exclude each other as in the JAX
-    package (``parallel.mesh.param_mode``)."""
+    state over them, ``spatial_devices`` ranks sharing each image's
+    height and ``model_devices`` each layer's output channels
+    (``parallel.mesh.create_mesh(spatial=, model=)``).  TP and FSDP
+    exclude each other as in the JAX package
+    (``parallel.mesh.param_mode``)."""
 
     data_axis: str = "data"
     num_devices: int = 0
@@ -325,10 +330,27 @@ class MeshConfig:
     def __post_init__(self):
         if self.num_devices < 0:
             raise ValueError(f"num_devices must be >= 0, not {self.num_devices}")
+        if self.spatial_devices < 1 or self.model_devices < 1:
+            raise ValueError("spatial_devices and model_devices must be >= 1")
         if self.model_devices > 1 and self.fsdp:
             raise ValueError("model_devices>1 (tensor parallel) and fsdp are mutually "
                              "exclusive parameter placements")
-        _refuse("MeshConfig", _MESH_NOT_YET)(self)
+        if self.spatial_devices > 1 and self.fsdp:
+            raise NotImplementedError(f"fsdp with spatial_devices>1: see {_SPLIT_LATER}")
+
+
+def refuse_split(model: "ModelConfig", train: Optional["TrainConfig"] = None) -> None:
+    """Raise NotImplementedError naming Queue A item 10c for a knob that
+    tensor or spatial parallelism does not run: a model variant other
+    than the default architecture, or stage 2's fused guidance."""
+    for name, value in _SPLIT_MODEL:
+        if getattr(model, name) != value:
+            raise NotImplementedError(
+                f"ModelConfig.{name}={getattr(model, name)!r} under tensor or spatial "
+                f"parallelism (only {value!r}): see {_SPLIT_LATER}")
+    if train is not None and train.fused_guidance:
+        raise NotImplementedError(f"fused_guidance under tensor or spatial parallelism: "
+                                  f"see {_SPLIT_LATER}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -339,6 +361,10 @@ class Config:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+
+    def __post_init__(self):
+        if self.mesh.spatial_devices > 1 or self.mesh.model_devices > 1:
+            refuse_split(self.model, self.train)
 
 
 def kitti_config(**overrides) -> Config:

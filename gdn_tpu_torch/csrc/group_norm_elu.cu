@@ -45,6 +45,15 @@
 // which ran the small sites faster on the H100 than two); the wrapper
 // passes them in.
 //
+// Split form (gn_rows_sums, gn_rows_apply): for an image whose rows are
+// sharded over ranks (spatial parallelism), the statistics are the whole
+// image's.  The first kernel writes each slab's per-group (sum, sum of
+// squares); the caller all-reduces them over the ranks; the second folds an
+// image's slabs in a fixed order (the cooperative kernel's fold, with n the
+// whole image's count), writes the stats and normalizes its slab.  Neither
+// stages in shared memory: x is read twice and out written once, as in the
+// streamed plan.
+//
 // Layout: x and out are (B, HW, C) contiguous (channels_last NCHW); scale
 // and bias are fp32 (C,).  A thread owns VEC consecutive channels of a row:
 // blockDim = (C / VEC, rows at once).  Dynamic shared memory: the slab
@@ -308,6 +317,93 @@ gn_elu_coop(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// Split form, first half: slab s = blockIdx.x (image s / spi, rows
+// [(s % spi) * rows, +rows)) writes its (G, 2) per-group sums to partials.
+template <typename T, int V>
+__global__ void __launch_bounds__(V == 1 ? 1024 : 256, 1)
+gn_rows_sums(const T* __restrict__ x, float* __restrict__ partials, int hw, int c,
+             int groups, int rows, int spi) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);  // (by, C)
+  const int by = blockDim.y, c0 = threadIdx.x * V;
+  const int s = blockIdx.x, b = s / spi, k = s % spi;
+  const int nr = min(rows, hw - k * rows);
+  const T* src = x + ((size_t)b * hw + (size_t)k * rows) * c + c0;
+  float a1[V], a2[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) { a1[i] = 0.f; a2[i] = 0.f; }
+  for (int r = threadIdx.y; r < nr; r += by) {
+    const Pack<T, V> p = *reinterpret_cast<const Pack<T, V>*>(src + (size_t)r * c);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float f = to_f32(p.v[i]);
+      a1[i] += f;
+      a2[i] += f * f;
+    }
+  }
+  float* dst = partials + (size_t)s * groups * 2;
+  channel_sums<V>(a1, red, c);
+  group_sums(red, c / groups, groups, dst);
+  __syncthreads();  // red is refilled
+  channel_sums<V>(a2, red, c);
+  group_sums(red, c / groups, groups, dst + 1);
+}
+
+// Split form, second half: slab blockIdx.x folds its image's spi partials
+// (already summed over the ranks) in a fixed order, with n elements a group
+// in the whole image, and normalizes its rows.  The image's slab 0 writes the
+// (B, 2, G) stats.
+template <typename T, int V>
+__global__ void __launch_bounds__(V == 1 ? 1024 : 256, 1)
+gn_rows_apply(const T* __restrict__ x, const float* __restrict__ scale,
+              const float* __restrict__ bias, const float* __restrict__ partials,
+              T* __restrict__ out, float* __restrict__ stats, int hw, int c, int groups,
+              int rows, int spi, float n, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* gst = reinterpret_cast<float*>(smem);  // mean (G), inv (G)
+  const int px = blockDim.x, by = blockDim.y, c0 = threadIdx.x * V;
+  const int tid = threadIdx.y * px + threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = px * by >> 5, cg_ = c / groups;
+  const int s = blockIdx.x, b = s / spi, k = s % spi;
+  for (int g = warp; warp < nwarps && g < groups; g += nwarps) {
+    const float* src = partials + (size_t)b * spi * groups * 2 + 2 * g;
+    float t1 = 0.f, t2 = 0.f;
+    for (int j = lane; j < spi; j += 32) {
+      t1 += src[(size_t)j * groups * 2];
+      t2 += src[(size_t)j * groups * 2 + 1];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      t1 += __shfl_xor_sync(0xffffffffu, t1, off);
+      t2 += __shfl_xor_sync(0xffffffffu, t2, off);
+    }
+    if (lane == 0) {
+      const float mean = t1 / n;
+      const float inv = rsqrtf(fmaxf(t2 / n - mean * mean, 0.f) + eps);
+      gst[g] = mean;
+      gst[groups + g] = inv;
+      if (k == 0) {
+        stats[(size_t)b * 2 * groups + g] = mean;
+        stats[((size_t)b * 2 + 1) * groups + g] = inv;
+      }
+    }
+  }
+  __syncthreads();
+  float mean_c[V], mul_c[V], add_c[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int ch = c0 + j, g = ch / cg_;
+    mean_c[j] = gst[g];
+    mul_c[j] = gst[groups + g] * scale[ch];
+    add_c[j] = bias[ch];
+  }
+  const int nr = min(rows, hw - k * rows);
+  const size_t base = ((size_t)b * hw + (size_t)k * rows) * c + c0;
+  for (int r = threadIdx.y; r < nr; r += by)
+    *reinterpret_cast<Pack<T, V>*>(out + base + (size_t)r * c) = normalize<T, V>(
+        *reinterpret_cast<const Pack<T, V>*>(x + base + (size_t)r * c), mean_c, mul_c, add_c);
+}
+
 // Dynamic shared memory above 48 KB needs the attribute; set once a device
 // to the block's limit, so that any plan's size launches.
 template <typename T, int V>
@@ -397,5 +493,60 @@ extern "C" int gn_elu_forward(const void* x, const void* scale, const void* bias
   if (dtype == 1 && vec == 8) GN_LAUNCH(__nv_bfloat16, 8);
   if (dtype == 1 && vec == 1) GN_LAUNCH(__nv_bfloat16, 1);
 #undef GN_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split form's two launches (see the header).  partials: fp32
+// (B * spi, G, 2), written by gn_rows_sums and read, summed over the ranks,
+// by gn_rows_apply; n: elements of one group in the whole image.  Each
+// returns a cudaError_t.
+static bool rows_args_ok(int batch, int hw, int c, int groups, int rows, int spi, int px,
+                         int by, int vec) {
+  return batch >= 1 && hw >= 1 && c <= kMaxC && groups >= 1 && c % groups == 0 &&
+         px * vec == c && px * by <= 1024 && px * by >= 32 && rows >= 1 &&
+         spi >= 1 && (long long)rows * (spi - 1) < hw && (long long)rows * spi >= hw;
+}
+
+extern "C" int gn_rows_sums(const void* x, void* partials, int batch, int hw, int c,
+                            int groups, int rows, int spi, int px, int by, int dtype, int vec,
+                            void* stream) {
+  if (!rows_args_ok(batch, hw, c, groups, rows, spi, px, by, vec))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(batch * spi), block(px, by);
+  const size_t dyn = 4 * (size_t)by * c;
+#define GN_SUMS(T, V)                                                                    \
+  gn_rows_sums<T, V><<<grid, block, dyn, st>>>(static_cast<const T*>(x),                  \
+                                               static_cast<float*>(partials), hw, c,      \
+                                               groups, rows, spi);                        \
+  return (int)cudaGetLastError()
+  if (dtype == 0 && vec == 4) { GN_SUMS(float, 4); }
+  if (dtype == 0 && vec == 1) { GN_SUMS(float, 1); }
+  if (dtype == 1 && vec == 8) { GN_SUMS(__nv_bfloat16, 8); }
+  if (dtype == 1 && vec == 1) { GN_SUMS(__nv_bfloat16, 1); }
+#undef GN_SUMS
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int gn_rows_apply(const void* x, const void* scale, const void* bias,
+                             const void* partials, void* out, void* stats, int batch, int hw,
+                             int c, int groups, int rows, int spi, int px, int by, float n,
+                             float eps, int dtype, int vec, void* stream) {
+  if (!rows_args_ok(batch, hw, c, groups, rows, spi, px, by, vec) || !(n > 0.f))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(batch * spi), block(px, by);
+  const size_t dyn = 8 * (size_t)groups;
+#define GN_APPLY(T, V)                                                                   \
+  gn_rows_apply<T, V><<<grid, block, dyn, st>>>(                                          \
+      static_cast<const T*>(x), static_cast<const float*>(scale),                         \
+      static_cast<const float*>(bias), static_cast<const float*>(partials),               \
+      static_cast<T*>(out), static_cast<float*>(stats), hw, c, groups, rows, spi, n, eps); \
+  return (int)cudaGetLastError()
+  if (dtype == 0 && vec == 4) { GN_APPLY(float, 4); }
+  if (dtype == 0 && vec == 1) { GN_APPLY(float, 1); }
+  if (dtype == 1 && vec == 8) { GN_APPLY(__nv_bfloat16, 8); }
+  if (dtype == 1 && vec == 1) { GN_APPLY(__nv_bfloat16, 1); }
+#undef GN_APPLY
   return (int)cudaErrorInvalidValue;
 }

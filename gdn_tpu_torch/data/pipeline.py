@@ -162,7 +162,8 @@ def make_train_pipeline(cfg: Config, loader: Iterable[Batch], augment: bool = Tr
     and a batch of the rank's rows (a device cache over the mesh) is
     taken as it is.  The augmentation values are drawn for the global
     batch and cut the same way, so row i is cropped, flipped and
-    jittered as on one device."""
+    jittered as on one device.  On a spatial mesh the images stay whole
+    here: the train loop keeps this rank's rows of the augmented batch."""
     from gdn_tpu_torch.parallel.mesh import local_batch, local_rows
 
     dev = resolve_device(device)
@@ -173,7 +174,7 @@ def make_train_pipeline(cfg: Config, loader: Iterable[Batch], augment: bool = Tr
     start, end = local_rows(b, mesh)
 
     def prepare(host: Batch, i: int) -> Dict[str, torch.Tensor]:
-        host = local_batch(host, mesh, b)
+        host = local_batch(host, mesh, b)  # whole images: augmented as on one device
         batch = decode_wire_batch({k: upload(v, dev) for k, v in host.items()},
                                   max_depth=max_depth, depth_scale=depth_scale)
         if augment:

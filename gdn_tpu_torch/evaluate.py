@@ -40,7 +40,9 @@ from gdn_tpu_torch.config import Config, resolve_device
 from gdn_tpu_torch.data.pipeline import prefetch_to_device, upload as _upload
 from gdn_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 from gdn_tpu_torch.parallel import multihost
-from gdn_tpu_torch.parallel.mesh import data_group, data_size, local_rows
+from gdn_tpu_torch.parallel.mesh import (
+    data_group, data_size, height_rows, local_rows, spatial_axis,
+)
 
 Forward = Callable[[torch.Tensor], torch.Tensor]
 HostBatch = Tuple[Tuple[int, int], torch.Tensor, torch.Tensor, int, Tuple[int, ...]]
@@ -61,7 +63,10 @@ def make_eval_step(cfg: Config, forward: Forward, gt_shape: Tuple[int, int],
     ``return_preds``], on ``device``.  A uint16 GT is the "u16" wire and
     is decoded on the device (counts / 256).  With a ``mesh``, rgb and
     gt are this rank's rows and the outputs are the ranks' gathered in
-    rank order (every rank's are the single-device step's)."""
+    rank order (every rank's are the single-device step's).  On a
+    spatial mesh the forward takes this rank's image rows of rgb and the
+    prediction is gathered whole before the resize and the metrics; on a
+    model mesh every model rank holds the whole prediction."""
     dev = resolve_device(device)
     crop = torch.from_numpy(M.crop_mask(gt_shape[0], gt_shape[1], cfg.eval.crop)).to(dev)
     min_depth, cap = cfg.model.min_depth, cfg.eval.cap
@@ -70,7 +75,14 @@ def make_eval_step(cfg: Config, forward: Forward, gt_shape: Tuple[int, int],
     def step(rgb: torch.Tensor, gt: torch.Tensor):
         if gt.dtype == torch.uint16:
             gt = gt.float() * (1.0 / 256.0)
-        pred = forward(rgb)[..., 0]  # (B, H, W) at train size
+        rows = spatial_axis(mesh)
+        if rows is None:
+            pred = forward(rgb)[..., 0]  # (B, H, W) at train size
+        else:
+            pred = forward(height_rows({"rgb": rgb}, mesh)["rgb"])[..., 0]
+            parts = [torch.empty_like(pred) for _ in range(rows.size)]
+            torch.distributed.all_gather(parts, pred.contiguous(), group=rows.group)
+            pred = torch.cat(parts, dim=1)
         pred_gt = resize_bilinear(pred[:, None], gt_shape)[:, 0]
         gt_, pred_, range_mask = M.apply_cap(gt, pred_gt, min_depth, cap)
         mask = range_mask & crop
@@ -192,8 +204,9 @@ class Evaluator:
         self.mesh = mesh
         self.device = resolve_device(device)
         bs = max(1, cfg.eval.batch_size)
-        assert bs % data_size(mesh) == 0, (
-            f"eval.batch_size {bs} must be divisible by the mesh size {data_size(mesh)}")
+        size = data_size(mesh) if mesh is None or len(mesh.mesh_dim_names) == 1 else mesh.size()
+        assert bs % size == 0, (
+            f"eval.batch_size {bs} must be divisible by the mesh size {size}")
         self._rows = local_rows(bs, mesh)  # this rank's rows of each batch
         self._encoders = _wire_encoders(cfg)  # raises on an unknown wire
         self._steps: Dict[Tuple[Tuple[int, int], bool], Callable] = {}

@@ -28,6 +28,15 @@ frozen D-net) the call goes through the registered op
 ``gdn_tpu_torch::group_norm_elu`` (``kernels/ops.py``: the launch on
 the card, so that an exported graph holds it) and nothing is kept.  On
 the CPU every site runs ``group_norm_elu_analytic``.
+
+Split form (``group_norm_elu_rows``), for an image whose rows are
+sharded over a ``"spatial"`` mesh dim: one launch writes each slab's
+per-group sums, they are all-reduced over the dim, and a second launch
+folds them with the whole image's count, writes the (B, 2, G) statistics
+and normalizes.  Its backward all-reduces the two per-channel
+reductions of the analytic backward the same way; the affine gradients
+stay the rank's own (the step sums them over the ranks).  On the CPU
+the same dataflow in plain PyTorch, with the analytic form's rounding.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from gdn_tpu_torch.kernels import build, ops
 from gdn_tpu_torch.ops.groupnorm import gn_elu_backward, group_norm_elu_analytic
@@ -121,6 +131,10 @@ def load() -> ctypes.CDLL:
         lib.gn_elu_device.restype = ctypes.c_int
         lib.gn_elu_occupancy.argtypes = [i, i, i, i, p]
         lib.gn_elu_occupancy.restype = ctypes.c_int
+        lib.gn_rows_sums.argtypes = [p, p] + [i] * 10 + [p]
+        lib.gn_rows_sums.restype = ctypes.c_int
+        lib.gn_rows_apply.argtypes = [p] * 6 + [i] * 8 + [ctypes.c_float] * 2 + [i, i, p]
+        lib.gn_rows_apply.restype = ctypes.c_int
     return lib
 
 
@@ -227,15 +241,118 @@ class _GroupNormELUKernel(torch.autograd.Function):
         return dy, dscale, dbias, None, None
 
 
-def backward_from_stats(da, x, stats, scale, bias, groups):
+def backward_from_stats(da, x, stats, scale, bias, groups, ax=None):
     """(dx, dscale, dbias) of GroupNorm+ELU from x and the kernel's fp32
-    (B, 2, G) mean and inverse std, expanded per channel by one op."""
+    (B, 2, G) mean and inverse std, expanded per channel by one op.
+    ``ax``: x holds this rank's rows of the image on that spatial axis."""
     dt = x.dtype
     st = stats.repeat_interleave(x.shape[1] // groups, dim=2)  # (B, 2, C)
     mean_c, inv_c = st[:, 0], st[:, 1]
     yn = (x - mean_c.to(dt)[:, :, None, None]) * inv_c.to(dt)[:, :, None, None]
-    dy, dscale, dbias = gn_elu_backward(da, yn, inv_c, scale, bias, groups)
+    dy, dscale, dbias = gn_elu_backward(da, yn, inv_c, scale, bias, groups, ax=ax)
     return dy, dscale.to(scale.dtype), dbias.to(bias.dtype)
+
+
+def rows_plan(b: int, hw: int, sms: int, per_sm: int = 4):
+    """(rows, slabs an image) of the split form: about ``per_sm`` blocks
+    an SM over the batch, every slab at least one row."""
+    spi = max(1, min(hw, -(-per_sm * sms // b)))
+    rows = -(-hw // spi)
+    return rows, -(-hw // rows)
+
+
+def _launch_rows(x, scale, bias, groups, eps, ax):
+    """The split form's two launches around the all-reduce over ``ax`` ->
+    (out, fp32 (B, 2, G) mean and inverse std of the whole image)."""
+    b, c, h, w = x.shape
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("x must be channels_last contiguous (NHWC memory)")
+    if c > _MAX_C:
+        raise ValueError(f"C={c} exceeds the kernel's limit of {_MAX_C}")
+    scale = scale.detach().float().contiguous()
+    bias = bias.detach().float().contiguous()
+    vec = 16 // x.element_size()
+    if c % vec or x.data_ptr() % 16:
+        vec = 1
+    px, by = block_shape(c, vec)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows, spi = rows_plan(b, h * w, sms)
+    lib = load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    partials = torch.empty((b * spi, groups, 2), dtype=torch.float32, device=x.device)
+    err = lib.gn_rows_sums(x.data_ptr(), partials.data_ptr(), b, h * w, c, groups, rows, spi,
+                           px, by, _DTYPES[x.dtype], vec, stream)
+    if err != 0:
+        raise RuntimeError(f"gn_rows_sums failed: cudaError {err}")
+    if ax.size > 1:
+        dist.all_reduce(partials, group=ax.group)
+    out = torch.empty_like(x, memory_format=torch.channels_last)
+    stats = torch.empty((b, 2, groups), dtype=torch.float32, device=x.device)
+    n = float(h * ax.size * w * (c // groups))
+    err = lib.gn_rows_apply(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                            partials.data_ptr(), out.data_ptr(), stats.data_ptr(), b, h * w, c,
+                            groups, rows, spi, px, by, n, float(eps), _DTYPES[x.dtype], vec,
+                            stream)
+    if err != 0:
+        raise RuntimeError(f"gn_rows_apply failed: cudaError {err}")
+    group_norm_elu_rows.launches += 1
+    return out, stats
+
+
+def _rows_plain(x, scale, bias, groups, eps, ax):
+    """The split form in plain PyTorch: the sums all-reduced over ``ax``,
+    then ``group_norm_elu_analytic``'s forward with the whole image's
+    statistics (mean and inverse rounded to x's dtype)."""
+    b, c, h, w = x.shape
+    xf = x.float()
+    sums = torch.stack([xf.sum(dim=(2, 3)), xf.square().sum(dim=(2, 3))], 1)  # (B, 2, C)
+    if ax.size > 1:
+        dist.all_reduce(sums, group=ax.group)
+    sums = sums.view(b, 2, groups, -1).sum(-1)
+    n = h * ax.size * w * (c // groups)
+    mean = sums[:, 0] / n
+    inv = torch.rsqrt(torch.clamp(sums[:, 1] / n - mean.square(), min=0.0) + eps)
+    stats = torch.stack([mean, inv], 1)
+    dt = x.dtype
+    st = stats.repeat_interleave(c // groups, dim=2)
+    yn = (x - st[:, 0].to(dt)[:, :, None, None]) * st[:, 1].to(dt)[:, :, None, None]
+    z = yn * scale.to(dt)[:, None, None] + bias.to(dt)[:, None, None]
+    return torch.nn.functional.elu(z).contiguous(memory_format=torch.channels_last), stats
+
+
+class _GroupNormELURows(torch.autograd.Function):
+    """The split form: the kernel's forward on the card, the plain one on
+    the CPU; the analytic backward with its reductions all-reduced."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, ax):
+        fwd = _launch_rows if x.device.type == "cuda" else _rows_plain
+        out, stats = fwd(x, scale, bias, groups, eps, ax)
+        ctx.save_for_backward(x, stats, scale, bias)
+        ctx.groups, ctx.ax = groups, ax
+        return out
+
+    @staticmethod
+    def backward(ctx, da):
+        x, stats, scale, bias = ctx.saved_tensors
+        dy, dscale, dbias = backward_from_stats(da, x, stats, scale, bias, ctx.groups, ctx.ax)
+        return dy, dscale, dbias, None, None, None
+
+
+def group_norm_elu_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                        groups: int, eps: float, ax) -> torch.Tensor:
+    """GroupNorm + ELU of the whole image on this rank's rows x (B, C, h,
+    W) of it, the rows split evenly over the spatial axis ``ax``
+    (``parallel.mesh.Axis``; of extent 1, the whole image: no
+    collective): the split form.  A CPU tensor runs the
+    plain version; a CUDA tensor launches the kernels or raises."""
+    _check(x, scale, bias, groups)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return _GroupNormELURows.apply(x, scale, bias, groups, eps, ax)
+
+
+group_norm_elu_rows.launches = 0
 
 
 def group_norm_elu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

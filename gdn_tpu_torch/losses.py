@@ -21,6 +21,16 @@ a mean over equal-size shards (``latent_loss``, the SSIM of unweighted
 images) and a constant divide by the number of ranks.  The mean of
 per-rank ratios would not be the global ratio: sparse GT gives the
 ranks different valid counts.
+
+Spatial parallelism (``rows``, the mesh's ``"spatial"`` axis, with
+``group`` its ``"data"`` x ``"spatial"`` ranks): the maps are this
+rank's rows of each image.  Counts and means are taken over ``group``
+as above (the shards are the same size); the forward differences take
+one row from the rank below (``_grads``), SSIM its window's halo
+(``ops.ssim``), the coarse scales pool each shard (its rows divide by
+2^(scales-1)), and an image counts as valid by its mask over all its
+rows.  The fused loss kernel has no halo form: the steps route a
+spatial mesh to the plain terms, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -32,8 +42,9 @@ import torch
 from gdn_tpu_torch.config import LossConfig
 from gdn_tpu_torch.kernels.fused_loss import fused_loss_terms
 from gdn_tpu_torch.ops.resize import resize_nearest
-from gdn_tpu_torch.parallel.mesh import global_sum, group_size
 from gdn_tpu_torch.ops.ssim import ssim
+from gdn_tpu_torch.parallel.mesh import global_sum, group_size
+from gdn_tpu_torch.parallel.spatial import halo
 
 
 def _squeeze(x: torch.Tensor) -> torch.Tensor:
@@ -54,18 +65,24 @@ def masked_l1(pred, gt, mask, group=None) -> torch.Tensor:
     return diff.sum() / torch.clamp(global_sum(mask.sum(), group), min=1.0)
 
 
-def _grads(x: torch.Tensor):
-    """Forward-difference spatial gradients of (B, H, W)."""
-    return x[:, :, 1:] - x[:, :, :-1], x[:, 1:, :] - x[:, :-1, :]
+def _grads(x: torch.Tensor, rows=None):
+    """Forward-difference spatial gradients of (B, H, W); with ``rows``
+    x is this rank's rows and the last one's pair is the next rank's
+    first row (none below the image's last)."""
+    xv = x if rows is None else halo(x, 0, 1, rows, "none", dim=1)
+    return x[:, :, 1:] - x[:, :, :-1], xv[:, 1:, :] - xv[:, :-1, :]
 
 
 def _gradient_scale_losses(pred, gt, mask, num_scales: int,
-                           skip_first: bool = False, group=None):
+                           skip_first: bool = False, group=None, rows=None):
     """Per-scale gradient L1 terms (a list of scalars), fine to coarse.
     With ``skip_first`` the scale-0 term (the fused kernel's) is left
     out; the pooling chain is the same either way.  A coarse pixel is
     valid only where all 4 children are (see the JAX package)."""
     terms = []
+    if rows is not None and pred.shape[1] % 2 ** (num_scales - 1):
+        raise ValueError(f"a shard of {pred.shape[1]} rows does not pool {num_scales - 1} "
+                         "times: its scales would straddle the ranks")
     for s in range(num_scales):
         if s > 0:
             pred = _avgpool2(pred)
@@ -75,10 +92,11 @@ def _gradient_scale_losses(pred, gt, mask, num_scales: int,
             mask = (m_w > 0.999).float()
         if s == 0 and skip_first:
             continue
-        pdx, pdy = _grads(pred)
-        gdx, gdy = _grads(gt)
+        pdx, pdy = _grads(pred, rows)
+        gdx, gdy = _grads(gt, rows)
+        mv = mask if rows is None else halo(mask, 0, 1, rows, "none", dim=1)
         mdx = mask[:, :, 1:] * mask[:, :, :-1]
-        mdy = mask[:, 1:, :] * mask[:, :-1, :]
+        mdy = mv[:, 1:, :] * mv[:, :-1, :]
         counts = global_sum(torch.stack([mdx.sum(), mdy.sum()]), group)
         nx = torch.clamp(counts[0], min=1.0)
         ny = torch.clamp(counts[1], min=1.0)
@@ -87,24 +105,26 @@ def _gradient_scale_losses(pred, gt, mask, num_scales: int,
     return terms
 
 
-def gradient_loss(pred, gt, mask, num_scales: int = 4, group=None) -> torch.Tensor:
+def gradient_loss(pred, gt, mask, num_scales: int = 4, group=None,
+                  rows=None) -> torch.Tensor:
     """Multi-scale L1 on spatial gradients of pred vs gt."""
     pred = _squeeze(pred).float()
     gt = _squeeze(gt).float()
     mask = _squeeze(mask).float()
     return sum(_gradient_scale_losses(pred, gt, mask, num_scales,
-                                      group=group)) / num_scales
+                                      group=group, rows=rows)) / num_scales
 
 
 def ssim_loss(pred, gt, max_depth: float, window: int = 11, sigma: float = 1.5,
               precision: str = "highest",
-              image_weights: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
+              image_weights: Optional[torch.Tensor] = None, group=None,
+              rows=None) -> torch.Tensor:
     """(1 - SSIM) / 2 on depth normalized by max_depth; ``image_weights``
     (B,) drops whole images (all-masked ones) from the mean."""
     p = _squeeze(pred).float() / max_depth
     g = _squeeze(gt).float() / max_depth
     s_map = ssim(p, g, max_val=1.0, window=window, sigma=sigma,
-                 precision=precision, mean=False)
+                 precision=precision, mean=False, rows=rows)
     d = group_size(group)
     if image_weights is None:
         s = s_map.mean() / d
@@ -162,10 +182,15 @@ def total_loss(
     target_latents: Sequence[torch.Tensor] = (),
     scale_preds: Sequence[torch.Tensor] = (),
     group=None,
+    rows=None,
 ) -> Dict[str, torch.Tensor]:
     """Composite loss: a dict with 'total' and each term; ``scale_preds``
     (the coarse heads' depths, coarse->fine) add ``scales``.  With
-    ``group`` each term is this rank's share of the global one."""
+    ``group`` each term is this rank's share of the global one; with
+    ``rows`` the maps are this rank's rows of each image."""
+    if rows is not None and (cfg.use_pallas or scale_preds):
+        raise ValueError("on a spatial mesh the loss takes the plain terms and no coarse "
+                         "heads (train.steps routes it so)")
     if cfg.use_pallas:
         fused = fused_loss_terms(pred, gt, mask, max_depth, cfg.ssim_window,
                                  cfg.ssim_sigma, precision=cfg.ssim_precision, group=group)
@@ -178,13 +203,16 @@ def total_loss(
             "ssim": fused["ssim"],
         }
     else:
-        valid = (_squeeze(mask).float().sum(dim=(1, 2)) > 0).float()
+        per_image = _squeeze(mask).float().sum(dim=(1, 2))
+        if rows is not None:
+            per_image = global_sum(per_image, rows.group)
+        valid = (per_image > 0).float()
         terms = {
             "recon": masked_l1(pred, gt, mask, group),
-            "grad": gradient_loss(pred, gt, mask, cfg.grad_scales, group),
+            "grad": gradient_loss(pred, gt, mask, cfg.grad_scales, group, rows),
             "ssim": ssim_loss(pred, gt, max_depth, cfg.ssim_window,
                               cfg.ssim_sigma, precision=cfg.ssim_precision,
-                              image_weights=valid, group=group),
+                              image_weights=valid, group=group, rows=rows),
         }
     total = (cfg.w_recon * terms["recon"] + cfg.w_grad * terms["grad"]
              + cfg.w_ssim * terms["ssim"])

@@ -47,6 +47,18 @@ activation scale in a non-persistent buffer ``x_scale`` (so its key is
 the flax path of the JAX package's ``"quant"`` collection) and its
 ``calibrating`` flag, which ``ops.quant.calibrate_quant`` sets.  The
 GroupNorm+ELU kernel stays on at every site.
+
+Placed on a mesh with a ``"model"`` or ``"spatial"`` dim
+(``parallel.mesh.shard_state``), a block carries ``tp`` (it holds a
+slice of its output channels) and ``sp`` (it takes this rank's image
+rows).  Every GroupNorm site then runs as one site of
+``parallel.tensor`` (the conv on the whole input and the weight slice,
+the epilogue on the slice, the channels gathered) and its conv, upsample
+and GroupNorm statistics in the height-sharded forms of
+``parallel.spatial`` and ``kernels.groupnorm.group_norm_elu_rows``.  A
+fused conv kernel has no halo form: under ``sp`` the rows are gathered
+around it and split again.  Without either, a block runs as on one
+device, launch for launch.
 """
 
 from __future__ import annotations
@@ -64,13 +76,17 @@ from gdn_tpu_torch.kernels.conv_gn_elu import (
 )
 from gdn_tpu_torch.kernels.fusion_block import fused_fusion_block
 from gdn_tpu_torch.kernels.fusion_bt import fused_fusion_bt
-from gdn_tpu_torch.kernels.groupnorm import group_norm_elu
+from gdn_tpu_torch.kernels.groupnorm import group_norm_elu, group_norm_elu_rows
 from gdn_tpu_torch.kernels.upsample import fused_upsample_conv
 from gdn_tpu_torch.ops.conv import CL, conv_same
 from gdn_tpu_torch.ops.elu import elu_saveout
 from gdn_tpu_torch.ops.groupnorm import group_norm_act, pick_groups
 from gdn_tpu_torch.ops.quant import conv2d_int8, init_act_scale
 from gdn_tpu_torch.ops.resize import composed_resize_conv2x, resize_bilinear
+from gdn_tpu_torch.parallel.spatial import (
+    conv_rows, gather_rows, split_rows, upsample2x_rows,
+)
+from gdn_tpu_torch.parallel.tensor import column_fused, column_site
 
 GN_EPS = 1e-6
 
@@ -94,14 +110,55 @@ def _param(*shape, fill: Optional[float] = None) -> nn.Parameter:
 
 
 def gn_act(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-           groups: int, cfg: ModelConfig) -> torch.Tensor:
+           groups: int, cfg: ModelConfig, sp=None) -> torch.Tensor:
     """GroupNorm + activation epilogue of a block: ELU on the GroupNorm+ELU
-    kernel, any other activation through the plain ``group_norm_act``."""
+    kernel (its split form on this rank's rows under ``sp``), any other
+    activation through the plain ``group_norm_act``."""
     y = y.to(cfg.compute_dtype).contiguous(memory_format=CL)
     if cfg.activation == "elu":
+        if sp is not None:
+            return group_norm_elu_rows(y, scale, bias, groups, GN_EPS, sp)
         return group_norm_elu(y, scale, bias, groups, GN_EPS)
     return group_norm_act(y, scale, bias, groups, activation_fn(cfg.activation),
                           cfg.gn_impl, GN_EPS)
+
+
+def _conv(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1, sp=None,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``conv_same``, or under ``sp`` its form on this rank's rows."""
+    if sp is None:
+        return conv_same(x, kernel, stride, bias)
+    return conv_rows(x, kernel, stride, sp, bias)
+
+
+def _site(block: nn.Module, conv: Callable, xs, scale: torch.Tensor,
+          bias: torch.Tensor) -> torch.Tensor:
+    """A GroupNorm site: ``conv(xs)`` then the epilogue; column-parallel
+    (``parallel.tensor.column_site``) where the block holds a slice."""
+    tp, sp, cfg = getattr(block, "tp", None), getattr(block, "sp", None), block.cfg
+
+    def epilogue(y, s, b, g):
+        return gn_act(y, s, b, g, cfg, sp)
+
+    if tp is None:
+        return epilogue(conv(xs), scale, bias, block.groups)
+    return column_site(tp, conv, epilogue, xs, scale, bias, block.groups)
+
+
+def _fused_site(block: nn.Module, call: Callable, xs, ws, scale: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """A fused conv+GroupNorm+ELU kernel ``call(xs, ws, scale, bias,
+    groups)`` as a site: column-parallel where the block holds a slice,
+    and under ``sp`` on the whole image's rows, gathered around the
+    call and split again."""
+    tp, sp = getattr(block, "tp", None), getattr(block, "sp", None)
+    if sp is not None:
+        xs = [gather_rows(x, sp) for x in xs]
+    if tp is None:
+        out = call(xs, ws, scale, bias, block.groups)
+    else:
+        out = column_fused(tp, call, xs, ws, scale, bias, block.groups)
+    return out if sp is None else split_rows(out, sp)
 
 
 def _fusable(cfg: ModelConfig) -> bool:
@@ -184,14 +241,19 @@ class ConvBlock(nn.Module):
             return activation_fn(c.activation)(y)
         fused = self._fused()
         if fused is not None:
-            out = fused(x.to(dt).contiguous(memory_format=CL), self.Conv_0.kernel,
-                        self.gn_scale, self.gn_bias, self.groups, GN_EPS, c.dtype)
-            return out.to(dt)
+            def call(xs, ws, scale, bias, groups):
+                return fused(xs[0].to(dt).contiguous(memory_format=CL), ws[0], scale, bias,
+                             groups, GN_EPS, c.dtype).to(dt)
+
+            return _fused_site(self, call, [x], [self.Conv_0.kernel], self.gn_scale,
+                               self.gn_bias)
         if self.quantized:
             y = _conv_int8(self, x, self.Conv_0.kernel, self.stride).to(dt)
-        else:
-            y = conv_same(x.to(dt), self.Conv_0.kernel.to(dt), self.stride)
-        return gn_act(y, self.gn_scale, self.gn_bias, self.groups, c)
+            return gn_act(y, self.gn_scale, self.gn_bias, self.groups, c)
+        sp = getattr(self, "sp", None)
+        return _site(self, lambda xs: _conv(xs[0].to(dt), self.Conv_0.kernel.to(dt),
+                                            self.stride, sp),
+                     [x], self.gn_scale, self.gn_bias)
 
 
 class DownBlock(nn.Module):
@@ -249,12 +311,22 @@ class FusionBlock(nn.Module):
             fused = fused_fusion_block
         if fused is not None:
             cx = x.shape[1]
-            out = fused(
-                x.to(dt).contiguous(memory_format=CL),
-                lateral.to(dt).contiguous(memory_format=CL),
-                self.kernel[:, :cx], self.kernel[:, cx:], self.scale, self.bias,
-                self.groups, GN_EPS, c.dtype)
-            return out.to(dt)
+
+            def call(xs, ws, scale, bias, groups):
+                return fused(xs[0].to(dt).contiguous(memory_format=CL),
+                             xs[1].to(dt).contiguous(memory_format=CL),
+                             ws[0][:, :cx], ws[0][:, cx:], scale, bias, groups, GN_EPS,
+                             c.dtype).to(dt)
+
+            return _fused_site(self, call, [x, lateral], [self.kernel], self.scale, self.bias)
+        if self.use_gn and not self.quantized:
+            sp = getattr(self, "sp", None)
+
+            def conv(xs):
+                full = torch.cat([xs[0], xs[1].to(xs[0].dtype)], dim=1)
+                return _conv(full.to(dt), self.kernel.to(dt), 1, sp)
+
+            return _site(self, conv, [x, lateral], self.scale, self.bias)
         full = torch.cat([x, lateral.to(x.dtype)], dim=1)
         if self.quantized:
             y = _conv_int8(self, full, self.kernel, 1).to(dt)
@@ -332,17 +404,36 @@ class UpBlock(nn.Module):
         exact2x = tuple(target_hw) == (2 * h, 2 * w)
         plain = c.quant == "none"  # int8 takes resize then conv, as the JAX package
         if _fusable(c) and c.use_pallas_fusion and exact2x:
-            return fused_upsample_conv(
-                x.to(dt).contiguous(memory_format=CL), self.up_kernel, self.up_scale,
-                self.up_bias, self.groups, GN_EPS, c.dtype).to(dt)
-        k = self.up_kernel.to(dt)
-        if c.resize_conv_composed and plain and exact2x and h >= 2 and w >= 2:
-            y = composed_resize_conv2x(x.to(dt), k.contiguous(memory_format=CL))
-        else:
+            def call(xs, ws, scale, bias, groups):
+                return fused_upsample_conv(xs[0].to(dt).contiguous(memory_format=CL), ws[0],
+                                           scale, bias, groups, GN_EPS, c.dtype).to(dt)
+
+            return _fused_site(self, call, [x], [self.up_kernel], self.up_scale, self.up_bias)
+        if self.quantized:
             u = resize_bilinear(x.to(dt), target_hw, precise=False)
-            y = (_conv_int8(self, u, self.up_kernel, 1).to(dt) if self.quantized
-                 else conv_same(u, k))
-        return gn_act(y, self.up_scale, self.up_bias, self.groups, c)
+            y = _conv_int8(self, u, self.up_kernel, 1).to(dt)
+            return gn_act(y, self.up_scale, self.up_bias, self.groups, c)
+        sp = getattr(self, "sp", None)
+        # the composed op has no halo form: on sharded rows, resize then conv
+        if (c.resize_conv_composed and plain and exact2x and h >= 2 and w >= 2
+                and sp is None):
+            def conv(xs):
+                k = self.up_kernel.to(dt)
+                return composed_resize_conv2x(xs[0].to(dt), k.contiguous(memory_format=CL))
+        elif sp is not None:
+            if target_hw[0] != 2 * h:
+                raise NotImplementedError(
+                    f"a resize of {h} sharded rows to {target_hw[0]}: only the exact 2x is "
+                    "ported under spatial parallelism (ROADMAP.md Queue A item 10c)")
+
+            def conv(xs):
+                u = upsample2x_rows(xs[0].to(dt), target_hw[1], sp)
+                return conv_rows(u, self.up_kernel.to(dt), 1, sp)
+        else:
+            def conv(xs):
+                u = resize_bilinear(xs[0].to(dt), target_hw, precise=False)
+                return conv_same(u, self.up_kernel.to(dt))
+        return _site(self, conv, [x], self.up_scale, self.up_bias)
 
     def forward(self, x: torch.Tensor, target_hw: Tuple[int, int],
                 lateral: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -366,5 +457,6 @@ class DepthHead(nn.Module):
         self.Conv_0 = _ConvKernel(cin, 1, 3, use_bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv_same(x.float(), self.Conv_0.kernel, 1, self.Conv_0.bias)
+        y = _conv(x.float(), self.Conv_0.kernel, 1, getattr(self, "sp", None),
+                  self.Conv_0.bias)
         return torch.sigmoid(y) * self.max_depth

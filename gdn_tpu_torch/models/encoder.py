@@ -10,6 +10,7 @@ from torch import nn
 
 from gdn_tpu_torch.config import ModelConfig
 from gdn_tpu_torch.models.blocks import ConvBlock, DownBlock
+from gdn_tpu_torch.parallel.spatial import check_rows
 
 
 def skip_channels(cfg: ModelConfig) -> List[int]:
@@ -35,6 +36,9 @@ class Encoder(nn.Module):
             cin = ch
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        sp = getattr(self, "sp", None)
+        if sp is not None:  # x holds this rank's rows
+            check_rows(x.shape[2] * sp.size, len(self.cfg.enc_channels), sp)
         x = self.stem(x.to(self.cfg.compute_dtype))
         skips = []
         for i in range(len(self.cfg.enc_channels)):

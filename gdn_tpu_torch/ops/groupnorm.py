@@ -23,6 +23,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 
@@ -109,7 +110,7 @@ def group_norm_elu_plain(
 
 def gn_elu_backward(da: torch.Tensor, yn: torch.Tensor, inv_c: torch.Tensor,
                     scale: torch.Tensor, bias: torch.Tensor, groups: int,
-                    a: Optional[torch.Tensor] = None):
+                    a: Optional[torch.Tensor] = None, ax=None):
     """Analytic backward of GroupNorm + ELU (port of the JAX package's
     ``_gn_elu_bwd``): from the normalized input yn (compute dtype) and
     the fp32 (B, C) inverse std, two full-tensor reduces give dy, dscale
@@ -118,7 +119,12 @@ def gn_elu_backward(da: torch.Tensor, yn: torch.Tensor, inv_c: torch.Tensor,
 
     With the forward's output ``a`` given, ELU' is taken from it alone
     (a > 0 -> 1, else a + 1: exact), as the JAX package's fused conv
-    kernels do, and ``bias`` is not read."""
+    kernels do, and ``bias`` is not read.
+
+    ``ax`` (a ``parallel.mesh.Axis``): yn holds this rank's rows of the
+    image, split evenly over that spatial axis; the two reductions are
+    summed over it before the group means (the whole image's), and the
+    returned dscale and dbias are this rank's parts."""
     b, c, h, w = yn.shape
     cg = c // groups
     dt = yn.dtype
@@ -132,13 +138,19 @@ def gn_elu_backward(da: torch.Tensor, yn: torch.Tensor, inv_c: torch.Tensor,
     s_dz = dz.sum(dim=(2, 3), dtype=torch.float32)  # (B, C)
     s_dzyn = (dz * yn).sum(dim=(2, 3), dtype=torch.float32)
     n = h * w * cg
+    g_dz, g_dzyn = s_dz, s_dzyn
+    if ax is not None and ax.size > 1:
+        both = torch.stack([s_dz, s_dzyn])
+        dist.all_reduce(both, group=ax.group)
+        g_dz, g_dzyn = both
+        n *= ax.size
     scale32 = scale.float()
 
     def group_mean(s):  # (B, C) -> mean over each group, per channel
         return (s * scale32).view(b, groups, cg).sum(-1).div(n).repeat_interleave(cg, 1)
 
-    m1 = group_mean(s_dz).to(dt)[:, :, None, None]
-    m2 = group_mean(s_dzyn).to(dt)[:, :, None, None]
+    m1 = group_mean(g_dz).to(dt)[:, :, None, None]
+    m2 = group_mean(g_dzyn).to(dt)[:, :, None, None]
     dy = (dz * sc - m1 - yn * m2) * inv_c.to(dt)[:, :, None, None]
     return dy, s_dzyn.sum(0), s_dz.sum(0)
 

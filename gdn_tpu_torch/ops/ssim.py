@@ -12,6 +12,11 @@ knob selects MXU passes on a TPU; here it is checked and ignored (fp32
 matmuls on the card are full fp32 unless TF32 is switched on).
 
 Layout: (B, H, W) or (B, H, W, 1) float maps.
+
+Spatial parallelism (``rows``, a ``parallel.mesh.Axis``): the maps are
+this rank's rows of the image; the window meets the neighbours' rows
+through a halo of ``window // 2`` rows, reflected at the global top and
+bottom only, and the rows blur by the band's valid part.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import functools
 
 import numpy as np
 import torch
+
+from gdn_tpu_torch.parallel.spatial import halo
 
 PRECISIONS = ("default", "high", "highest")
 
@@ -55,6 +62,18 @@ def _blur_matrix_cached(size: int, window: int, sigma: float) -> torch.Tensor:
     return torch.from_numpy(blur_matrix(size, window, sigma))
 
 
+@functools.lru_cache(maxsize=32)
+def valid_band(size: int, window: int, sigma: float) -> torch.Tensor:
+    """(size, size + window - 1) matrix M with M @ x = the Gaussian blur
+    of the size rows at the middle of x (its window // 2 rows of halo on
+    each side)."""
+    g = gaussian_kernel_1d(window, sigma)
+    m = np.zeros((size, size + window - 1), dtype=np.float32)
+    for i in range(size):
+        m[i, i:i + window] = g
+    return torch.from_numpy(m)
+
+
 def blur_matrices(h: int, w: int, window: int, sigma: float, device):
     """(my, mx): the row and column band matrices of an (H, W) map."""
     return (_blur_matrix_cached(h, window, sigma).to(device),
@@ -79,9 +98,11 @@ def ssim(
     sigma: float = 1.5,
     mean: bool = True,
     precision: str = "highest",
+    rows=None,
 ) -> torch.Tensor:
     """SSIM between depth maps in [0, max_val]: the scalar mean, or with
-    ``mean=False`` the (B, H, W) map."""
+    ``mean=False`` the (B, H, W) map (with ``rows``, this rank's rows of
+    it; see the module docstring)."""
     check_precision(precision)
     if pred.dim() == 4:
         pred, target = pred[..., 0], target[..., 0]
@@ -89,6 +110,11 @@ def ssim(
     target = target.float()
     h, w = pred.shape[-2], pred.shape[-1]
     my, mx = blur_matrices(h, w, window, sigma, pred.device)
+    if rows is not None:
+        half = window // 2
+        pred = halo(pred, half, half, rows, "reflect", dim=1)
+        target = halo(target, half, half, rows, "reflect", dim=1)
+        my = valid_band(h, window, sigma).to(pred.device)
     c1 = (0.01 * max_val) ** 2
     c2 = (0.03 * max_val) ** 2
 

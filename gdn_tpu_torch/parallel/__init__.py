@@ -1,6 +1,9 @@
-"""Data parallelism and FSDP over ``torch.distributed`` (port of
-``gdn_tpu/parallel/``): ``mesh`` (the data mesh, batch rows, the
-placement rules and placement), ``multihost`` (process-group start-up)."""
+"""Data, tensor and spatial parallelism and FSDP over
+``torch.distributed`` (port of ``gdn_tpu/parallel/``): ``mesh`` (the
+(data, spatial, model) mesh, batch and image rows, the placement rules
+and placement), ``tensor`` (column-parallel conv sites), ``spatial``
+(height shards and their halos), ``multihost`` (process-group
+start-up)."""
 
 from gdn_tpu_torch.parallel.mesh import (
     create_mesh,

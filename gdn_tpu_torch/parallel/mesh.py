@@ -16,10 +16,22 @@ writes each mode out:
   the Adam moments, the EMA and the accumulator follow their parameter.
   A parameter the rule leaves whole is kept out of FSDP (replicated,
   its gradient all-reduced like data parallel's).
-- **TP and SP** (a ``"model"`` or ``"spatial"`` dim) split one image's
-  work and need hand-written collectives inside the forward: refused,
-  naming ROADMAP.md Queue A item 10b.  Their shape rules
-  (``tensor_parallel_spec``) are ported.
+- **TP** (a ``"model"`` dim): column parallelism.  Each model rank
+  holds the slice of every parameter's output channels that
+  ``tensor_parallel_spec`` shards (``shard_columns``) and of its Adam
+  moments and EMA; each conv site runs on the whole input and its own
+  output channels, and the channels are gathered after the GroupNorm
+  epilogue (``parallel.tensor``).
+- **SP** (a ``"spatial"`` dim): each rank holds its image rows of every
+  activation (``shard_batch`` splits height, as ``batch_sharding``
+  does); convolutions, the upsample and SSIM meet their neighbours'
+  rows by halo exchange and the GroupNorm and loss statistics are
+  summed over the dim (``parallel.spatial``).
+- The dims compose: ``create_mesh(spatial=, model=)`` lays out
+  ``(data, spatial, model)``.  Pixel sums (loss counts, the reported
+  terms, the parameter gradients) run over ``pixel_group``, the
+  ``"data"`` x ``"spatial"`` ranks; the ``"model"`` ranks compute the
+  same loss.
 
 ``replicated`` and ``batch_sharding`` have no counterpart object: a
 replicated tensor is a plain tensor on every rank, and a sharded batch
@@ -34,42 +46,49 @@ the same axis of a parameter that the JAX package shards.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import nn
 from torch.utils._pytree import tree_leaves
 
+from gdn_tpu_torch.config import refuse_split
 from gdn_tpu_torch.parallel import multihost
 
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
 MODEL_AXIS = "model"
-LATER = "ROADMAP.md Queue A item 10b (tensor and spatial parallelism)"
 
 Spec = Tuple[Optional[str], ...]
 # flax dim of each dim of a 4-D OIHW kernel (flax: HWIO)
 _HWIO_OF_OIHW = (3, 2, 0, 1)
 
 
+class Axis(NamedTuple):
+    """One mesh dim as the collectives see it: its process group, its
+    extent and this rank's place on it."""
+
+    group: Any
+    size: int
+    rank: int
+
+
 def create_mesh(num_devices: int = 0, axis_name: str = DATA_AXIS, spatial: int = 1,
                 model: int = 1, device_type: Optional[str] = None):
-    """The ``"data"`` DeviceMesh over the process group's ranks
-    (``num_devices`` 0: all of them), or None when one process runs
-    without a group (one device, no mesh: the same math).  A spatial or
-    model extent > 1 raises NotImplementedError (Queue A item 10b) once
-    it divides the device count, as the JAX package checks."""
+    """The DeviceMesh over the process group's ranks (``num_devices`` 0:
+    all of them): ``(data, spatial, model)`` with the dims of extent 1
+    but ``"data"`` dropped, as the JAX package's ``create_mesh`` builds
+    it, and ranks laid out as its ``reshape`` lays out devices (data
+    outermost, the trailing dims fastest).  None when one process runs
+    without a group (one device, no mesh: the same math).  The extents
+    must divide the device count."""
     world = multihost.world_size()
     n = num_devices or world
     inner = spatial * model
-    if inner > 1:
-        if n % inner:
-            raise ValueError(f"spatial={spatial} x model={model} does not divide "
-                             f"{n} devices")
-        raise NotImplementedError(
-            f"spatial={spatial} / model={model} mesh axes are not ported to "
-            f"gdn_tpu_torch yet; see {LATER}")
+    if inner > 1 and n % inner:
+        raise ValueError(f"spatial={spatial} x model={model} does not divide "
+                         f"{n} devices")
     if n != world:
         raise ValueError(f"num_devices={n} but {world} rank(s) run: start the ranks "
                          "with scripts' --num_devices, torchrun, or "
@@ -80,21 +99,52 @@ def create_mesh(num_devices: int = 0, axis_name: str = DATA_AXIS, spatial: int =
 
     if device_type is None:
         device_type = "cuda" if torch.cuda.is_available() else "cpu"
-    return init_device_mesh(device_type, (n,), mesh_dim_names=(axis_name,))
+    dims = [(axis_name, n // inner)]
+    if spatial > 1:
+        dims.append((SPATIAL_AXIS, spatial))
+    if model > 1:
+        dims.append((MODEL_AXIS, model))
+    mesh = init_device_mesh(device_type, tuple(d for _, d in dims),
+                            mesh_dim_names=tuple(k for k, _ in dims))
+    # the group of "data" x "spatial" (a model rank's replicas of one
+    # column): every rank makes every such group, in the same order
+    mesh.pixel_group = dist.group.WORLD
+    if model > 1:
+        rows = torch.arange(n).view(-1, model)
+        for m in range(model):
+            g = dist.new_group(rows[:, m].tolist())
+            if multihost.rank() % model == m:
+                mesh.pixel_group = g
+    return mesh
+
+
+def _dim(mesh, name: str) -> Optional[Axis]:
+    if mesh is None or name not in (mesh.mesh_dim_names or ()):
+        return None
+    return Axis(mesh.get_group(name), mesh.size(mesh.mesh_dim_names.index(name)),
+                mesh.get_local_rank(name))
+
+
+def spatial_axis(mesh) -> Optional[Axis]:
+    """The ``"spatial"`` dim (image height), None when absent."""
+    return _dim(mesh, SPATIAL_AXIS)
+
+
+def model_axis(mesh) -> Optional[Axis]:
+    """The ``"model"`` dim (output channels), None when absent."""
+    return _dim(mesh, MODEL_AXIS)
 
 
 def spatial_size(mesh) -> int:
     """Extent of the spatial axis (1 when absent / no mesh)."""
-    if mesh is None or SPATIAL_AXIS not in (mesh.mesh_dim_names or ()):
-        return 1
-    return mesh.size(mesh.mesh_dim_names.index(SPATIAL_AXIS))
+    ax = spatial_axis(mesh)
+    return 1 if ax is None else ax.size
 
 
 def model_size(mesh) -> int:
     """Extent of the model (tensor-parallel) axis (1 when absent)."""
-    if mesh is None or MODEL_AXIS not in (mesh.mesh_dim_names or ()):
-        return 1
-    return mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS))
+    ax = model_axis(mesh)
+    return 1 if ax is None else ax.size
 
 
 def data_size(mesh) -> int:
@@ -108,6 +158,19 @@ def data_rank(mesh) -> int:
 def data_group(mesh):
     """The process group of the ``"data"`` dim; None without a mesh."""
     return None if mesh is None else mesh.get_group(DATA_AXIS)
+
+
+def pixel_group(mesh):
+    """The group over which a pixel sum is global: ``"data"`` x
+    ``"spatial"`` (the ranks that hold other rows or other images of one
+    channel slice).  Loss counts, the reported terms and the parameter
+    gradients are summed over it; the ``"model"`` ranks compute the same
+    values and are not summed.  The data group on a 1-D mesh."""
+    if mesh is None:
+        return None
+    if len(mesh.mesh_dim_names) == 1:
+        return data_group(mesh)
+    return mesh.pixel_group
 
 
 def global_sum(t: torch.Tensor, group) -> torch.Tensor:
@@ -135,37 +198,69 @@ def local_rows(n: int, mesh) -> Tuple[int, int]:
     return r * per, (r + 1) * per
 
 
+def height_rows(batch: Dict[str, Any], mesh, dim: int = 1) -> Dict[str, Any]:
+    """This rank's image rows (dim ``dim``) on a spatial mesh, as the
+    JAX package's ``batch_sharding`` splits height on ``"spatial"``;
+    the batch as it is otherwise."""
+    ax = spatial_axis(mesh)
+    if ax is None:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        h = v.shape[dim]
+        assert h % ax.size == 0, (
+            f"batch dim {dim} ({h}) not divisible by mesh axis {SPATIAL_AXIS!r} ({ax.size})")
+        per = h // ax.size
+        out[k] = v.narrow(dim, ax.rank * per, per)
+    return out
+
+
 def _rows(batch: Dict[str, Any], mesh, dim: int) -> Dict[str, Any]:
     if mesh is None:
         return batch
     n = next(iter(batch.values())).shape[dim]
     s, e = local_rows(n, mesh)
-    return {k: v.narrow(dim, s, e - s) if dim else v[s:e] for k, v in batch.items()}
+    out = {k: v.narrow(dim, s, e - s) if dim else v[s:e] for k, v in batch.items()}
+    return height_rows(out, mesh, dim + 1)
 
 
 def shard_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
-    """This rank's rows (dim 0) of a global batch."""
+    """This rank's rows (dim 0) of a global batch, and on a spatial mesh
+    its image rows (dim 1)."""
     return _rows(batch, mesh, 0)
 
 
-def local_batch(batch: Dict[str, Any], mesh, global_batch: int) -> Dict[str, Any]:
+def local_batch(batch: Dict[str, Any], mesh, global_batch: int,
+                height: Optional[int] = None) -> Dict[str, Any]:
     """This rank's rows of a batch that holds the global batch (cut) or
     this rank's rows already (kept, as a pipeline or a device cache over
-    the mesh yields them); any other row count raises."""
+    the mesh yields them); any other row count raises.  On a spatial
+    mesh, given the image ``height``, likewise its image rows: whole
+    images are cut, this rank's rows kept (a pipeline augments whole
+    images, and leaves the cut to the loop)."""
     if mesh is None:
         return batch
     n = next(iter(batch.values())).shape[0]
     if n == global_batch:
-        return shard_batch(batch, mesh)
-    if n * data_size(mesh) == global_batch:
+        batch = {k: v[slice(*local_rows(n, mesh))] for k, v in batch.items()}
+    elif n * data_size(mesh) != global_batch:
+        raise ValueError(f"a batch of {n} rows: expected the global batch ({global_batch}) "
+                         f"or this rank's rows ({global_batch} / {data_size(mesh)})")
+    s = spatial_size(mesh)
+    if height is None or s == 1:
         return batch
-    raise ValueError(f"a batch of {n} rows: expected the global batch ({global_batch}) "
-                     f"or this rank's rows ({global_batch} / {data_size(mesh)})")
+    h = next(iter(batch.values())).shape[1]
+    if h == height:
+        return height_rows(batch, mesh)
+    if h * s != height:
+        raise ValueError(f"images of {h} rows: expected the whole height ({height}) or "
+                         f"this rank's rows ({height} / {s})")
+    return batch
 
 
 def shard_stacked_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
     """This rank's rows of a stacked ``steps_per_call`` batch
-    {k: (K, B, ...)}: dim 1."""
+    {k: (K, B, ...)}: dim 1 (and its image rows, dim 2)."""
     return _rows(batch, mesh, 1)
 
 
@@ -229,12 +324,89 @@ def param_mode(mesh_cfg) -> str:
 
 
 def tree_shardings(net: nn.Module, mesh, mode: str) -> Dict[str, Spec]:
-    """The spec of each parameter of ``net`` under ``mode``, by name."""
+    """The spec of each parameter of ``net`` under ``mode``, by name:
+    "tp" by ``tensor_parallel_spec`` over the mesh's ``"model"`` dim
+    (which it must have), "fsdp" by ``fsdp_spec`` over ``"data"``,
+    otherwise replicated."""
     if mode == "tp":
-        raise NotImplementedError(f"tensor-parallel placement: see {LATER}")
-    extent = data_size(mesh)
-    rule = (lambda s: fsdp_spec(s, extent)) if mode == "fsdp" else (lambda s: ())
+        extent = model_size(mesh)
+        assert extent > 1, "tp mode needs a 'model' mesh axis"
+        rule = lambda s: tensor_parallel_spec(s, extent)  # noqa: E731
+    elif mode == "fsdp":
+        extent = data_size(mesh)
+        rule = lambda s: fsdp_spec(s, extent)  # noqa: E731
+    else:
+        rule = lambda s: ()  # noqa: E731
     return {k: rule(tuple(p.shape)) for k, p in net.named_parameters()}
+
+
+# --------------------------------------------- tensor-parallel placement
+
+def tp_dim(spec: Spec) -> Optional[int]:
+    """The dim a spec shards on ``"model"``, None when it does not."""
+    return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
+
+
+def tp_slice(full: torch.Tensor, dim: Optional[int], ax: Axis) -> torch.Tensor:
+    """This model rank's slice of a whole tensor (itself when ``dim`` is
+    None)."""
+    if dim is None:
+        return full
+    return full.chunk(ax.size, dim)[ax.rank]
+
+
+def tp_gather(part: torch.Tensor, dim: Optional[int], ax: Axis) -> torch.Tensor:
+    """The whole tensor from the model ranks' slices (every model rank
+    calls it); ``part`` itself when ``dim`` is None."""
+    if dim is None:
+        return part
+    part = part.detach().contiguous()
+    parts = [torch.empty_like(part) for _ in range(ax.size)]
+    dist.all_gather(parts, part, group=ax.group)
+    return torch.cat(parts, dim=dim)
+
+
+def _owner(net: nn.Module, name: str) -> nn.Module:
+    """The block a parameter belongs to: its module, or the module above
+    a bare conv holder (``Conv_0``, ``lateral_proj``, ``ConvTranspose_0``)."""
+    path = name.split(".")[:-1]
+    if path and path[-1] in ("Conv_0", "lateral_proj", "ConvTranspose_0"):
+        path = path[:-1]
+    return net.get_submodule(".".join(path))
+
+
+def _refuse_knobs(net: nn.Module) -> None:
+    if getattr(net, "cfg", None) is not None:
+        refuse_split(net.cfg)
+
+
+def shard_columns(net: nn.Module, specs: Dict[str, Spec], ax: Axis) -> nn.Module:
+    """Column parallelism in place: every parameter ``specs`` shards on
+    ``"model"`` becomes this rank's slice of its output channels (its
+    requires_grad kept), and each block that owns one gets ``tp = ax``,
+    which routes its forward through ``parallel.tensor``."""
+    _refuse_knobs(net)
+    for name, p in list(net.named_parameters()):
+        dim = tp_dim(specs[name])
+        if dim is None:
+            continue
+        module, leaf = net.get_submodule(".".join(name.split(".")[:-1])), name.split(".")[-1]
+        part = tp_slice(p.detach(), dim, ax).clone()
+        setattr(module, leaf, nn.Parameter(part, requires_grad=p.requires_grad))
+        _owner(net, name).tp = ax
+    return net
+
+
+def place_rows(net: nn.Module, mesh) -> nn.Module:
+    """On a spatial mesh, give every module ``sp`` = the ``"spatial"``
+    axis: the blocks then take height-sharded activations
+    (``parallel.spatial``)."""
+    ax = spatial_axis(mesh)
+    if ax is not None:
+        _refuse_knobs(net)
+        for m in net.modules():
+            m.sp = ax
+    return net
 
 
 # ----------------------------------------------------------- FSDP2 placement
@@ -329,38 +501,60 @@ def shard_state(state, mesh, mode: str):
     "fsdp": the net under FSDP2 (``shard_module``); the optimizer, the
     EMA and the accumulator are rebuilt on the sharded parameters and
     the state's values (a restored run's too) put back into them.
-    "tp": refused (Queue A item 10b)."""
+    "tp": the state broadcast from rank 0, then every parameter the rule
+    shards cut to this model rank's output channels (``shard_columns``),
+    and the optimizer, EMA and accumulator rebuilt on the slices with
+    the state's values sliced into them.  On a spatial mesh the net's
+    blocks take height-sharded activations (``place_rows``)."""
     specs = tree_shardings(state.net, mesh, mode)
     if mesh is None:
         return state, specs
     if mode == "fsdp":
+        if spatial_size(mesh) > 1:
+            raise NotImplementedError(
+                "fsdp on a spatial mesh is not ported to gdn_tpu_torch yet; see "
+                "ROADMAP.md Queue A item 10c")
         full = state.state_dict(copy=True)
         shard_module(state.net, mesh, specs)
+        state.rebuild()
+        state.mesh, state.mode, state.specs = mesh, mode, specs
+        state.load_state_dict(full)
+    elif mode == "tp":
+        _broadcast(tree_leaves(state.state_dict()), mesh)
+        full = state.state_dict(copy=True)
+        shard_columns(state.net, specs, model_axis(mesh))
         state.rebuild()
         state.mesh, state.mode, state.specs = mesh, mode, specs
         state.load_state_dict(full)
     else:
         state.mesh, state.mode, state.specs = mesh, mode, specs
         _broadcast(tree_leaves(state.state_dict()), mesh)
+    place_rows(state.net, mesh)
     return state, specs
 
 
 def _broadcast(tensors, mesh) -> None:
-    """Rank 0's values of the tensors on the mesh's device type."""
+    """Rank 0's values of the tensors on the mesh's device type, to
+    every rank."""
     with torch.no_grad():
         for t in tensors:
             if isinstance(t, torch.Tensor) and t.device.type == mesh.device_type:
-                dist.broadcast(t, group=data_group(mesh), group_src=0)
+                dist.broadcast(t, src=0)
 
 
 def shard_frozen(net: nn.Module, mesh, mode: str) -> nn.Module:
     """A frozen net (stage 2's D-net) placed as the trained one: under
-    "fsdp" sharded by the same rule (the JAX package shards it too),
-    else broadcast from rank 0.  A net already sharded is left as it is."""
-    if mesh is None or any(is_sharded(p) for p in net.parameters()):
+    "fsdp" and "tp" sharded by the same rule (the JAX package shards it
+    too), else broadcast from rank 0; on a spatial mesh its blocks take
+    height-sharded activations.  A net already placed is left as it is."""
+    if mesh is None or getattr(net, "placed", False) or any(
+            is_sharded(p) for p in net.parameters()):
         return net
+    specs = tree_shardings(net, mesh, mode)
     if mode == "fsdp":
-        return shard_module(net, mesh, tree_shardings(net, mesh, mode))
-    tree_shardings(net, mesh, mode)  # refuses "tp"
+        return shard_module(net, mesh, specs)
     _broadcast(net.state_dict().values(), mesh)
-    return net
+    if mode == "tp":
+        shard_columns(net, specs, model_axis(mesh))
+    net.placed = True
+    return place_rows(net, mesh)

@@ -28,13 +28,16 @@ steps (``train.steps.make_stage{1,2}_multistep``) on K batches a call,
 stacked on the device; the data cursor still counts batches, so a
 resumed run continues bit for bit.
 
-In a process group (``parallel.multihost``) the loops build the
-``"data"`` mesh from ``cfg.mesh`` (or take ``mesh``), place the state
-(``parallel.mesh.shard_state``: replicated, or FSDP with ``cfg.mesh.
-fsdp``) and stage 2's D-net, and run the mesh steps.  ``data_iter``
-yields the global batch (``cfg.data.batch_size`` rows; the loop keeps
-this rank's rows) or this rank's rows already (the batch size / D),
-as ``data.pipeline.make_train_pipeline`` with a mesh yields them;
+In a process group (``parallel.multihost``) the loops build the mesh
+from ``cfg.mesh`` (or take ``mesh``): ``"data"``, and ``"spatial"`` and
+``"model"`` where ``spatial_devices`` / ``model_devices`` > 1.  They
+place the state (``parallel.mesh.shard_state``: replicated, FSDP with
+``cfg.mesh.fsdp``, or tensor parallel on a ``"model"`` dim) and stage
+2's D-net, and run the mesh steps.  ``data_iter`` yields the global
+batch (``cfg.data.batch_size`` rows; the loop keeps this rank's rows)
+or this rank's rows already (the batch size / D), as
+``data.pipeline.make_train_pipeline`` with a mesh yields them; on a
+spatial mesh the loop then keeps this rank's image rows;
 ``imgs_per_sec`` counts the global batch.  Logging and checkpoint
 writes happen on rank 0 (every rank gathers an FSDP state), the ranks
 meet at a barrier before a stage returns, and a preemption request on
@@ -62,11 +65,12 @@ from gdn_tpu_torch.losses import total_loss
 from gdn_tpu_torch.models import DtoDNet, RtoDNet
 from gdn_tpu_torch.parallel import multihost
 from gdn_tpu_torch.parallel.mesh import (
-    create_mesh, data_group, local_batch, param_mode, shard_frozen, shard_state,
+    create_mesh, local_batch, param_mode, pixel_group, shard_frozen, shard_state,
+    spatial_axis,
 )
 from gdn_tpu_torch.train.state import TrainState
 from gdn_tpu_torch.train.steps import (
-    _reported, make_eval_forward, make_stage1_multistep, make_stage1_step,
+    _reported, _spatial_safe_cfg, make_eval_forward, make_stage1_multistep, make_stage1_step,
     make_stage2_multistep, make_stage2_step,
 )
 from gdn_tpu_torch.utils.logging import MetricLogger
@@ -111,8 +115,7 @@ class PreemptionHandler:
         if mesh is None:
             return self.requested
         flag = torch.tensor([float(self.requested)], device=device)
-        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX,
-                                     group=data_group(mesh))
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
         self.requested = bool(flag.item())
         return self.requested
 
@@ -134,7 +137,8 @@ def _floats(terms: Dict[str, torch.Tensor]) -> Dict[str, float]:
 def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
                 logger: MetricLogger, batch_size: int, log_every: int,
                 device: torch.device, extra_args=(), steps_per_call: int = 1,
-                preemption: Optional[PreemptionHandler] = None, mesh=None) -> TrainState:
+                preemption: Optional[PreemptionHandler] = None, mesh=None,
+                height: Optional[int] = None) -> TrainState:
     """Drive ``steps`` micro-steps, fewer when preemption is requested.
     With ``steps_per_call`` = K > 1, ``step_fn`` is a multistep: each
     call takes K batches stacked on a leading axis on the device; K must
@@ -143,7 +147,8 @@ def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
     restarts after the first call, so its one-time costs (cuDNN's
     algorithm search, the allocator's growth) stay out of
     ``imgs_per_sec``.  With a ``mesh`` each batch is cut to this rank's
-    rows (``parallel.mesh.local_batch``)."""
+    rows (``parallel.mesh.local_batch``; on a spatial mesh its image rows
+    of images ``height`` rows high)."""
     if steps % steps_per_call != 0:
         raise ValueError(f"steps_per_epoch={steps} not divisible by "
                          f"steps_per_call={steps_per_call}")
@@ -153,9 +158,9 @@ def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
     timed_from = 0
     for i in range(n_calls):
         if steps_per_call == 1:
-            batch = _batch_to(local_batch(next(data_iter), mesh, batch_size), device)
+            batch = _batch_to(local_batch(next(data_iter), mesh, batch_size, height), device)
         else:
-            group = [_batch_to(local_batch(next(data_iter), mesh, batch_size), device)
+            group = [_batch_to(local_batch(next(data_iter), mesh, batch_size, height), device)
                      for _ in range(steps_per_call)]
             batch = {k: torch.stack([b[k] for b in group]) for k in group[0]}
         state, terms = step_fn(state, *extra_args, batch)
@@ -195,19 +200,22 @@ def _validate(cfg: Config, net: torch.nn.Module, val_iter, steps: int,
     (``input_key="rgb"``) and scores its depth alone: no guidance term.
     With a ``mesh`` each rank scores its rows and the terms are the
     global batch's."""
+    cfg = _spatial_safe_cfg(cfg, mesh)
+    group, rows = pixel_group(mesh), spatial_axis(mesh)
     sums: Dict[str, float] = {}
     n = 0
     for _ in range(steps):
         try:
-            batch = _batch_to(local_batch(next(val_iter), mesh, cfg.data.batch_size), device)
+            batch = _batch_to(local_batch(next(val_iter), mesh, cfg.data.batch_size,
+                                          cfg.model.image_size[0]), device)
         except StopIteration:
             break
         with torch.no_grad():
             out = net(batch[input_key])
             terms = total_loss(out["depth"], batch["depth"], batch["mask"], cfg.loss,
                                cfg.model.max_depth, scale_preds=out["depth_scales"][:-1],
-                               group=data_group(mesh))
-        for k, v in _floats(_reported(terms, data_group(mesh))).items():
+                               group=group, rows=rows)
+        for k, v in _floats(_reported(terms, group)).items():
             sums[k] = sums.get(k, 0.0) + v
         n += 1
     avg = {f"val_{k}": v / max(n, 1) for k, v in sums.items()}
@@ -298,7 +306,7 @@ def _finish(cfg: Config, mesh) -> None:
     if cfg.train.ckpt_dir:
         wait_for_checkpoints(cfg.train.ckpt_dir)
     if mesh is not None:
-        torch.distributed.barrier(group=data_group(mesh))
+        torch.distributed.barrier()
 
 
 def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
@@ -335,7 +343,8 @@ def train_stage1(cfg: Config, data_iter: Iterable[Dict[str, Any]],
         for _ in range(epochs if epochs is not None else cfg.train.epochs):
             state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
                                 logger, cfg.data.batch_size, cfg.train.log_every, dev,
-                                steps_per_call=k, preemption=preempt, mesh=mesh)
+                                steps_per_call=k, preemption=preempt, mesh=mesh,
+                                height=cfg.model.image_size[0])
             if val_iter is not None and not preempt.requested:
                 _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step, dev,
                           mesh=mesh)
@@ -401,7 +410,8 @@ def train_stage2(cfg: Config, data_iter: Iterable[Dict[str, Any]],
             state = _epoch_loop(step_fn, state, data_iter, cfg.train.steps_per_epoch,
                                 logger, cfg.data.batch_size, cfg.train.log_every, dev,
                                 extra_args=(d_net,), steps_per_call=k,
-                                preemption=preempt, mesh=mesh)
+                                preemption=preempt, mesh=mesh,
+                                height=cfg.model.image_size[0])
             if val_iter is not None and not preempt.requested:
                 _validate(cfg, state.net, iter(val_iter), val_steps, logger, state.step,
                           dev, input_key="rgb", mesh=mesh)

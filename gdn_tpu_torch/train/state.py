@@ -31,6 +31,14 @@ the JAX package does:
   over the whole of each parameter; the EMA and the accumulator follow
   their parameter's placement; ``state_dict`` gathers the single-device
   layout (every rank must call it) and ``load_state_dict`` scatters it.
+- Tensor and spatial parallelism (a ``"model"`` or ``"spatial"`` dim):
+  the gradients are summed over the ``"data"`` x ``"spatial"`` ranks
+  (``parallel.mesh.pixel_group``), a channel slice's like a whole
+  parameter's: the model ranks' slices are different parameters, and a
+  replicated parameter's gradient is the same on each model rank.  The
+  clip counts the slices' squares over the model ranks and a replicated
+  parameter once; ``state_dict`` gathers the slices over ``"model"``
+  and ``load_state_dict`` cuts them again.
 """
 
 from __future__ import annotations
@@ -45,7 +53,8 @@ from torch.utils._pytree import tree_map
 
 from gdn_tpu_torch.config import TrainConfig
 from gdn_tpu_torch.parallel.mesh import (
-    data_group, full_tensor, global_sum, is_sharded, local, shard_of,
+    full_tensor, global_sum, is_sharded, local, model_axis, pixel_group, shard_of, tp_dim,
+    tp_gather, tp_slice,
 )
 
 Schedule = Callable[[int], float]
@@ -95,18 +104,27 @@ def lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Schedule:
     return joined
 
 
-def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float,
+                         columns=None) -> torch.Tensor:
     """Scale the grads of ``params`` in place by max_norm / norm when
     their global norm reaches max_norm (optax's rule).  Returns the norm.
     A sharded grad's norm is that of the whole parameter: the squares of
-    the local shards are summed over the ranks."""
+    the local shards are summed over the ranks.  ``columns``: (the model
+    group, a flag a parameter) where some grads are tensor-parallel
+    slices; their squares are summed over that group."""
     grads = [p.grad for p in params]
     norms = [torch.linalg.vector_norm(local(g).float()) for g in grads]
-    sharded = [n for n, g in zip(norms, grads) if is_sharded(g)]
-    if sharded:
-        group = next(g for g in grads if is_sharded(g)).device_mesh.get_group()
-        whole = [n for n, g in zip(norms, grads) if not is_sharded(g)]
-        sq = global_sum(torch.stack(sharded).square().sum(), group)
+    fsdp = [is_sharded(g) for g in grads]
+    tp = columns[1] if columns is not None else [False] * len(grads)
+    split = []  # (flags, the group their squares are summed over)
+    if any(fsdp):
+        split.append((fsdp, next(g for g, f in zip(grads, fsdp) if f).device_mesh.get_group()))
+    if any(tp):
+        split.append((tp, columns[0]))
+    if split:
+        sq = sum(global_sum(torch.stack([n for n, f in zip(norms, flags) if f]).square().sum(),
+                            group) for flags, group in split)
+        whole = [n for n, a, b in zip(norms, fsdp, tp) if not a and not b]
         if whole:
             sq = sq + torch.stack(whole).square().sum()
         norm = torch.sqrt(sq)
@@ -152,6 +170,7 @@ class TrainState:
         net's current parameters (after FSDP2 has replaced them by
         sharded ones), fresh: ``load_state_dict`` puts values back."""
         cfg, net = self.cfg, self.net
+        self.names = [k for k, p in net.named_parameters() if p.requires_grad]
         self.params = [p for p in net.parameters() if p.requires_grad]
         opt = torch.optim.AdamW if cfg.weight_decay else torch.optim.Adam
         kw = dict(weight_decay=cfg.weight_decay) if cfg.weight_decay else {}
@@ -175,7 +194,7 @@ class TrainState:
         if not grads:
             return
         flat = torch.cat([g.reshape(-1) for g in grads])
-        torch.distributed.all_reduce(flat, group=data_group(self.mesh))
+        torch.distributed.all_reduce(flat, group=pixel_group(self.mesh))
         torch._foreach_copy_(grads, [t.view_as(g) for t, g in
                                      zip(flat.split([g.numel() for g in grads]), grads)])
 
@@ -201,7 +220,12 @@ class TrainState:
             for p, a in zip(self.params, self.acc.values()):
                 p.grad = a  # placed as its parameter
         if self.cfg.grad_clip:
-            clip_by_global_norm_(self.params, self.cfg.grad_clip)
+            columns = None
+            if self.mode == "tp":
+                dims = self._tp_dims()
+                columns = (model_axis(self.mesh).group,
+                           [dims.get(k) is not None for k in self.names])
+            clip_by_global_norm_(self.params, self.cfg.grad_clip, columns)
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.updates)
         self.optimizer.step()
@@ -217,7 +241,39 @@ class TrainState:
 
     @property
     def sharded(self) -> bool:
-        return self.mode == "fsdp"
+        """Whether the state's tensors are split over ranks (FSDP or TP)."""
+        return self.mode in ("fsdp", "tp")
+
+    def _tp_dims(self) -> Dict[str, int]:
+        """The tensor-parallel slices' dims by parameter name."""
+        return {k: tp_dim(spec) for k, spec in self.specs.items()
+                if tp_dim(spec) is not None}
+
+    def _whole(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A name-keyed dict of tensor-parallel slices gathered whole."""
+        dims, ax = self._tp_dims(), model_axis(self.mesh)
+        return {k: tp_gather(v, dims.get(k), ax) if k in dims else v.detach().clone()
+                for k, v in tree.items()}
+
+    def _part(self, key: str, full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the single-device tensor ``full`` of
+        parameter ``key``, laid out as ``like``."""
+        if self.mode == "tp":
+            return tp_slice(full, self._tp_dims().get(key), model_axis(self.mesh))
+        return shard_of(full, like)
+
+    def _whole_optimizer(self) -> Dict[str, Any]:
+        """The optimizer's state_dict with each tensor-parallel moment
+        gathered whole."""
+        osd = self.optimizer.state_dict()
+        dims, ax = self._tp_dims(), model_axis(self.mesh)
+        state = {}
+        for i, st in osd["state"].items():
+            p, dim = self.params[int(i)], dims.get(self.names[int(i)])
+            state[i] = {k: tp_gather(v, dim, ax) if (isinstance(v, torch.Tensor)
+                                                      and v.dim() == p.dim() and dim is not None)
+                        else _clone(v) for k, v in st.items()}
+        return {"state": state, "param_groups": _clone(osd["param_groups"])}
 
     def state_dict(self, copy: bool = False) -> Dict[str, Any]:
         """Everything a resumed run needs, in the single-device layout:
@@ -226,6 +282,14 @@ class TrainState:
         References to the live tensors (``checkpoint.save_checkpoint``
         copies them) unless ``copy``; under FSDP gathered whole
         (``parallel.mesh.full_tensor``), which every rank must call."""
+        if self.mode == "tp":
+            out = {"params": self._whole(self.net.state_dict()),
+                   "optimizer": self._whole_optimizer(),
+                   "step": self.step, "updates": self.updates}
+            for key, mine in (("ema", self.ema), ("accum", self.acc)):
+                if mine is not None:
+                    out[key] = self._whole(mine)
+            return out
         if self.sharded:
             gather = functools.partial(tree_map, full_tensor)
         else:
@@ -258,7 +322,7 @@ class TrainState:
                 if set(mine) != set(sd["params"]):
                     raise ValueError("checkpoint 'params' keys differ from the net's")
                 for k, t in mine.items():
-                    local(t).copy_(shard_of(sd["params"][k], t))
+                    local(t).copy_(self._part(k, sd["params"][k], t))
             else:
                 self.net.load_state_dict(sd["params"], strict=True)
             for key, mine in (("ema", self.ema), ("accum", self.acc)):
@@ -266,7 +330,7 @@ class TrainState:
                     if set(sd[key]) != set(mine):
                         raise ValueError(f"checkpoint {key!r} keys differ from the net's")
                     for k, t in mine.items():
-                        local(t).copy_(shard_of(sd[key][k], t))
+                        local(t).copy_(self._part(k, sd[key][k], t))
             # cloned here: a tensor read in inference mode is an inference
             # tensor, and Optimizer.load_state_dict keeps one already on
             # the right device as it is
@@ -278,6 +342,14 @@ class TrainState:
         """A single-device optimizer state_dict with each moment of a
         sharded parameter cut to this rank's shard, as a sharded tensor
         like the parameter."""
+        if self.mode == "tp":
+            dims, ax = self._tp_dims(), model_axis(self.mesh)
+            for i, st in osd["state"].items():
+                p, dim = self.params[int(i)], dims.get(self.names[int(i)])
+                for k, v in st.items():
+                    if dim is not None and isinstance(v, torch.Tensor) and v.dim() == p.dim():
+                        st[k] = tp_slice(v, dim, ax).to(p.device).clone()
+            return osd
         if not self.sharded:
             return osd
         from torch.distributed.tensor import DTensor

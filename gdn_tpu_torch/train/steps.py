@@ -33,10 +33,19 @@ gradients, and the terms it returns are the global ones on every rank.
 ``fused_guidance`` is refused under FSDP: it reads the encoders' and the
 decoder's weights outside their blocks' forwards, where FSDP2 holds
 them sharded.
+
+On a mesh with a ``"model"`` dim (tensor parallel) every model rank runs
+the same loss on the gathered outputs; on one with a ``"spatial"`` dim
+each rank's batch is its image rows of its batch rows, the loss terms
+take the halo forms (``losses.total_loss(rows=)``) and, as in the JAX
+package (``_spatial_safe_cfg``), the fused loss kernel and the composed
+resize+conv, which have no halo form, are off.  Sums of pixels run over
+the ``"data"`` x ``"spatial"`` ranks (``parallel.mesh.pixel_group``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Dict, Tuple
 
@@ -49,7 +58,7 @@ from torch.utils.checkpoint import (
 from gdn_tpu_torch.config import Config
 from gdn_tpu_torch.losses import total_loss
 from gdn_tpu_torch.models.rtod import to_nhwc
-from gdn_tpu_torch.parallel.mesh import data_group, global_sum
+from gdn_tpu_torch.parallel.mesh import global_sum, pixel_group, spatial_axis, spatial_size
 from gdn_tpu_torch.train.fused_encoders import paired_encoders
 from gdn_tpu_torch.train.guided_decoder import decode_concat, shared_guided_decoder
 from gdn_tpu_torch.train.state import TrainState
@@ -87,6 +96,33 @@ def _refuse_quant(cfg: Config) -> None:
             "quant='none' and quantize at deployment)")
 
 
+def _spatial_safe_cfg(cfg: Config, mesh) -> Config:
+    """On a spatial mesh, the loss's plain terms and the uncomposed
+    resize_conv (the JAX package's ``_spatial_safe_cfg``): neither the
+    fused loss kernel nor the composed op has a halo form.  Both flags
+    are execution-only (same function, same parameters), so this changes
+    no math.  ``cfg`` itself elsewhere."""
+    if spatial_size(mesh) <= 1:
+        return cfg
+    if cfg.loss.use_pallas:
+        cfg = dataclasses.replace(cfg, loss=dataclasses.replace(cfg.loss, use_pallas=False))
+    if cfg.model.resize_conv_composed:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, resize_conv_composed=False))
+    return cfg
+
+
+def _model_apply_override(orig: Config, safe: Config, net: nn.Module) -> None:
+    """Where ``_spatial_safe_cfg`` changed the model config, the placed
+    nets' blocks take the safe one (the JAX package swaps its apply_fn;
+    the parameters are the same)."""
+    if safe.model == orig.model or net is None:
+        return
+    for m in net.modules():
+        if getattr(m, "cfg", None) is not None:
+            m.cfg = safe.model
+
+
 def _apply_update(state: TrainState, loss: torch.Tensor) -> None:
     loss.backward()
     state.apply_gradients()
@@ -116,16 +152,17 @@ def _maybe_remat(net: nn.Module, cfg: Config) -> Callable:
     return lambda x: checkpoint(net, x, use_reentrant=False, context_fn=context)
 
 
-def _stage1_loss(net: nn.Module, batch: Batch, cfg: Config, group=None) -> Terms:
+def _stage1_loss(net: nn.Module, batch: Batch, cfg: Config, group=None,
+                 rows=None) -> Terms:
     out = _maybe_remat(net, cfg)(batch["depth"])
     return total_loss(
         out["depth"], batch["depth"], batch["mask"], cfg.loss,
-        cfg.model.max_depth, scale_preds=out["depth_scales"][:-1], group=group,
+        cfg.model.max_depth, scale_preds=out["depth_scales"][:-1], group=group, rows=rows,
     )
 
 
 def _stage2_loss(net: nn.Module, d_net: nn.Module, batch: Batch,
-                 cfg: Config, group=None) -> Terms:
+                 cfg: Config, group=None, rows=None) -> Terms:
     """The G-net's loss with the frozen D-net's guidance targets: the
     D-net runs on GT depth without grad; the G-net's latent and decoder
     features are held against the D-net's."""
@@ -137,12 +174,12 @@ def _stage2_loss(net: nn.Module, d_net: nn.Module, batch: Batch,
         cfg.model.max_depth,
         pred_latents=[g_out["latent"], *g_out["dec_feats"]],
         target_latents=[d_out["latent"], *d_out["dec_feats"]],
-        scale_preds=g_out["depth_scales"][:-1], group=group,
+        scale_preds=g_out["depth_scales"][:-1], group=group, rows=rows,
     )
 
 
 def _stage2_loss_fused(net: nn.Module, d_net: nn.Module, batch: Batch,
-                       cfg: Config, group=None) -> Terms:
+                       cfg: Config, group=None, rows=None) -> Terms:
     """The stage-2 loss with ONE pass of the frozen decoder
     (``fused_guidance``): the D encoder (no grad) and the G encoder, or
     with ``fused_encoders`` one paired ladder, then the G-net's decoder
@@ -182,11 +219,16 @@ def _reported(terms: Terms, group=None) -> Terms:
     return dict(zip(terms, total))
 
 
-def _placed(state: TrainState, mesh, state_sharding) -> None:
+def _placed(state: TrainState, mesh, state_sharding, orig: Config = None,
+            safe: Config = None, d_net: nn.Module = None) -> None:
     """Refuse a state the mesh step cannot train: unplaced (its
-    gradients would not be summed) or placed otherwise than asked."""
+    gradients would not be summed) or placed otherwise than asked.  On a
+    spatial mesh the nets take the safe model config."""
     if mesh is None:
         return
+    if orig is not None:
+        _model_apply_override(orig, safe, state.net)
+        _model_apply_override(orig, safe, d_net)
     if state.mesh is None:
         raise ValueError("a mesh step needs a placed state: parallel.mesh.shard_state")
     if state_sharding is not None and state.specs != state_sharding:
@@ -200,11 +242,12 @@ def make_stage1_step(cfg: Config, mesh=None, state_sharding=None) -> Callable[
     rank's rows; ``state_sharding``: the specs ``shard_state`` returned,
     checked against the state's."""
     _refuse_quant(cfg)
-    group = data_group(mesh)
+    orig, cfg = cfg, _spatial_safe_cfg(cfg, mesh)
+    group, rows = pixel_group(mesh), spatial_axis(mesh)
 
     def step(state: TrainState, batch: Batch):
-        _placed(state, mesh, state_sharding)
-        terms = _stage1_loss(state.net, batch, cfg, group)
+        _placed(state, mesh, state_sharding, orig, cfg)
+        terms = _stage1_loss(state.net, batch, cfg, group, rows)
         _apply_update(state, terms["total"])
         return state, _reported(terms, group)
 
@@ -221,6 +264,10 @@ def _stage2_loss_fn(cfg: Config, mesh=None) -> Callable:
                          "shared decoder pass)")
     if not t.fused_guidance:
         return _stage2_loss
+    if mesh is not None and len(mesh.mesh_dim_names) > 1:
+        from gdn_tpu_torch.config import refuse_split
+
+        refuse_split(cfg.model, t)
     if mesh is not None and cfg.mesh.fsdp:
         raise ValueError("fused_guidance reads the encoders' and the decoder's weights "
                          "outside their blocks' forwards, where FSDP2 holds them "
@@ -245,11 +292,12 @@ def make_stage2_step(cfg: Config, mesh=None, state_sharding=None) -> Callable[
     D-net is placed as the state (``parallel.mesh.shard_frozen``)."""
     _refuse_quant(cfg)
     loss_fn = _stage2_loss_fn(cfg, mesh)
-    group = data_group(mesh)
+    orig, cfg = cfg, _spatial_safe_cfg(cfg, mesh)
+    group, rows = pixel_group(mesh), spatial_axis(mesh)
 
     def step(state: TrainState, d_net: nn.Module, batch: Batch):
-        _placed(state, mesh, state_sharding)
-        terms = loss_fn(state.net, d_net, batch, cfg, group)
+        _placed(state, mesh, state_sharding, orig, cfg, d_net)
+        terms = loss_fn(state.net, d_net, batch, cfg, group, rows)
         _apply_update(state, terms["total"])
         return state, _reported(terms, group)
 

@@ -59,9 +59,13 @@ rank trains on 1/N of its rows, and rank 0 logs and writes the
 checkpoints (the same files as one device's).  ``--fsdp`` shards the
 parameters and optimizer state over the ranks (FSDP2);
 ``--device_cache_sharded`` (with ``--device_cache``) holds 1/N of the
-corpus on each rank.  A flag for what the port does not run yet
-(``--spatial_devices``, ``--model_devices``) ends the run at parse
-time, naming its ROADMAP item.
+corpus on each rank.  ``--spatial_devices S`` shards each image's
+height over S ranks and ``--model_devices M`` each layer's output
+channels over M (tensor parallel); the batch splits over the rest, and
+with ``--num_devices 0`` the script starts at least S x M ranks.  A
+flag for what the port does not run yet (a model variant or
+``--fused_guidance`` with either) ends the run at parse time, naming
+its ROADMAP item.
 
 Examples:
   python scripts/make_fixture.py --out data/kitti --n 512 --style scene

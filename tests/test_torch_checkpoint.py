@@ -81,9 +81,16 @@ def test_config_json_both_ways(tmp_path, preset, case):
         assert json.load(a) == json.load(b)
 
 
+# The first two cases keep their ids from when the spatial and model
+# axes themselves were refused (item 10b); they now hold the refusals of
+# what item 10b left to item 10c.
 @pytest.mark.parametrize("over,error,match", [
-    ({"mesh.spatial_devices": 2}, NotImplementedError, "Queue A item 10b"),
-    ({"mesh.model_devices": 2}, NotImplementedError, "Queue A item 10b"),
+    pytest.param({"mesh.spatial_devices": 2, "model.upsample": "deconv"},
+                 NotImplementedError, "Queue A item 10c",
+                 id="over0-NotImplementedError-Queue A item 10b"),
+    pytest.param({"mesh.model_devices": 2, "train.fused_guidance": True},
+                 NotImplementedError, "Queue A item 10c",
+                 id="over1-NotImplementedError-Queue A item 10b"),
     ({"train.remat_policy": "save_only_these_names"}, ValueError, "not a policy"),
     ({"mesh.model_devices": 2, "mesh.fsdp": True}, ValueError, "mutually exclusive"),
 ])

@@ -103,9 +103,13 @@ def test_build_config_equals_the_jax_one(argv, evalargs):
     assert tc.model.use_pallas_gn and not jc.model.use_pallas_gn
 
 
+# ids kept from when the axes themselves were refused (item 10b); the
+# cases now hold what item 10b left to item 10c
 UNPORTED = [
-    (["--spatial_devices", "2"], "Queue A item 10b"),
-    (["--model_devices", "2"], "Queue A item 10b"),
+    pytest.param(["--spatial_devices", "2", "--upsample", "deconv"], "Queue A item 10c",
+                 id="argv0-Queue A item 10b"),
+    pytest.param(["--model_devices", "2", "--fused_guidance", "--mode", "RtoD"],
+                 "Queue A item 10c", id="argv1-Queue A item 10b"),
 ]
 
 
@@ -198,8 +202,10 @@ def _load_script(name):
 
 
 @pytest.mark.parametrize("script,argv,item", [
-    ("train_torch", ["--spatial_devices", "2"], "Queue A item 10b"),
-    ("train_torch", ["--model_devices", "2"], "Queue A item 10b"),
+    pytest.param("train_torch", ["--spatial_devices", "2", "--upsample", "deconv"],
+                 "Queue A item 10c", id="train_torch-argv0-Queue A item 10b"),
+    pytest.param("train_torch", ["--model_devices", "2", "--norm", "none"],
+                 "Queue A item 10c", id="train_torch-argv1-Queue A item 10b"),
     ("eval_torch", ["--quantize", "int8", "--norm", "none"], "requires norm='group'"),
 ])
 def test_scripts_turn_a_refusal_into_a_parser_error(script, argv, item, capsys):

@@ -2,7 +2,7 @@
 processes: the FSDP and TP placement rules on every parameter of the
 full-width KITTI nets through the OIHW/HWIO layout, ``param_mode``, the
 batch rows, ``local_batch_slice``, the backend rule, the rank's device,
-and the refusals of what is left for Queue A item 10b."""
+and the refusals of what Queue A item 10b leaves to item 10c."""
 
 import functools
 
@@ -139,22 +139,34 @@ def test_batch_rows_of_each_rank():
 
 
 def test_spatial_and_model_axes_are_refused_naming_10b():
+    """The axes Queue A item 10b ported are accepted; what is left of them
+    is refused naming item 10c, the shape checks stay."""
     for kw in ({"spatial_devices": 2}, {"model_devices": 2}):
-        with pytest.raises(NotImplementedError, match="Queue A item 10b"):
-            tcfg.MeshConfig(**kw)
-    with pytest.raises(NotImplementedError, match="Queue A item 10b"):
-        tmesh.create_mesh(2, spatial=2)
-    with pytest.raises(NotImplementedError, match="Queue A item 10b"):
-        tmesh.create_mesh(4, model=2)
+        tcfg.MeshConfig(**kw)
+    with pytest.raises(NotImplementedError, match="Queue A item 10c"):
+        tcfg.MeshConfig(spatial_devices=2, fsdp=True)
     with pytest.raises(ValueError, match="does not divide"):
         tmesh.create_mesh(3, spatial=2)
-    with pytest.raises(NotImplementedError, match="Queue A item 10b"):
+    with pytest.raises(ValueError, match="does not divide"):
+        tmesh.create_mesh(1, model=2)
+    with pytest.raises(AssertionError, match="model"):
         tmesh.tree_shardings(torch.nn.Linear(2, 2), R.StubMesh(2), "tp")
     cfg = R.config()
     state = TrainState(R.nets(R.weights(), 1, cfg)[0], cfg.train, 2)
-    with pytest.raises(NotImplementedError, match="Queue A item 10b"):
+    with pytest.raises(AssertionError, match="model"):
         tmesh.shard_state(state, R.StubMesh(2), "tp")
+    specs = tmesh.tree_shardings(torch.nn.Conv2d(3, 8, 3), _ModelMesh(), "tp")
+    assert specs == {"weight": ("model", None, None, None), "bias": ("model",)}
     assert tmesh.spatial_size(R.StubMesh(2)) == tmesh.model_size(None) == 1
+
+
+class _ModelMesh(R.StubMesh):
+    """A (data 1, model 2) mesh as rank 0 sees it."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self):
+        super().__init__(2)
 
 
 def test_one_process_has_no_mesh_and_more_ranks_must_run():

@@ -94,8 +94,10 @@ class GradTap:
         self.state = state
 
     def _hook(self, opt, args, kwargs):
-        self.grads.append({k: full_tensor(p.grad).detach().clone()
-                           for k, p in zip(self.names, self.state.params)})
+        grads = {k: p.grad for k, p in zip(self.names, self.state.params)}
+        if self.state.mode == "tp":  # tensor-parallel slices, gathered whole
+            grads = self.state._whole(grads)
+        self.grads.append({k: full_tensor(g).detach().clone() for k, g in grads.items()})
 
 
 def run(cfg, stage, sd, batches, mesh, stacked=False, extra=None):

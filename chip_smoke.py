@@ -276,8 +276,8 @@ repository around this file.  Phases, each printed on its own lines:
               fused_encoders and the fused flags (fusion_bt at 2B = 64),
               and fused_guidance with use_pallas_fusion (the upsample and
               fusion-block kernels at 2B): launches a step exact, ms/step
-              (host clock, 5 steps after one), peak allocated memory, one
-              profiled step (device busy, idle share, all launches); (b)
+              (host clock, 3 steps after one), peak allocated memory,
+              one profiled step (device busy, idle share, all launches); (b)
               each of them at B=2, card (fp32, TF32 off) against the CPU
               at phase 9's bounds, and each fused one against the
               two-net step with the same model flags on the card (terms
@@ -365,11 +365,32 @@ repository around this file.  Phases, each printed on its own lines:
               package); (d) a tall image (B=8, 512x416) under SP: each
               rank's peak allocated memory above its state below 0.65x
               one process's; (e) scripts/train_torch.py --model_devices
-              2 and --spatial_devices 2, stage 1, P28_SCRIPT_STEPS steps
-              each at batch 8, the two commands at once (each spawning
-              its two ranks), and both checkpoints restored in this
-              process (one device's layout) and run once.  ms/step
-              and device busy are printed per rank, with no bound.
+              2 and --spatial_devices 2 run in phase 29 (d), at once with
+              its commands.  ms/step and device busy are printed per
+              rank, with no bound.
+  29. split_knobs  every knob on every mesh (A10c), full width, two
+              ranks sharing the card over gloo (one spawn), each case
+              one step from the same weights and batch (B=8) against one
+              process in this call: fp32 terms within 1e-4 and gradients
+              within 1e-3 of each tensor's largest, bf16 terms within
+              phase 28's 5% and the bf16 gradients within its 5% or,
+              where larger, one process's own bf16-to-fp32 gap (see
+              F32's note), every
+              rank's launches by kernel (TP: one process's; SP: its
+              GN+ELU launches as split ones, no one-launch GN+ELU and no
+              loss kernel), ms/step of a second bf16 step: (a) the
+              three variant nets of P29_GRID (stage 1) and fused
+              guidance with its backward and the paired encoders (stage
+              2), each under TP and under SP; (b) nyu_config() at
+              228x304 under SP (levels 228 / 114 / 57 / 29 / 15 / 8 split
+              unevenly), stage 2: the split GN+ELU kernel on uneven
+              shards and the row gathers counted; (c) fused guidance
+              under FSDP over the two ranks, and FSDP on data 2 x spatial
+              2 over four ranks (a second spawn), stage 1; (d)
+              scripts/train_torch.py under TP and under SP (phase 28
+              (e)'s commands), under TP with --upsample deconv and under
+              SP with --norm none at NYU's size, the four at once, each
+              checkpoint restored in this process and run once.
 
 Any failure ends the run with a nonzero exit.  The last lines are the
 kernels' JSON line, the nvidia-smi line, and
@@ -377,7 +398,7 @@ kernels' JSON line, the nvidia-smi line, and
 Per-shape numbers also go to smoke_out/chip_smoke.json (phase 23's under
 "tools", phase 24's under "artifacts", phase 25's under "variants",
 phase 26's under "knobs", phase 27's under "parallel", phase 28's under
-"tp_sp"), the profiles to
+"tp_sp", phase 29's under "split_knobs"), the profiles to
 smoke_out/{serving,training}{,_fused,_fusion}_profile.txt,
 smoke_out/knobs_*_profile.txt,
 smoke_out/eval_profile.txt and smoke_out/disk_*_profile.txt.
@@ -4013,7 +4034,7 @@ KNOBS = (
     ("fused_guidance_fusion", {**FG, **FUSION},
      {"group_norm_elu": 22, "upsample": 5, "fusion_block": 5}),
 )
-KNOB_TIMED = 5  # (a): timed steps, after one untimed
+KNOB_TIMED = 3  # (a): timed steps, after one untimed
 KNOB_K = 4  # (c): steps_per_call
 KNOB_CLI_STEPS = 4  # (e): train_torch.py steps a stage
 # (d): remat_policy -> how many times the G-net's GroupNorm+ELU sites
@@ -4969,7 +4990,6 @@ BF16_TERMS_TOL = 0.05  # phase 9's bf16 bound: a rank's convs round in other pla
 NO_GRAD_TERM = {"loss.w_grad": 0.0}
 P28_TALL = (8, 512, 416)  # (d): batch and image size of the tall image
 P28_MEM_SHARE = 0.65  # (d): a spatial rank's peak activations against one process's
-P28_SCRIPT_STEPS = 2  # (e): steps a script runs, at batch 8
 P28_PROFILED = (("group_norm_elu", "gn_elu_coop"), ("group_norm_elu_rows", "gn_rows_"),
                 ("fused_loss_fwd", "loss_forward"), ("fused_loss_bwd", "loss_backward"))
 
@@ -5084,7 +5104,7 @@ def p28_split_gn(cfg):
         scale = torch.rand(c, device="cuda", generator=gen) + 0.5
         bias = torch.randn(c, device="cuda", generator=gen)
         what = f"group_norm_elu_rows {shape} bf16"
-        out, stats = gnk._launch_rows(x, scale, bias, g, 1e-6, alone)
+        out, stats = gnk._launch_rows(x, scale, bias, g, 1e-6, alone, h)
         torch.cuda.synchronize()
         err = check_close(out, group_norm_elu_plain(x, scale, bias, g), x.dtype, what)
         mean_c, inv_c = _chanreduce_stats(x, g, 1e-6)
@@ -5095,7 +5115,7 @@ def p28_split_gn(cfg):
                "sites": sites.count((c, h, w)), "max_abs_err": err,
                "stats_max_abs_err": serr, "split_ms": {},
                "bound_ms": bound_ms(*gn_work(shape, x.element_size()))}
-        row["ms"] = device_ms([lambda: gnk._launch_rows(x, scale, bias, g, 1e-6, alone)],
+        row["ms"] = device_ms([lambda: gnk._launch_rows(x, scale, bias, g, 1e-6, alone, h)],
                               what=what, split=row["split_ms"])
         row["plain_ms"] = device_ms([lambda: group_norm_elu_plain(x, scale, bias, g)],
                                     what=f"{what} plain")
@@ -5110,51 +5130,6 @@ def p28_split_gn(cfg):
             f"({row['bound_ms'] / row['ms']:.0%} of it reached)  x{row['sites']} sites")
         del x
     return rows
-
-
-def p28_scripts(work):
-    """(e): train_torch.py stage 1 under TP and under SP, the two commands
-    at once (each spawns its two ranks); both checkpoints restored in
-    this process (one device's layout) and run once."""
-    from gdn_tpu_torch.checkpoint import latest_step, load_config, restore_checkpoint
-    from gdn_tpu_torch.models import DtoDNet
-    from gdn_tpu_torch.train.state import TrainState
-
-    out, procs = {}, {}
-    t0 = time.perf_counter()
-    for flag in ("--model_devices", "--spatial_devices"):
-        # a process of its own: the script spawns its ranks, which import it
-        log_file = open(os.path.join(work, f"train{flag[1:]}.log"), "w")
-        procs[flag] = (subprocess.Popen(
-            [sys.executable, os.path.join(ROOT, "scripts", "train_torch.py"), "--mode",
-             "DtoD", flag, "2", "--dataset", "synthetic", "--epochs", "1",
-             "--steps_per_epoch", str(P28_SCRIPT_STEPS), "--batch_size", "8",
-             "--log_every", "1", "--ckpt_dir", os.path.join(work, flag[2:])],
-            cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT), log_file)
-    for flag, (proc, log_file) in procs.items():
-        rc = proc.wait(timeout=300)
-        log_file.close()
-        if rc != 0:
-            raise AssertionError(f"(e) train_torch.py {flag} 2 failed: see {log_file.name}")
-    dev = torch.device("cuda")
-    for flag in procs:
-        d = os.path.join(work, flag[2:], "stage1")
-        cfg = load_config(d)
-        net = DtoDNet(cfg.model).to(dev)
-        state = restore_checkpoint(d, TrainState(net, cfg.train, 10))
-        h, w = cfg.model.image_size
-        with torch.no_grad():
-            depth = net(torch.rand(2, h, w, 1, device=dev))["depth"]
-        torch.cuda.synchronize()
-        ok = bool(torch.isfinite(depth).all()) and tuple(depth.shape) == (2, h, w, 1)
-        out[flag[2:]] = {"step": state.step, "latest": latest_step(d), "finite": ok,
-                         "mesh": {"model": cfg.mesh.model_devices,
-                                  "spatial": cfg.mesh.spatial_devices}}
-        if not ok or state.step != P28_SCRIPT_STEPS:
-            raise AssertionError(f"(e) {flag} checkpoint: step {state.step}, forward finite "
-                                 f"and shaped {ok}")
-    out["seconds"] = time.perf_counter() - t0
-    return out
 
 
 def phase_tp_sp(cfg, refs):
@@ -5322,20 +5297,451 @@ def phase_tp_sp(cfg, refs):
             f"rank {rk['rank']} {rk['tall']['peak_above_state'] / 2**30:.2f} GiB "
             f"({rk['tall']['share']:.3f})" for rk in ranks)
         + f"; terms max rel gap {gap:.3g}")
-    # (e) the scripts
-    reset_counts()
-    out["scripts"] = p28_scripts(work)
-    launches["tp_sp_scripts_parent"] = read_counts()
-    sc = out["scripts"]
-    log(f"  (e) train_torch.py --model_devices 2 and --spatial_devices 2 (stage 1, at "
-        f"once): {sc['seconds']:.1f} s; " + ", ".join(
-            f"{m}: restored at step {r['step']} in one process, forward finite "
-            f"{r['finite']}" for m, r in sc.items() if m != "seconds"))
     out["seconds"] = time.perf_counter() - t0
     log(f"  phase 28 took {out['seconds']:.1f} s (ranks {out['ranks_seconds']:.1f} s)")
     problems = [p for p in problems if p]
     if problems:
         raise AssertionError("phase 28: " + "; ".join(problems))
+    return out, launches
+
+
+# --------------------------------------------------------------- phase 29
+
+P29_BATCH = 8
+P29_RANKS = 2  # (a), (b), (c) fused guidance under FSDP: ranks sharing the card
+P29_FSDP_RANKS = 4  # (c): data 2 x spatial 2
+# (a): the knob grid, (tag, ModelConfig fields, TrainConfig fields, stage):
+# three variant nets that take every variant site between them, then
+# stage 2's fused guidance (its hand-written backward) and paired encoders
+P29_GRID = (
+    ("deconv_add_ms_gelu", {"model.upsample": "deconv", "model.fusion": "add",
+                            "model.multiscale_heads": True, "model.activation": "gelu"}, 1),
+    ("none_relu", {"model.norm": "none", "model.activation": "relu"}, 1),
+    ("deconv_gn", {"model.upsample": "deconv", "model.deconv_gn": True}, 1),
+    ("fg", {"train.fused_guidance": True, "train.fused_guidance_vjp": True}, 2),
+    ("fe", {"train.fused_guidance": True, "train.fused_encoders": True}, 2),
+)
+P29_AXES = (("tp", "mesh.model_devices"), ("sp", "mesh.spatial_devices"))
+P29_NYU = (228, 304)  # (b): NYU's own size, levels 228 -> 114 -> 57 -> 29 -> 15 -> 8
+P29_SCRIPT_STEPS = 2
+# (d): train_torch.py under each axis with the default net (phase 28
+# (e)'s commands, run here at once with these) and with a variant flag,
+# the SP one at NYU's size
+P29_SCRIPTS = (
+    ("tp", ["--model_devices", "2"]),
+    ("sp", ["--spatial_devices", "2"]),
+    ("tp_deconv", ["--model_devices", "2", "--upsample", "deconv"]),
+    ("sp_nyu_norm_none", ["--spatial_devices", "2", "--norm", "none", "--height",
+                          str(P29_NYU[0]), "--width", str(P29_NYU[1]), "--max_depth", "10"]),
+)
+F32 = {"model.dtype": "float32"}
+# (a)-(c) hold the fp32 step's gradients at 1e-3 of each tensor's
+# largest and the bf16 step's terms at phase 28's 5%; the bf16 gradients
+# at its 5% or, where larger, one process's own bf16-to-fp32 gap in the
+# same call: at B=8 a tensor's bf16 gradients (GroupNorm scales and
+# biases, the deep convs of norm="none") lie 3.7-14.3% of its largest
+# from its fp32 ones in one process, and a rank's 2.3-9.1% from one
+# process's bf16 ones (my chip runs, PR 19; PERF.md §6), so a rank's
+# bf16 step may round as far from one process's as bf16 from fp32.
+
+def p29_batch(cfg, seed=29):
+    """One global batch of P29_BATCH at the config's size: continuous
+    depth inside (0, max_depth), ~30% valid, RGB (numpy draws)."""
+    h, w = cfg.model.image_size
+    top = cfg.model.max_depth
+    rng = np.random.default_rng(seed)
+    shape = (P29_BATCH, h, w)
+    return {"depth": torch.from_numpy(rng.uniform(0.05 * top, 0.95 * top, (*shape, 1))
+                                      .astype(np.float32)),
+            "mask": torch.from_numpy((rng.random((*shape, 1)) < 0.3).astype(np.float32)),
+            "rgb": torch.from_numpy(rng.random((*shape, 3)).astype(np.float32))}
+
+
+def p29_weights(cfg, seed):
+    """(D-net, G-net with the D-net's decoder) state dicts of ``cfg``'s
+    architecture, init_params draws of ``seed`` and ``seed + 1``."""
+    from gdn_tpu_torch.checkpoint import init_params, transfer_stage1_decoder
+
+    gen = torch.Generator()
+    d_sd = init_params(cfg.model, gen.manual_seed(seed), in_channels=1)
+    return d_sd, transfer_stage1_decoder(init_params(cfg.model, gen.manual_seed(seed + 1)),
+                                         d_sd)
+
+
+def p29_step(cfg, weights, batch, mesh, stage, steps=1):
+    """``steps`` steps of ``stage`` from ``weights`` on the global
+    ``batch`` (this rank's rows under ``mesh``, the state placed by
+    ``cfg.mesh``): each step's terms, launches, row gathers and ms (host
+    clock, synchronized), and the first update's whole gradients."""
+    from gdn_tpu_torch.models import DtoDNet, RtoDNet
+    from gdn_tpu_torch.parallel import spatial
+    from gdn_tpu_torch.parallel.mesh import param_mode, shard_batch, shard_frozen, shard_state
+    from gdn_tpu_torch.train.state import TrainState
+    from gdn_tpu_torch.train.steps import make_stage1_step, make_stage2_step
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    d_sd, g_sd = weights
+    net = (DtoDNet if stage == 1 else RtoDNet)(cfg.model)
+    net.load_state_dict(d_sd if stage == 1 else g_sd)
+    state = TrainState(net.to(dev), cfg.train, 10, freeze_decoder=stage == 2)
+    state, specs = shard_state(state, mesh, param_mode(cfg.mesh))
+    grads = {}
+    _first_grads(state, grads)
+    args = ()
+    if stage == 2:
+        d = DtoDNet(cfg.model)
+        d.load_state_dict(d_sd)
+        args = (shard_frozen(d.to(dev).requires_grad_(False), mesh, param_mode(cfg.mesh)),)
+    make = make_stage1_step if stage == 1 else make_stage2_step
+    step = make(cfg, **({} if mesh is None else dict(mesh=mesh, state_sharding=specs)))
+    b = {k: v.to(dev) for k, v in shard_batch(batch, mesh).items()}
+    out = {"terms": [], "launches": [], "gathers": [], "ms": []}
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        reset_counts()
+        spatial.gather_rows.calls = 0
+        t = time.perf_counter()
+        state, terms = step(state, *args, b)
+        out["terms"].append({k: float(v) for k, v in terms.items()})
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t))
+        out["launches"].append(read_counts())
+        out["gathers"].append(spatial.gather_rows.calls)
+    out["grads"] = grads
+    return out
+
+
+def p29_runs(cfg, weights, meshes):
+    """Every run of (a) on ``meshes`` ({"tp": ..., "sp": ...}; None: the
+    one-process references, one run for each distinct config), by
+    (case, axis, precision): fp32 one step, bf16 two (the second
+    timed)."""
+    from gdn_tpu_torch.config import _with
+
+    out, cache = {}, {}
+    for tag, over, stage in P29_GRID:
+        for axis, key in P29_AXES:
+            m = None if meshes is None else meshes[axis]
+            c = _with(cfg, **over, **({} if m is None else {key: 2}))
+            for prec, rc, steps in (("fp32", _with(c, **F32), 1), ("bf16", c, 2)):
+                k = (tag, rc.model, steps)
+                if m is None and k in cache:
+                    out[tag, axis, prec] = cache[k]
+                    continue
+                out[tag, axis, prec] = cache[k] = p29_step(rc, weights[tag], weights["batch"],
+                                                           m, stage, steps)
+    return out
+
+
+def p29_rank(out_dir, weights_path):
+    """The two ranks of phase 29 (a)-(c): every result into
+    ``out_dir/rank<r>.pt``."""
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from gdn_tpu_torch import kernels as port_kernels
+    from gdn_tpu_torch.config import _with, kitti_config, nyu_config
+    from gdn_tpu_torch.parallel import multihost
+    from gdn_tpu_torch.parallel.mesh import create_mesh
+
+    port_kernels.load_all()  # built by the parent: loads
+    r = multihost.rank()
+    weights = torch.load(weights_path, weights_only=False)
+    cfg = kitti_config(**{"model.use_pallas_gn": True})
+    meshes = {"tp": create_mesh(0, model=2, device_type="cuda"),
+              "sp": create_mesh(0, spatial=2, device_type="cuda"),
+              "data": create_mesh(0, device_type="cuda")}
+    res = {"rank": r, "grid": p29_runs(cfg, weights, meshes)}
+    nyu = _with(nyu_config(**{"model.use_pallas_gn": True}), **{"mesh.spatial_devices": 2})
+    nw = (weights["nyu"], weights["nyu_batch"])
+    res["nyu"] = {"fp32": p29_step(_with(nyu, **F32), *nw, meshes["sp"], 2),
+                  "bf16": p29_step(nyu, *nw, meshes["sp"], 2, steps=2)}
+    fg = _with(cfg, **P29_GRID[3][1], **{"mesh.fsdp": True})
+    res["fsdp_fg"] = {"fp32": p29_step(_with(fg, **F32), weights["fg"], weights["batch"],
+                                       meshes["data"], 2),
+                      "bf16": p29_step(fg, weights["fg"], weights["batch"], meshes["data"], 2,
+                                       steps=2)}
+    torch.save(res, os.path.join(out_dir, f"rank{r}.pt"))
+
+
+def p29_rank4(out_dir, weights_path):
+    """The four ranks of (c): FSDP on data 2 x spatial 2, stage 1 of the
+    default net, fp32 and bf16 (without the gradient term)."""
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from gdn_tpu_torch import kernels as port_kernels
+    from gdn_tpu_torch.config import _with, kitti_config
+    from gdn_tpu_torch.parallel import multihost
+    from gdn_tpu_torch.parallel.mesh import create_mesh
+
+    port_kernels.load_all()
+    weights = torch.load(weights_path, weights_only=False)
+    cfg = kitti_config(**{"model.use_pallas_gn": True, "mesh.fsdp": True,
+                          "mesh.spatial_devices": 2})
+    mesh = create_mesh(0, spatial=2, device_type="cuda")
+    w, b = weights["fg"], weights["batch"]
+    res = {"rank": multihost.rank(),
+           "fp32": p29_step(_with(cfg, **F32), w, b, mesh, 1),
+           "bf16": p29_step(cfg, w, b, mesh, 1, steps=2)}
+    torch.save(res, os.path.join(out_dir, f"fsdp_sp_rank{multihost.rank()}.pt"))
+
+
+def p29_split_gn(cfg, nyu):
+    """The split GN+ELU kernel against its plain version (``_rows_plain``,
+    the same arguments) at the shapes this phase gives it: each rank's
+    uneven shard of every site of the NYU net at 228x304 over two ranks
+    (B=8, bf16; the count of the whole image's rows), and each site of the
+    paired encoder ladder at KITTI's half rows (2C channels, 2G groups).
+    On a spatial axis of extent 1: both launches, no collective."""
+    from gdn_tpu_torch.kernels import groupnorm as gnk
+    from gdn_tpu_torch.ops.groupnorm import pick_groups
+    from gdn_tpu_torch.parallel.mesh import Axis
+    from gdn_tpu_torch.parallel.spatial import row_sizes
+
+    alone = Axis(None, 1, 0)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    m = cfg.model
+    shapes = {(c, part, w, h, pick_groups(c, m.group_norm_groups))
+              for c, h, w in gn_sites(nyu.model) for part in row_sizes(h, 2)}
+    n_enc = 1 + 2 * len(m.enc_channels)
+    shapes |= {(2 * c, h // 2, w, h, 2 * pick_groups(c, m.group_norm_groups))
+               for c, h, w in gn_sites(m)[:n_enc]}
+    worst = 0.0
+    for c, part, w, h, g in sorted(shapes, reverse=True):
+        x = _gn_input((P29_BATCH, c, part, w), torch.bfloat16, gen)
+        scale = torch.rand(c, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(c, device="cuda", generator=gen)
+        what = f"group_norm_elu_rows ({P29_BATCH}, {c}, {part} of {h}, {w}), {g} groups"
+        out, stats = gnk._launch_rows(x, scale, bias, g, 1e-6, alone, h)
+        want, want_stats = gnk._rows_plain(x, scale, bias, g, 1e-6, alone, h)
+        torch.cuda.synchronize()
+        worst = max(worst, check_close(out, want, x.dtype, what))
+        check_tol(stats, want_stats, 1e-5, 1e-6, f"{what} statistics")
+    log(f"  the split GN+ELU kernel vs plain at {len(shapes)} shapes (NYU's uneven shards, "
+        f"the paired ladder's 2G groups): max|k-p| {worst:.3g}")
+    return {"shapes": len(shapes), "max_abs_err": worst}
+
+
+def p29_scripts(work):
+    """(d): the P29_SCRIPTS commands at once (each spawns its ranks),
+    stage 1 for P29_SCRIPT_STEPS steps at batch 8; each checkpoint
+    restored in this process and run once."""
+    from gdn_tpu_torch.checkpoint import latest_step, load_config, restore_checkpoint
+    from gdn_tpu_torch.models import DtoDNet
+    from gdn_tpu_torch.train.state import TrainState
+
+    out, procs = {}, {}
+    t0 = time.perf_counter()
+    for tag, flags in P29_SCRIPTS:
+        log_file = open(os.path.join(work, f"train_{tag}.log"), "w")
+        procs[tag] = (subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "scripts", "train_torch.py"), "--mode",
+             "DtoD", *flags, "--dataset", "synthetic", "--epochs", "1", "--steps_per_epoch",
+             str(P29_SCRIPT_STEPS), "--batch_size", "8", "--log_every", "1", "--ckpt_dir",
+             os.path.join(work, tag)], cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT),
+            log_file)
+    for tag, (proc, log_file) in procs.items():
+        rc = proc.wait(timeout=400)
+        log_file.close()
+        if rc != 0:
+            raise AssertionError(f"(d) train_torch.py {tag} failed: see {log_file.name}")
+    dev = torch.device("cuda")
+    for tag, _ in P29_SCRIPTS:
+        d = os.path.join(work, tag, "stage1")
+        cfg = load_config(d)
+        net = DtoDNet(cfg.model).to(dev)
+        state = restore_checkpoint(d, TrainState(net, cfg.train, 10))
+        h, w = cfg.model.image_size
+        with torch.no_grad():
+            depth = net(torch.rand(2, h, w, 1, device=dev))["depth"]
+        torch.cuda.synchronize()
+        ok = bool(torch.isfinite(depth).all()) and tuple(depth.shape) == (2, h, w, 1)
+        out[tag] = {"step": state.step, "latest": latest_step(d), "finite": ok,
+                    "image_size": [h, w], "upsample": cfg.model.upsample,
+                    "norm": cfg.model.norm,
+                    "mesh": {"model": cfg.mesh.model_devices,
+                             "spatial": cfg.mesh.spatial_devices}}
+        if not ok or state.step != P29_SCRIPT_STEPS:
+            raise AssertionError(f"(d) {tag} checkpoint: step {state.step}, forward finite "
+                                 f"and shaped {ok}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_split_knobs(cfg):
+    """Phase 29: the model variants, fused guidance and the paired
+    encoders under TP and SP, NYU at 228 x 304 under SP, FSDP with fused
+    guidance and on a spatial mesh, the script (see the module
+    docstring)."""
+    from gdn_tpu_torch.config import _with, nyu_config
+    from gdn_tpu_torch.parallel.multihost import run_ranks
+
+    t0 = time.perf_counter()
+    out, launches, problems = {"device": smi_line()}, {}, []
+    log(f"  {out['device']}")
+    work = os.path.join(OUT, "p29")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    nyu = nyu_config(**{"model.use_pallas_gn": True})
+    weights = {"batch": p29_batch(cfg), "nyu": p29_weights(nyu, 291),
+               "nyu_batch": p29_batch(nyu, 292)}
+    for i, (tag, over, _) in enumerate(P29_GRID):
+        weights[tag] = p29_weights(_with(cfg, **over), 293 + 2 * i)
+    path = os.path.join(work, "weights.pt")
+    torch.save(weights, path)
+    out["split_gn"] = p29_split_gn(cfg, nyu)  # its launches count on no path
+    ts = time.perf_counter()
+    single = p29_runs(cfg, weights, None)
+    nw = (weights["nyu"], weights["nyu_batch"])
+
+    def one_process(c, w, batch, stage):
+        return {"fp32": p29_step(_with(c, **F32), w, batch, None, stage),
+                "bf16": p29_step(c, w, batch, None, stage, steps=2)}
+
+    single_nyu = one_process(nyu, *nw, 2)
+    single_fsdp = {k: single["fg", "tp", k] for k in ("fp32", "bf16")}
+    single_fsdp_sp = one_process(cfg, weights["fg"], weights["batch"], 1)
+    out["single_seconds"] = time.perf_counter() - ts
+    ts = time.perf_counter()
+    run_ranks(p29_rank, P29_RANKS, (work, path), device_type="cuda", timeout=900)
+    out["ranks_seconds"] = time.perf_counter() - ts
+    ts = time.perf_counter()
+    run_ranks(p29_rank4, P29_FSDP_RANKS, (work, path), device_type="cuda", timeout=600)
+    out["ranks4_seconds"] = time.perf_counter() - ts
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(P29_RANKS)]
+    ranks4 = [torch.load(os.path.join(work, f"fsdp_sp_rank{r}.pt"), weights_only=False)
+              for r in range(P29_FSDP_RANKS)]
+
+    def held(what, got, one):
+        """A case's runs ``got`` against one process's ``one`` (each by
+        precision): fp32 terms within 1e-4 and gradients within 1e-3 of
+        each tensor's largest; bf16 terms within phase 28's 5%, gradients
+        within its 5% or, where larger, one process's own bf16-to-fp32
+        gap (see F32's note)."""
+        row = {"bf16_own_gap": _grad_gap(one["bf16"]["grads"], one["fp32"]["grads"])}
+        for prec, tt, gt in (("fp32", 1e-4, 1e-3),
+                             ("bf16", BF16_TERMS_TOL, max(BF16_GRAD_TOL, row["bf16_own_gap"]))):
+            g, w = got[prec], one[prec]
+            gaps = {k: _grad_gap({k: g["grads"][k]}, {k: v}) for k, v in w["grads"].items()}
+            worst = max(gaps, key=gaps.get)
+            row[prec] = {"terms_rel_gap": _terms_gap(g["terms"][:1], w["terms"][:1])[0],
+                         "grad_rel_gap": gaps[worst], "worst": worst, "grad_bound": gt}
+            if row[prec]["terms_rel_gap"] > tt:
+                problems.append(f"{what} {prec} terms {row[prec]['terms_rel_gap']:.3g} beyond "
+                                f"{tt}")
+            if gaps[worst] > gt:
+                problems.append(f"{what} {prec} gradients {gaps[worst]:.3g} ({worst}) beyond "
+                                f"{gt:.3g} of their largest")
+        return row
+
+    def launch_check(what, got, want, rows):
+        """Each rank's launches by kernel: under TP the one process's;
+        under SP the one process's GN+ELU launches as split ones, no
+        one-launch GN+ELU and no fused loss (SP takes the plain terms)."""
+        if rows:
+            want = {k: 0 for k in COUNTERS} | {
+                "group_norm_elu_rows": want["group_norm_elu"]}
+        if got != want:
+            problems.append(f"{what} launches {got} != {want}")
+
+    # (a) the knob grid
+    out["grid"] = {}
+    for tag, over, stage in P29_GRID:
+        for axis, _ in P29_AXES:
+            name = f"(a) {tag} {axis}"
+            row = held(name, {p: ranks[0]["grid"][tag, axis, p] for p in ("fp32", "bf16")},
+                       {p: single[tag, axis, p] for p in ("fp32", "bf16")})
+            for prec in ("fp32", "bf16"):
+                one = single[tag, axis, prec]
+                for rk in ranks:
+                    rec = rk["grid"][tag, axis, prec]
+                    key = f"split_{tag}_{axis}_{prec}_rank{rk['rank']}"
+                    launches[key] = rec["launches"][0]
+                    launch_check(f"{name} {prec} rank {rk['rank']}", rec["launches"][0],
+                                 one["launches"][0], axis == "sp")
+            one_gn = single[tag, axis, "bf16"]["launches"][0]["group_norm_elu"]
+            if tag in ("deconv_add_ms_gelu", "none_relu") and one_gn:
+                problems.append(f"{name}: {one_gn} GN+ELU launches in a net without ELU "
+                                "GroupNorm")
+            row["ms_per_step"] = {"single": single[tag, axis, "bf16"]["ms"][1],
+                                  "ranks": [rk["grid"][tag, axis, "bf16"]["ms"][1]
+                                            for rk in ranks]}
+            row["launches"] = {k: v for k, v in
+                               ranks[0]["grid"][tag, axis, "bf16"]["launches"][0].items() if v}
+            row["gathers"] = ranks[0]["grid"][tag, axis, "bf16"]["gathers"][0]
+            out["grid"][f"{tag}_{axis}"] = row
+            log(f"  {name}: fp32 terms {row['fp32']['terms_rel_gap']:.3g} gradients "
+                f"{row['fp32']['grad_rel_gap']:.3g}; bf16 terms "
+                f"{row['bf16']['terms_rel_gap']:.3g} gradients "
+                f"{row['bf16']['grad_rel_gap']:.3g} ({row['bf16']['worst']}; bound "
+                f"{row['bf16']['grad_bound']:.3g}: one process's bf16 from its fp32 "
+                f"{row['bf16_own_gap']:.3g})"
+                + f"; ms/step one process {row['ms_per_step']['single']:.1f}, ranks "
+                + ", ".join(f"{x:.1f}" for x in row["ms_per_step"]["ranks"])
+                + f"; launches a rank {row['launches']}; row gathers {row['gathers']}")
+    # (b) NYU at 228 x 304 under SP
+    row = held("(b) nyu sp", ranks[0]["nyu"], single_nyu)
+    for rk in ranks:
+        for prec in ("fp32", "bf16"):
+            rec = rk["nyu"][prec]
+            launches[f"split_nyu_{prec}_rank{rk['rank']}"] = rec["launches"][0]
+            launch_check(f"(b) nyu {prec} rank {rk['rank']}", rec["launches"][0],
+                         single_nyu[prec]["launches"][0], True)
+    row["gathers"] = ranks[0]["nyu"]["bf16"]["gathers"]
+    row["rows_launches"] = ranks[0]["nyu"]["bf16"]["launches"][0]["group_norm_elu_rows"]
+    row["ms_per_step"] = {"single": single_nyu["bf16"]["ms"][1],
+                          "ranks": [rk["nyu"]["bf16"]["ms"][1] for rk in ranks]}
+    if not row["rows_launches"] or not row["gathers"][0]:
+        problems.append(f"(b) nyu: split GN+ELU launches {row['rows_launches']}, gathers "
+                        f"{row['gathers']}")
+    out["nyu"] = row
+    log(f"  (b) NYU {P29_NYU[0]}x{P29_NYU[1]} SP=2 stage 2: fp32 terms "
+        f"{row['fp32']['terms_rel_gap']:.3g} gradients {row['fp32']['grad_rel_gap']:.3g}; "
+        f"bf16 terms {row['bf16']['terms_rel_gap']:.3g} gradients "
+        f"{row['bf16']['grad_rel_gap']:.3g} ({row['bf16']['worst']}; bound "
+        f"{row['bf16']['grad_bound']:.3g}: one process's bf16 from its fp32 "
+        f"{row['bf16_own_gap']:.3g}); split GN+ELU launches a rank a step "
+        f"{row['rows_launches']}, row gathers a step {row['gathers'][0]}; ms/step one "
+        f"process {row['ms_per_step']['single']:.1f}, ranks "
+        + ", ".join(f"{x:.1f}" for x in row["ms_per_step"]["ranks"]))
+    # (c) FSDP
+    out["fsdp"] = {}
+    for tag, got_ranks, want in (("fg", [rk["fsdp_fg"] for rk in ranks], single_fsdp),
+                                 ("data2_spatial2", ranks4, single_fsdp_sp)):
+        row = held(f"(c) fsdp {tag}", got_ranks[0], want)
+        for i, rk in enumerate(got_ranks):
+            for prec in ("fp32", "bf16"):
+                launches[f"split_fsdp_{tag}_{prec}_rank{i}"] = rk[prec]["launches"][0]
+                launch_check(f"(c) fsdp {tag} {prec} rank {i}", rk[prec]["launches"][0],
+                             want[prec]["launches"][0], tag != "fg")
+        row["ms_per_step"] = {"single": want["bf16"]["ms"][1],
+                              "ranks": [rk["bf16"]["ms"][1] for rk in got_ranks]}
+        out["fsdp"][tag] = row
+        log(f"  (c) FSDP {tag} ({len(got_ranks)} ranks): fp32 terms "
+            f"{row['fp32']['terms_rel_gap']:.3g} gradients "
+            f"{row['fp32']['grad_rel_gap']:.3g}; bf16 terms "
+            f"{row['bf16']['terms_rel_gap']:.3g} gradients "
+            f"{row['bf16']['grad_rel_gap']:.3g} ({row['bf16']['worst']}; bound "
+            f"{row['bf16']['grad_bound']:.3g}: one process's bf16 from its fp32 "
+            f"{row['bf16_own_gap']:.3g}); ms/step one process "
+            f"{row['ms_per_step']['single']:.1f}, ranks "
+            + ", ".join(f"{x:.1f}" for x in row["ms_per_step"]["ranks"]))
+    # (d) the script
+    reset_counts()
+    out["scripts"] = p29_scripts(work)
+    launches["split_scripts_parent"] = read_counts()
+    sc = out["scripts"]
+    log(f"  (d) train_torch.py " + ", ".join(f"{t} ({' '.join(f)})" for t, f in P29_SCRIPTS)
+        + f", at once: {sc['seconds']:.1f} s; " + ", ".join(
+            f"{t}: restored at step {r['step']} in one process, forward finite {r['finite']}"
+            for t, r in sc.items() if t != "seconds"))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 29 took {out['seconds']:.1f} s (one process {out['single_seconds']:.1f} s, "
+        f"2 ranks {out['ranks_seconds']:.1f} s, 4 ranks {out['ranks4_seconds']:.1f} s)")
+    if problems:
+        raise AssertionError("phase 29: " + "; ".join(problems))
     return out, launches
 
 
@@ -5512,6 +5918,12 @@ def main():
     tp_sp, tp_sp_launches = phase_tp_sp(cfg, refs)
     del refs
 
+    log(f"== 29. split knobs: the model variants, fused guidance and the paired encoders "
+        f"under TP and SP over {P29_RANKS} ranks sharing the card (gloo), NYU at "
+        f"{P29_NYU[0]}x{P29_NYU[1]} under SP, FSDP with fused guidance and on data 2 x "
+        "spatial 2, the script")
+    split_knobs, split_launches = phase_split_knobs(cfg)
+
     main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
     per_fwd = {k: sum(r[k] * r["sites"] for r in main_rows)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -5523,7 +5935,8 @@ def main():
                      **{f"{k}_fusion": v for k, v in fusion_train_launches.items()},
                      **eval_launches, **life_launches, **disk_launches,
                      **tools_launches, **art_launches, **variant_launches,
-                     **knob_launches, **parallel_launches, **tp_sp_launches}
+                     **knob_launches, **parallel_launches, **tp_sp_launches,
+                     **split_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in path_launches.values())
@@ -5566,7 +5979,8 @@ def main():
         "source": "gdn_tpu_torch/csrc/group_norm_elu.cu",
         "replaces": "gdn_tpu/kernels/groupnorm.py:133",
         "launches": total("group_norm_elu_rows"),
-        "max_abs_err": max(r["max_abs_err"] for r in split_rows),
+        "max_abs_err": max([r["max_abs_err"] for r in split_rows]
+                           + [split_knobs["split_gn"]["max_abs_err"]]),
         **{k: sum(r[k] * r["sites"] for r in split_rows)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         "bound_by": "bytes",
@@ -5588,6 +6002,7 @@ def main():
                    "eval": evaluation, "lifecycle": lifecycle, "disk": disk,
                    "tools": tools, "artifacts": artifacts, "variants": variants,
                    "knobs": knobs, "parallel": parallel, "tp_sp": tp_sp,
+                   "split_knobs": split_knobs,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
                    "sass_hmma": hmma_by_fn, "ptxas": ptxas,
                    "kernels": kernels}, f, indent=1)

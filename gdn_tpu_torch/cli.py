@@ -13,13 +13,12 @@ to a parser and ``build_config`` maps the parsed flags onto one
   (``config.FUSED_KERNEL_FLAGS``).
 - ``build_config`` sets ``model.use_pallas_gn``: the port launches the
   GroupNorm+ELU kernel at every unfused site on the card.
-- Flags for what the port does not run yet parse, and the Config
-  refuses their values with ``NotImplementedError`` naming the ROADMAP
-  item (a model variant or ``--fused_guidance`` with
-  ``--spatial_devices`` or ``--model_devices`` > 1: Queue A item 10c).
-  ``parse_or_exit`` turns that refusal into the parser's error, as it
-  does a combination neither package runs (``--quantize int8 --norm
-  none``: a ``ValueError``).
+- The port runs every combination of flags the JAX package's scripts
+  take (a model variant, ``--fused_guidance`` or ``--fsdp`` on any
+  mesh).  A combination neither package runs raises from the Config
+  (``--quantize int8 --norm none``, ``--model_devices 2 --fsdp``: a
+  ``ValueError``), and ``parse_or_exit`` turns that into the parser's
+  error.
 - ``--num_devices N`` runs N ranks (0: every visible card, at least
   ``--spatial_devices`` x ``--model_devices``; one process on the CPU
   otherwise), ``--spatial_devices S`` shards each image's height over S

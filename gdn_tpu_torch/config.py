@@ -112,14 +112,6 @@ REMAT_FACTORIES = (
 _DATA_NOT_YET = (
     ("loader", ("native", "grain"), "Queue A item 8 (the host loaders)"),
 )
-_SPLIT_LATER = "ROADMAP.md Queue A item 10c (knobs under tensor and spatial parallelism)"
-# ModelConfig fields and the values tensor and spatial parallelism run:
-# the default architecture (the model variants take other sites)
-_SPLIT_MODEL = (
-    ("upsample", "resize_conv"), ("fusion", "concat"), ("norm", "group"),
-    ("activation", "elu"), ("multiscale_heads", False), ("quant", "none"),
-)
-
 
 def _refuse(cls: str, table) -> Callable:
     """A __post_init__ that raises NotImplementedError for each field of
@@ -319,7 +311,9 @@ class MeshConfig:
     height and ``model_devices`` each layer's output channels
     (``parallel.mesh.create_mesh(spatial=, model=)``).  TP and FSDP
     exclude each other as in the JAX package
-    (``parallel.mesh.param_mode``)."""
+    (``parallel.mesh.param_mode``); every model variant and training
+    knob runs on every mesh, as in the JAX package (its train steps
+    refuse only training with ``quant``)."""
 
     data_axis: str = "data"
     num_devices: int = 0
@@ -335,22 +329,6 @@ class MeshConfig:
         if self.model_devices > 1 and self.fsdp:
             raise ValueError("model_devices>1 (tensor parallel) and fsdp are mutually "
                              "exclusive parameter placements")
-        if self.spatial_devices > 1 and self.fsdp:
-            raise NotImplementedError(f"fsdp with spatial_devices>1: see {_SPLIT_LATER}")
-
-
-def refuse_split(model: "ModelConfig", train: Optional["TrainConfig"] = None) -> None:
-    """Raise NotImplementedError naming Queue A item 10c for a knob that
-    tensor or spatial parallelism does not run: a model variant other
-    than the default architecture, or stage 2's fused guidance."""
-    for name, value in _SPLIT_MODEL:
-        if getattr(model, name) != value:
-            raise NotImplementedError(
-                f"ModelConfig.{name}={getattr(model, name)!r} under tensor or spatial "
-                f"parallelism (only {value!r}): see {_SPLIT_LATER}")
-    if train is not None and train.fused_guidance:
-        raise NotImplementedError(f"fused_guidance under tensor or spatial parallelism: "
-                                  f"see {_SPLIT_LATER}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,10 +339,6 @@ class Config:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
-
-    def __post_init__(self):
-        if self.mesh.spatial_devices > 1 or self.mesh.model_devices > 1:
-            refuse_split(self.model, self.train)
 
 
 def kitti_config(**overrides) -> Config:

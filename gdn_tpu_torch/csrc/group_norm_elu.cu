@@ -48,9 +48,11 @@
 // Split form (gn_rows_sums, gn_rows_apply): for an image whose rows are
 // sharded over ranks (spatial parallelism), the statistics are the whole
 // image's.  The first kernel writes each slab's per-group (sum, sum of
-// squares); the caller all-reduces them over the ranks; the second folds an
-// image's slabs in a fixed order (the cooperative kernel's fold, with n the
-// whole image's count), writes the stats and normalizes its slab.  Neither
+// squares); the caller sums each image's slabs and all-reduces those sums
+// over the ranks (one shape on every rank, whatever its rows); the second
+// folds an image's `fold` entries of them in a fixed order (the cooperative
+// kernel's fold, with n the whole image's count), writes the stats and
+// normalizes its slab.  Neither
 // stages in shared memory: x is read twice and out written once, as in the
 // streamed plan.
 //
@@ -349,16 +351,16 @@ gn_rows_sums(const T* __restrict__ x, float* __restrict__ partials, int hw, int 
   group_sums(red, c / groups, groups, dst + 1);
 }
 
-// Split form, second half: slab blockIdx.x folds its image's spi partials
-// (already summed over the ranks) in a fixed order, with n elements a group
-// in the whole image, and normalizes its rows.  The image's slab 0 writes the
-// (B, 2, G) stats.
+// Split form, second half: slab blockIdx.x folds its image's `fold` partial
+// sums (already summed over the ranks) in a fixed order, with n elements a
+// group in the whole image, and normalizes its rows.  The image's slab 0
+// writes the (B, 2, G) stats.
 template <typename T, int V>
 __global__ void __launch_bounds__(V == 1 ? 1024 : 256, 1)
 gn_rows_apply(const T* __restrict__ x, const float* __restrict__ scale,
               const float* __restrict__ bias, const float* __restrict__ partials,
               T* __restrict__ out, float* __restrict__ stats, int hw, int c, int groups,
-              int rows, int spi, float n, float eps) {
+              int rows, int spi, int fold, float n, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* gst = reinterpret_cast<float*>(smem);  // mean (G), inv (G)
   const int px = blockDim.x, by = blockDim.y, c0 = threadIdx.x * V;
@@ -366,9 +368,9 @@ gn_rows_apply(const T* __restrict__ x, const float* __restrict__ scale,
   const int nwarps = px * by >> 5, cg_ = c / groups;
   const int s = blockIdx.x, b = s / spi, k = s % spi;
   for (int g = warp; warp < nwarps && g < groups; g += nwarps) {
-    const float* src = partials + (size_t)b * spi * groups * 2 + 2 * g;
+    const float* src = partials + (size_t)b * fold * groups * 2 + 2 * g;
     float t1 = 0.f, t2 = 0.f;
-    for (int j = lane; j < spi; j += 32) {
+    for (int j = lane; j < fold; j += 32) {
       t1 += src[(size_t)j * groups * 2];
       t2 += src[(size_t)j * groups * 2 + 1];
     }
@@ -496,10 +498,10 @@ extern "C" int gn_elu_forward(const void* x, const void* scale, const void* bias
   return (int)cudaErrorInvalidValue;
 }
 
-// The split form's two launches (see the header).  partials: fp32
-// (B * spi, G, 2), written by gn_rows_sums and read, summed over the ranks,
-// by gn_rows_apply; n: elements of one group in the whole image.  Each
-// returns a cudaError_t.
+// The split form's two launches (see the header).  gn_rows_sums writes
+// partials, fp32 (B * spi, G, 2); gn_rows_apply reads fp32 (B * fold, G, 2)
+// sums, summed over the ranks (the caller's fold of the partials: fold 1);
+// n: elements of one group in the whole image.  Each returns a cudaError_t.
 static bool rows_args_ok(int batch, int hw, int c, int groups, int rows, int spi, int px,
                          int by, int vec) {
   return batch >= 1 && hw >= 1 && c <= kMaxC && groups >= 1 && c % groups == 0 &&
@@ -530,9 +532,9 @@ extern "C" int gn_rows_sums(const void* x, void* partials, int batch, int hw, in
 
 extern "C" int gn_rows_apply(const void* x, const void* scale, const void* bias,
                              const void* partials, void* out, void* stats, int batch, int hw,
-                             int c, int groups, int rows, int spi, int px, int by, float n,
-                             float eps, int dtype, int vec, void* stream) {
-  if (!rows_args_ok(batch, hw, c, groups, rows, spi, px, by, vec) || !(n > 0.f))
+                             int c, int groups, int rows, int spi, int fold, int px, int by,
+                             float n, float eps, int dtype, int vec, void* stream) {
+  if (!rows_args_ok(batch, hw, c, groups, rows, spi, px, by, vec) || fold < 1 || !(n > 0.f))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(batch * spi), block(px, by);
@@ -541,7 +543,8 @@ extern "C" int gn_rows_apply(const void* x, const void* scale, const void* bias,
   gn_rows_apply<T, V><<<grid, block, dyn, st>>>(                                          \
       static_cast<const T*>(x), static_cast<const float*>(scale),                         \
       static_cast<const float*>(bias), static_cast<const float*>(partials),               \
-      static_cast<T*>(out), static_cast<float*>(stats), hw, c, groups, rows, spi, n, eps); \
+      static_cast<T*>(out), static_cast<float*>(stats), hw, c, groups, rows, spi, fold, n,  \
+      eps);                                                                                \
   return (int)cudaGetLastError()
   if (dtype == 0 && vec == 4) { GN_APPLY(float, 4); }
   if (dtype == 0 && vec == 1) { GN_APPLY(float, 1); }

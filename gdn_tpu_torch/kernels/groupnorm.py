@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -133,7 +133,7 @@ def load() -> ctypes.CDLL:
         lib.gn_elu_occupancy.restype = ctypes.c_int
         lib.gn_rows_sums.argtypes = [p, p] + [i] * 10 + [p]
         lib.gn_rows_sums.restype = ctypes.c_int
-        lib.gn_rows_apply.argtypes = [p] * 6 + [i] * 8 + [ctypes.c_float] * 2 + [i, i, p]
+        lib.gn_rows_apply.argtypes = [p] * 6 + [i] * 9 + [ctypes.c_float] * 2 + [i, i, p]
         lib.gn_rows_apply.restype = ctypes.c_int
     return lib
 
@@ -241,15 +241,16 @@ class _GroupNormELUKernel(torch.autograd.Function):
         return dy, dscale, dbias, None, None
 
 
-def backward_from_stats(da, x, stats, scale, bias, groups, ax=None):
+def backward_from_stats(da, x, stats, scale, bias, groups, ax=None, rows=None):
     """(dx, dscale, dbias) of GroupNorm+ELU from x and the kernel's fp32
     (B, 2, G) mean and inverse std, expanded per channel by one op.
-    ``ax``: x holds this rank's rows of the image on that spatial axis."""
+    ``ax``: x holds this rank's rows of the image (``rows`` of them in
+    all) on that spatial axis."""
     dt = x.dtype
     st = stats.repeat_interleave(x.shape[1] // groups, dim=2)  # (B, 2, C)
     mean_c, inv_c = st[:, 0], st[:, 1]
     yn = (x - mean_c.to(dt)[:, :, None, None]) * inv_c.to(dt)[:, :, None, None]
-    dy, dscale, dbias = gn_elu_backward(da, yn, inv_c, scale, bias, groups, ax=ax)
+    dy, dscale, dbias = gn_elu_backward(da, yn, inv_c, scale, bias, groups, ax=ax, rows=rows)
     return dy, dscale.to(scale.dtype), dbias.to(bias.dtype)
 
 
@@ -261,9 +262,11 @@ def rows_plan(b: int, hw: int, sms: int, per_sm: int = 4):
     return rows, -(-hw // rows)
 
 
-def _launch_rows(x, scale, bias, groups, eps, ax):
+def _launch_rows(x, scale, bias, groups, eps, ax, rows):
     """The split form's two launches around the all-reduce over ``ax`` ->
-    (out, fp32 (B, 2, G) mean and inverse std of the whole image)."""
+    (out, fp32 (B, 2, G) mean and inverse std of the whole image of
+    ``rows`` rows).  A rank without rows launches neither kernel and
+    takes the statistics from the all-reduced sums."""
     b, c, h, w = x.shape
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("x must be channels_last contiguous (NHWC memory)")
@@ -274,24 +277,34 @@ def _launch_rows(x, scale, bias, groups, eps, ax):
     vec = 16 // x.element_size()
     if c % vec or x.data_ptr() % 16:
         vec = 1
+    n = float(rows * w * (c // groups))
+    out = torch.empty_like(x, memory_format=torch.channels_last)
+    if not h:  # no rows here: zero sums into the all-reduce, the statistics alone
+        sums = torch.zeros((b, groups, 2), dtype=torch.float32, device=x.device)
+        if ax.size > 1:
+            dist.all_reduce(sums, group=ax.group)
+        mean = sums[..., 0] / n
+        inv = torch.rsqrt(torch.clamp(sums[..., 1] / n - mean.square(), min=0.0) + eps)
+        return out, torch.stack([mean, inv], 1)
     px, by = block_shape(c, vec)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows, spi = rows_plan(b, h * w, sms)
+    rows_, spi = rows_plan(b, h * w, sms)
     lib = load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     partials = torch.empty((b * spi, groups, 2), dtype=torch.float32, device=x.device)
-    err = lib.gn_rows_sums(x.data_ptr(), partials.data_ptr(), b, h * w, c, groups, rows, spi,
+    err = lib.gn_rows_sums(x.data_ptr(), partials.data_ptr(), b, h * w, c, groups, rows_, spi,
                            px, by, _DTYPES[x.dtype], vec, stream)
     if err != 0:
         raise RuntimeError(f"gn_rows_sums failed: cudaError {err}")
+    # each image's slabs folded to (B, G, 2): one shape on every rank,
+    # whatever its rows, summed over the ranks and read by apply (fold 1)
+    sums = partials.view(b, spi, groups, 2).sum(1)
     if ax.size > 1:
-        dist.all_reduce(partials, group=ax.group)
-    out = torch.empty_like(x, memory_format=torch.channels_last)
+        dist.all_reduce(sums, group=ax.group)
     stats = torch.empty((b, 2, groups), dtype=torch.float32, device=x.device)
-    n = float(h * ax.size * w * (c // groups))
     err = lib.gn_rows_apply(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                            partials.data_ptr(), out.data_ptr(), stats.data_ptr(), b, h * w, c,
-                            groups, rows, spi, px, by, n, float(eps), _DTYPES[x.dtype], vec,
+                            sums.data_ptr(), out.data_ptr(), stats.data_ptr(), b, h * w, c,
+                            groups, rows_, spi, 1, px, by, n, float(eps), _DTYPES[x.dtype], vec,
                             stream)
     if err != 0:
         raise RuntimeError(f"gn_rows_apply failed: cudaError {err}")
@@ -299,7 +312,7 @@ def _launch_rows(x, scale, bias, groups, eps, ax):
     return out, stats
 
 
-def _rows_plain(x, scale, bias, groups, eps, ax):
+def _rows_plain(x, scale, bias, groups, eps, ax, rows):
     """The split form in plain PyTorch: the sums all-reduced over ``ax``,
     then ``group_norm_elu_analytic``'s forward with the whole image's
     statistics (mean and inverse rounded to x's dtype)."""
@@ -309,7 +322,7 @@ def _rows_plain(x, scale, bias, groups, eps, ax):
     if ax.size > 1:
         dist.all_reduce(sums, group=ax.group)
     sums = sums.view(b, 2, groups, -1).sum(-1)
-    n = h * ax.size * w * (c // groups)
+    n = rows * w * (c // groups)
     mean = sums[:, 0] / n
     inv = torch.rsqrt(torch.clamp(sums[:, 1] / n - mean.square(), min=0.0) + eps)
     stats = torch.stack([mean, inv], 1)
@@ -325,31 +338,36 @@ class _GroupNormELURows(torch.autograd.Function):
     the CPU; the analytic backward with its reductions all-reduced."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, groups, eps, ax):
+    def forward(ctx, x, scale, bias, groups, eps, ax, rows):
         fwd = _launch_rows if x.device.type == "cuda" else _rows_plain
-        out, stats = fwd(x, scale, bias, groups, eps, ax)
+        out, stats = fwd(x, scale, bias, groups, eps, ax, rows)
         ctx.save_for_backward(x, stats, scale, bias)
-        ctx.groups, ctx.ax = groups, ax
+        ctx.groups, ctx.ax, ctx.rows = groups, ax, rows
         return out
 
     @staticmethod
     def backward(ctx, da):
         x, stats, scale, bias = ctx.saved_tensors
-        dy, dscale, dbias = backward_from_stats(da, x, stats, scale, bias, ctx.groups, ctx.ax)
-        return dy, dscale, dbias, None, None, None
+        dy, dscale, dbias = backward_from_stats(da, x, stats, scale, bias, ctx.groups, ctx.ax,
+                                                ctx.rows)
+        return dy, dscale, dbias, None, None, None, None
 
 
 def group_norm_elu_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                        groups: int, eps: float, ax) -> torch.Tensor:
+                        groups: int, eps: float, ax, rows: Optional[int] = None
+                        ) -> torch.Tensor:
     """GroupNorm + ELU of the whole image on this rank's rows x (B, C, h,
-    W) of it, the rows split evenly over the spatial axis ``ax``
-    (``parallel.mesh.Axis``; of extent 1, the whole image: no
-    collective): the split form.  A CPU tensor runs the
+    W) of it, over the spatial axis ``ax`` (``parallel.mesh.Axis``; of
+    extent 1, the whole image: no collective): the split form.  The
+    image has ``rows`` rows in all (None: h x the extent, an even
+    split); a rank may hold any number of them, none included, and the
+    statistics divide by the whole image's count.  A CPU tensor runs the
     plain version; a CUDA tensor launches the kernels or raises."""
     _check(x, scale, bias, groups)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    return _GroupNormELURows.apply(x, scale, bias, groups, eps, ax)
+    rows = x.shape[2] * ax.size if rows is None else rows
+    return _GroupNormELURows.apply(x, scale, bias, groups, eps, ax, rows)
 
 
 group_norm_elu_rows.launches = 0

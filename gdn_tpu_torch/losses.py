@@ -24,12 +24,19 @@ ranks different valid counts.
 
 Spatial parallelism (``rows``, the mesh's ``"spatial"`` axis, with
 ``group`` its ``"data"`` x ``"spatial"`` ranks): the maps are this
-rank's rows of each image.  Counts and means are taken over ``group``
-as above (the shards are the same size); the forward differences take
-one row from the rank below (``_grads``), SSIM its window's halo
-(``ops.ssim``), the coarse scales pool each shard (its rows divide by
-2^(scales-1)), and an image counts as valid by its mask over all its
-rows.  The fused loss kernel has no halo form: the steps route a
+rank's rows of each image (an even split of the input height).  Counts
+are taken over ``group`` as above; the forward differences take one row
+from the rank below (``_grads``), SSIM its window's halo (``ops.ssim``),
+the coarse scales pool each shard, and an image counts as valid by its
+mask over all its rows.  Where a shard is too thin for SSIM's window or
+does not pool ``grad_scales - 1`` times, that term runs on the gathered
+image on every rank (``parallel.spatial.gather_rows``): its counts,
+summed over ``group``, are then S times the image's, so each rank's
+term is its 1/S share and the gather's backward sums the shares.  The
+latent term divides by the elements summed over ``group`` (the decoder's
+levels split unevenly), and the coarse heads (uneven rows too) are
+held against GT and mask picked on the whole image and cut to the
+head's rows.  The fused loss kernel has no halo form: the steps route a
 spatial mesh to the plain terms, as the JAX package does.
 """
 
@@ -44,7 +51,9 @@ from gdn_tpu_torch.kernels.fused_loss import fused_loss_terms
 from gdn_tpu_torch.ops.resize import resize_nearest
 from gdn_tpu_torch.ops.ssim import ssim
 from gdn_tpu_torch.parallel.mesh import global_sum, group_size
-from gdn_tpu_torch.parallel.spatial import halo
+from gdn_tpu_torch.parallel.spatial import (
+    gather_rows, global_rows, halo, pools_local, row_bounds, ssim_local,
+)
 
 
 def _squeeze(x: torch.Tensor) -> torch.Tensor:
@@ -80,9 +89,9 @@ def _gradient_scale_losses(pred, gt, mask, num_scales: int,
     out; the pooling chain is the same either way.  A coarse pixel is
     valid only where all 4 children are (see the JAX package)."""
     terms = []
-    if rows is not None and pred.shape[1] % 2 ** (num_scales - 1):
-        raise ValueError(f"a shard of {pred.shape[1]} rows does not pool {num_scales - 1} "
-                         "times: its scales would straddle the ranks")
+    if rows is not None and not pools_local(pred.shape[1] * rows.size, num_scales, rows.size):
+        pred, gt, mask = (gather_rows(t, rows, dim=1) for t in (pred, gt, mask))
+        rows = None
     for s in range(num_scales):
         if s > 0:
             pred = _avgpool2(pred)
@@ -123,6 +132,9 @@ def ssim_loss(pred, gt, max_depth: float, window: int = 11, sigma: float = 1.5,
     (B,) drops whole images (all-masked ones) from the mean."""
     p = _squeeze(pred).float() / max_depth
     g = _squeeze(gt).float() / max_depth
+    if rows is not None and not ssim_local(p.shape[1] * rows.size, window, rows.size):
+        p, g = gather_rows(p, rows, dim=1), gather_rows(g, rows, dim=1)
+        rows = None
     s_map = ssim(p, g, max_val=1.0, window=window, sigma=sigma,
                  precision=precision, mean=False, rows=rows)
     d = group_size(group)
@@ -136,23 +148,34 @@ def ssim_loss(pred, gt, max_depth: float, window: int = 11, sigma: float = 1.5,
 
 
 def multiscale_depth_loss(scale_preds: Sequence[torch.Tensor], gt: torch.Tensor,
-                          mask: torch.Tensor, group=None) -> torch.Tensor:
+                          mask: torch.Tensor, group=None, rows=None) -> torch.Tensor:
     """Masked L1 supervision of the coarse decoder heads
     (``ModelConfig.multiscale_heads``).  ``scale_preds`` are ordered
     coarse->fine; scale j of n weighs 0.5^(n-1-j), and the weights are
     normalized by their sum.  GT and mask go to each head's size by
     ``ops.resize.resize_nearest`` (the JAX package's half-pixel nearest,
-    which keeps sparse validity; ``F.interpolate`` picks other pixels)."""
+    which keeps sparse validity; ``F.interpolate`` picks other pixels).
+    With ``rows`` the maps are this rank's rows: GT and mask are
+    gathered whole (no gradient), picked at each head's global size and
+    cut to the head's rows."""
     gt4 = _squeeze(gt).float()[:, None]
     m4 = _squeeze(mask).float()[:, None]
+    if rows is not None:
+        with torch.no_grad():
+            gt4, m4 = gather_rows(gt4, rows), gather_rows(m4, rows)
     n = len(scale_preds)
     total = gt4.new_zeros(())
     wsum = 0.0
     for j, p in enumerate(scale_preds):
         p3 = _squeeze(p).float()
         hw = tuple(p3.shape[1:3])
+        if rows is not None:
+            hw = (global_rows(p3, rows, dim=1), hw[1])
         g = resize_nearest(gt4, hw)[:, 0]
         m = resize_nearest(m4, hw)[:, 0]
+        if rows is not None:
+            s, e = row_bounds(hw[0], rows)
+            g, m = g[:, s:e], m[:, s:e]
         w = 0.5 ** (n - 1 - j)
         total = total + w * masked_l1(p3, g, m, group)
         wsum += w
@@ -160,13 +183,21 @@ def multiscale_depth_loss(scale_preds: Sequence[torch.Tensor], gt: torch.Tensor,
 
 
 def latent_loss(feats_a: Sequence[torch.Tensor],
-                feats_b: Sequence[torch.Tensor], group=None) -> torch.Tensor:
+                feats_b: Sequence[torch.Tensor], group=None, rows=None) -> torch.Tensor:
     """Guidance feature matching: mean L1 between feature pyramids;
-    ``feats_b`` is the (no-grad) target."""
+    ``feats_b`` is the (no-grad) target.  With ``rows`` (shards of
+    unequal height) each mean divides by the elements summed over
+    ``group``."""
     if len(feats_a) != len(feats_b):
         raise ValueError(
             f"feature pyramids differ in depth: {len(feats_a)} vs {len(feats_b)}")
     total = 0.0
+    if rows is not None:
+        counts = global_sum(torch.tensor([float(a.numel()) for a in feats_a],
+                                         device=feats_a[0].device), group)
+        for a, b, n in zip(feats_a, feats_b, counts):
+            total = total + torch.abs(a.float() - b.float()).sum() / n
+        return total / max(len(feats_a), 1)
     for a, b in zip(feats_a, feats_b):
         total = total + torch.abs(a.float() - b.float()).mean()
     return total / max(len(feats_a), 1) / group_size(group)
@@ -188,9 +219,9 @@ def total_loss(
     (the coarse heads' depths, coarse->fine) add ``scales``.  With
     ``group`` each term is this rank's share of the global one; with
     ``rows`` the maps are this rank's rows of each image."""
-    if rows is not None and (cfg.use_pallas or scale_preds):
-        raise ValueError("on a spatial mesh the loss takes the plain terms and no coarse "
-                         "heads (train.steps routes it so)")
+    if rows is not None and cfg.use_pallas:
+        raise ValueError("on a spatial mesh the loss takes the plain terms (train.steps "
+                         "routes it so)")
     if cfg.use_pallas:
         fused = fused_loss_terms(pred, gt, mask, max_depth, cfg.ssim_window,
                                  cfg.ssim_sigma, precision=cfg.ssim_precision, group=group)
@@ -217,10 +248,10 @@ def total_loss(
     total = (cfg.w_recon * terms["recon"] + cfg.w_grad * terms["grad"]
              + cfg.w_ssim * terms["ssim"])
     if pred_latents and target_latents:
-        terms["latent"] = latent_loss(pred_latents, target_latents, group)
+        terms["latent"] = latent_loss(pred_latents, target_latents, group, rows)
         total = total + cfg.w_latent * terms["latent"]
     if scale_preds:
-        terms["scales"] = multiscale_depth_loss(scale_preds, gt, mask, group)
+        terms["scales"] = multiscale_depth_loss(scale_preds, gt, mask, group, rows)
         total = total + cfg.w_scales * terms["scales"]
     terms["total"] = total
     return terms

@@ -53,12 +53,17 @@ Placed on a mesh with a ``"model"`` or ``"spatial"`` dim
 slice of its output channels) and ``sp`` (it takes this rank's image
 rows).  Every GroupNorm site then runs as one site of
 ``parallel.tensor`` (the conv on the whole input and the weight slice,
-the epilogue on the slice, the channels gathered) and its conv, upsample
-and GroupNorm statistics in the height-sharded forms of
-``parallel.spatial`` and ``kernels.groupnorm.group_norm_elu_rows``.  A
-fused conv kernel has no halo form: under ``sp`` the rows are gathered
-around it and split again.  Without either, a block runs as on one
-device, launch for launch.
+the epilogue on the slice, the channels gathered), and every site
+without GroupNorm (the biased ``norm="none"`` convs, the deconv's bare
+activation, ``lateral_proj``) likewise with its bias sliced
+(``_plain_site``); its conv, transposed conv, resize and GroupNorm
+statistics (any activation) take the height-sharded forms of
+``parallel.spatial`` and ``kernels.groupnorm.group_norm_elu_rows``.
+Under ``sp`` each forward takes ``rows``, the global height of its
+input (a rank's shard does not show it; None: an even split), which
+the encoder and decoder carry down.  A fused conv kernel has no halo
+form: under ``sp`` the rows are gathered around it and split again.
+Without either, a block runs as on one device, launch for launch.
 """
 
 from __future__ import annotations
@@ -80,13 +85,15 @@ from gdn_tpu_torch.kernels.groupnorm import group_norm_elu, group_norm_elu_rows
 from gdn_tpu_torch.kernels.upsample import fused_upsample_conv
 from gdn_tpu_torch.ops.conv import CL, conv_same
 from gdn_tpu_torch.ops.elu import elu_saveout
-from gdn_tpu_torch.ops.groupnorm import group_norm_act, pick_groups
+from gdn_tpu_torch.ops.groupnorm import group_norm_act, group_norm_act_rows, pick_groups
 from gdn_tpu_torch.ops.quant import conv2d_int8, init_act_scale
 from gdn_tpu_torch.ops.resize import composed_resize_conv2x, resize_bilinear
 from gdn_tpu_torch.parallel.spatial import (
-    conv_rows, gather_rows, split_rows, upsample2x_rows,
+    conv_rows, conv_transpose_rows, gather_rows, resize_rows, rows_of, split_rows,
 )
-from gdn_tpu_torch.parallel.tensor import column_fused, column_site
+from gdn_tpu_torch.parallel.tensor import (
+    column_fused, column_site, copy_to_model, gather_from_model,
+)
 
 GN_EPS = 1e-6
 
@@ -110,50 +117,80 @@ def _param(*shape, fill: Optional[float] = None) -> nn.Parameter:
 
 
 def gn_act(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-           groups: int, cfg: ModelConfig, sp=None) -> torch.Tensor:
+           groups: int, cfg: ModelConfig, sp=None, rows: Optional[int] = None) -> torch.Tensor:
     """GroupNorm + activation epilogue of a block: ELU on the GroupNorm+ELU
-    kernel (its split form on this rank's rows under ``sp``), any other
-    activation through the plain ``group_norm_act``."""
+    kernel, any other activation through the plain ``group_norm_act``;
+    under ``sp`` each in its split form on this rank's rows of an image
+    of ``rows`` rows (statistics summed over the axis)."""
     y = y.to(cfg.compute_dtype).contiguous(memory_format=CL)
     if cfg.activation == "elu":
         if sp is not None:
-            return group_norm_elu_rows(y, scale, bias, groups, GN_EPS, sp)
+            return group_norm_elu_rows(y, scale, bias, groups, GN_EPS, sp, rows)
         return group_norm_elu(y, scale, bias, groups, GN_EPS)
+    if sp is not None:
+        return group_norm_act_rows(y, scale, bias, groups, activation_fn(cfg.activation),
+                                   cfg.gn_impl, GN_EPS, sp, rows_of(y, sp, rows))
     return group_norm_act(y, scale, bias, groups, activation_fn(cfg.activation),
                           cfg.gn_impl, GN_EPS)
 
 
 def _conv(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1, sp=None,
-          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``conv_same``, or under ``sp`` its form on this rank's rows."""
+          bias: Optional[torch.Tensor] = None, rows: Optional[int] = None,
+          groups: int = 1) -> torch.Tensor:
+    """``conv_same``, or under ``sp`` its form on this rank's rows of an
+    image of ``rows`` rows."""
     if sp is None:
-        return conv_same(x, kernel, stride, bias)
-    return conv_rows(x, kernel, stride, sp, bias)
+        return conv_same(x, kernel, stride, bias, groups)
+    return conv_rows(x, kernel, stride, sp, rows, bias, groups)
+
+
+def _rows(block: nn.Module, x: torch.Tensor, rows: Optional[int], stride: int = 1):
+    """Under ``sp`` the global height of ``block``'s output for an input x
+    of ``rows`` rows at ``stride`` (SAME: ceil(rows / stride)); None
+    otherwise."""
+    sp = getattr(block, "sp", None)
+    return None if sp is None else -(-rows_of(x, sp, rows) // stride)
 
 
 def _site(block: nn.Module, conv: Callable, xs, scale: torch.Tensor,
-          bias: torch.Tensor) -> torch.Tensor:
-    """A GroupNorm site: ``conv(xs)`` then the epilogue; column-parallel
+          bias: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+    """A GroupNorm site: ``conv(xs)`` then the epilogue (on an output of
+    ``rows`` rows under ``sp``); column-parallel
     (``parallel.tensor.column_site``) where the block holds a slice."""
     tp, sp, cfg = getattr(block, "tp", None), getattr(block, "sp", None), block.cfg
 
     def epilogue(y, s, b, g):
-        return gn_act(y, s, b, g, cfg, sp)
+        return gn_act(y, s, b, g, cfg, sp, rows)
 
     if tp is None:
         return epilogue(conv(xs), scale, bias, block.groups)
     return column_site(tp, conv, epilogue, xs, scale, bias, block.groups)
 
 
+def _plain_site(block: nn.Module, conv: Callable, xs,
+                act: Optional[Callable] = None) -> torch.Tensor:
+    """A site without GroupNorm: ``conv(xs)`` (biased), then ``act``
+    where given.  Where the block holds a slice of the output channels
+    (and of the bias), the conv runs on the whole inputs and the slices
+    are gathered after the activation (elementwise: it runs on the
+    slice)."""
+    tp = getattr(block, "tp", None)
+    if tp is not None:
+        xs = [copy_to_model(x, tp) for x in xs]
+    y = conv(xs)
+    y = y if act is None else act(y)
+    return y if tp is None else gather_from_model(y, tp)
+
+
 def _fused_site(block: nn.Module, call: Callable, xs, ws, scale: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
+                bias: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
     """A fused conv+GroupNorm+ELU kernel ``call(xs, ws, scale, bias,
     groups)`` as a site: column-parallel where the block holds a slice,
-    and under ``sp`` on the whole image's rows, gathered around the
-    call and split again."""
+    and under ``sp`` on the whole image's rows (``rows`` of them),
+    gathered around the call and split again."""
     tp, sp = getattr(block, "tp", None), getattr(block, "sp", None)
     if sp is not None:
-        xs = [gather_rows(x, sp) for x in xs]
+        xs = [gather_rows(x, sp, rows) for x in xs]
     if tp is None:
         out = call(xs, ws, scale, bias, block.groups)
     else:
@@ -232,13 +269,17 @@ class ConvBlock(nn.Module):
             return fused_conv_gn_elu_bt
         return fused_conv_gn_elu if c.use_pallas_convgn else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+        """``rows``: under ``sp``, the global height of x (None: an even
+        split of it)."""
         c = self.cfg
         dt = c.compute_dtype
+        sp = getattr(self, "sp", None)
         if not self.use_gn:
-            y = conv_same(x.to(dt), self.Conv_0.kernel.to(dt), self.stride,
-                          self.Conv_0.bias.to(dt))
-            return activation_fn(c.activation)(y)
+            k, b = self.Conv_0.kernel, self.Conv_0.bias
+            return _plain_site(self, lambda xs: _conv(xs[0].to(dt), k.to(dt), self.stride, sp,
+                                                      b.to(dt), rows),
+                               [x], activation_fn(c.activation))
         fused = self._fused()
         if fused is not None:
             def call(xs, ws, scale, bias, groups):
@@ -246,14 +287,13 @@ class ConvBlock(nn.Module):
                              groups, GN_EPS, c.dtype).to(dt)
 
             return _fused_site(self, call, [x], [self.Conv_0.kernel], self.gn_scale,
-                               self.gn_bias)
+                               self.gn_bias, rows)
         if self.quantized:
             y = _conv_int8(self, x, self.Conv_0.kernel, self.stride).to(dt)
             return gn_act(y, self.gn_scale, self.gn_bias, self.groups, c)
-        sp = getattr(self, "sp", None)
         return _site(self, lambda xs: _conv(xs[0].to(dt), self.Conv_0.kernel.to(dt),
-                                            self.stride, sp),
-                     [x], self.gn_scale, self.gn_bias)
+                                            self.stride, sp, rows=rows),
+                     [x], self.gn_scale, self.gn_bias, _rows(self, x, rows, self.stride))
 
 
 class DownBlock(nn.Module):
@@ -264,8 +304,8 @@ class DownBlock(nn.Module):
         self.ConvBlock_0 = ConvBlock(cin, features, 3, 2, cfg)
         self.ConvBlock_1 = ConvBlock(features, features, 3, 1, cfg)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.ConvBlock_1(self.ConvBlock_0(x))
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+        return self.ConvBlock_1(self.ConvBlock_0(x, rows), _rows(self.ConvBlock_0, x, rows, 2))
 
 
 class FusionBlock(nn.Module):
@@ -297,13 +337,16 @@ class FusionBlock(nn.Module):
             self.quantized = _int8_site(self, cx + cl, cfg)
         self.bias = _param(features, fill=0.0)
 
-    def forward(self, x: torch.Tensor, lateral: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lateral: torch.Tensor,
+                rows: Optional[int] = None) -> torch.Tensor:
         c = self.cfg
         dt = c.compute_dtype
+        sp = getattr(self, "sp", None)
         if c.fusion == "add":
             p = self.lateral_proj
-            proj = conv_same(lateral.to(dt), p.kernel.to(dt), 1, p.bias.to(dt))
-            return self.ConvBlock_0(x + proj)
+            proj = _plain_site(self, lambda xs: _conv(xs[0].to(dt), p.kernel.to(dt), 1, sp,
+                                                      p.bias.to(dt), rows), [lateral])
+            return self.ConvBlock_0(x + proj, rows)
         fused = None
         if _fusable(c) and c.use_pallas_fusion_bt:
             fused = fused_fusion_bt
@@ -318,23 +361,22 @@ class FusionBlock(nn.Module):
                              ws[0][:, :cx], ws[0][:, cx:], scale, bias, groups, GN_EPS,
                              c.dtype).to(dt)
 
-            return _fused_site(self, call, [x, lateral], [self.kernel], self.scale, self.bias)
+            return _fused_site(self, call, [x, lateral], [self.kernel], self.scale, self.bias,
+                               rows)
+
+        def conv(xs):
+            full = torch.cat([xs[0], xs[1].to(xs[0].dtype)], dim=1)
+            return _conv(full.to(dt), self.kernel.to(dt), 1, sp, rows=rows)
+
         if self.use_gn and not self.quantized:
-            sp = getattr(self, "sp", None)
-
-            def conv(xs):
-                full = torch.cat([xs[0], xs[1].to(xs[0].dtype)], dim=1)
-                return _conv(full.to(dt), self.kernel.to(dt), 1, sp)
-
-            return _site(self, conv, [x, lateral], self.scale, self.bias)
+            return _site(self, conv, [x, lateral], self.scale, self.bias, _rows(self, x, rows))
+        if not self.use_gn:
+            return _plain_site(
+                self, lambda xs: conv(xs) + self.bias.to(dt)[:, None, None], [x, lateral],
+                activation_fn(c.activation))
         full = torch.cat([x, lateral.to(x.dtype)], dim=1)
-        if self.quantized:
-            y = _conv_int8(self, full, self.kernel, 1).to(dt)
-        else:
-            y = conv_same(full.to(dt), self.kernel.to(dt))
-        if self.use_gn:
-            return gn_act(y, self.scale, self.bias, self.groups, c)
-        return activation_fn(c.activation)(y + self.bias.to(y.dtype)[:, None, None])
+        y = _conv_int8(self, full, self.kernel, 1).to(dt)
+        return gn_act(y, self.scale, self.bias, self.groups, c)
 
 
 class UpBlock(nn.Module):
@@ -382,25 +424,37 @@ class UpBlock(nn.Module):
             self.quantized = _int8_site(self, cin, cfg)
         self.fuse = FusionBlock(features, lateral_channels, features, cfg)
 
-    def _deconv(self, x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
+    def _deconv(self, x: torch.Tensor, target_hw: Tuple[int, int],
+                rows: Optional[int]) -> torch.Tensor:
         c = self.cfg
         dt = c.compute_dtype
+        sp = getattr(self, "sp", None)
         k, b = self.ConvTranspose_0.kernel, self.ConvTranspose_0.bias
-        w = k.to(dt).transpose(0, 1).flip(2, 3).contiguous(memory_format=CL)
-        y = F.conv_transpose2d(x.to(dt), w, None if b is None else b.to(dt),
-                               stride=2, padding=2 if k.shape[-1] == 6 else 1)
-        if tuple(y.shape[2:]) != tuple(target_hw):
-            y = resize_bilinear(y, target_hw)
-        if self.deconv_gn:
-            return gn_act(y, self.deconv_gn_scale, self.deconv_gn_bias, self.groups, c)
-        if c.activation == "elu" and c.elu_outform_vjp:
-            return elu_saveout(y)
-        return activation_fn(c.activation)(y)
+        pad = 2 if k.shape[-1] == 6 else 1
 
-    def _resize_conv(self, x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
+        def conv(xs):
+            w = k.to(dt).transpose(0, 1).flip(2, 3).contiguous(memory_format=CL)
+            bb = None if b is None else b.to(dt)
+            if sp is not None:
+                return conv_transpose_rows(xs[0].to(dt), w, bb, pad, target_hw, sp, rows)
+            y = F.conv_transpose2d(xs[0].to(dt), w, bb, stride=2, padding=pad)
+            if tuple(y.shape[2:]) != tuple(target_hw):
+                y = resize_bilinear(y, target_hw)
+            return y
+
+        if self.deconv_gn:
+            return _site(self, conv, [x], self.deconv_gn_scale, self.deconv_gn_bias,
+                         None if sp is None else target_hw[0])
+        if c.activation == "elu" and c.elu_outform_vjp:
+            return _plain_site(self, conv, [x], elu_saveout)
+        return _plain_site(self, conv, [x], activation_fn(c.activation))
+
+    def _resize_conv(self, x: torch.Tensor, target_hw: Tuple[int, int],
+                     rows: Optional[int]) -> torch.Tensor:
         c = self.cfg
         dt = c.compute_dtype
-        h, w = x.shape[2], x.shape[3]
+        sp = getattr(self, "sp", None)
+        h, w = (x.shape[2] if sp is None else rows_of(x, sp, rows)), x.shape[3]
         exact2x = tuple(target_hw) == (2 * h, 2 * w)
         plain = c.quant == "none"  # int8 takes resize then conv, as the JAX package
         if _fusable(c) and c.use_pallas_fusion and exact2x:
@@ -408,12 +462,12 @@ class UpBlock(nn.Module):
                 return fused_upsample_conv(xs[0].to(dt).contiguous(memory_format=CL), ws[0],
                                            scale, bias, groups, GN_EPS, c.dtype).to(dt)
 
-            return _fused_site(self, call, [x], [self.up_kernel], self.up_scale, self.up_bias)
+            return _fused_site(self, call, [x], [self.up_kernel], self.up_scale, self.up_bias,
+                               rows)
         if self.quantized:
             u = resize_bilinear(x.to(dt), target_hw, precise=False)
             y = _conv_int8(self, u, self.up_kernel, 1).to(dt)
             return gn_act(y, self.up_scale, self.up_bias, self.groups, c)
-        sp = getattr(self, "sp", None)
         # the composed op has no halo form: on sharded rows, resize then conv
         if (c.resize_conv_composed and plain and exact2x and h >= 2 and w >= 2
                 and sp is None):
@@ -421,30 +475,33 @@ class UpBlock(nn.Module):
                 k = self.up_kernel.to(dt)
                 return composed_resize_conv2x(xs[0].to(dt), k.contiguous(memory_format=CL))
         elif sp is not None:
-            if target_hw[0] != 2 * h:
-                raise NotImplementedError(
-                    f"a resize of {h} sharded rows to {target_hw[0]}: only the exact 2x is "
-                    "ported under spatial parallelism (ROADMAP.md Queue A item 10c)")
-
             def conv(xs):
-                u = upsample2x_rows(xs[0].to(dt), target_hw[1], sp)
-                return conv_rows(u, self.up_kernel.to(dt), 1, sp)
+                u = resize_rows(xs[0].to(dt), target_hw, sp, h, precise=False)
+                return conv_rows(u, self.up_kernel.to(dt), 1, sp, target_hw[0])
         else:
             def conv(xs):
                 u = resize_bilinear(xs[0].to(dt), target_hw, precise=False)
                 return conv_same(u, self.up_kernel.to(dt))
-        return _site(self, conv, [x], self.up_scale, self.up_bias)
+        return _site(self, conv, [x], self.up_scale, self.up_bias,
+                     None if sp is None else target_hw[0])
 
     def forward(self, x: torch.Tensor, target_hw: Tuple[int, int],
-                lateral: Optional[torch.Tensor] = None) -> torch.Tensor:
+                lateral: Optional[torch.Tensor] = None,
+                rows: Optional[int] = None) -> torch.Tensor:
+        """``target_hw``: the skip's size; under ``sp`` the global one, and
+        ``rows`` x's global height (None: an even split)."""
+        sp = getattr(self, "sp", None)
         if self.cfg.upsample == "deconv":
-            x = self._deconv(x, target_hw)
+            x = self._deconv(x, target_hw, rows)
         elif self.cfg.norm != "group":
-            x = self.ConvBlock_0(resize_bilinear(x, target_hw))
+            if sp is None:
+                x = self.ConvBlock_0(resize_bilinear(x, target_hw))
+            else:
+                x = self.ConvBlock_0(resize_rows(x, target_hw, sp, rows), target_hw[0])
         else:
-            x = self._resize_conv(x, target_hw)
+            x = self._resize_conv(x, target_hw, rows)
         if lateral is not None:
-            x = self.fuse(x, lateral)
+            x = self.fuse(x, lateral, None if sp is None else target_hw[0])
         return x
 
 
@@ -456,7 +513,7 @@ class DepthHead(nn.Module):
         self.max_depth = cfg.max_depth
         self.Conv_0 = _ConvKernel(cin, 1, 3, use_bias=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
         y = _conv(x.float(), self.Conv_0.kernel, 1, getattr(self, "sp", None),
-                  self.Conv_0.bias)
+                  self.Conv_0.bias, rows)
         return torch.sigmoid(y) * self.max_depth

@@ -15,6 +15,7 @@ from torch import nn
 from gdn_tpu_torch.config import ModelConfig
 from gdn_tpu_torch.models.blocks import DepthHead, UpBlock
 from gdn_tpu_torch.models.encoder import skip_channels
+from gdn_tpu_torch.parallel.spatial import level_rows
 
 
 class Decoder(nn.Module):
@@ -53,17 +54,22 @@ class Decoder(nn.Module):
         c = self.cfg
         x = latent.to(c.compute_dtype)
         dec_feats, depth_scales = [], []
-        n = len(c.dec_channels)
+        n, m = len(c.dec_channels), len(skips)
+        # under sp each map holds this rank's rows: the global height of
+        # every level follows from the finest skip's (an even split)
+        sp = getattr(self, "sp", None)
+        hs = None if sp is None else level_rows(skips[0].shape[2] * sp.size, m)
+        rows = None if sp is None else hs[m]
         # skips are fine->coarse; consume coarse->fine.
         for i in range(n):
-            skip = skips[len(skips) - 1 - i]
-            x = getattr(self, f"up{i}")(
-                x, target_hw=tuple(skip.shape[2:4]), lateral=skip
-            )
+            skip = skips[m - 1 - i]
+            target = tuple(skip.shape[2:4]) if sp is None else (hs[m - 1 - i], skip.shape[3])
+            x = getattr(self, f"up{i}")(x, target_hw=target, lateral=skip, rows=rows)
+            rows = None if sp is None else target[0]
             dec_feats.append(x)
             if c.multiscale_heads and i < n - 1:
-                depth_scales.append(getattr(self, f"head{i}")(x))
-        depth = self.head(x)
+                depth_scales.append(getattr(self, f"head{i}")(x, rows))
+        depth = self.head(x, rows)
         if c.multiscale_heads:
             depth_scales.append(depth)
         return depth, dec_feats, depth_scales

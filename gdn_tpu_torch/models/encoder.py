@@ -10,7 +10,7 @@ from torch import nn
 
 from gdn_tpu_torch.config import ModelConfig
 from gdn_tpu_torch.models.blocks import ConvBlock, DownBlock
-from gdn_tpu_torch.parallel.spatial import check_rows
+from gdn_tpu_torch.parallel.spatial import level_rows
 
 
 def skip_channels(cfg: ModelConfig) -> List[int]:
@@ -37,11 +37,13 @@ class Encoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         sp = getattr(self, "sp", None)
-        if sp is not None:  # x holds this rank's rows
-            check_rows(x.shape[2] * sp.size, len(self.cfg.enc_channels), sp)
-        x = self.stem(x.to(self.cfg.compute_dtype))
+        n = len(self.cfg.enc_channels)
+        hs = [None] * (n + 1)
+        if sp is not None:  # x holds this rank's rows of an even split
+            hs = level_rows(x.shape[2] * sp.size, n)
+        x = self.stem(x.to(self.cfg.compute_dtype), hs[0])
         skips = []
-        for i in range(len(self.cfg.enc_channels)):
+        for i in range(n):
             skips.append(x)
-            x = getattr(self, f"down{i}")(x)
+            x = getattr(self, f"down{i}")(x, hs[i])
         return x, skips

@@ -95,6 +95,49 @@ def group_norm_act(
     return activation(yn) if activation is not None else yn
 
 
+def group_norm_act_rows(
+    y: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    groups: int,
+    activation: Optional[Callable[[torch.Tensor], torch.Tensor]],
+    impl: str,
+    eps: float,
+    ax,
+    rows: int,
+) -> torch.Tensor:
+    """``group_norm_act`` of the whole image on this rank's rows y (B, C,
+    h, W) of it (``rows`` in all) over the spatial axis ``ax``: each
+    rank's per-group sums summed over the axis (differentiably,
+    ``parallel.spatial.sum_over``) and divided by the whole image's
+    count.  ``impl`` as in ``group_norm_act``: "chanreduce" sums y and
+    y^2 in one reduction, "grouped" the mean first, then the squared
+    deviations from it."""
+    from gdn_tpu_torch.parallel.spatial import sum_over
+
+    b, c, h, w = y.shape
+    cg = c // groups
+    dt = y.dtype
+    n = rows * w * cg
+    yf = y.float()
+    if impl == "chanreduce":
+        sums = sum_over(torch.stack([yf.sum(dim=(2, 3)), yf.square().sum(dim=(2, 3))]), ax)
+        sums = sums.view(2, b, groups, cg).sum(-1) / n  # (2, B, G)
+        mean, var = sums[0], torch.clamp(sums[1] - sums[0].square(), min=0.0)
+    elif impl == "grouped":
+        mean = sum_over(yf.sum(dim=(2, 3)), ax).view(b, groups, cg).sum(-1) / n
+        dev = (yf.view(b, groups, cg, h, w) - mean[:, :, None, None, None]).square()
+        var = sum_over(dev.sum(dim=(2, 3, 4)), ax) / n
+    else:
+        raise ValueError(f"unknown gn_impl {impl!r}")
+    inv = torch.rsqrt(var + eps)
+    mean_c = mean.repeat_interleave(cg, dim=1).to(dt)[:, :, None, None]
+    inv_c = inv.repeat_interleave(cg, dim=1).to(dt)[:, :, None, None]
+    yn = (y - mean_c) * inv_c
+    yn = yn * scale.to(dt)[:, None, None] + bias.to(dt)[:, None, None]
+    return activation(yn) if activation is not None else yn
+
+
 def group_norm_elu_plain(
     y: torch.Tensor,
     scale: torch.Tensor,
@@ -110,7 +153,7 @@ def group_norm_elu_plain(
 
 def gn_elu_backward(da: torch.Tensor, yn: torch.Tensor, inv_c: torch.Tensor,
                     scale: torch.Tensor, bias: torch.Tensor, groups: int,
-                    a: Optional[torch.Tensor] = None, ax=None):
+                    a: Optional[torch.Tensor] = None, ax=None, rows: Optional[int] = None):
     """Analytic backward of GroupNorm + ELU (port of the JAX package's
     ``_gn_elu_bwd``): from the normalized input yn (compute dtype) and
     the fp32 (B, C) inverse std, two full-tensor reduces give dy, dscale
@@ -122,9 +165,10 @@ def gn_elu_backward(da: torch.Tensor, yn: torch.Tensor, inv_c: torch.Tensor,
     kernels do, and ``bias`` is not read.
 
     ``ax`` (a ``parallel.mesh.Axis``): yn holds this rank's rows of the
-    image, split evenly over that spatial axis; the two reductions are
-    summed over it before the group means (the whole image's), and the
-    returned dscale and dbias are this rank's parts."""
+    image (``rows`` in all; None: an even split) over that spatial axis;
+    the two reductions are summed over it before the group means (the
+    whole image's), and the returned dscale and dbias are this rank's
+    parts."""
     b, c, h, w = yn.shape
     cg = c // groups
     dt = yn.dtype
@@ -143,7 +187,7 @@ def gn_elu_backward(da: torch.Tensor, yn: torch.Tensor, inv_c: torch.Tensor,
         both = torch.stack([s_dz, s_dzyn])
         dist.all_reduce(both, group=ax.group)
         g_dz, g_dzyn = both
-        n *= ax.size
+        n = (h * ax.size if rows is None else rows) * w * cg
     scale32 = scale.float()
 
     def group_mean(s):  # (B, C) -> mean over each group, per channel

@@ -15,7 +15,13 @@ writes each mode out:
   on the root, each parameter sharded on the dim ``fsdp_spec`` picks;
   the Adam moments, the EMA and the accumulator follow their parameter.
   A parameter the rule leaves whole is kept out of FSDP (replicated,
-  its gradient all-reduced like data parallel's).
+  its gradient all-reduced like data parallel's).  On a (data x
+  spatial) mesh the JAX package shards over ``"data"`` and replicates
+  over ``"spatial"``: FSDP2's HSDP on the mesh laid out (spatial, data)
+  (it replicates on the first dim and shards on the second), the
+  gradients summed over both.  Code that reads a unit's weights outside
+  its forward (stage 2's fused guidance) reads them through
+  ``in_forward``.
 - **TP** (a ``"model"`` dim): column parallelism.  Each model rank
   holds the slice of every parameter's output channels that
   ``tensor_parallel_spec`` shards (``shard_columns``) and of its Adam
@@ -53,7 +59,6 @@ import torch.distributed as dist
 from torch import nn
 from torch.utils._pytree import tree_leaves
 
-from gdn_tpu_torch.config import refuse_split
 from gdn_tpu_torch.parallel import multihost
 
 DATA_AXIS = "data"
@@ -198,6 +203,14 @@ def local_rows(n: int, mesh) -> Tuple[int, int]:
     return r * per, (r + 1) * per
 
 
+def check_rows(height: int, ax: Axis, dim: int = 1) -> None:
+    """The JAX package's one rule for a spatial mesh (``_shard_tree``):
+    the extent divides the image height.  Levels below it may split
+    unevenly (``parallel.spatial``)."""
+    assert height % ax.size == 0, (
+        f"batch dim {dim} ({height}) not divisible by mesh axis {SPATIAL_AXIS!r} ({ax.size})")
+
+
 def height_rows(batch: Dict[str, Any], mesh, dim: int = 1) -> Dict[str, Any]:
     """This rank's image rows (dim ``dim``) on a spatial mesh, as the
     JAX package's ``batch_sharding`` splits height on ``"spatial"``;
@@ -208,8 +221,7 @@ def height_rows(batch: Dict[str, Any], mesh, dim: int = 1) -> Dict[str, Any]:
     out = {}
     for k, v in batch.items():
         h = v.shape[dim]
-        assert h % ax.size == 0, (
-            f"batch dim {dim} ({h}) not divisible by mesh axis {SPATIAL_AXIS!r} ({ax.size})")
+        check_rows(h, ax, dim)
         per = h // ax.size
         out[k] = v.narrow(dim, ax.rank * per, per)
     return out
@@ -375,17 +387,11 @@ def _owner(net: nn.Module, name: str) -> nn.Module:
     return net.get_submodule(".".join(path))
 
 
-def _refuse_knobs(net: nn.Module) -> None:
-    if getattr(net, "cfg", None) is not None:
-        refuse_split(net.cfg)
-
-
 def shard_columns(net: nn.Module, specs: Dict[str, Spec], ax: Axis) -> nn.Module:
     """Column parallelism in place: every parameter ``specs`` shards on
     ``"model"`` becomes this rank's slice of its output channels (its
     requires_grad kept), and each block that owns one gets ``tp = ax``,
     which routes its forward through ``parallel.tensor``."""
-    _refuse_knobs(net)
     for name, p in list(net.named_parameters()):
         dim = tp_dim(specs[name])
         if dim is None:
@@ -399,11 +405,12 @@ def shard_columns(net: nn.Module, specs: Dict[str, Spec], ax: Axis) -> nn.Module
 
 def place_rows(net: nn.Module, mesh) -> nn.Module:
     """On a spatial mesh, give every module ``sp`` = the ``"spatial"``
-    axis: the blocks then take height-sharded activations
-    (``parallel.spatial``)."""
+    axis: the blocks (the variants' and the heads' too) then take
+    height-sharded activations (``parallel.spatial``), and so do the
+    paired ladder and the shared decoder pass, which run the blocks'
+    modules."""
     ax = spatial_axis(mesh)
     if ax is not None:
-        _refuse_knobs(net)
         for m in net.modules():
             m.sp = ax
     return net
@@ -441,7 +448,7 @@ def shard_module(net: nn.Module, mesh, specs: Dict[str, Spec]) -> nn.Module:
 
     modules = [*fsdp_units(net), net]
     for m in modules:
-        fully_shard(m, mesh=mesh, shard_placement_fn=placement,
+        fully_shard(m, mesh=fsdp_mesh(mesh), shard_placement_fn=placement,
                     ignored_params={p for p in m.parameters() if p in whole} or None)
     for m in modules:
         m.set_force_sum_reduction_for_comms(True)
@@ -449,10 +456,37 @@ def shard_module(net: nn.Module, mesh, specs: Dict[str, Spec]) -> nn.Module:
     return net
 
 
+def fsdp_mesh(mesh):
+    """The DeviceMesh FSDP2 takes: the data mesh itself, or on a (data,
+    spatial) mesh the same ranks laid out (spatial, data), made once
+    (every rank calls it): HSDP replicates on its first dim and shards
+    on the second."""
+    if spatial_size(mesh) == 1:
+        return mesh
+    if getattr(mesh, "hsdp", None) is None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        d, s = data_size(mesh), spatial_size(mesh)
+        mesh.hsdp = DeviceMesh(mesh.device_type, torch.arange(d * s).view(d, s).t(),
+                               mesh_dim_names=(SPATIAL_AXIS, DATA_AXIS))
+    return mesh.hsdp
+
+
 def is_sharded(t: torch.Tensor) -> bool:
     from torch.distributed.tensor import DTensor
 
     return isinstance(t, DTensor)
+
+
+def shard_axis(t) -> Optional[Tuple[int, Any, int, int]]:
+    """(tensor dim, process group, extent, rank) of the mesh dim a
+    sharded tensor is split over (FSDP's; under HSDP the other dim
+    replicates), None where it is whole."""
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard():
+            m = t.device_mesh
+            return pl.dim, m.get_group(i), m.size(i), m.get_local_rank(i)
+    return None
 
 
 def full_tensor(t):
@@ -463,14 +497,14 @@ def full_tensor(t):
     (SIGSEGV), and ranks that share a card run gloo."""
     if not is_sharded(t):
         return t
-    (pl,) = t.placements
-    mesh = t.device_mesh
     part = t.to_local().contiguous()
-    if not pl.is_shard():
+    ax = shard_axis(t)
+    if ax is None:
         return part
-    parts = [torch.empty_like(part) for _ in range(mesh.size())]
-    dist.all_gather(parts, part, group=mesh.get_group())
-    return torch.cat(parts, dim=pl.dim)
+    dim, group, size, _ = ax
+    parts = [torch.empty_like(part) for _ in range(size)]
+    dist.all_gather(parts, part, group=group)
+    return torch.cat(parts, dim=dim)
 
 
 def local(t: torch.Tensor) -> torch.Tensor:
@@ -481,13 +515,46 @@ def local(t: torch.Tensor) -> torch.Tensor:
 def shard_of(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """This rank's part of ``full`` laid out as ``like`` (a sharded
     tensor: its local chunk; a plain tensor: ``full``)."""
-    if not is_sharded(like):
+    ax = shard_axis(like) if is_sharded(like) else None
+    if ax is None:
         return full
-    (pl,) = like.placements
-    if not pl.is_shard():
-        return full
-    mesh = like.device_mesh
-    return full.chunk(mesh.size(), pl.dim)[mesh.get_local_rank()]
+    dim, _, size, rank = ax
+    return full.chunk(size, dim)[rank]
+
+
+def is_fsdp(module: nn.Module) -> bool:
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(module, FSDPModule)
+
+
+def in_forward(module: nn.Module, fn):
+    """``fn()`` run as ``module``'s forward: on an FSDP2 unit its hooks
+    then unshard the unit's parameters around the call (and reshard
+    them after), and register the backward that unshards them again and
+    reduce-scatters their gradients.  Code that reads a unit's weights
+    outside its blocks' forwards (the fused-guidance pass) reads them
+    here, and returns copies (``unit_weights``): the unsharded storage
+    is freed at the reshard.  Elsewhere ``fn()`` as it is."""
+    if not is_fsdp(module):
+        return fn()
+    # the instance attribute shadows the class's forward; the empty
+    # argument is for FSDP2's root pre-forward, which (torch 2.11) indexes
+    # the forward's arguments
+    module.forward = lambda _: fn()
+    try:
+        return module(torch.empty(0))
+    finally:
+        del module.forward
+
+
+def unit_weights(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``module``'s parameters by name: the parameters themselves, or on
+    an FSDP2 unit copies of them whole, read inside its forward
+    (``in_forward``; the copies carry the gradient back to it)."""
+    if not is_fsdp(module):
+        return dict(module.named_parameters())
+    return in_forward(module, lambda: {k: p.clone() for k, p in module.named_parameters()})
 
 
 def shard_state(state, mesh, mode: str):
@@ -510,10 +577,6 @@ def shard_state(state, mesh, mode: str):
     if mesh is None:
         return state, specs
     if mode == "fsdp":
-        if spatial_size(mesh) > 1:
-            raise NotImplementedError(
-                "fsdp on a spatial mesh is not ported to gdn_tpu_torch yet; see "
-                "ROADMAP.md Queue A item 10c")
         full = state.state_dict(copy=True)
         shard_module(state.net, mesh, specs)
         state.rebuild()
@@ -552,9 +615,10 @@ def shard_frozen(net: nn.Module, mesh, mode: str) -> nn.Module:
         return net
     specs = tree_shardings(net, mesh, mode)
     if mode == "fsdp":
-        return shard_module(net, mesh, specs)
-    _broadcast(net.state_dict().values(), mesh)
-    if mode == "tp":
-        shard_columns(net, specs, model_axis(mesh))
-    net.placed = True
+        shard_module(net, mesh, specs)
+    else:
+        _broadcast(net.state_dict().values(), mesh)
+        if mode == "tp":
+            shard_columns(net, specs, model_axis(mesh))
+        net.placed = True
     return place_rows(net, mesh)

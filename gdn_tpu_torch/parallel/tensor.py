@@ -109,3 +109,31 @@ def column_fused(ax: Axis, call: Callable, xs: Sequence[torch.Tensor],
                                  ax)
     whole = [gather_from_model(w, ax, 0) for w in (*ws, scale, bias)]
     return call(xs, whole[:len(ws)], whole[-2], whole[-1], groups)
+
+
+def _gather_pair(t: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
+    """The whole [D | G] tensor from the ranks' [D_r | G_r] halves: each
+    net's slices gathered apart, then joined."""
+    c = t.shape[dim] // 2
+    return torch.cat([gather_from_model(t.narrow(dim, 0, c), ax, dim),
+                      gather_from_model(t.narrow(dim, c, c), ax, dim)], dim)
+
+
+def paired_site(ax: Axis, conv: Callable[[Sequence[torch.Tensor]], torch.Tensor],
+                epilogue: Callable, x: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor, groups: int) -> torch.Tensor:
+    """One site of the paired encoder ladder (``train.fused_encoders``)
+    as a column-parallel site: each rank holds its slice of both nets'
+    output channels, so the grouped conv gives [D_r | G_r] where the
+    whole output is [D | G], and ``scale``/``bias`` are [D_r | G_r] too.
+    The epilogue's ``groups`` (2G) run on the slice where M divides G
+    (each group on one rank, in the slice's order); the gather puts each
+    net's slices back in order.  Otherwise the conv output and the
+    affine parameters are gathered so first and the epilogue runs
+    whole."""
+    y = conv([copy_to_model(x, ax)])
+    g = local_groups(groups // 2, ax)
+    if g is not None:
+        return _gather_pair(epilogue(y, scale, bias, 2 * g), ax, 1)
+    return epilogue(_gather_pair(y, ax, 1), _gather_pair(scale, ax, 0),
+                    _gather_pair(bias, ax, 0), groups)

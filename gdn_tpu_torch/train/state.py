@@ -53,8 +53,8 @@ from torch.utils._pytree import tree_map
 
 from gdn_tpu_torch.config import TrainConfig
 from gdn_tpu_torch.parallel.mesh import (
-    full_tensor, global_sum, is_sharded, local, model_axis, pixel_group, shard_of, tp_dim,
-    tp_gather, tp_slice,
+    full_tensor, global_sum, is_sharded, local, model_axis, pixel_group, shard_axis, shard_of,
+    tp_dim, tp_gather, tp_slice,
 )
 
 Schedule = Callable[[int], float]
@@ -118,7 +118,7 @@ def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float,
     tp = columns[1] if columns is not None else [False] * len(grads)
     split = []  # (flags, the group their squares are summed over)
     if any(fsdp):
-        split.append((fsdp, next(g for g, f in zip(grads, fsdp) if f).device_mesh.get_group()))
+        split.append((fsdp, shard_axis(next(g for g, f in zip(grads, fsdp) if f))[1]))
     if any(tp):
         split.append((tp, columns[0]))
     if split:

@@ -30,9 +30,10 @@ the loss terms are the rank's shares of the global terms
 (``losses.total_loss(group=)``), the state (placed by
 ``parallel.mesh.shard_state``, replicated or FSDP) sums the ranks'
 gradients, and the terms it returns are the global ones on every rank.
-``fused_guidance`` is refused under FSDP: it reads the encoders' and the
-decoder's weights outside their blocks' forwards, where FSDP2 holds
-them sharded.
+Under FSDP ``fused_guidance`` runs inside the nets' root forwards and
+reads the paired ladder's weights inside their units' forwards
+(``parallel.mesh.in_forward``): FSDP2 holds a unit's weights sharded
+outside its forward.
 
 On a mesh with a ``"model"`` dim (tensor parallel) every model rank runs
 the same loss on the gathered outputs; on one with a ``"spatial"`` dim
@@ -58,8 +59,10 @@ from torch.utils.checkpoint import (
 from gdn_tpu_torch.config import Config
 from gdn_tpu_torch.losses import total_loss
 from gdn_tpu_torch.models.rtod import to_nhwc
-from gdn_tpu_torch.parallel.mesh import global_sum, pixel_group, spatial_axis, spatial_size
-from gdn_tpu_torch.train.fused_encoders import paired_encoders
+from gdn_tpu_torch.parallel.mesh import (
+    global_sum, in_forward, pixel_group, spatial_axis, spatial_size,
+)
+from gdn_tpu_torch.train.fused_encoders import encoder_weights, paired_encoders
 from gdn_tpu_torch.train.guided_decoder import decode_concat, shared_guided_decoder
 from gdn_tpu_torch.train.state import TrainState
 
@@ -188,26 +191,36 @@ def _stage2_loss_fused(net: nn.Module, d_net: nn.Module, batch: Batch,
     is ``[B:]``, the detached D half ``[:B]``; the terms are the two-net
     step's (convs and GroupNorm work image by image).  The D-net's own
     decoder is not called: under ``freeze_decoder`` both nets hold the
-    stage-1 decoder.  No remat on this path, as in the JAX package."""
+    stage-1 decoder.  No remat on this path, as in the JAX package.
+    Under FSDP2 it runs as the G-net's forward and reads the D-net inside
+    the D-net's (``parallel.mesh.in_forward``), so that the roots' and
+    the units' weights are whole where they are read."""
     mc = cfg.model
     b = batch["depth"].shape[0]
     depth_norm = batch["depth"].permute(0, 3, 1, 2).detach() / mc.max_depth
     rgb_centered = batch["rgb"].permute(0, 3, 1, 2) * 2.0 - 1.0
-    if cfg.train.fused_encoders:
-        d_latent, g_latent, d_skips, g_skips = paired_encoders(
-            depth_norm, rgb_centered, d_net.encoder, net.encoder, mc)
-    else:
+
+    def loss():
         with torch.no_grad():
-            d_latent, d_skips = d_net.encoder(depth_norm)
-        g_latent, g_skips = net.encoder(rgb_centered)
-    decode = shared_guided_decoder if cfg.train.fused_guidance_vjp else decode_concat
-    depth, feats, scales = decode(net.decoder, d_latent, g_latent, d_skips, g_skips)
-    return total_loss(
-        to_nhwc(depth[b:]), batch["depth"], batch["mask"], cfg.loss, mc.max_depth,
-        pred_latents=[to_nhwc(g_latent), *(to_nhwc(f[b:]) for f in feats)],
-        target_latents=[to_nhwc(d_latent), *(to_nhwc(f[:b].detach()) for f in feats)],
-        scale_preds=[to_nhwc(p[b:]) for p in scales[:-1]], group=group,
-    )
+            if cfg.train.fused_encoders:
+                d_weights = in_forward(d_net, lambda: encoder_weights(d_net.encoder))
+            else:
+                d_latent, d_skips = in_forward(d_net, lambda: d_net.encoder(depth_norm))
+        if cfg.train.fused_encoders:
+            d_latent, g_latent, d_skips, g_skips = paired_encoders(
+                depth_norm, rgb_centered, d_net.encoder, net.encoder, mc, d_weights)
+        else:
+            g_latent, g_skips = net.encoder(rgb_centered)
+        decode = shared_guided_decoder if cfg.train.fused_guidance_vjp else decode_concat
+        depth, feats, scales = decode(net.decoder, d_latent, g_latent, d_skips, g_skips)
+        return total_loss(
+            to_nhwc(depth[b:]), batch["depth"], batch["mask"], cfg.loss, mc.max_depth,
+            pred_latents=[to_nhwc(g_latent), *(to_nhwc(f[b:]) for f in feats)],
+            target_latents=[to_nhwc(d_latent), *(to_nhwc(f[:b].detach()) for f in feats)],
+            scale_preds=[to_nhwc(p[b:]) for p in scales[:-1]], group=group, rows=rows,
+        )
+
+    return in_forward(net, loss)
 
 
 def _reported(terms: Terms, group=None) -> Terms:
@@ -254,24 +267,15 @@ def make_stage1_step(cfg: Config, mesh=None, state_sharding=None) -> Callable[
     return step
 
 
-def _stage2_loss_fn(cfg: Config, mesh=None) -> Callable:
+def _stage2_loss_fn(cfg: Config) -> Callable:
     """``_stage2_loss`` or, with fused_guidance, ``_stage2_loss_fused``;
-    refuses the combinations the JAX package asserts against, and
-    fused_guidance under FSDP."""
+    refuses the combinations the JAX package asserts against."""
     t = cfg.train
     if t.fused_encoders and not t.fused_guidance:
         raise ValueError("fused_encoders requires fused_guidance (it feeds the "
                          "shared decoder pass)")
     if not t.fused_guidance:
         return _stage2_loss
-    if mesh is not None and len(mesh.mesh_dim_names) > 1:
-        from gdn_tpu_torch.config import refuse_split
-
-        refuse_split(cfg.model, t)
-    if mesh is not None and cfg.mesh.fsdp:
-        raise ValueError("fused_guidance reads the encoders' and the decoder's weights "
-                         "outside their blocks' forwards, where FSDP2 holds them "
-                         "sharded: train it data parallel (fsdp off)")
     if not t.freeze_decoder:
         raise ValueError("fused_guidance requires freeze_decoder: the shared-decoder "
                          "pass is only valid while both nets' decoder params stay equal")
@@ -291,7 +295,7 @@ def make_stage2_step(cfg: Config, mesh=None, state_sharding=None) -> Callable[
     ``mesh``, ``state_sharding``: as in :func:`make_stage1_step`; the
     D-net is placed as the state (``parallel.mesh.shard_frozen``)."""
     _refuse_quant(cfg)
-    loss_fn = _stage2_loss_fn(cfg, mesh)
+    loss_fn = _stage2_loss_fn(cfg)
     orig, cfg = cfg, _spatial_safe_cfg(cfg, mesh)
     group, rows = pixel_group(mesh), spatial_axis(mesh)
 

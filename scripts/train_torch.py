@@ -62,10 +62,11 @@ parameters and optimizer state over the ranks (FSDP2);
 corpus on each rank.  ``--spatial_devices S`` shards each image's
 height over S ranks and ``--model_devices M`` each layer's output
 channels over M (tensor parallel); the batch splits over the rest, and
-with ``--num_devices 0`` the script starts at least S x M ranks.  A
-flag for what the port does not run yet (a model variant or
-``--fused_guidance`` with either) ends the run at parse time, naming
-its ROADMAP item.
+with ``--num_devices 0`` the script starts at least S x M ranks.  Any
+variant flag, ``--fused_guidance`` and ``--fsdp`` (with
+``--spatial_devices`` too) run on either axis, as in the JAX package; S
+must divide ``--height`` (NYU's 228 splits unevenly below it, and the
+levels that do not line up run gathered).
 
 Examples:
   python scripts/make_fixture.py --out data/kitti --n 512 --style scene

@@ -82,20 +82,23 @@ def test_config_json_both_ways(tmp_path, preset, case):
 
 
 # The first two cases keep their ids from when the spatial and model
-# axes themselves were refused (item 10b); they now hold the refusals of
-# what item 10b left to item 10c.
+# axes themselves were refused (item 10b), and then what item 10b left to
+# item 10c; the port now runs both, and they hold that a config.json the
+# JAX package wrote for them loads (error None: accepted, the same config).
 @pytest.mark.parametrize("over,error,match", [
-    pytest.param({"mesh.spatial_devices": 2, "model.upsample": "deconv"},
-                 NotImplementedError, "Queue A item 10c",
+    pytest.param({"mesh.spatial_devices": 2, "model.upsample": "deconv"}, None, None,
                  id="over0-NotImplementedError-Queue A item 10b"),
-    pytest.param({"mesh.model_devices": 2, "train.fused_guidance": True},
-                 NotImplementedError, "Queue A item 10c",
+    pytest.param({"mesh.model_devices": 2, "train.fused_guidance": True}, None, None,
                  id="over1-NotImplementedError-Queue A item 10b"),
     ({"train.remat_policy": "save_only_these_names"}, ValueError, "not a policy"),
     ({"mesh.model_devices": 2, "mesh.fsdp": True}, ValueError, "mutually exclusive"),
 ])
 def test_config_json_refuses_what_the_port_does_not_run(tmp_path, over, error, match):
     jckpt.save_config(str(tmp_path), jcfg.kitti_config(**over))
+    if error is None:
+        got = tckpt.load_config(str(tmp_path))
+        assert dataclasses.asdict(got) == dataclasses.asdict(jcfg.kitti_config(**over))
+        return
     with pytest.raises(error, match=match):
         tckpt.load_config(str(tmp_path))
 

@@ -103,19 +103,26 @@ def test_build_config_equals_the_jax_one(argv, evalargs):
     assert tc.model.use_pallas_gn and not jc.model.use_pallas_gn
 
 
-# ids kept from when the axes themselves were refused (item 10b); the
-# cases now hold what item 10b left to item 10c
+# ids kept from when the axes themselves were refused (item 10b), and then
+# what item 10b left to item 10c; the port now runs both (item None:
+# accepted, the JAX package's config)
 UNPORTED = [
-    pytest.param(["--spatial_devices", "2", "--upsample", "deconv"], "Queue A item 10c",
+    pytest.param(["--spatial_devices", "2", "--upsample", "deconv"], None,
                  id="argv0-Queue A item 10b"),
-    pytest.param(["--model_devices", "2", "--fused_guidance", "--mode", "RtoD"],
-                 "Queue A item 10c", id="argv1-Queue A item 10b"),
+    pytest.param(["--model_devices", "2", "--fused_guidance", "--mode", "RtoD"], None,
+                 id="argv1-Queue A item 10b"),
 ]
 
 
 @pytest.mark.parametrize("argv,item", UNPORTED)
 def test_unported_train_flags_are_refused_with_their_item(argv, item):
-    jcli.build_config(_parse(jcli, argv))  # a flag the JAX package runs
+    jc = jcli.build_config(_parse(jcli, argv))  # a flag the JAX package runs
+    if item is None:
+        tc = tcli.build_config(_parse(tcli, argv))
+        diff = {k: v for k, v in _same_fields(tc, jc).items()
+                if v[0] != v[1] and k not in STATED_EXCEPTIONS}
+        assert diff == {}
+        return
     with pytest.raises(NotImplementedError, match=item):
         tcli.build_config(_parse(tcli, argv))
 
@@ -201,14 +208,21 @@ def _load_script(name):
     return mod
 
 
+# the first two cases were refusals of Queue A item 10c (their ids from
+# item 10b); the script now parses them (item None)
 @pytest.mark.parametrize("script,argv,item", [
     pytest.param("train_torch", ["--spatial_devices", "2", "--upsample", "deconv"],
-                 "Queue A item 10c", id="train_torch-argv0-Queue A item 10b"),
+                 None, id="train_torch-argv0-Queue A item 10b"),
     pytest.param("train_torch", ["--model_devices", "2", "--norm", "none"],
-                 "Queue A item 10c", id="train_torch-argv1-Queue A item 10b"),
+                 None, id="train_torch-argv1-Queue A item 10b"),
     ("eval_torch", ["--quantize", "int8", "--norm", "none"], "requires norm='group'"),
 ])
 def test_scripts_turn_a_refusal_into_a_parser_error(script, argv, item, capsys):
+    if item is None:
+        args = _load_script(script).parse_args(argv)
+        assert (args.spatial_devices, args.model_devices) in ((2, 1), (1, 2))
+        assert args.upsample == "deconv" or args.norm == "none"
+        return
     with pytest.raises(SystemExit) as e:
         _load_script(script).parse_args(argv)
     assert e.value.code != 0

@@ -2,7 +2,8 @@
 processes: the FSDP and TP placement rules on every parameter of the
 full-width KITTI nets through the OIHW/HWIO layout, ``param_mode``, the
 batch rows, ``local_batch_slice``, the backend rule, the rank's device,
-and the refusals of what Queue A item 10b leaves to item 10c."""
+and the mesh configs the JAX package accepts (what Queue A item 10b left
+to item 10c included) and refuses."""
 
 import functools
 
@@ -139,12 +140,14 @@ def test_batch_rows_of_each_rank():
 
 
 def test_spatial_and_model_axes_are_refused_naming_10b():
-    """The axes Queue A item 10b ported are accepted; what is left of them
-    is refused naming item 10c, the shape checks stay."""
-    for kw in ({"spatial_devices": 2}, {"model_devices": 2}):
+    """The axes Queue A item 10b ported are accepted, and so is what it
+    left to item 10c (FSDP on a spatial mesh); TP with FSDP stays refused
+    as in the JAX package, and the shape checks stay."""
+    for kw in ({"spatial_devices": 2}, {"model_devices": 2},
+               {"spatial_devices": 2, "fsdp": True}):
         tcfg.MeshConfig(**kw)
-    with pytest.raises(NotImplementedError, match="Queue A item 10c"):
-        tcfg.MeshConfig(spatial_devices=2, fsdp=True)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tcfg.MeshConfig(model_devices=2, fsdp=True)
     with pytest.raises(ValueError, match="does not divide"):
         tmesh.create_mesh(3, spatial=2)
     with pytest.raises(ValueError, match="does not divide"):
@@ -210,9 +213,10 @@ def test_a_rank_resolves_its_own_card(monkeypatch, local_rank, cards, index):
 
 
 def test_mesh_steps_refuse_what_they_cannot_train():
-    """An unplaced state under a mesh (its gradients would not be summed)
-    and fused_guidance under FSDP (it reads weights outside the blocks'
-    forwards, where FSDP2 holds them sharded)."""
+    """An unplaced state under a mesh (its gradients would not be summed).
+    fused_guidance under FSDP, once refused here, trains as in the JAX
+    package: it reads the units' weights inside their forwards
+    (tests/test_torch_split_model.py holds it against JAX's FSDP step)."""
     cfg = R.config()
     state = TrainState(R.nets(R.weights(), 1, cfg)[0], cfg.train, 2)
     step = tsteps.make_stage1_step(cfg, mesh=R.StubMesh(2))
@@ -220,6 +224,6 @@ def test_mesh_steps_refuse_what_they_cannot_train():
     with pytest.raises(ValueError, match="needs a placed state"):
         step(state, batch)
     fused = R.config(fsdp=True, fused_guidance=True)
-    with pytest.raises(ValueError, match="FSDP2 holds them"):
-        tsteps.make_stage2_step(fused, mesh=R.StubMesh(2))
+    assert tsteps._stage2_loss_fn(fused) is tsteps._stage2_loss_fused
+    tsteps.make_stage2_step(fused, mesh=R.StubMesh(2))
     tsteps.make_stage2_step(R.config(fused_guidance=True), mesh=R.StubMesh(2))

@@ -230,12 +230,17 @@ def test_spatial_safe_cfg_is_the_jax_packages():
 
 
 def test_sp_refuses_heights_whose_levels_do_not_split():
-    from gdn_tpu_torch.parallel.spatial import check_rows
-
+    """The height rule is now the JAX package's (``_shard_tree``): the
+    extent divides the height.  Heights whose levels split unevenly (NYU's
+    228: 114 -> 57 rows at level 2) are accepted and run their unaligned
+    levels gathered (tests/test_torch_split_rows.py); a height the extent
+    does not divide is refused, by the batch placement too, and FSDP on a
+    spatial mesh is accepted."""
     ax = tmesh.Axis(None, 2, 0)
-    check_rows(128, 5, ax)
-    for h in (228, 96, 64 + 32):  # NYU's 228: 114 -> 57 rows at level 2
-        with pytest.raises(NotImplementedError, match="Queue A item 10c"):
-            check_rows(h, 5, ax)
-    with pytest.raises(NotImplementedError, match="Queue A item 10c"):
-        tcfg.MeshConfig(spatial_devices=2, fsdp=True)
+    for h in (128, 228, 96, 64 + 32):
+        tmesh.check_rows(h, ax)
+    with pytest.raises(AssertionError, match="not divisible by mesh axis 'spatial'"):
+        tmesh.check_rows(229, ax)
+    with pytest.raises(AssertionError, match="not divisible"):
+        tmesh.shard_batch({"x": torch.zeros(2, 229, 3, 1)}, _Mesh2D(1, 2))
+    tcfg.MeshConfig(spatial_devices=2, fsdp=True)

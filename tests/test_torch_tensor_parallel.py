@@ -255,9 +255,49 @@ def test_model_and_spatial_mesh_configs_are_accepted():
 ])
 @pytest.mark.parametrize("axis", ["model_devices", "spatial_devices"])
 def test_knobs_left_out_are_refused_naming_10c(over, axis):
-    with pytest.raises(NotImplementedError, match="Queue A item 10c"):
-        tcfg.kitti_config(**{f"mesh.{axis}": 2, **over})
-    tcfg.kitti_config(**over)  # on one device they run
+    """Once refused naming Queue A item 10c, each knob now runs on either
+    axis, as in the JAX package (tests/test_torch_split_*.py train them):
+    the config is accepted, the stage-2 step builds its loss, and a net
+    of the knob's architecture takes the axis's placement."""
+    import dataclasses
+
+    from gdn_tpu import config as jcfg
+    from gdn_tpu_torch.models import RtoDNet
+    from gdn_tpu_torch.train import steps as tsteps
+
+    cfg = tcfg.kitti_config(**{f"mesh.{axis}": 2, **over})
+    jc = jcfg.kitti_config(**{f"mesh.{axis}": 2, **over})
+    assert dataclasses.asdict(cfg.model) == dataclasses.asdict(jc.model)
+    assert getattr(cfg.mesh, axis) == 2
+    want = tsteps._stage2_loss_fused if cfg.train.fused_guidance else tsteps._stage2_loss
+    assert tsteps._stage2_loss_fn(cfg) is want
+    net = RtoDNet(tcfg.ModelConfig(**{**R.SMALL, **{k[6:]: v for k, v in over.items()
+                                                    if k.startswith("model.")}}))
+    ax = tmesh.Axis(None, 2, 0)
+    if axis == "spatial_devices":
+        tmesh.place_rows(net, _AxisMesh(ax))
+        assert all(m.sp == ax for m in net.modules())
+    else:
+        specs = tmesh.tree_shardings(net, _AxisMesh(ax, "model"), "tp")
+        tmesh.shard_columns(net, specs, ax)
+        assert any(getattr(m, "tp", None) is ax for m in net.modules())
+
+
+class _AxisMesh:
+    """A 1-D mesh of one named dim as rank 0 sees it, without a process
+    group: enough for the placement rules."""
+
+    def __init__(self, ax, name="spatial"):
+        self.ax, self.mesh_dim_names = ax, (name,)
+
+    def size(self, dim=0):
+        return self.ax.size
+
+    def get_local_rank(self, name=None):
+        return 0
+
+    def get_group(self, name=None):
+        return None
 
 
 def test_tp_spec_maps_the_deconv_kernels_output_dim():

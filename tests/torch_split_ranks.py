@@ -100,14 +100,16 @@ def _mutate_halo():
     return lambda: setattr(spatial, "halo", old)
 
 
-def eval_samples(n: int = 8, seed: int = 5):
-    """Eval samples at the net's size, GT at three sizes (~15% holes)."""
+def eval_samples(n: int = 8, seed: int = 5, hw=None):
+    """Eval samples at the net's size (``hw``, default the small net's),
+    GT at three sizes (~15% holes)."""
     rng = np.random.default_rng(seed)
     out = []
     for i in range(n):
         gt = rng.uniform(0, 100, (1, *((20, 40), (16, 32), (33, 50))[i % 3])).astype(np.float32)
         gt[rng.uniform(size=gt.shape) < 0.15] = 0.0
-        out.append({"rgb": rng.uniform(0, 1, (1, *R.HW, 3)).astype(np.float32), "gt": gt})
+        out.append({"rgb": rng.uniform(0, 1, (1, *(hw or R.HW), 3)).astype(np.float32),
+                    "gt": gt})
     return out
 
 
@@ -117,8 +119,8 @@ def _eval(sd, out, mesh, cfg, name):
     from gdn_tpu_torch.evaluate import evaluate
 
     g = shard_frozen(R.nets(sd, 2, cfg)[0].requires_grad_(False), mesh, param_mode(cfg.mesh))
-    res = evaluate(cfg, tsteps.make_eval_forward(cfg, g), eval_samples(), verbose=False,
-                   mesh=mesh, device="cpu")
+    res = evaluate(cfg, tsteps.make_eval_forward(cfg, g), eval_samples(hw=cfg.model.image_size),
+                   verbose=False, mesh=mesh, device="cpu")
     if multihost.rank() == 0:
         _save(os.path.join(out, f"{name}.npz"), **{k: v for k, v in res.items()
                                                    if not k.endswith("fps")})
@@ -212,3 +214,156 @@ def sp_scenarios(inp: str, out: str) -> None:
     both = create_mesh(0, spatial=2, model=2, device_type="cpu")
     state, terms, tap = R.run(config(spatial_=2, model=2), 2, sd, b[:1], both)
     _emit(out, "sp_tp_s2", state, terms, tap)
+
+
+# ------------------------------------------ A10c: the knobs on every mesh
+
+# Model variants the knob tests hold, as ModelConfig fields over the small
+# net: three nets that between them take every variant site the JAX
+# package has (the deconv UpBlock with its resize and bare activation,
+# the add FusionBlock's lateral_proj, the coarse heads, a non-ELU
+# GroupNorm, the biased norm="none" convs, the deconv's GroupNorm).
+VARIANTS = {
+    "deconv_add_ms_gelu": dict(upsample="deconv", fusion="add", multiscale_heads=True,
+                               activation="gelu"),
+    "none_relu": dict(norm="none", activation="relu"),
+    "deconv_gn": dict(upsample="deconv", deconv_gn=True),
+}
+# stage 2's knobs: the shared decoder pass with its hand-written backward,
+# and the paired encoder ladder under the autograd decoder pass
+FG = dict(fused_guidance=True, fused_guidance_vjp=True)
+FE = dict(fused_guidance=True, fused_encoders=True)
+
+
+def knob_config(model=None, hw=R.HW, spatial_: int = 1, model_devices: int = 1,
+                fsdp: bool = False, eval_batch: int = 2, **train) -> tcfg.Config:
+    """The small net with the ModelConfig fields ``model`` at image size
+    ``hw`` on a (spatial, model, fsdp) mesh config."""
+    return tcfg.Config(model=tcfg.ModelConfig(**{**R.SMALL, "image_size": tuple(hw),
+                                                 **(model or {})}),
+                       loss=tcfg.LossConfig(use_pallas=False),
+                       train=tcfg.TrainConfig(lr=1e-3, **train),
+                       eval=tcfg.EvalConfig(batch_size=eval_batch),
+                       mesh=tcfg.MeshConfig(spatial_devices=spatial_,
+                                            model_devices=model_devices, fsdp=fsdp))
+
+
+def knob_weights(model=None, seed: int = 3):
+    """The D-net and the G-net (with its transferred decoder) of a variant
+    of the small net, drawn by the port's init."""
+    from gdn_tpu_torch.checkpoint import init_params, transfer_stage1_decoder
+
+    cfg = knob_config(model)
+    gen = torch.Generator().manual_seed(seed)
+    d = init_params(cfg.model, gen, in_channels=1)
+    g = transfer_stage1_decoder(init_params(cfg.model, gen, in_channels=3), d)
+    return {"d": d, "g": g}
+
+
+def batches_at(hw, n: int = 1, seed: int = 0):
+    """``R.batches`` at another image size (numpy)."""
+    old = R.HW
+    R.HW = tuple(hw)
+    try:
+        return R.batches(n, seed)
+    finally:
+        R.HW = old
+
+
+def _mutate_paired_gather():
+    """A paired-ladder gather that joins the ranks' [D_r | G_r] halves as
+    they come (all-gather of the whole slice): the mutation the TP test
+    of the paired encoders must catch."""
+    old = tensor._gather_pair
+    tensor._gather_pair = lambda t, ax, dim: tensor.gather_from_model(t, ax, dim)
+    return lambda: setattr(tensor, "_gather_pair", old)
+
+
+def _mutate_deconv_halo():
+    """A local transposed conv whose halo drops the row of the rank below
+    (zeros where it should be): the mutation the deconv's SP test must
+    catch."""
+    from gdn_tpu_torch.models import blocks
+
+    old = blocks.conv_transpose_rows
+    real_halo = spatial.halo
+
+    def mutant(x, weight, bias, padding, size, ax, rows=None):
+        def halo(t, top, bottom, ax_, mode="zeros", dim=2):
+            ext = real_halo(t, top, bottom, ax_, mode, dim)
+            if ax_.rank < ax_.size - 1:
+                ext = torch.cat([ext.narrow(dim, 0, ext.shape[dim] - 1),
+                                 torch.zeros_like(ext.narrow(dim, 0, 1))], dim)
+            return ext
+
+        spatial.halo = halo
+        try:
+            return old(x, weight, bias, padding, size, ax, rows)
+        finally:
+            spatial.halo = real_halo
+
+    blocks.conv_transpose_rows = mutant
+    return lambda: setattr(blocks, "conv_transpose_rows", old)
+
+
+def _mutate_odd_start():
+    """An uneven layout that runs a stride-2 conv on each rank's rows
+    though a shard starts on an odd row (as if it started one row
+    later, on an even one): the mutation the uneven-height SP test must
+    catch."""
+    import torch.nn.functional as F
+
+    from gdn_tpu_torch.models import blocks
+    from gdn_tpu_torch.ops.conv import same_pads
+
+    old = blocks.conv_rows
+
+    def mutant(x, kernel, stride, ax, rows=None, bias=None, groups=1):
+        k, h = kernel.shape[2], spatial.rows_of(x, ax, rows)
+        if stride == 1 or spatial.conv_plan(h, k, stride, ax.size) is not None:
+            return old(x, kernel, stride, ax, rows, bias, groups)
+        t, b = same_pads(h, k, stride)
+        o_s, o_e = spatial.row_bounds(-(-h // stride), ax)
+        ext = spatial.halo(x, t, max(k - stride - t, b), ax, "zeros")
+        l, r = same_pads(x.shape[3], kernel.shape[3], stride)
+        y = F.conv2d(F.pad(ext, (l, r, 0, 0)), kernel, bias, stride, groups=groups)
+        y = F.pad(y, (0, 0, 0, max(0, o_e - o_s - y.shape[2])))
+        return y[:, :, :o_e - o_s].contiguous(memory_format=torch.channels_last)
+
+    blocks.conv_rows = mutant
+    return lambda: setattr(blocks, "conv_rows", old)
+
+
+MUTANTS = {"paired_gather": _mutate_paired_gather, "deconv_halo": _mutate_deconv_halo,
+           "odd_start": _mutate_odd_start}
+
+
+def knob_scenarios(inp: str, out: str) -> None:
+    """The cases of a knob test file (tests/test_torch_split_*.py): each
+    a dict of name, cfg, stage, weights, batch (keys of the input's
+    ``sd`` and ``batches``), and optionally ``mutant`` (a MUTANTS key) and
+    ``bytes`` (each rank writes its bytes of every trained parameter);
+    a case with ``eval`` runs the G-net through ``evaluate`` instead
+    (``_eval``).  Rank 0 writes ``<name>.npz``; the meshes are made once
+    by shape."""
+    data = torch.load(inp, weights_only=False)
+    meshes = {}
+    r = multihost.rank()
+    for case in data["cases"]:
+        cfg = case["cfg"]
+        key = (cfg.mesh.spatial_devices, cfg.mesh.model_devices)
+        if key not in meshes:
+            meshes[key] = create_mesh(0, spatial=key[0], model=key[1], device_type="cpu")
+        if case.get("eval"):
+            _eval(data["sd"][case["weights"]], out, meshes[key], cfg, case["name"])
+            continue
+        undo = MUTANTS[case["mutant"]]() if case.get("mutant") else None
+        try:
+            state, terms, tap = R.run(cfg, case["stage"], data["sd"][case["weights"]],
+                                      data["batches"][case["batch"]], meshes[key])
+        finally:
+            if undo is not None:
+                undo()
+        _emit(out, case["name"], state, terms, tap)
+        if case.get("bytes"):
+            _save(os.path.join(out, f"{case['name']}.rank{r}.npz"), **R._bytes(state))

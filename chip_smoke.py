@@ -391,6 +391,23 @@ repository around this file.  Phases, each printed on its own lines:
               (e)'s commands), under TP with --upsample deconv and under
               SP with --norm none at NYU's size, the four at once, each
               checkpoint restored in this process and run once.
+  30. migration  the .pth migration path, full width, bf16: (a) the
+              D-net's random weights (init_params, seed 30) and phase
+              4's G-net written as reference-style .pth files, every key
+              renamed by a key map (``enc.layer3.kernel``), wrapped as
+              {"state_dict": ...} with DataParallel's ``module.`` keys,
+              imported by scripts/import_pth_torch.py on the card: the
+              checkpoints' weights equal the sources bit for bit; (b)
+              BatchedPredictor on the stage-2 import, batch 8, 16 images:
+              depth bit-identical to the source weights' (cuDNN
+              deterministic), 21 GN+ELU launches a batch; (c)
+              scripts/train_torch.py --mode RtoD --stage1_ckpt on the
+              stage-1 import, B=32, 2 steps: every logged term equal to
+              --stage1_pth of the source D-net's bit for bit, 42 GN+ELU
+              and one loss forward and backward a step; (d)
+              scripts/export_pth_torch.py of both imports under the same
+              key maps: the files imported, key for key, bit for bit;
+              (e) the phase's seconds and launches.
 
 Any failure ends the run with a nonzero exit.  The last lines are the
 kernels' JSON line, the nvidia-smi line, and
@@ -398,7 +415,8 @@ kernels' JSON line, the nvidia-smi line, and
 Per-shape numbers also go to smoke_out/chip_smoke.json (phase 23's under
 "tools", phase 24's under "artifacts", phase 25's under "variants",
 phase 26's under "knobs", phase 27's under "parallel", phase 28's under
-"tp_sp", phase 29's under "split_knobs"), the profiles to
+"tp_sp", phase 29's under "split_knobs", phase 30's under "migration"),
+the profiles to
 smoke_out/{serving,training}{,_fused,_fusion}_profile.txt,
 smoke_out/knobs_*_profile.txt,
 smoke_out/eval_profile.txt and smoke_out/disk_*_profile.txt.
@@ -5745,6 +5763,133 @@ def phase_split_knobs(cfg):
     return out, launches
 
 
+P30_IMAGES = 16  # (b): two serving batches of BATCH
+P30_STEPS = 2  # (c): stage-2 steps a run at TRAIN_BATCH
+
+
+def reference_key_map(sd):
+    """A key map (flax path -> torch key) that renames every leaf as the
+    reference's modules might be named, ``encoder.down1.ConvBlock_0.
+    Conv_0.kernel`` -> ``enc.layer3.kernel``."""
+    from gdn_tpu_torch.checkpoint import flax_path
+
+    km = {flax_path(k): f"{'enc' if k.startswith('encoder.') else 'dec'}.layer{i}."
+          f"{k.rsplit('.', 1)[1]}" for i, k in enumerate(sd)}
+    if len(set(km.values())) != len(km) or set(km.values()) & set(sd):
+        raise AssertionError("the key map must rename every leaf to a key of its own")
+    return km
+
+
+def _records(jsonl):
+    """The loss terms of each logged step (the host clock left out)."""
+    return [{k: v for k, v in json.loads(line).items() if k not in ("t", "imgs_per_sec")}
+            for line in open(jsonl)]
+
+
+def phase_migration(cfg, g_src, n_gn):
+    """Phase 30: reference-style .pth files of a D-net and a G-net, under
+    a key map that renames every leaf, wrapped as {"state_dict": ...}
+    with DataParallel's keys, imported by scripts/import_pth_torch.py on
+    the card; the stage-2 import served and the stage-1 import trained
+    from against the source weights in the same call, bit for bit (cuDNN
+    deterministic); both exported by scripts/export_pth_torch.py under
+    the same map and held to the files imported."""
+    from gdn_tpu_torch.checkpoint import flax_path, init_params, load_params, save_pth
+    from gdn_tpu_torch.serving import BatchedPredictor
+
+    t0 = time.perf_counter()
+    root = os.path.join(OUT, "migration")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    sources = {"1": init_params(cfg.model, torch.Generator().manual_seed(30), in_channels=1),
+               "2": g_src}
+    files = {}
+    for stage, src in sources.items():
+        km = reference_key_map(src)
+        pth, kmp = os.path.join(root, f"ref{stage}.pth"), os.path.join(root, f"map{stage}.json")
+        with open(kmp, "w") as f:
+            json.dump(km, f)
+        ref = {km[flax_path(k)]: v.clone() for k, v in src.items()}
+        torch.save({"state_dict": {f"module.{k}": v for k, v in ref.items()}, "epoch": 30}, pth)
+        files[stage] = (ref, kmp)
+        load_script("import_pth_torch").main(
+            ["--pth", pth, "--stage", stage, "--key_map", kmp, "--model_dir", root])
+        got = load_params(os.path.join(root, f"stage{stage}"), step=0)
+        if got.keys() != src.keys() or not all(torch.equal(got[k], src[k]) for k in src):
+            raise AssertionError(f"(a) the stage-{stage} import differs from its source")
+    log(f"  (a) imported a D-net ({len(sources['1'])} tensors) and a G-net "
+        f"({len(sources['2'])}) from reference-style .pth files, every key renamed, "
+        f"'module.' keys inside {{'state_dict': ...}}: bit for bit")
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    h, w = cfg.model.image_size
+    images = np.random.default_rng(30).integers(0, 256, (P30_IMAGES, h, w, 3), np.uint8)
+    depths, counts = {}, {}
+    for tag, sd in (("import", load_params(os.path.join(root, "stage2"))), ("source", g_src)):
+        pred = BatchedPredictor(cfg, sd, batch_size=BATCH)
+        pred.predict(images[:BATCH])
+        torch.cuda.synchronize()
+        reset_counts()
+        depths[tag] = pred.predict(images)
+        counts[f"serve_{tag}"] = read_counts()
+        del pred
+    batches = P30_IMAGES // BATCH
+    expect_counts("migration serving", counts["serve_import"], group_norm_elu=n_gn * batches)
+    if not np.array_equal(depths["import"], depths["source"]):
+        raise AssertionError("(b) the imported G-net's depth differs from its source's: max "
+                             f"|d| {np.abs(depths['import'] - depths['source']).max()}")
+    log(f"  (b) BatchedPredictor, batch {BATCH}, {h}x{w}, bf16: {P30_IMAGES} images from the "
+        f"stage-2 import bit-identical to the source weights; launches "
+        f"{counts_text(counts['serve_import'])}")
+
+    save_pth(sources["1"], os.path.join(root, "d_source.pth"))
+    train = ["--mode", "RtoD", "--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH),
+             "--epochs", "1", "--steps_per_epoch", str(P30_STEPS), "--log_every", "1"]
+    records = {}
+    for tag, src in (("import", ["--stage1_ckpt", os.path.join(root, "stage1")]),
+                     ("source", ["--stage1_pth", os.path.join(root, "d_source.pth")])):
+        out = os.path.join(root, f"from_{tag}")
+        torch.cuda.synchronize()
+        reset_counts()
+        state = load_script("train_torch").main([*train, *src, "--model_dir", out])
+        torch.cuda.synchronize()
+        counts[f"train_{tag}"] = read_counts()
+        records[tag] = _records(os.path.join(out, "train_log.jsonl"))
+        if state.step != P30_STEPS:
+            raise AssertionError(f"(c) {tag}: stopped at step {state.step}")
+        del state
+    torch.backends.cudnn.deterministic = False
+    expect_counts("migration stage 2", counts["train_import"],
+                  group_norm_elu=2 * n_gn * P30_STEPS, fused_loss_fwd=P30_STEPS,
+                  fused_loss_bwd=P30_STEPS)
+    if records["import"] != records["source"] or len(records["import"]) != P30_STEPS:
+        raise AssertionError(f"(c) stage 2 from the import {records['import']} against the "
+                             f"source {records['source']}")
+    log(f"  (c) train_torch.py --mode RtoD --stage1_ckpt on the stage-1 import, B={TRAIN_BATCH}, "
+        f"{P30_STEPS} steps: terms equal to --stage1_pth of the source bit for bit ("
+        + ", ".join(f"total={r['total']:.6f}" for r in records["import"])
+        + f"); launches {counts_text(counts['train_import'])}")
+
+    for stage, (ref, kmp) in files.items():
+        pth = os.path.join(root, f"out{stage}.pth")
+        load_script("export_pth_torch").main(
+            ["--stage", stage, "--model_dir", root, "--pth", pth, "--key_map", kmp])
+        back = torch.load(pth, weights_only=True)
+        if back.keys() != ref.keys() or not all(torch.equal(back[k], ref[k]) for k in ref):
+            raise AssertionError(f"(d) the stage-{stage} export differs from the file imported")
+    seconds = time.perf_counter() - t0
+    log(f"  (d) export_pth_torch.py under the same key maps: both files equal the ones "
+        f"imported, key for key, bit for bit")
+    log(f"  (e) phase 30: {seconds:.1f} s; launches {counts_text(counts['serve_import'])} "
+        f"serving {P30_IMAGES} images, {counts_text(counts['train_import'])} in "
+        f"{P30_STEPS} stage-2 steps")
+    launches = {"migration_serving": counts["serve_import"],
+                "migration_stage2": counts["train_import"]}
+    return {"seconds": seconds, "launches": counts,
+            "terms": records["import"]}, launches
+
+
 def main():
     log("== 1. device")
     if not torch.cuda.is_available():
@@ -5924,6 +6069,10 @@ def main():
         "spatial 2, the script")
     split_knobs, split_launches = phase_split_knobs(cfg)
 
+    log("== 30. migration: reference-style .pth files under a key map imported, served and "
+        "trained from bit-identically to their source, exported back")
+    migration, migration_launches = phase_migration(cfg, sd, n_gn)
+
     main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
     per_fwd = {k: sum(r[k] * r["sites"] for r in main_rows)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -5936,7 +6085,7 @@ def main():
                      **eval_launches, **life_launches, **disk_launches,
                      **tools_launches, **art_launches, **variant_launches,
                      **knob_launches, **parallel_launches, **tp_sp_launches,
-                     **split_launches}
+                     **split_launches, **migration_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in path_launches.values())
@@ -6002,7 +6151,7 @@ def main():
                    "eval": evaluation, "lifecycle": lifecycle, "disk": disk,
                    "tools": tools, "artifacts": artifacts, "variants": variants,
                    "knobs": knobs, "parallel": parallel, "tp_sp": tp_sp,
-                   "split_knobs": split_knobs,
+                   "split_knobs": split_knobs, "migration": migration,
                    "launches": path_launches, "timed_with_cuda_events": EVENT_TIMED,
                    "sass_hmma": hmma_by_fn, "ptxas": ptxas,
                    "kernels": kernels}, f, indent=1)

@@ -1,7 +1,9 @@
 """Weights and checkpoints for the port: weights carried over from the
-JAX package, read from or written to a ``.pth``, drawn at random from
-an explicit generator, or moved from the stage-1 D-net's decoder into a
-stage-2 G-net; and the training checkpoints a run resumes from.
+JAX package, read from or written to a ``.pth`` (under the port's keys,
+or under a reference's through the JAX package's key map), drawn at
+random from an explicit generator, or moved from the stage-1 D-net's
+decoder into a stage-2 G-net; and the training checkpoints a run
+resumes from.
 
 The port's module attributes follow the flax parameter paths and its
 conv kernels are OIHW, so its ``state_dict`` keys and layouts are
@@ -98,6 +100,81 @@ def save_pth(state_dict: Dict[str, torch.Tensor], path: str) -> None:
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(sd, tmp)
     os.replace(tmp, path)  # atomic: a reader never sees half a file
+
+
+def flax_path(key: str) -> str:
+    """The flax parameter path ("a/b/c") of the port's state_dict key
+    ("a.b.c").  A torch module or parameter name holds no dot, so the
+    key's parts are the path's."""
+    return "/".join(key.split("."))
+
+
+def unwrap_state_dict(obj: Any) -> Dict[str, Any]:
+    """The state_dict inside a loaded reference ``.pth``: the value of
+    its ``"state_dict"`` entry where it has one, keys without
+    DataParallel's ``module.`` prefix (``scripts/import_torch.py``'s
+    rules)."""
+    if not isinstance(obj, dict):
+        raise ValueError(f"expected a state_dict (dict of tensors), got {type(obj).__name__}")
+    if isinstance(obj.get("state_dict"), dict):
+        obj = obj["state_dict"]
+    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in obj.items()}
+
+
+def params_from_torch(template: Dict[str, torch.Tensor], state_dict: Dict[str, Any],
+                      key_map: Optional[Dict[str, str]] = None,
+                      strict: bool = True) -> Dict[str, torch.Tensor]:
+    """Import a torch ``state_dict`` in another naming (a reference
+    ``.pth``) into the port's state_dict shaped like ``template``: what
+    ``gdn_tpu.checkpoint.params_from_torch`` followed by
+    :func:`params_from_flax` gives.
+
+    ``key_map`` is the JAX package's JSON map, flax path ("a/b/c") ->
+    torch key; a leaf it does not name looks for its own key "a.b.c".
+    Every 4-D tensor is OIHW, the port's layout, so nothing is permuted
+    (a transposed conv's kernel is not detected: pre-permute it, as for
+    the JAX import).  Values are copied as float32 onto the template
+    leaf's device; keys of ``state_dict`` no leaf asks for are ignored.
+    The leaves are visited in the order of the JAX package's trees (keys
+    sorted at each level), so both packages name the same leaf: a shape
+    that differs raises ValueError; with ``strict`` every leaf must be
+    found (KeyError naming the first five missing flax paths); otherwise
+    a missing leaf keeps the template's value."""
+    key_map = key_map or {}
+    out: Dict[str, torch.Tensor] = {}
+    missing = []
+    for key in sorted(template, key=lambda k: k.split(".")):
+        want, path = template[key], flax_path(key)
+        tkey = key_map.get(path, key)
+        if tkey not in state_dict:
+            missing.append(path)
+            out[key] = want
+            continue
+        arr = state_dict[tkey]
+        arr = (arr.detach() if isinstance(arr, torch.Tensor)
+               else torch.from_numpy(np.array(arr, dtype=np.float32)))
+        if tuple(arr.shape) != tuple(want.shape):
+            raise ValueError(f"shape mismatch importing {tkey!r} -> {path!r}: "
+                             f"{tuple(arr.shape)} vs {tuple(want.shape)}")
+        out[key] = arr.to(device=want.device, dtype=torch.float32, copy=True)
+    if strict and missing:
+        raise KeyError(
+            f"torch state_dict is missing {len(missing)} template leaves, "
+            f"first: {missing[:5]} (pass strict=False for partial import "
+            f"or extend key_map)")
+    return {k: out[k] for k in template}
+
+
+def params_to_torch(state_dict: Dict[str, torch.Tensor],
+                    key_map: Optional[Dict[str, str]] = None) -> Dict[str, torch.Tensor]:
+    """The port's state_dict renamed by ``key_map`` (flax path -> torch
+    key, the map :func:`params_from_torch` reads), as float32 CPU
+    tensors: the exact inverse of the import and what
+    ``gdn_tpu.checkpoint.params_to_torch`` gives on the same weights."""
+    key_map = key_map or {}
+    return {key_map.get(flax_path(k), k): v.detach().to(
+        "cpu", torch.float32, copy=True, memory_format=torch.contiguous_format)
+        for k, v in state_dict.items()}
 
 
 def transfer_stage1_decoder(g_sd: Dict[str, torch.Tensor],

@@ -245,12 +245,16 @@ def stage1_state(cfg: Config, device=None) -> TrainState:
     return TrainState(net, cfg.train, cfg.train.steps_per_epoch)
 
 
-def stage2_state(cfg: Config, d_sd: Dict[str, torch.Tensor], device=None) -> TrainState:
+def stage2_state(cfg: Config, d_sd: Optional[Dict[str, torch.Tensor]],
+                 device=None) -> TrainState:
     """A fresh stage-2 TrainState: a G-net (seed cfg.train.seed) with
-    the decoder of the D-net ``d_sd`` (``transfer_stage1_decoder``),
-    frozen when cfg.train.freeze_decoder."""
+    the decoder of the D-net ``d_sd`` (``transfer_stage1_decoder``; with
+    ``d_sd`` None its own fresh decoder), frozen when
+    cfg.train.freeze_decoder."""
     gen = torch.Generator().manual_seed(cfg.train.seed)
-    g_sd = transfer_stage1_decoder(init_params(cfg.model, gen, in_channels=3), d_sd)
+    g_sd = init_params(cfg.model, gen, in_channels=3)
+    if d_sd is not None:
+        g_sd = transfer_stage1_decoder(g_sd, d_sd)
     return TrainState(_net(RtoDNet, cfg, g_sd, resolve_device(device)), cfg.train,
                       cfg.train.steps_per_epoch, freeze_decoder=cfg.train.freeze_decoder)
 

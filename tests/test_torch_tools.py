@@ -15,7 +15,9 @@ scripts/*_torch.py) at tiny sizes.
   B=2, fp32) prints its per-seed line and the ``DONE`` line;
   ``scripts/profile_step_torch.py --device cpu --steps 2`` exits 0.
 - The demo writes colorized maps at the inputs' sizes and a GIF, and its
-  map equals ``gdn_tpu.ops.colormap.colorize_depth`` on the same depth.
+  map equals ``gdn_tpu.ops.colormap.colorize_depth`` on the same depth;
+  on a video (``imageio.v3.imiter`` stubbed) ``iter_frames`` and
+  ``run_demo`` give the JAX package's frame names, PNGs and GIF frames.
 """
 
 import importlib.util
@@ -300,3 +302,79 @@ def test_demo_script_on_the_cpu(frames, tmp_path):
     with pytest.raises(SystemExit, match="ema"):
         demo.main(["--input", frames, "--output", str(tmp_path / "out"), "--use_ema",
                    "--model_dir", str(ckpt_dir), "--device", "cpu"])
+
+
+VIDEO_FRAMES = 3  # frames the stubbed reader yields, RGBA as imageio may give them
+
+
+@pytest.fixture
+def video(tmp_path, monkeypatch):
+    """A video path whose frames come from a stub of imageio.v3.imiter
+    (no mp4 encoder here to write a real one), the same frames every call."""
+    iio = pytest.importorskip("imageio.v3")
+    rng = np.random.default_rng(5)
+    clip = rng.integers(0, 256, (VIDEO_FRAMES, 40, 90, 4), np.uint8)
+    path = tmp_path / "clip.mp4"
+    path.write_bytes(b"")  # iter_frames takes the video branch for a file with its suffix
+    read = []
+
+    def imiter(p):
+        read.append(str(p))
+        yield from clip
+
+    monkeypatch.setattr(iio, "imiter", imiter)
+    return str(path), clip, read
+
+
+def test_demo_video_frames_match_jax(video):
+    jdemo = pytest.importorskip("gdn_tpu.demo")
+    from gdn_tpu_torch.demo import iter_frames
+
+    path, clip, read = video
+    got, want = list(iter_frames(path)), list(jdemo.iter_frames(path))
+    assert read == [path, path]
+    assert [n for n, _ in got] == [n for n, _ in want] == [
+        f"frame{i:05d}" for i in range(VIDEO_FRAMES)]
+    for (_, a), (_, b), frame in zip(got, want, clip):
+        assert a.shape == (40, 90, 3)
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, frame[..., :3])
+
+
+@pytest.mark.parametrize("side_by_side", [True, False], ids=["stacked", "depth_only"])
+def test_demo_video_run_matches_jax(video, tmp_path, side_by_side):
+    """run_demo on a video: the JAX package's frame names, PNG count and
+    GIF frame count, on the same frames and weights (the port's
+    init_params carried into a flax tree)."""
+    jax = pytest.importorskip("jax")
+    jckpt = pytest.importorskip("gdn_tpu.checkpoint")
+    jcfg = pytest.importorskip("gdn_tpu.config")
+    jdemo = pytest.importorskip("gdn_tpu.demo")
+    from gdn_tpu.models import RtoDNet as JRtoD
+    from gdn_tpu_torch.demo import run_demo
+
+    path, clip, _ = video
+    cfg = _tiny()
+    m = cfg.model
+    jc = jcfg.Config(model=jcfg.ModelConfig(
+        image_size=m.image_size, enc_channels=m.enc_channels, dec_channels=m.dec_channels,
+        group_norm_groups=m.group_norm_groups, dtype="float32"))
+    sd = tckpt.init_params(m, torch.Generator().manual_seed(0))
+    shapes = jax.eval_shape(JRtoD(cfg=jc.model).init, jax.random.PRNGKey(0),
+                            jax.ShapeDtypeStruct((1, *HW, 3), np.float32))["params"]
+    params = jckpt.params_from_torch(
+        jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes), sd)
+    kw = dict(gif="v.gif", side_by_side=side_by_side)
+    got = run_demo(cfg, sd, path, str(tmp_path / "port"), device="cpu", **kw)
+    want = jdemo.run_demo(jc, params, path, str(tmp_path / "jax"), **kw)
+    names = [os.path.basename(p) for p in got]
+    assert names == [os.path.basename(p) for p in want] == [
+        *(f"frame{i:05d}_depth.png" for i in range(VIDEO_FRAMES)), "v.gif"]
+    for a, b, frame in zip(got, want, clip):
+        a, b = np.asarray(Image.open(a)), np.asarray(Image.open(b))
+        assert a.shape == b.shape == ((80 if side_by_side else 40), 90, 3)
+        if side_by_side:
+            np.testing.assert_array_equal(a[:40], frame[..., :3])
+        # the colorized depth: the same map up to a colormap bin at a pixel
+        assert np.abs(a[-40:].astype(int) - b[-40:]).mean() < 1.0
+    assert Image.open(got[-1]).n_frames == Image.open(want[-1]).n_frames == VIDEO_FRAMES

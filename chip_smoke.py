@@ -340,9 +340,12 @@ repository around this file.  Phases, each printed on its own lines:
               kernel (gn_rows_sums + gn_rows_apply, on a spatial axis of
               extent 1) against its plain version and the plain fp32
               statistics at every site shape a spatial rank of the B=32
-              128x416 nets holds (half the rows), with device times and
-              bounds; then (a) TP, model_devices=2: train_stage1 then
-              train_stage2 against phase 27's one process, bf16 at phase
+              128x416 nets holds (half the rows), two calls equal bit for
+              bit, each call two device kernels and nothing else (the
+              fold inside gn_rows_sums, no torch reduce), with device
+              times, the plan and bounds; then (a) TP, model_devices=2:
+              train_stage1 then train_stage2 against phase 27's one
+              process, bf16 at phase
               9's 5% (the terms of every step, the first update's
               gradients of each tensor's largest), and one fp32 step a
               stage at phase 9's fp32 bounds (terms 1e-4, gradients
@@ -371,7 +374,12 @@ repository around this file.  Phases, each printed on its own lines:
   29. split_knobs  every knob on every mesh (A10c), full width, two
               ranks sharing the card over gloo (one spawn), each case
               one step from the same weights and batch (B=8) against one
-              process in this call: fp32 terms within 1e-4 and gradients
+              process in this call (first, in this process, the split
+              GN+ELU kernel against _rows_plain at each rank's uneven
+              shard of every NYU site and the paired ladder's 2G-group
+              sites, two calls bit for bit, one profiled pass of a call
+              a shape: the two kernels and nothing else): fp32 terms
+              within 1e-4 and gradients
               within 1e-3 of each tensor's largest, bf16 terms within
               phase 28's 5% and the bf16 gradients within its 5% or,
               where larger, one process's own bf16-to-fp32 gap (see
@@ -5122,8 +5130,7 @@ def p28_split_gn(cfg):
         scale = torch.rand(c, device="cuda", generator=gen) + 0.5
         bias = torch.randn(c, device="cuda", generator=gen)
         what = f"group_norm_elu_rows {shape} bf16"
-        out, stats = gnk._launch_rows(x, scale, bias, g, 1e-6, alone, h)
-        torch.cuda.synchronize()
+        out, stats = split_gn_twice(x, scale, bias, g, alone, h, what)
         err = check_close(out, group_norm_elu_plain(x, scale, bias, g), x.dtype, what)
         mean_c, inv_c = _chanreduce_stats(x, g, 1e-6)
         cg = c // g
@@ -5132,9 +5139,12 @@ def p28_split_gn(cfg):
         row = {"B": TRAIN_BATCH, "C": c, "H": h, "W": w, "groups": g,
                "sites": sites.count((c, h, w)), "max_abs_err": err,
                "stats_max_abs_err": serr, "split_ms": {},
+               "plan": gnk.rows_plan_for(x, g)._asdict(),
                "bound_ms": bound_ms(*gn_work(shape, x.element_size()))}
         row["ms"] = device_ms([lambda: gnk._launch_rows(x, scale, bias, g, 1e-6, alone, h)],
                               what=what, split=row["split_ms"])
+        check_split_kernels(row["split_ms"], what)
+        check_split_call(lambda: gnk._launch_rows(x, scale, bias, g, 1e-6, alone, h), what)
         row["plain_ms"] = device_ms([lambda: group_norm_elu_plain(x, scale, bias, g)],
                                     what=f"{what} plain")
         sc, bi = scale.to(x.dtype), bias.to(x.dtype)  # on one rank, the same function
@@ -5145,9 +5155,87 @@ def p28_split_gn(cfg):
             f"{row['ms'] * 1e3:.1f} ({split_text(row['split_ms'])}), plain "
             f"{row['plain_ms'] * 1e3:.1f}, library {row['library_ms'] * 1e3:.1f}, bound "
             f"{row['bound_ms'] * 1e3:.1f} "
-            f"({row['bound_ms'] / row['ms']:.0%} of it reached)  x{row['sites']} sites")
+            f"({row['bound_ms'] / row['ms']:.0%} of it reached)  x{row['sites']} sites; "
+            f"plan {row['plan']}")
         del x
     return rows
+
+
+SPLIT_KERNELS = ("gn_rows_sums", "gn_rows_apply")  # a split call's two kernels
+
+
+def split_gn_twice(x, scale, bias, g, ax, rows, what):
+    """Two calls of the split GN+ELU kernel on the same input -> the
+    first's (out, stats); raises unless both gave the same bits."""
+    from gdn_tpu_torch.kernels import groupnorm as gnk
+
+    out, stats = gnk._launch_rows(x, scale, bias, g, 1e-6, ax, rows)
+    again, stats2 = gnk._launch_rows(x, scale, bias, g, 1e-6, ax, rows)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, again) and torch.equal(stats, stats2)):
+        raise AssertionError(f"{what}: two calls on the same input differ")
+    return out, stats
+
+
+ALLOC_OPS = ("aten.empty", "aten.detach", "aten.zeros")  # what a split call may dispatch
+
+
+def split_call_ops(call):
+    """(the C entry points launched, the torch ops dispatched) of
+    ``call()``, one call of the split form: each entry point launches one
+    kernel, and a TorchDispatchMode sees every op torch runs besides.
+    No profiler: late in a long process CUPTI has recorded no kernel."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from gdn_tpu_torch.kernels import groupnorm as gnk
+
+    lib, launched, ops = gnk.load(), [], []
+    entries = {name: getattr(lib, name) for name in SPLIT_KERNELS}
+
+    def counted(name, fn):
+        def launch(*args):
+            launched.append(name)
+            return fn(*args)
+        return launch
+
+    class Seen(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    try:
+        for name, fn in entries.items():
+            setattr(lib, name, counted(name, fn))
+        with Seen():
+            call()
+    finally:
+        for name, fn in entries.items():
+            setattr(lib, name, fn)
+    return launched, ops
+
+
+def check_split_call(call, what):
+    """One call launched gn_rows_sums then gn_rows_apply and ran no torch
+    op but allocations (the fold is in gn_rows_sums: no reduce)."""
+    launched, ops = split_call_ops(call)
+    other = [op for op in ops if not op.startswith(ALLOC_OPS)]
+    if launched != list(SPLIT_KERNELS) or other:
+        raise AssertionError(f"{what}: a call launched {launched} and ran {other}")
+    return ops
+
+
+def check_split_kernels(split, what):
+    """A call of the split form ran its two kernels and nothing else on
+    the card (the fold is in gn_rows_sums: no torch reduce between them).
+    Where the profiler came back short, device_ms timed with events and
+    ``split`` is empty: nothing to read."""
+    if not split:
+        return
+    names = [k for k in split if k != "launches"]
+    bad = [k for k in names if not any(n in k for n in SPLIT_KERNELS)]
+    if split.get("launches") != 2 or bad or len(names) != 2:
+        raise AssertionError(f"{what}: a call should launch gn_rows_sums and gn_rows_apply "
+                             f"alone, got {split}")
 
 
 def phase_tp_sp(cfg, refs):
@@ -5531,14 +5619,17 @@ def p29_split_gn(cfg, nyu):
         scale = torch.rand(c, device="cuda", generator=gen) + 0.5
         bias = torch.randn(c, device="cuda", generator=gen)
         what = f"group_norm_elu_rows ({P29_BATCH}, {c}, {part} of {h}, {w}), {g} groups"
-        out, stats = gnk._launch_rows(x, scale, bias, g, 1e-6, alone, h)
+        out, stats = split_gn_twice(x, scale, bias, g, alone, h, what)
         want, want_stats = gnk._rows_plain(x, scale, bias, g, 1e-6, alone, h)
         torch.cuda.synchronize()
         worst = max(worst, check_close(out, want, x.dtype, what))
         check_tol(stats, want_stats, 1e-5, 1e-6, f"{what} statistics")
+        ops = check_split_call(lambda: gnk._launch_rows(x, scale, bias, g, 1e-6, alone, h),
+                               what)
     log(f"  the split GN+ELU kernel vs plain at {len(shapes)} shapes (NYU's uneven shards, "
-        f"the paired ladder's 2G groups): max|k-p| {worst:.3g}")
-    return {"shapes": len(shapes), "max_abs_err": worst}
+        f"the paired ladder's 2G groups): max|k-p| {worst:.3g}; two calls bit for bit; "
+        f"each call {' + '.join(SPLIT_KERNELS)} and {len(ops)} allocations, no other op")
+    return {"shapes": len(shapes), "max_abs_err": worst, "ops_a_call": ops}
 
 
 def p29_scripts(work):

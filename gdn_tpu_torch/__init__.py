@@ -6,15 +6,16 @@ TPU kernel on a ported path has a hand-written CUDA counterpart under
 ``csrc/`` with a plain PyTorch version beside its wrapper; entry points
 run on CUDA unless the caller passes ``device="cpu"``.
 
-Ported so far: the stage-2 G-net serving path (config, ops, models,
-checkpoint import, BatchedPredictor, the HTTP server) with the
-GroupNorm+ELU kernel; the training of both stages (losses with the
-fused loss kernels, train state/steps/loops, synthetic data) with
-checkpoints, resume, preemption, gradient accumulation and remat; the
-eval protocol; data from disk; the command line and tools; and
-deployment: ``torch.export`` artifacts whose graphs call the kernels as
-registered ops, and int8 post-training quantization.  See ROADMAP.md for
-what comes next.
+Every module of the JAX package has its counterpart: the stage-2 G-net
+serving path (config, ops, models, BatchedPredictor, the HTTP server);
+the training of both stages with checkpoints, resume, preemption,
+gradient accumulation, remat and the training knobs; the model variants;
+the eval protocol; data from disk; the command line and tools;
+deployment (``torch.export`` artifacts whose graphs call the kernels as
+registered ops, int8 post-training quantization); data, FSDP, tensor and
+spatial parallelism over ``torch.distributed`` (``parallel/``); and the
+``.pth`` migration path.  See ROADMAP.md for what the kernels and paths
+still owe.
 """
 
 __version__ = "0.1.0"

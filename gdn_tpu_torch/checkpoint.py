@@ -259,8 +259,8 @@ def load_config(ckpt_dir: str) -> Optional[Config]:
 def config_from_dict(payload: Dict[str, Any]) -> Config:
     """Rebuild a Config from ``dataclasses.asdict`` output.  JSON lists
     become tuples again; keys this version does not know are dropped
-    with a warning; a value the port does not run raises the config's
-    ``NotImplementedError``."""
+    with a warning; a value neither package runs raises the config's
+    ``ValueError``."""
 
     def build(dc_type, d):
         fields = {f.name: f for f in dataclasses.fields(dc_type)}

@@ -198,8 +198,8 @@ def add_eval_args(p: argparse.ArgumentParser) -> None:
 def build_config(args: argparse.Namespace) -> Config:
     """The Config the parsed flags describe, as ``gdn_tpu.cli.build_config``
     builds it (plus the port's ``--dtype``, ``--model.<flag>`` and
-    ``model.use_pallas_gn``).  Raises NotImplementedError for a value
-    the port does not run yet, naming its ROADMAP item."""
+    ``model.use_pallas_gn``).  Raises ValueError for a value neither
+    package runs."""
     preset = nyu_config if args.dataset == "nyu" else kitti_config
     over = {
         "model.use_pallas_gn": True,
@@ -276,12 +276,12 @@ def build_config(args: argparse.Namespace) -> Config:
 
 def parse_or_exit(p: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
     """Parse ``argv`` and check that the port runs what it asks for: a
-    value the Config refuses ends the run through ``p.error`` with its
-    ROADMAP item, and so does a combination the Config rejects."""
+    value or a combination the Config rejects ends the run through
+    ``p.error``."""
     args = p.parse_args(argv)
     try:
         build_config(args)
-    except (NotImplementedError, ValueError) as e:
+    except ValueError as e:
         p.error(str(e))
     return args
 

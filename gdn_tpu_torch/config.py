@@ -10,12 +10,10 @@ describe this port.
 What differs:
 
 - ``ModelConfig.compute_dtype`` returns a ``torch.dtype``.
-- Values the port does not run yet raise ``NotImplementedError`` at
-  construction, naming the ROADMAP item that will port them, instead
-  of being silently ignored.  Values neither package runs raise
-  ``ValueError`` at construction (``norm``, ``upsample``,
-  ``deconv_init``, ``fusion``, ``activation``, ``quant``, ``dtype``),
-  where the JAX package raises when the net is traced; so does
+- Values neither package runs raise ``ValueError`` at construction
+  (``norm``, ``upsample``, ``deconv_init``, ``fusion``, ``activation``,
+  ``quant``, ``dtype``, ``DataConfig.loader``), where the JAX package
+  raises when the net is traced or the loader made; so does
   ``quant="int8"`` with ``norm="none"`` (the int8 sites live on the
   GroupNorm paths).
 - Every model variant of the JAX package runs: ``norm`` "group" or
@@ -85,7 +83,7 @@ What differs:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -108,28 +106,6 @@ REMAT_FACTORIES = (
     "save_anything_except_these_names", "save_and_offload_only_these_names",
     "save_from_both_policies", "offload_dot_with_no_batch_dims",
 )
-# (field, value the port runs, ROADMAP item that ports the others)
-_DATA_NOT_YET = (
-    ("loader", ("native", "grain"), "Queue A item 8 (the host loaders)"),
-)
-
-def _refuse(cls: str, table) -> Callable:
-    """A __post_init__ that raises NotImplementedError for each field of
-    ``table`` (field, value the port runs, ROADMAP item) set otherwise."""
-
-    def post_init(self):
-        for name, supported, item in table:
-            value = getattr(self, name)
-            ok = value in supported if isinstance(supported, tuple) else value == supported
-            if not ok:
-                raise NotImplementedError(
-                    f"{cls}.{name}={value!r} is not ported to gdn_tpu_torch "
-                    f"yet (only {supported!r}); see ROADMAP.md {item}"
-                )
-
-    return post_init
-
-
 # (field, the values either package runs)
 _MODEL_CHOICES = (
     ("norm", ("group", "none")),
@@ -140,6 +116,17 @@ _MODEL_CHOICES = (
     ("quant", ("none", "int8")),
     ("dtype", ("bfloat16", "float32")),
 )
+_DATA_CHOICES = (
+    ("loader", ("native", "grain")),
+)
+
+
+def _check_choices(cfg, table) -> None:
+    """Raise ValueError for each field of ``table`` (field, the values
+    either package runs) that ``cfg`` sets to another value."""
+    for name, allowed in table:
+        if getattr(cfg, name) not in allowed:
+            raise ValueError(f"unknown {name} {getattr(cfg, name)!r} ({'|'.join(allowed)})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,10 +163,7 @@ class ModelConfig:
     use_pallas_fusion_bt: bool = _exec_field(False)
 
     def __post_init__(self):
-        for name, allowed in _MODEL_CHOICES:
-            if getattr(self, name) not in allowed:
-                raise ValueError(f"unknown {name} {getattr(self, name)!r} "
-                                 f"({'|'.join(allowed)})")
+        _check_choices(self, _MODEL_CHOICES)
         if self.quant != "none" and self.norm != "group":
             raise ValueError("quant='int8' requires norm='group' (the quantized "
                              "conv sites live on the group-norm paths)")
@@ -242,7 +226,8 @@ class DataConfig:
     device_cache: bool = False
     device_cache_sharded: bool = False
 
-    __post_init__ = _refuse("DataConfig", _DATA_NOT_YET)
+    def __post_init__(self):
+        _check_choices(self, _DATA_CHOICES)
 
 
 @dataclasses.dataclass(frozen=True)

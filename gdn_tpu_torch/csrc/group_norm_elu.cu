@@ -47,14 +47,20 @@
 //
 // Split form (gn_rows_sums, gn_rows_apply): for an image whose rows are
 // sharded over ranks (spatial parallelism), the statistics are the whole
-// image's.  The first kernel writes each slab's per-group (sum, sum of
-// squares); the caller sums each image's slabs and all-reduces those sums
-// over the ranks (one shape on every rank, whatever its rows); the second
-// folds an image's `fold` entries of them in a fixed order (the cooperative
-// kernel's fold, with n the whole image's count), writes the stats and
-// normalizes its slab.  Neither
-// stages in shared memory: x is read twice and out written once, as in the
-// streamed plan.
+// image's, so the all-reduce of the sums over the ranks comes between two
+// ordinary launches.  Both take a grid of what the card holds at once
+// (kernels/groupnorm.py::rows_plan), each block walking several slabs of
+// at least kRowsUnroll rows a thread row, the loads of kRowsUnroll rows in
+// flight at once.  The first kernel reduces each slab's two moments in one
+// barrier round and writes its per-group (sum, sum of squares); the block
+// that finishes an image's last slab (a ticket from a per-image counter,
+// after a __threadfence: CUDA's threadfence reduction) folds the image's
+// slab partials in slab order into one (B, G, 2) tensor, the same shape on
+// every rank whatever its rows.  The second kernel derives the mean and
+// inverse std with n the whole image's count, writes the stats and
+// normalizes, walking the slabs in the reverse of the first kernel's order
+// so that the rows still in L2 are read again first.  Neither stages in
+// shared memory: x is read twice and out written once.
 //
 // Layout: x and out are (B, HW, C) contiguous (channels_last NCHW); scale
 // and bias are fp32 (C,).  A thread owns VEC consecutive channels of a row:
@@ -319,69 +325,169 @@ gn_elu_coop(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
-// Split form, first half: slab s = blockIdx.x (image s / spi, rows
-// [(s % spi) * rows, +rows)) writes its (G, 2) per-group sums to partials.
-template <typename T, int V>
-__global__ void __launch_bounds__(V == 1 ? 1024 : 256, 1)
-gn_rows_sums(const T* __restrict__ x, float* __restrict__ partials, int hw, int c,
-             int groups, int rows, int spi) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem);  // (by, C)
-  const int by = blockDim.y, c0 = threadIdx.x * V;
-  const int s = blockIdx.x, b = s / spi, k = s % spi;
-  const int nr = min(rows, hw - k * rows);
-  const T* src = x + ((size_t)b * hw + (size_t)k * rows) * c + c0;
-  float a1[V], a2[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) { a1[i] = 0.f; a2[i] = 0.f; }
-  for (int r = threadIdx.y; r < nr; r += by) {
-    const Pack<T, V> p = *reinterpret_cast<const Pack<T, V>*>(src + (size_t)r * c);
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float f = to_f32(p.v[i]);
-      a1[i] += f;
-      a2[i] += f * f;
-    }
-  }
-  float* dst = partials + (size_t)s * groups * 2;
-  channel_sums<V>(a1, red, c);
-  group_sums(red, c / groups, groups, dst);
-  __syncthreads();  // red is refilled
-  channel_sums<V>(a2, red, c);
-  group_sums(red, c / groups, groups, dst + 1);
+// Split form.  One slab s (image s / spi, rows [(s % spi) * rows, +rows))
+// at a time; a block walks slabs blockIdx.x, + gridDim.x, ... (the grid is
+// what the card holds at once, kernels/groupnorm.py::rows_plan).  Each
+// thread keeps kRowsUnroll loads of V elements in flight: rows r, r + by,
+// ... of the slab in one unrolled trip.  kRowsMinBlocks: the blocks of
+// 256 threads an SM that __launch_bounds__ asks the register allocation to
+// leave room for (scripts/split_gn_variants_torch.py times the choices).
+constexpr int kRowsUnroll = 4;
+constexpr int kRowsMinBlocks = 1;
+
+// Rows of the block's reduction buffer (each 2C fp32 wide): one a warp
+// where a warp holds whole rows (C / V divides 32), else one a threadIdx.y.
+__host__ __device__ __forceinline__ int red_rows(int px, int by) {
+  return px < 32 && 32 % px == 0 && (px * by) % 32 == 0 ? px * by / 32 : by;
 }
 
-// Split form, second half: slab blockIdx.x folds its image's `fold` partial
-// sums (already summed over the ranks) in a fixed order, with n elements a
-// group in the whole image, and normalizes its rows.  The image's slab 0
-// writes the (B, 2, G) stats.
+// Both moments' per-channel block sums in one barrier round: a1 into
+// red[0, C), a2 into red[C, 2C), each in a fixed order (shuffles over the
+// rows a warp holds, then the buffer's rows in order).
+template <int V>
+__device__ __forceinline__ void block_sums(const float (&a1)[V], const float (&a2)[V],
+                                           float* red, int c) {
+  const int px = blockDim.x, by = blockDim.y, tx = threadIdx.x;
+  const int tid = threadIdx.y * px + tx, nthreads = px * by;
+  const int nrow = red_rows(px, by);
+  float v1[V], v2[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) { v1[i] = a1[i]; v2[i] = a2[i]; }
+  int row = threadIdx.y;
+  bool writes = true;
+  if (nrow != by) {
+    for (int off = px; off < 32; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        v1[i] += __shfl_xor_sync(0xffffffffu, v1[i], off);
+        v2[i] += __shfl_xor_sync(0xffffffffu, v2[i], off);
+      }
+    }
+    row = tid >> 5;
+    writes = (tid & 31) < px;  // the warp's first row: lane == tx
+  }
+  if (writes) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      red[row * 2 * c + tx * V + i] = v1[i];
+      red[row * 2 * c + c + tx * V + i] = v2[i];
+    }
+  }
+  __syncthreads();
+  for (int col = tid; col < 2 * c; col += nthreads) {
+    float t = 0.f;
+    for (int y = 0; y < nrow; ++y) t += red[y * 2 * c + col];
+    red[col] = t;  // only this thread reads column col
+  }
+  __syncthreads();
+}
+
+// First half: each slab's (G, 2) per-group sums into partials; then a
+// ticket from its image's counter (__threadfence, atomicAdd), and the
+// block that takes the image's last ticket folds the image's spi partials
+// in slab order into sums (B, G, 2), the tensor the all-reduce reads, and
+// sets the counter back to 0 for the next call.  Every sum has a fixed
+// order: which block folds does not change a bit.
 template <typename T, int V>
-__global__ void __launch_bounds__(V == 1 ? 1024 : 256, 1)
+__global__ void __launch_bounds__(V == 1 ? 1024 : 256, V == 1 ? 1 : kRowsMinBlocks)
+gn_rows_sums(const T* __restrict__ x, float* __restrict__ partials,
+             float* __restrict__ sums, unsigned* __restrict__ count, int batch, int hw,
+             int c, int groups, int rows, int spi) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);  // (red_rows, 2C)
+  __shared__ unsigned ticket;
+  const int px = blockDim.x, by = blockDim.y, ty = threadIdx.y, c0 = threadIdx.x * V;
+  const int tid = ty * px + threadIdx.x, nthreads = px * by;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5, cg_ = c / groups;
+  for (int s = blockIdx.x; s < batch * spi; s += gridDim.x) {
+    const int b = s / spi, k = s % spi;
+    const int nr = min(rows, hw - k * rows);
+    const T* src = x + ((size_t)b * hw + (size_t)k * rows) * c + c0;
+    float a1[V], a2[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) { a1[i] = 0.f; a2[i] = 0.f; }
+    for (int r0 = ty; r0 < nr; r0 += kRowsUnroll * by) {
+      Pack<T, V> p[kRowsUnroll];
+#pragma unroll
+      for (int u = 0; u < kRowsUnroll; ++u)
+        if (r0 + u * by < nr)
+          p[u] = *reinterpret_cast<const Pack<T, V>*>(src + (size_t)(r0 + u * by) * c);
+#pragma unroll
+      for (int u = 0; u < kRowsUnroll; ++u) {
+        if (r0 + u * by < nr) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float f = to_f32(p[u].v[i]);
+            a1[i] += f;
+            a2[i] += f * f;
+          }
+        }
+      }
+    }
+    block_sums<V>(a1, a2, red, c);
+    // a warp per group, lanes over its channels (only full warps: shuffles)
+    float* dst = partials + (size_t)s * groups * 2;
+    for (int g = warp; warp < nwarps && g < groups; g += nwarps) {
+      float t1 = 0.f, t2 = 0.f;
+      for (int j = lane; j < cg_; j += 32) {
+        t1 += red[g * cg_ + j];
+        t2 += red[c + g * cg_ + j];
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        t1 += __shfl_xor_sync(0xffffffffu, t1, off);
+        t2 += __shfl_xor_sync(0xffffffffu, t2, off);
+      }
+      if (lane == 0) {
+        dst[2 * g] = t1;
+        dst[2 * g + 1] = t2;
+      }
+    }
+    __threadfence();  // this slab's partial is visible before its ticket
+    __syncthreads();  // (and red may be refilled after the next barrier)
+    if (tid == 0) ticket = atomicAdd(count + b, 1u);
+    __syncthreads();
+    if (ticket == (unsigned)spi - 1) {
+      __threadfence();
+      const float* img = partials + (size_t)b * spi * groups * 2;
+      for (int t = tid; t < 2 * groups; t += nthreads) {
+        float acc = 0.f;
+#pragma unroll 8
+        for (int j = 0; j < spi; ++j) acc += __ldcg(img + (size_t)j * groups * 2 + t);
+        sums[(size_t)b * groups * 2 + t] = acc;
+      }
+      if (tid == 0) count[b] = 0;
+    }
+  }
+}
+
+// Second half: the block walks its slabs in the reverse of the first
+// half's order, and each slab's rows from the last, so the rows read last
+// by the first half (the likeliest still in L2) are read first.  Each
+// slab's image statistics come from the all-reduced sums (B, G, 2), with
+// n elements a group in the whole image; the image's slab 0 writes them
+// to stats (B, 2, G).
+template <typename T, int V>
+__global__ void __launch_bounds__(V == 1 ? 1024 : 256, V == 1 ? 1 : kRowsMinBlocks)
 gn_rows_apply(const T* __restrict__ x, const float* __restrict__ scale,
-              const float* __restrict__ bias, const float* __restrict__ partials,
-              T* __restrict__ out, float* __restrict__ stats, int hw, int c, int groups,
-              int rows, int spi, int fold, float n, float eps) {
+              const float* __restrict__ bias, const float* __restrict__ sums,
+              T* __restrict__ out, float* __restrict__ stats, int batch, int hw, int c,
+              int groups, int rows, int spi, float n, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* gst = reinterpret_cast<float*>(smem);  // mean (G), inv (G)
-  const int px = blockDim.x, by = blockDim.y, c0 = threadIdx.x * V;
-  const int tid = threadIdx.y * px + threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = px * by >> 5, cg_ = c / groups;
-  const int s = blockIdx.x, b = s / spi, k = s % spi;
-  for (int g = warp; warp < nwarps && g < groups; g += nwarps) {
-    const float* src = partials + (size_t)b * fold * groups * 2 + 2 * g;
-    float t1 = 0.f, t2 = 0.f;
-    for (int j = lane; j < fold; j += 32) {
-      t1 += src[(size_t)j * groups * 2];
-      t2 += src[(size_t)j * groups * 2 + 1];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      t1 += __shfl_xor_sync(0xffffffffu, t1, off);
-      t2 += __shfl_xor_sync(0xffffffffu, t2, off);
-    }
-    if (lane == 0) {
-      const float mean = t1 / n;
-      const float inv = rsqrtf(fmaxf(t2 / n - mean * mean, 0.f) + eps);
+  const int px = blockDim.x, by = blockDim.y, ty = threadIdx.y, c0 = threadIdx.x * V;
+  const int tid = ty * px + threadIdx.x, nthreads = px * by, cg_ = c / groups;
+  const int total = batch * spi;
+  const int m = blockIdx.x < total ? (total - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int chunk = kRowsUnroll * by;
+  for (int i = m - 1; i >= 0; --i) {
+    const int s = blockIdx.x + i * gridDim.x, b = s / spi, k = s % spi;
+    __syncthreads();  // gst is refilled
+    for (int g = tid; g < groups; g += nthreads) {
+      const float mean = sums[((size_t)b * groups + g) * 2] / n;
+      // clamp: cancellation can dip below zero and rsqrt would give NaN
+      const float inv =
+          rsqrtf(fmaxf(sums[((size_t)b * groups + g) * 2 + 1] / n - mean * mean, 0.f) + eps);
       gst[g] = mean;
       gst[groups + g] = inv;
       if (k == 0) {
@@ -389,21 +495,30 @@ gn_rows_apply(const T* __restrict__ x, const float* __restrict__ scale,
         stats[((size_t)b * 2 + 1) * groups + g] = inv;
       }
     }
-  }
-  __syncthreads();
-  float mean_c[V], mul_c[V], add_c[V];
+    __syncthreads();
+    float mean_c[V], mul_c[V], add_c[V];
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    const int ch = c0 + j, g = ch / cg_;
-    mean_c[j] = gst[g];
-    mul_c[j] = gst[groups + g] * scale[ch];
-    add_c[j] = bias[ch];
+    for (int j = 0; j < V; ++j) {
+      const int ch = c0 + j, g = ch / cg_;
+      mean_c[j] = gst[g];
+      mul_c[j] = gst[groups + g] * scale[ch];
+      add_c[j] = bias[ch];
+    }
+    const int nr = min(rows, hw - k * rows);
+    const size_t base = ((size_t)b * hw + (size_t)k * rows) * c + c0;
+    for (int r0 = (nr - 1) / chunk * chunk + ty; r0 >= 0; r0 -= chunk) {
+      Pack<T, V> p[kRowsUnroll];
+#pragma unroll
+      for (int u = 0; u < kRowsUnroll; ++u)
+        if (r0 + u * by < nr)
+          p[u] = *reinterpret_cast<const Pack<T, V>*>(x + base + (size_t)(r0 + u * by) * c);
+#pragma unroll
+      for (int u = 0; u < kRowsUnroll; ++u)
+        if (r0 + u * by < nr)
+          *reinterpret_cast<Pack<T, V>*>(out + base + (size_t)(r0 + u * by) * c) =
+              normalize<T, V>(p[u], mean_c, mul_c, add_c);
+    }
   }
-  const int nr = min(rows, hw - k * rows);
-  const size_t base = ((size_t)b * hw + (size_t)k * rows) * c + c0;
-  for (int r = threadIdx.y; r < nr; r += by)
-    *reinterpret_cast<Pack<T, V>*>(out + base + (size_t)r * c) = normalize<T, V>(
-        *reinterpret_cast<const Pack<T, V>*>(x + base + (size_t)r * c), mean_c, mul_c, add_c);
 }
 
 // Dynamic shared memory above 48 KB needs the attribute; set once a device
@@ -499,28 +614,60 @@ extern "C" int gn_elu_forward(const void* x, const void* scale, const void* bias
 }
 
 // The split form's two launches (see the header).  gn_rows_sums writes
-// partials, fp32 (B * spi, G, 2); gn_rows_apply reads fp32 (B * fold, G, 2)
-// sums, summed over the ranks (the caller's fold of the partials: fold 1);
-// n: elements of one group in the whole image.  Each returns a cudaError_t.
-static bool rows_args_ok(int batch, int hw, int c, int groups, int rows, int spi, int px,
-                         int by, int vec) {
+// partials, fp32 (B * spi, G, 2) scratch, and sums, fp32 (B, G, 2), with
+// count, B zeroed unsigned counters that it leaves zeroed; gn_rows_apply
+// reads sums (after the all-reduce over the ranks) and writes out and
+// stats; n: elements of one group in the whole image.  grid: blocks of
+// (px, by) threads, each walking slabs blockIdx.x, + grid, ...  Each
+// returns a cudaError_t.
+static bool rows_args_ok(int batch, int hw, int c, int groups, int rows, int spi, int grid,
+                         int px, int by, int vec) {
   return batch >= 1 && hw >= 1 && c <= kMaxC && groups >= 1 && c % groups == 0 &&
          px * vec == c && px * by <= 1024 && px * by >= 32 && rows >= 1 &&
-         spi >= 1 && (long long)rows * (spi - 1) < hw && (long long)rows * spi >= hw;
+         spi >= 1 && (long long)rows * (spi - 1) < hw && (long long)rows * spi >= hw &&
+         grid >= 1 && grid <= batch * spi;
 }
 
-extern "C" int gn_rows_sums(const void* x, void* partials, int batch, int hw, int c,
-                            int groups, int rows, int spi, int px, int by, int dtype, int vec,
-                            void* stream) {
-  if (!rows_args_ok(batch, hw, c, groups, rows, spi, px, by, vec))
+static size_t rows_red_bytes(int px, int by, int c) {
+  return 4 * (size_t)red_rows(px, by) * 2 * c;
+}
+
+// kRowsUnroll, which kernels/groupnorm.py::rows_plan must take too.
+extern "C" int gn_rows_unroll() { return kRowsUnroll; }
+
+// Blocks of (px, by) threads that one SM holds at once of both split-form
+// kernels (the fewer of the two), for (dtype, vec, C, G).  Returns a
+// cudaError_t.
+extern "C" int gn_rows_occupancy(int dtype, int vec, int px, int by, int c, int groups,
+                                 int* blocks) {
+  int a = 0, b = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+#define GN_OCC(T, V)                                                                       \
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a, gn_rows_sums<T, V>, px * by,    \
+                                                      rows_red_bytes(px, by, c));         \
+  if (err == cudaSuccess)                                                                  \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, gn_rows_apply<T, V>, px * by, \
+                                                        8 * (size_t)groups)
+  if (dtype == 0 && vec == 4) { GN_OCC(float, 4); }
+  else if (dtype == 0 && vec == 1) { GN_OCC(float, 1); }
+  else if (dtype == 1 && vec == 8) { GN_OCC(__nv_bfloat16, 8); }
+  else if (dtype == 1 && vec == 1) { GN_OCC(__nv_bfloat16, 1); }
+#undef GN_OCC
+  *blocks = a < b ? a : b;
+  return (int)err;
+}
+
+extern "C" int gn_rows_sums(const void* x, void* partials, void* sums, void* count,
+                            int batch, int hw, int c, int groups, int rows, int spi, int grid,
+                            int px, int by, int dtype, int vec, void* stream) {
+  if (!rows_args_ok(batch, hw, c, groups, rows, spi, grid, px, by, vec))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(batch * spi), block(px, by);
-  const size_t dyn = 4 * (size_t)by * c;
+  const size_t dyn = rows_red_bytes(px, by, c);
 #define GN_SUMS(T, V)                                                                    \
-  gn_rows_sums<T, V><<<grid, block, dyn, st>>>(static_cast<const T*>(x),                  \
-                                               static_cast<float*>(partials), hw, c,      \
-                                               groups, rows, spi);                        \
+  gn_rows_sums<T, V><<<grid, dim3(px, by), dyn, st>>>(                                  \
+      static_cast<const T*>(x), static_cast<float*>(partials), static_cast<float*>(sums), \
+      static_cast<unsigned*>(count), batch, hw, c, groups, rows, spi);                    \
   return (int)cudaGetLastError()
   if (dtype == 0 && vec == 4) { GN_SUMS(float, 4); }
   if (dtype == 0 && vec == 1) { GN_SUMS(float, 1); }
@@ -531,20 +678,19 @@ extern "C" int gn_rows_sums(const void* x, void* partials, int batch, int hw, in
 }
 
 extern "C" int gn_rows_apply(const void* x, const void* scale, const void* bias,
-                             const void* partials, void* out, void* stats, int batch, int hw,
-                             int c, int groups, int rows, int spi, int fold, int px, int by,
+                             const void* sums, void* out, void* stats, int batch, int hw,
+                             int c, int groups, int rows, int spi, int grid, int px, int by,
                              float n, float eps, int dtype, int vec, void* stream) {
-  if (!rows_args_ok(batch, hw, c, groups, rows, spi, px, by, vec) || fold < 1 || !(n > 0.f))
+  if (!rows_args_ok(batch, hw, c, groups, rows, spi, grid, px, by, vec) || !(n > 0.f))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(batch * spi), block(px, by);
   const size_t dyn = 8 * (size_t)groups;
 #define GN_APPLY(T, V)                                                                   \
-  gn_rows_apply<T, V><<<grid, block, dyn, st>>>(                                          \
+  gn_rows_apply<T, V><<<grid, dim3(px, by), dyn, st>>>(                                 \
       static_cast<const T*>(x), static_cast<const float*>(scale),                         \
-      static_cast<const float*>(bias), static_cast<const float*>(partials),               \
-      static_cast<T*>(out), static_cast<float*>(stats), hw, c, groups, rows, spi, fold, n,  \
-      eps);                                                                                \
+      static_cast<const float*>(bias), static_cast<const float*>(sums),                   \
+      static_cast<T*>(out), static_cast<float*>(stats), batch, hw, c, groups, rows, spi,  \
+      n, eps);                                                                            \
   return (int)cudaGetLastError()
   if (dtype == 0 && vec == 4) { GN_APPLY(float, 4); }
   if (dtype == 0 && vec == 1) { GN_APPLY(float, 1); }

@@ -1,5 +1,6 @@
 """Data sources and the input pipeline (port of ``gdn_tpu/data``): the
 synthetic source, the KITTI and NYU loaders with velodyne GT, the
-decoded-sample and device-resident caches, the on-device wire decode
-and augmentation, and the prefetch pipeline.  The grain loader is not
-ported yet (ROADMAP.md Queue A item 8)."""
+grain loader's counterpart (grain's order and cursor, decode on worker
+threads), the decoded-sample and device-resident caches (sharded over
+a data mesh too), the on-device wire decode and augmentation, and the
+prefetch pipeline."""

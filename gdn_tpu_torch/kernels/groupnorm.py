@@ -31,9 +31,11 @@ the CPU every site runs ``group_norm_elu_analytic``.
 
 Split form (``group_norm_elu_rows``), for an image whose rows are
 sharded over a ``"spatial"`` mesh dim: one launch writes each slab's
-per-group sums, they are all-reduced over the dim, and a second launch
-folds them with the whole image's count, writes the (B, 2, G) statistics
-and normalizes.  Its backward all-reduces the two per-channel
+per-group sums and, in the block that finishes an image last, folds them
+in slab order to the image's (B, G, 2) sums; they are all-reduced over
+the dim, and a second launch derives the statistics with the whole
+image's count, writes them as (B, 2, G) and normalizes.  ``rows_plan``
+sizes both grids to what the card holds at once.  Its backward all-reduces the two per-channel
 reductions of the analytic backward the same way; the affine gradients
 stay the rank's own (the step sums them over the ranks).  On the CPU
 the same dataflow in plain PyTorch, with the analytic form's rounding.
@@ -131,7 +133,13 @@ def load() -> ctypes.CDLL:
         lib.gn_elu_device.restype = ctypes.c_int
         lib.gn_elu_occupancy.argtypes = [i, i, i, i, p]
         lib.gn_elu_occupancy.restype = ctypes.c_int
-        lib.gn_rows_sums.argtypes = [p, p] + [i] * 10 + [p]
+        lib.gn_rows_unroll.restype = ctypes.c_int
+        if lib.gn_rows_unroll() != ROWS_UNROLL:
+            raise RuntimeError(f"the built split form unrolls {lib.gn_rows_unroll()} rows, "
+                               f"rows_plan {ROWS_UNROLL}")
+        lib.gn_rows_occupancy.argtypes = [i] * 6 + [p]
+        lib.gn_rows_occupancy.restype = ctypes.c_int
+        lib.gn_rows_sums.argtypes = [p] * 4 + [i] * 11 + [p]
         lib.gn_rows_sums.restype = ctypes.c_int
         lib.gn_rows_apply.argtypes = [p] * 6 + [i] * 9 + [ctypes.c_float] * 2 + [i, i, p]
         lib.gn_rows_apply.restype = ctypes.c_int
@@ -161,14 +169,19 @@ def _resident(device: int, dtype: int, vec: int, c: int, groups: int):
     return sms, sms * blocks.value, slab, dyn
 
 
+def _vec(x: torch.Tensor) -> int:
+    """Elements a thread loads at once from CUDA x (B, C, H, W): 16 bytes'
+    worth where C and the pointer allow, else 1 (the scalar route)."""
+    vec = 16 // x.element_size()
+    return 1 if x.shape[1] % vec or x.data_ptr() % 16 else vec
+
+
 def _config(x: torch.Tensor, groups: int):
     """(vec, plan, slab bytes, dynamic shared memory) of the kernel for
     CUDA x (B, C, H, W) in channels_last: 16-byte loads where C and the
     pointer allow, else the scalar route (vec 1)."""
     b, c, h, w = x.shape
-    vec = 16 // x.element_size()
-    if c % vec or x.data_ptr() % 16:
-        vec = 1
+    vec = _vec(x)
     sms, resident, slab, dyn = _resident(x.device.index or 0, _DTYPES[x.dtype], vec, c,
                                          groups)
     return vec, gn_plan(b, h * w, c, x.element_size(), resident, slab, sms), slab, dyn
@@ -254,12 +267,73 @@ def backward_from_stats(da, x, stats, scale, bias, groups, ax=None, rows=None):
     return dy, dscale.to(scale.dtype), dbias.to(bias.dtype)
 
 
-def rows_plan(b: int, hw: int, sms: int, per_sm: int = 4):
-    """(rows, slabs an image) of the split form: about ``per_sm`` blocks
-    an SM over the batch, every slab at least one row."""
-    spi = max(1, min(hw, -(-per_sm * sms // b)))
+ROWS_UNROLL = 4  # rows a thread loads at once in the split form (csrc's kRowsUnroll)
+
+
+class RowsPlan(NamedTuple):
+    grid: int  # blocks, at most what the card holds at once
+    rows: int  # NHWC rows of one slab
+    slabs_per_image: int
+    slabs_per_block: int  # the most any block walks
+
+
+def rows_plan(b: int, hw: int, c: int, vec: int, resident_blocks: int) -> RowsPlan:
+    """Slabs and grid of the split form on a rank's (b, hw, c) rows, for a
+    card that holds ``resident_blocks`` of its blocks at once: slabs of
+    one unrolled trip (``ROWS_UNROLL`` rows a thread row of the block:
+    each thread issues all its loads at once, and a small site takes a
+    few blocks), or, where the resident grid has fewer blocks for the
+    batch, as many slabs an image as it has; a block walks slabs
+    blockIdx, + grid, ..."""
+    if resident_blocks < 1:
+        raise ValueError("the card holds no block of the split form")
+    trip = ROWS_UNROLL * block_shape(c, vec)[1]
+    spi = max(1, min(resident_blocks // b, -(-hw // trip)))
     rows = -(-hw // spi)
-    return rows, -(-hw // rows)
+    spi = -(-hw // rows)
+    total = b * spi
+    grid = min(total, resident_blocks)
+    return RowsPlan(grid, rows, spi, -(-total // grid))
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_resident(device: int, dtype: int, vec: int, c: int, groups: int) -> int:
+    """Blocks of the split form's two kernels the current device holds at
+    once for (dtype, vec, C, G), queried once."""
+    lib = load()
+    info = (ctypes.c_int * 5)()
+    err = lib.gn_elu_device(info)
+    if err != 0:
+        raise RuntimeError(f"gn_elu_device failed: cudaError {err}")
+    px, by = block_shape(c, vec)
+    blocks = ctypes.c_int(0)
+    err = lib.gn_rows_occupancy(dtype, vec, px, by, c, groups, ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(
+            f"gn_rows_occupancy failed: cudaError {err}, {blocks.value} blocks an SM")
+    return info[0] * blocks.value
+
+
+_COUNTERS = {}  # (device, stream) -> the per-image tickets of gn_rows_sums, left at 0
+
+
+def _counters(device: torch.device, stream: int, b: int) -> torch.Tensor:
+    """B zeroed int32 counters for a launch on ``stream``: each stream has
+    its own, so that launches on two streams cannot share a ticket."""
+    key = (device.index, stream)
+    t = _COUNTERS.get(key)
+    if t is None or t.numel() < b:
+        t = _COUNTERS[key] = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
+    return t
+
+
+def rows_plan_for(x: torch.Tensor, groups: int) -> RowsPlan:
+    """The plan the split form takes for this rank's CUDA rows x (B, C,
+    h, W) in channels_last."""
+    b, c, h, w = x.shape
+    vec = _vec(x)
+    return rows_plan(b, h * w, c, vec, _rows_resident(x.device.index or 0, _DTYPES[x.dtype],
+                                                      vec, c, groups))
 
 
 def _launch_rows(x, scale, bias, groups, eps, ax, rows):
@@ -274,9 +348,6 @@ def _launch_rows(x, scale, bias, groups, eps, ax, rows):
         raise ValueError(f"C={c} exceeds the kernel's limit of {_MAX_C}")
     scale = scale.detach().float().contiguous()
     bias = bias.detach().float().contiguous()
-    vec = 16 // x.element_size()
-    if c % vec or x.data_ptr() % 16:
-        vec = 1
     n = float(rows * w * (c // groups))
     out = torch.empty_like(x, memory_format=torch.channels_last)
     if not h:  # no rows here: zero sums into the all-reduce, the statistics alone
@@ -286,25 +357,27 @@ def _launch_rows(x, scale, bias, groups, eps, ax, rows):
         mean = sums[..., 0] / n
         inv = torch.rsqrt(torch.clamp(sums[..., 1] / n - mean.square(), min=0.0) + eps)
         return out, torch.stack([mean, inv], 1)
+    vec = _vec(x)
     px, by = block_shape(c, vec)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows_, spi = rows_plan(b, h * w, sms)
+    plan = rows_plan_for(x, groups)
+    spi = plan.slabs_per_image
     lib = load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     partials = torch.empty((b * spi, groups, 2), dtype=torch.float32, device=x.device)
-    err = lib.gn_rows_sums(x.data_ptr(), partials.data_ptr(), b, h * w, c, groups, rows_, spi,
-                           px, by, _DTYPES[x.dtype], vec, stream)
+    # each image's slabs folded to (B, G, 2) by the kernel: one shape on
+    # every rank, whatever its rows, summed over the ranks and read by apply
+    sums = torch.empty((b, groups, 2), dtype=torch.float32, device=x.device)
+    err = lib.gn_rows_sums(x.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+                           _counters(x.device, stream, b).data_ptr(), b, h * w, c, groups,
+                           plan.rows, spi, plan.grid, px, by, _DTYPES[x.dtype], vec, stream)
     if err != 0:
         raise RuntimeError(f"gn_rows_sums failed: cudaError {err}")
-    # each image's slabs folded to (B, G, 2): one shape on every rank,
-    # whatever its rows, summed over the ranks and read by apply (fold 1)
-    sums = partials.view(b, spi, groups, 2).sum(1)
     if ax.size > 1:
         dist.all_reduce(sums, group=ax.group)
     stats = torch.empty((b, 2, groups), dtype=torch.float32, device=x.device)
-    err = lib.gn_rows_apply(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                            sums.data_ptr(), out.data_ptr(), stats.data_ptr(), b, h * w, c,
-                            groups, rows_, spi, 1, px, by, n, float(eps), _DTYPES[x.dtype], vec,
+    err = lib.gn_rows_apply(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), sums.data_ptr(),
+                            out.data_ptr(), stats.data_ptr(), b, h * w, c, groups, plan.rows,
+                            spi, plan.grid, px, by, n, float(eps), _DTYPES[x.dtype], vec,
                             stream)
     if err != 0:
         raise RuntimeError(f"gn_rows_apply failed: cudaError {err}")

@@ -80,14 +80,15 @@ class Axis(NamedTuple):
 
 
 def create_mesh(num_devices: int = 0, axis_name: str = DATA_AXIS, spatial: int = 1,
-                model: int = 1, device_type: Optional[str] = None):
+                model: int = 1, device_type: str = "cuda"):
     """The DeviceMesh over the process group's ranks (``num_devices`` 0:
     all of them): ``(data, spatial, model)`` with the dims of extent 1
     but ``"data"`` dropped, as the JAX package's ``create_mesh`` builds
     it, and ranks laid out as its ``reshape`` lays out devices (data
     outermost, the trailing dims fastest).  None when one process runs
     without a group (one device, no mesh: the same math).  The extents
-    must divide the device count."""
+    must divide the device count.  A mesh of cards unless the caller asks
+    for ``device_type="cpu"``; one without a card raises."""
     world = multihost.world_size()
     n = num_devices or world
     inner = spatial * model
@@ -102,8 +103,9 @@ def create_mesh(num_devices: int = 0, axis_name: str = DATA_AXIS, spatial: int =
         return None
     from torch.distributed.device_mesh import init_device_mesh
 
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("create_mesh: no CUDA device for a mesh of cards; pass "
+                           "device_type='cpu' for a mesh of CPU ranks")
     dims = [(axis_name, n // inner)]
     if spatial > 1:
         dims.append((SPATIAL_AXIS, spatial))

@@ -761,6 +761,6 @@ def test_make_loader_selects_and_refuses(kitti_root, nyu_root):
                       GrainKittiDataset)
     with pytest.raises(ValueError, match="native loader only"):
         TP.make_loader(cfg("kitti", kitti_root, loader="grain", decode_cache="c"))
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(ValueError, match="unknown loader 'bogus' \\(native\\|grain\\)"):
         tcfg.DataConfig(loader="bogus")
     assert tcfg.DataConfig(device_cache_sharded=True).device_cache_sharded  # A10

@@ -180,6 +180,26 @@ def test_one_process_has_no_mesh_and_more_ranks_must_run():
         tcfg.MeshConfig(num_devices=-1)
 
 
+def test_create_mesh_refuses_a_mesh_of_cards_without_a_card(monkeypatch):
+    """A group is up but no card is found: the mesh is a CUDA one unless
+    the caller asks for the CPU, so it raises before init_device_mesh."""
+    from torch.distributed import device_mesh
+
+    monkeypatch.setattr(tmesh.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(tmesh.multihost, "world_size", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def reached(*a, **k):
+        raise AssertionError("init_device_mesh reached")
+
+    monkeypatch.setattr(device_mesh, "init_device_mesh", reached)
+    for kw in ({}, {"device_type": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tmesh.create_mesh(1, **kw)
+    with pytest.raises(AssertionError, match="init_device_mesh reached"):
+        tmesh.create_mesh(1, device_type="cpu")
+
+
 def test_maybe_initialize_without_a_coordinator(monkeypatch):
     for k in ("MASTER_ADDR", "RANK", "WORLD_SIZE"):
         monkeypatch.delenv(k, raising=False)

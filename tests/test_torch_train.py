@@ -300,6 +300,24 @@ def test_stage2_training_parity_fusion(parity_fusion):
     assert "latent" in parity_fusion["s2"][1][0]
 
 
+@pytest.fixture(scope="module")
+def parity_none():
+    """The same run on the variant without normalization (``norm="none"``:
+    a biased conv and the activation at every site), the net whose
+    convergence protocol spread furthest between devices and seeds."""
+    return _run_parity(dict(SMALL, norm="none"))
+
+
+def test_stage1_training_parity_norm_none(parity_none):
+    _compare(*parity_none["s1"])
+    assert parity_none["s1"][1][-1]["total"] < parity_none["s1"][1][0]["total"]
+
+
+def test_stage2_training_parity_norm_none(parity_none):
+    _compare(*parity_none["s2"])
+    assert "latent" in parity_none["s2"][1][0]
+
+
 def test_stage2_freezes_decoder_and_dnet_fusion(parity_fusion):
     p = parity_fusion
     for k, v in p["g_net"].decoder.state_dict().items():

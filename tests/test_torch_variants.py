@@ -435,7 +435,7 @@ def _flat(tree):
         jax.tree_util.tree_map(np.asarray, tree)).items()}
 
 
-@pytest.mark.parametrize("variant", ["deconv_multiscale", "add_none"])
+@pytest.mark.parametrize("variant", ["deconv_multiscale", "add_none", "none"])
 def test_training_steps_match_jax(variant):
     """One stage-1 and one stage-2 step's loss: terms and gradients
     against the JAX package's step losses, from the same flax weights

@@ -8,7 +8,9 @@ coalesces concurrent requests: the first request opens a window of
 (http.server + threads).  Endpoints:
 
   GET  /healthz          -> {"status": "ok", ...}
-  GET  /stats            -> request/batch/occupancy/latency counters
+  GET  /stats            -> request/batch/occupancy counters; mean ms of a
+       request's latency (submit to answer) and queue wait (submit to
+       the worker taking it), and of a batch's flush
   POST /predict?format=F -> depth for one PNG/JPEG body; F in
        npy (default, float32 meters, np.save bytes),
        png16 (16-bit PNG, depth*256 — the KITTI GT encoding),
@@ -36,19 +38,21 @@ from PIL import Image
 
 from gdn_tpu_torch.config import Config
 from gdn_tpu_torch.serving import BatchedPredictor
+from gdn_tpu_torch.utils import profiling
 
 
 class _Pending:
     """One in-flight request: input array + completion event."""
 
-    __slots__ = ("rgb", "event", "depth", "error", "t_submit")
+    __slots__ = ("rgb", "event", "depth", "error", "t_submit", "t_taken")
 
     def __init__(self, rgb: np.ndarray):
         self.rgb = rgb
         self.event = threading.Event()
         self.depth: Optional[np.ndarray] = None
         self.error: Optional[Exception] = None
-        self.t_submit = time.perf_counter()
+        self.t_submit = time.perf_counter_ns()
+        self.t_taken = 0  # when the worker took it from the queue
 
 
 class DynamicBatcher:
@@ -58,6 +62,10 @@ class DynamicBatcher:
     stream of batches; callers block on a per-request event.  The
     predictor is built here, in the caller's thread, so its kernel
     library is loaded before the worker first launches it.
+
+    ``stats`` sums each request's queue wait (submit to the worker taking
+    it) and each batch's ``gdn.batcher.flush`` span (``utils.profiling``:
+    stack, predict, hand out).
     """
 
     def __init__(self, cfg: Optional[Config], state_dict, batch_size: int = 8,
@@ -85,6 +93,8 @@ class DynamicBatcher:
             "batches": 0,
             "batched_items": 0,
             "latency_ms_sum": 0.0,
+            "queue_wait_ms_sum": 0.0,
+            "flush_ms_sum": 0.0,
         }
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
@@ -104,8 +114,8 @@ class DynamicBatcher:
             self.stats["requests"] += 1
             if ok and p.error is None:
                 self.stats["latency_ms_sum"] += (
-                    time.perf_counter() - p.t_submit
-                ) * 1000.0
+                    time.perf_counter_ns() - p.t_submit
+                ) / 1e6
             else:
                 self.stats["errors"] += 1
         if not ok:
@@ -129,6 +139,7 @@ class DynamicBatcher:
             if first is None:
                 self._drain()
                 return
+            first.t_taken = time.perf_counter_ns()
             batch = [first]
             deadline = time.perf_counter() + self.max_wait_s
             while len(batch) < self.batch_size:
@@ -143,6 +154,7 @@ class DynamicBatcher:
                     self._flush(batch)
                     self._drain()
                     return
+                nxt.t_taken = time.perf_counter_ns()
                 batch.append(nxt)
             self._flush(batch)
 
@@ -158,11 +170,13 @@ class DynamicBatcher:
                 p.event.set()
 
     def _flush(self, batch) -> None:
+        flush = profiling.span("gdn.batcher.flush")
         try:
-            rgbs = np.stack([p.rgb for p in batch])
-            depths = self._predictor.predict(rgbs, wire=self.wire)
-            for p, d in zip(batch, depths):
-                p.depth = d
+            with flush:
+                rgbs = np.stack([p.rgb for p in batch])
+                depths = self._predictor.predict(rgbs, wire=self.wire)
+                for p, d in zip(batch, depths):
+                    p.depth = d
         except Exception as e:  # noqa: BLE001 - surfaced to every caller
             for p in batch:
                 p.error = e
@@ -170,6 +184,9 @@ class DynamicBatcher:
             with self._stats_lock:
                 self.stats["batches"] += 1
                 self.stats["batched_items"] += len(batch)
+                self.stats["queue_wait_ms_sum"] += sum(
+                    p.t_taken - p.t_submit for p in batch) / 1e6
+                self.stats["flush_ms_sum"] += flush.ns / 1e6
             for p in batch:
                 p.event.set()
 
@@ -267,6 +284,9 @@ class DepthServer:
                     n = max(s["requests"], 1)
                     b = max(s["batches"], 1)
                     s["mean_latency_ms"] = s.pop("latency_ms_sum") / n
+                    s["mean_queue_wait_ms"] = (s.pop("queue_wait_ms_sum")
+                                               / max(s["batched_items"], 1))
+                    s["mean_flush_ms"] = s.pop("flush_ms_sum") / b
                     s["mean_batch_occupancy"] = s["batched_items"] / b
                     self._json(200, s)
                 else:

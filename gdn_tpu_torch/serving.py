@@ -26,6 +26,7 @@ import torch
 
 from gdn_tpu_torch import kernels
 from gdn_tpu_torch.config import Config, resolve_device
+from gdn_tpu_torch.utils.profiling import span
 
 
 def _prep_rgb(rgb: torch.Tensor) -> torch.Tensor:
@@ -164,7 +165,12 @@ class BatchedPredictor:
         """rgbs (N, H, W, 3) float32 [0, 1] or uint8 [0, 255] -> depths
         (N, H, W): float32 meters, or under ``wire="u16"`` uint16
         round(depth*256) counts (decode with ``astype(np.float32)/256``).
-        uint8 input is decoded on the device (1/4 the upload bytes)."""
+        uint8 input is decoded on the device (1/4 the upload bytes).
+
+        Spans (``utils.profiling``): a batch's ``gdn.predict.stage`` (pad,
+        pinned host copy) and ``gdn.predict.launch`` (upload, forward, the
+        device-to-host copy and its event), and the call's
+        ``gdn.predict.join`` (one array of all the answers)."""
         if wire not in ("f32", "u16"):
             raise ValueError(f"unknown wire {wire!r} (f32|u16)")
         if tuple(rgbs.shape[1:]) != self._shape[1:]:
@@ -184,28 +190,31 @@ class BatchedPredictor:
 
         with torch.inference_mode():
             for start in range(0, rgbs.shape[0], self.batch_size):
-                chunk = rgbs[start : start + self.batch_size]
-                pad = self.batch_size - chunk.shape[0]
-                if pad:
-                    chunk = np.concatenate(
-                        [chunk, np.zeros((pad, *chunk.shape[1:]), chunk.dtype)]
-                    )
-                src = torch.from_numpy(np.ascontiguousarray(chunk))
-                if cuda:
-                    src = src.pin_memory()
-                depth = self._forward(src.to(self.device, non_blocking=True), wire)
-                if cuda:
-                    host = torch.empty(depth.shape, dtype=depth.dtype,
-                                       pin_memory=True)
-                    host.copy_(depth, non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record()
-                else:
-                    host, done = depth, None
+                with span("gdn.predict.stage"):
+                    chunk = rgbs[start : start + self.batch_size]
+                    pad = self.batch_size - chunk.shape[0]
+                    if pad:
+                        chunk = np.concatenate(
+                            [chunk, np.zeros((pad, *chunk.shape[1:]), chunk.dtype)]
+                        )
+                    src = torch.from_numpy(np.ascontiguousarray(chunk))
+                    if cuda:
+                        src = src.pin_memory()
+                with span("gdn.predict.launch"):
+                    depth = self._forward(src.to(self.device, non_blocking=True), wire)
+                    if cuda:
+                        host = torch.empty(depth.shape, dtype=depth.dtype,
+                                           pin_memory=True)
+                        host.copy_(depth, non_blocking=True)
+                        done = torch.cuda.Event()
+                        done.record()
+                    else:
+                        host, done = depth, None
                 # src stays referenced until its async upload has run
                 pending.append((host, done, pad, src))
                 if len(pending) > self.DEPTH:
                     fetch_one()
             while pending:
                 fetch_one()
-        return np.concatenate(out) if out else np.zeros((0,))
+        with span("gdn.predict.join"):
+            return np.concatenate(out) if out else np.zeros((0,))

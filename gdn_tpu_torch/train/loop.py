@@ -5,8 +5,13 @@ the stage-1 decoder into a fresh G-net, freezes it, and trains the rest
 with the guidance term from the frozen D-net.  Both run on CUDA unless
 the caller passes ``device="cpu"``, and both continue a ``state`` given
 to them (a resumed run).  Per-step scalars (loss terms, images/s with
-the first step left out, and ``lr``, the learning rate of the last
-update) go through ``MetricLogger``.  ``data_iter``
+the first step left out, ``lr``, the learning rate of the last
+update, and the host's mean ms since the last line from the spans of
+``utils.profiling``: a step, ``host_step_ms`` (``gdn.train.step``), and
+its forward, backward and update, ``host_forward_ms``,
+``host_backward_ms``, ``host_update_ms`` (``gdn.train.forward`` ...),
+and a loss read-back, ``readback_ms`` (``gdn.train.readback``)) go
+through ``MetricLogger``.  ``data_iter``
 yields batches on the device: the synthetic source draws them there,
 and disk data comes through ``data.pipeline.make_train_pipeline``
 (prefetched, decoded and augmented on the device).  After each
@@ -74,6 +79,7 @@ from gdn_tpu_torch.train.steps import (
     make_stage2_multistep, make_stage2_step,
 )
 from gdn_tpu_torch.utils.logging import MetricLogger
+from gdn_tpu_torch.utils.profiling import span, totals
 
 
 class PreemptionHandler:
@@ -156,6 +162,13 @@ def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
     log_calls = max(1, log_every // steps_per_call)
     t_start = time.perf_counter()
     timed_from = 0
+    # the host's mean ms a step, its parts and a read-back between log lines
+    host = (("host_step_ms", "gdn.train.step", steps_per_call),
+            ("host_forward_ms", "gdn.train.forward", 1),
+            ("host_backward_ms", "gdn.train.backward", 1),
+            ("host_update_ms", "gdn.train.update", 1),
+            ("readback_ms", "gdn.train.readback", 1))
+    marks = {name: totals(name) for _, name, _ in host}
     for i in range(n_calls):
         if steps_per_call == 1:
             batch = _batch_to(local_batch(next(data_iter), mesh, batch_size, height), device)
@@ -163,19 +176,26 @@ def _epoch_loop(step_fn, state: TrainState, data_iter, steps: int,
             group = [_batch_to(local_batch(next(data_iter), mesh, batch_size, height), device)
                      for _ in range(steps_per_call)]
             batch = {k: torch.stack([b[k] for b in group]) for k in group[0]}
-        state, terms = step_fn(state, *extra_args, batch)
+        with span("gdn.train.step"):
+            state, terms = step_fn(state, *extra_args, batch)
         if i == 0:
             _floats(terms)
             t_start = time.perf_counter()
             timed_from = 1
         if (i + 1) % log_calls == 0 or i == n_calls - 1:
-            vals = _floats(terms)
+            with span("gdn.train.readback"):
+                vals = _floats(terms)
             elapsed = max(time.perf_counter() - t_start, 1e-9)
             timed = i + 1 - timed_from
             # the LR of the last update applied (the schedule's value at it)
             log_kw = dict(step=state.step, **vals, lr=state.optimizer.param_groups[0]["lr"])
             if timed > 0:
                 log_kw["imgs_per_sec"] = batch_size * steps_per_call * timed / elapsed
+            for key, name, per in host:
+                (n, ns), (n0, ns0) = totals(name), marks[name]
+                marks[name] = (n, ns)
+                if n > n0:  # spans taken under a profiler are not in the table
+                    log_kw[key] = (ns - ns0) / (n - n0) / per / 1e6
             logger.log(**log_kw)
         if preemption is not None and preemption.stop(mesh, device):
             break

@@ -21,7 +21,9 @@ The multistep builders run ``steps_per_call`` steps a call on batches
 stacked on a leading axis.
 
 Each step returns the loss terms as detached 0-d tensors (reading them
-waits for the card).
+waits for the card).  Its host time is split by the spans
+``gdn.train.forward`` (the loss), ``gdn.train.backward`` and
+``gdn.train.update`` (``utils.profiling.span``).
 
 With a ``mesh`` (``parallel.mesh.create_mesh``) a step is data
 parallel, as the JAX package's step on a mesh: the batch it is given is
@@ -65,6 +67,7 @@ from gdn_tpu_torch.parallel.mesh import (
 from gdn_tpu_torch.train.fused_encoders import encoder_weights, paired_encoders
 from gdn_tpu_torch.train.guided_decoder import decode_concat, shared_guided_decoder
 from gdn_tpu_torch.train.state import TrainState
+from gdn_tpu_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 Terms = Dict[str, torch.Tensor]
@@ -127,8 +130,10 @@ def _model_apply_override(orig: Config, safe: Config, net: nn.Module) -> None:
 
 
 def _apply_update(state: TrainState, loss: torch.Tensor) -> None:
-    loss.backward()
-    state.apply_gradients()
+    with span("gdn.train.backward"):
+        loss.backward()
+    with span("gdn.train.update"):
+        state.apply_gradients()
 
 
 def _keep(saved, ctx, op, *args, **kwargs):
@@ -260,7 +265,8 @@ def make_stage1_step(cfg: Config, mesh=None, state_sharding=None) -> Callable[
 
     def step(state: TrainState, batch: Batch):
         _placed(state, mesh, state_sharding, orig, cfg)
-        terms = _stage1_loss(state.net, batch, cfg, group, rows)
+        with span("gdn.train.forward"):
+            terms = _stage1_loss(state.net, batch, cfg, group, rows)
         _apply_update(state, terms["total"])
         return state, _reported(terms, group)
 
@@ -301,7 +307,8 @@ def make_stage2_step(cfg: Config, mesh=None, state_sharding=None) -> Callable[
 
     def step(state: TrainState, d_net: nn.Module, batch: Batch):
         _placed(state, mesh, state_sharding, orig, cfg, d_net)
-        terms = loss_fn(state.net, d_net, batch, cfg, group, rows)
+        with span("gdn.train.forward"):
+            terms = loss_fn(state.net, d_net, batch, cfg, group, rows)
         _apply_update(state, terms["total"])
         return state, _reported(terms, group)
 

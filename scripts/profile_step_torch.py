@@ -6,10 +6,11 @@ Runs one untimed step, then ``--steps`` steps of the chosen stage on
 synthetic batches drawn on the card under ``utils.profiling.trace``
 (torch.profiler; a Chrome trace is left in ``--logdir``), and prints one
 JSON line (the device ms a step: the sum of the card's kernel times; the
-wall ms a step; the kernel launches a step; the idle share, 1 - device
-busy / wall) and the top kernels by device time.  torch.profiler now and
-then returns a session with no card rows: the steps then run again, up
-to 3 sessions.  On the CPU (``--device cpu``) the line holds the
+wall ms a step; the kernel launches a step; the idle share, 1 - the
+union of the card's operation intervals / wall) and the top kernels by
+device time.  Each step is a ``step{i}`` span in the trace.
+torch.profiler now and then returns a session with no card rows: the
+steps then run again, up to 3 sessions.  On the CPU (``--device cpu``) the line holds the
 operators' self CPU ms a step instead, and the table operators by self
 CPU time.
 
@@ -51,7 +52,9 @@ def main(argv=None):
     from gdn_tpu_torch.data.synthetic import SyntheticDataset
     from gdn_tpu_torch.train.loop import _prepare, stage1_state, stage2_state
     from gdn_tpu_torch.train.steps import make_stage1_step, make_stage2_step
-    from gdn_tpu_torch.utils.profiling import annotate, kernel_times, summarize, trace
+    from gdn_tpu_torch.utils.profiling import (
+        device_intervals, kernel_times, span, summarize, trace,
+    )
 
     device = resolve_device(args.device)
     _prepare(device)
@@ -75,7 +78,7 @@ def main(argv=None):
         with trace(args.logdir, cuda=not cpu) as prof:
             t0 = time.perf_counter()
             for i in range(args.steps):
-                with annotate(f"step{i}"):
+                with span(f"step{i}"):
                     state, terms = run(state)
             float(terms["total"])
             wall = time.perf_counter() - t0
@@ -83,7 +86,7 @@ def main(argv=None):
         if kernels:
             break
         print(f"(profiler session {attempt} recorded no device rows; again)", flush=True)
-    out = summarize(kernels, args.steps, wall, args.top)
+    out = summarize(kernels, device_intervals(prof), args.steps, wall, args.top)
     top = out.pop("top_kernels")
     if cpu:  # host operator times: no device metric to report
         out = {"cpu_self_ms_per_step": out["device_ms_per_step"],

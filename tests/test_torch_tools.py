@@ -8,7 +8,8 @@ scripts/*_torch.py) at tiny sizes.
   named, as ``gdn_tpu.utils.guards`` finds them on the same numpy
   values; ``train_stage1`` under ``check_numerics`` raises at the first
   non-finite step and trains as before on finite data.
-- ``StepTimer``'s summary; ``trace`` writes a Chrome trace on the CPU.
+- ``trace`` writes a Chrome trace on the CPU; ``summarize``'s idle share
+  is 1 minus the union of the card's intervals over the wall time.
 - TensorBoard scalars are written and read back with tensorboard's
   ``EventAccumulator``.
 - ``scripts/convergence_torch.py`` (1 seed, 3 steps a stage, 32x64,
@@ -26,6 +27,7 @@ import json
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -38,7 +40,9 @@ from gdn_tpu_torch.data.synthetic import SyntheticDataset
 from gdn_tpu_torch.train.loop import train_stage1
 from gdn_tpu_torch.utils import guards as TG
 from gdn_tpu_torch.utils.logging import MetricLogger
-from gdn_tpu_torch.utils.profiling import StepTimer, annotate, kernel_times, summarize, trace
+from gdn_tpu_torch.utils.profiling import (
+    busy_us, device_intervals, kernel_times, span, summarize, trace,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HW = (32, 64)
@@ -121,22 +125,9 @@ def test_check_numerics_guards_the_training_loop():
 
 # ---------------------------------------------------------------- profiling
 
-def test_step_timer_summary_leaves_out_the_warmup():
-    t = StepTimer(warmup=2)
-    assert t.summary() == {"steps": 0}
-    for i in range(5):
-        t.start()
-        dt = t.stop({"x": torch.ones(2)} if i % 2 else None)
-        assert dt >= 0
-    s = t.summary()
-    assert s["steps"] == 3 and s["p50_s"] <= s["p95_s"] and s["mean_s"] >= 0
-    with pytest.raises(AssertionError):
-        StepTimer().stop()
-
-
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     with trace(str(tmp_path), cuda=False) as prof:
-        with annotate("my_span"):
+        with span("my_span"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     assert os.path.dirname(prof.trace_path) == str(tmp_path)
     events = json.load(open(prof.trace_path))["traceEvents"]
@@ -144,9 +135,32 @@ def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     ops = kernel_times(prof, cpu=True)
     assert "aten::mm" in ops and ops["aten::mm"][1] == 1
     assert kernel_times(prof) == {}  # no card rows on the CPU
-    s = summarize({"k1": (3000.0, 6), "k2": (1000.0, 2)}, n_steps=2, wall_s=0.004, top=1)
+    assert device_intervals(prof) == []  # no card rows on the CPU
+    s = summarize({"k1": (3000.0, 6), "k2": (1000.0, 2)}, [(0.0, 3000.0), (3000.0, 4000.0)],
+                  n_steps=2, wall_s=0.004, top=1)
     assert s["device_ms_per_step"] == 2.0 and s["launches_per_step"] == 4.0
     assert s["idle_share"] == 0.0 and s["top_kernels"] == [("k1", 1.5, 3.0)]
+
+
+def test_idle_share_counts_overlapping_device_intervals_once():
+    # a copy on another stream under a kernel, and a kernel inside a kernel
+    intervals = [(0.0, 2000.0), (1000.0, 3000.0), (1500.0, 1800.0), (5000.0, 6000.0)]
+    assert busy_us(intervals) == 4000.0
+    s = summarize({"k": (4300.0, 3)}, intervals, n_steps=1, wall_s=0.008)
+    assert s["idle_share"] == pytest.approx(0.5)  # a sum of durations would say 0.4625
+    from torch.autograd import DeviceType
+
+    def row(device, start, end, annotation=False):
+        return SimpleNamespace(device_type=device, time_range=SimpleNamespace(start=start, end=end),
+                               is_user_annotation=annotation)
+
+    prof = SimpleNamespace(events=lambda: [
+        row(DeviceType.CUDA, 0.0, 2000.0),  # a kernel
+        row(DeviceType.CUDA, 1000.0, 3000.0),  # a copy under it
+        row(DeviceType.CUDA, 5000.0, 6000.0),  # a set
+        row(DeviceType.CUDA, 0.0, 6000.0, annotation=True),  # a span's device row
+        row(DeviceType.CPU, 0.0, 8000.0)])  # a host operator
+    assert busy_us(device_intervals(prof)) == 4000.0
 
 
 # ---------------------------------------------------------------- logging

@@ -1,4 +1,5 @@
-// GroupNorm + ELU forward for Hopper (sm_90a), plain C interface for ctypes.
+// GroupNorm + ELU forward and backward for Hopper (sm_90a), plain C interface
+// for ctypes.  The backward (gn_elu_bwd_coop) has its own note further down.
 //
 // Replaces the TPU kernel gdn_tpu/kernels/groupnorm.py::fused_group_norm_elu
 // (the pl.pallas_call at line 133): per-image GroupNorm moments in fp32
@@ -121,16 +122,9 @@ __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// elu((x - mean) * mul + add) in fp32, one rounding to T (bf16 in pairs).
+// V fp32 values rounded once to T (bf16 in pairs).
 template <typename T, int V>
-__device__ __forceinline__ Pack<T, V> normalize(const Pack<T, V>& p, const float (&mean)[V],
-                                                const float (&mul)[V], const float (&add)[V]) {
-  float z[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const float v = (to_f32(p.v[i]) - mean[i]) * mul[i] + add[i];
-    z[i] = v > 0.f ? v : __expf(v) - 1.f;  // exp(v) - 1 as the TPU kernel; v <= 0
-  }
+__device__ __forceinline__ Pack<T, V> pack(const float (&z)[V]) {
   Pack<T, V> q;
   if constexpr (std::is_same<T, __nv_bfloat16>::value && V % 2 == 0) {
 #pragma unroll
@@ -141,6 +135,19 @@ __device__ __forceinline__ Pack<T, V> normalize(const Pack<T, V>& p, const float
     for (int i = 0; i < V; ++i) q.v[i] = from_f32<T>(z[i]);
   }
   return q;
+}
+
+// elu((x - mean) * mul + add) in fp32, one rounding to T.
+template <typename T, int V>
+__device__ __forceinline__ Pack<T, V> normalize(const Pack<T, V>& p, const float (&mean)[V],
+                                                const float (&mul)[V], const float (&add)[V]) {
+  float z[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float v = (to_f32(p.v[i]) - mean[i]) * mul[i] + add[i];
+    z[i] = v > 0.f ? v : __expf(v) - 1.f;  // exp(v) - 1 as the TPU kernel; v <= 0
+  }
+  return pack<T, V>(z);
 }
 
 // The block's per-channel sum of a[V] over its rows, into red[0, C), in a
@@ -521,9 +528,263 @@ gn_rows_apply(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
-// Dynamic shared memory above 48 KB needs the attribute; set once a device
-// to the block's limit, so that any plan's size launches.
+// GroupNorm + ELU backward, one cooperative launch (gn_elu_bwd_coop).
+//
+// Replaces, on the card, the plain-PyTorch analytic backward
+// ops/groupnorm.py::gn_elu_backward (about 38 launches a call, 17 of them
+// full-tensor passes); the TPU had no kernel for it, only XLA's backward of
+// the Pallas forward.  From the saved x, the forward's fp32 (B, 2, G) mean
+// and inverse std and the cotangent da, all in fp32:
+//   yn = (x - mean) * inv,  z = yn * scale + bias,
+//   dz = da * (z > 0 ? 1 : exp(z)),
+//   S1[b, c] = sum_hw dz,  S2[b, c] = sum_hw dz * yn,
+//   m1[b, g] = sum_{c in g} scale_c S1[b, c] / n,  m2 likewise with S2,
+//   dx = (dz * scale - m1 - yn * m2) * inv   (one store in x's dtype),
+//   dscale = sum_b S2,  dbias = sum_b S1.
+//
+// What bounds it: memory, as the forward.  ~20 flops an element against
+// 3 * itemsize bytes at the least (x and da read, dx written): a stage-2
+// step at B=128 128x416 moves 852 M elements of the G-net's 21 sites, 1.53
+// ms of bf16 at 3.35 TB/s.
+//
+// Design: the forward's, with two tensors staged a slab.  A grid of what
+// the card holds at once (kernels/groupnorm.py::gn_plan on two rows' bytes
+// a row, bwd_slab_capacity) walks slabs of one image's NHWC rows.
+//   1. The block copies the slab's x and da rows into shared memory with
+//      16-byte cp.async (da at any row pitch >= C: the channel slice of a
+//      concat's gradient is read in place), sums dz and dz * yn per channel
+//      in a fixed order (block_sums), and writes the slab's per-group sums
+//      of scale_c * S (the m's numerators).  For the affine gradients it
+//      also adds the slab's per-channel sums into a running (2, C) sum of
+//      its own slabs, in slab order, written once after its last slab.
+//   2. grid.sync().
+//   3. Block b folds image b's slab partials in slab order into m1, m2
+//      (coef, (B, G, 2)); block j folds column j of the blocks' running
+//      sums in block order into dbias, dscale.  Every sum has a fixed
+//      order: two calls give the same bits.
+//   4. grid.sync().
+//   5. Each block computes dx of its slabs, walking them in reverse: held
+//      (a block per slab) from shared memory, so x and da are read once;
+//      streamed (several slabs a block, two slab buffers, the next copy in
+//      flight) the last slab from shared memory and the others read again,
+//      the latest first (likeliest in L2).
+// Shared memory: the slab space (slab_bytes; x's rows then da's, a buffer
+// each half when streamed), then red_rows(px, by) * 2C fp32 for block_sums,
+// 2C fp32 for the running sums, 32 fp32 for the fold's warp sums.
 template <typename T, int V>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, int nr, int c, int pitch) {
+  const int c0 = threadIdx.x * V;
+  for (int r = threadIdx.y; r < nr; r += blockDim.y) {
+    if (V > 1)
+      cp_async16(dst + r * c + c0, src + (size_t)r * pitch + c0);
+    else
+      dst[r * c + c0] = src[(size_t)r * pitch + c0];
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(V == 1 ? 1024 : 256, 1)
+gn_elu_bwd_coop(const T* __restrict__ x, const T* __restrict__ da, int pitch,
+                const float* __restrict__ stats, const float* __restrict__ scale,
+                const float* __restrict__ bias, T* __restrict__ dx,
+                float* __restrict__ partials, float* __restrict__ coef,
+                float* __restrict__ blocksums, float* __restrict__ dsb, int batch, int hw,
+                int c, int groups, int rows, int spi, int slab_bytes, int affine) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int px = blockDim.x, by = blockDim.y, ty = threadIdx.y, c0 = threadIdx.x * V;
+  const int tid = ty * px + threadIdx.x, nthreads = px * by;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5, cg_ = c / groups;
+  float* red = reinterpret_cast<float*>(smem + slab_bytes);  // (red_rows, 2C)
+  float* acc = red + red_rows(px, by) * 2 * c;                 // (2C) running sums
+  float* wsum = acc + 2 * c;                                   // (32) warp sums
+  const int total = batch * spi;
+  const bool held = gridDim.x >= total;
+  T* const buf0 = reinterpret_cast<T*>(smem);
+  T* const buf1 = reinterpret_cast<T*>(smem + (held ? 0 : slab_bytes / 2 / 16 * 16));
+  auto buf = [&](int k) { return k ? buf1 : buf0; };  // not an array: no local memory
+  const int m = blockIdx.x < total ? (total - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  auto slab_row = [&](int i) {  // the first NHWC row of the block's i-th slab
+    const int s = blockIdx.x + i * gridDim.x;
+    return (size_t)(s / spi) * hw + (s % spi) * rows;
+  };
+  auto slab_rows = [&](int i) {
+    return min(rows, hw - ((blockIdx.x + i * gridDim.x) % spi) * rows);
+  };
+  auto stage = [&](int k, int i) {  // slab i's x and da into buffer k, one copy group
+    copy_rows<T, V>(buf(k), x + slab_row(i) * c, slab_rows(i), c, c);
+    copy_rows<T, V>(buf(k) + rows * c, da + slab_row(i) * pitch, slab_rows(i), c, pitch);
+    if (V > 1) asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // the per-channel constants of an image: mean, inv, scale, bias
+  float mean_c[V], inv_c[V], sc_c[V], bi_c[V];
+  auto constants = [&](int b) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int ch = c0 + j, g = ch / cg_;
+      mean_c[j] = stats[(size_t)b * 2 * groups + g];
+      inv_c[j] = stats[((size_t)b * 2 + 1) * groups + g];
+      sc_c[j] = scale[ch];
+      bi_c[j] = bias[ch];
+    }
+  };
+
+  int cur = 0;
+  if (m > 0) stage(0, 0);
+  for (int i = 0; i < m; ++i) {
+    if (i + 1 < m) {
+      stage(cur ^ 1, i + 1);
+      wait_copies<1>();
+    } else {
+      wait_copies<0>();
+    }
+    __syncthreads();
+    const int s = blockIdx.x + i * gridDim.x;
+    constants(s / spi);
+    const T* xs = buf(cur);
+    const T* ds = xs + rows * c;
+    const int nr = slab_rows(i);
+    float a1[V], a2[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) { a1[j] = 0.f; a2[j] = 0.f; }
+    for (int r = ty; r < nr; r += by) {
+      const Pack<T, V> p = *reinterpret_cast<const Pack<T, V>*>(xs + r * c + c0);
+      const Pack<T, V> q = *reinterpret_cast<const Pack<T, V>*>(ds + r * c + c0);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float yn = (to_f32(p.v[j]) - mean_c[j]) * inv_c[j];
+        const float z = yn * sc_c[j] + bi_c[j];
+        const float dz = z > 0.f ? to_f32(q.v[j]) : to_f32(q.v[j]) * __expf(z);
+        a1[j] += dz;
+        a2[j] += dz * yn;
+      }
+    }
+    block_sums<V>(a1, a2, red, c);  // red[0, C) = S1, red[C, 2C) = S2 of the slab
+    float* dst = partials + (size_t)s * groups * 2;
+    for (int g = warp; warp < nwarps && g < groups; g += nwarps) {
+      float t1 = 0.f, t2 = 0.f;
+      for (int j = lane; j < cg_; j += 32) {
+        const float w = scale[g * cg_ + j];
+        t1 += w * red[g * cg_ + j];
+        t2 += w * red[c + g * cg_ + j];
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        t1 += __shfl_xor_sync(0xffffffffu, t1, off);
+        t2 += __shfl_xor_sync(0xffffffffu, t2, off);
+      }
+      if (lane == 0) {
+        dst[2 * g] = t1;
+        dst[2 * g + 1] = t2;
+      }
+    }
+    if (affine)  // each column read and written by one thread: block_sums' own
+      for (int col = tid; col < 2 * c; col += nthreads) acc[col] = (i ? acc[col] : 0.f) + red[col];
+    __syncthreads();  // this buffer and red are refilled next
+    cur ^= 1;
+  }
+  if (affine)
+    for (int col = tid; col < 2 * c; col += nthreads)
+      blocksums[(size_t)blockIdx.x * 2 * c + col] = m ? acc[col] : 0.f;
+
+  // The second pass walks the slabs backwards: the last one is still in
+  // shared memory (buf(cur ^ 1)), the one before it is fetched across the
+  // barriers.
+  int hold = cur ^ 1;
+  if (m >= 2) stage(cur, m - 2);
+
+  cg::grid_group grid = cg::this_grid();
+  grid.sync();
+
+  // Fold: only full warps (the shuffles take all 32 lanes); a block has at
+  // least 252 threads, so at least 7 of them.
+  const float n = (float)hw * (float)cg_;
+  for (int b = blockIdx.x; b < batch; b += gridDim.x) {
+    for (int g = warp; warp < nwarps && g < groups; g += nwarps) {
+      const float* src = partials + (size_t)b * spi * groups * 2 + 2 * g;
+      float t1 = 0.f, t2 = 0.f;
+      for (int j = lane; j < spi; j += 32) {
+        t1 += __ldcg(src + (size_t)j * groups * 2);
+        t2 += __ldcg(src + (size_t)j * groups * 2 + 1);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        t1 += __shfl_xor_sync(0xffffffffu, t1, off);
+        t2 += __shfl_xor_sync(0xffffffffu, t2, off);
+      }
+      if (lane == 0) {
+        coef[((size_t)b * groups + g) * 2] = t1 / n;
+        coef[((size_t)b * groups + g) * 2 + 1] = t2 / n;
+      }
+    }
+  }
+  if (affine) {
+    for (int col = blockIdx.x; col < 2 * c; col += gridDim.x) {
+      float t = 0.f;
+      if (warp < nwarps)
+        for (int k = tid; k < (int)gridDim.x; k += nwarps * 32)
+          t += __ldcg(blocksums + (size_t)k * 2 * c + col);
+      if (warp < nwarps) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
+        if (lane == 0) wsum[warp] = t;
+      }
+      __syncthreads();
+      if (tid == 0) {
+        float u = 0.f;
+        for (int w = 0; w < nwarps; ++w) u += wsum[w];
+        dsb[col] = u;  // dbias (C), then dscale (C)
+      }
+      __syncthreads();  // wsum is refilled
+    }
+  }
+
+  grid.sync();
+
+  for (int i = m - 1; i >= 0; --i) {
+    if (i >= 1 && i < m - 1) stage(hold ^ 1, i - 1);
+    const int s = blockIdx.x + i * gridDim.x;
+    const int b = s / spi;
+    constants(b);
+    float m1[V], m2[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int g = (c0 + j) / cg_;
+      m1[j] = __ldcg(coef + ((size_t)b * groups + g) * 2);
+      m2[j] = __ldcg(coef + ((size_t)b * groups + g) * 2 + 1);
+    }
+    if (i < m - 1) {  // slab i's copy is in flight, slab i - 1's after it
+      if (i >= 1)
+        wait_copies<1>();
+      else
+        wait_copies<0>();
+    }
+    __syncthreads();
+    const T* xs = buf(hold);
+    const T* ds = xs + rows * c;
+    const int nr = slab_rows(i);
+    T* out = dx + slab_row(i) * c + c0;
+    for (int r = ty; r < nr; r += by) {
+      const Pack<T, V> p = *reinterpret_cast<const Pack<T, V>*>(xs + r * c + c0);
+      const Pack<T, V> q = *reinterpret_cast<const Pack<T, V>*>(ds + r * c + c0);
+      float v[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float yn = (to_f32(p.v[j]) - mean_c[j]) * inv_c[j];
+        const float z = yn * sc_c[j] + bi_c[j];
+        const float dz = z > 0.f ? to_f32(q.v[j]) : to_f32(q.v[j]) * __expf(z);
+        v[j] = (dz * sc_c[j] - m1[j] - yn * m2[j]) * inv_c[j];
+      }
+      *reinterpret_cast<Pack<T, V>*>(out + (size_t)r * c) = pack<T, V>(v);
+    }
+    __syncthreads();  // this buffer is refilled next
+    hold ^= 1;
+  }
+}
+
+// Dynamic shared memory above 48 KB needs the attribute; set once a device
+// to the block's limit, so that any plan's size launches.  Bwd: the
+// backward kernel, else the forward.
+template <typename T, int V, bool Bwd>
 cudaError_t allow_smem() {
   static bool done[kMaxDevices];
   int dev = 0;
@@ -533,17 +794,41 @@ cudaError_t allow_smem() {
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(gn_elu_coop<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
+  if constexpr (Bwd)
+    err = cudaFuncSetAttribute(gn_elu_bwd_coop<T, V>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  else
+    err = cudaFuncSetAttribute(gn_elu_coop<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
 }
 
-template <typename T, int V>
+template <typename T, int V, bool Bwd>
 cudaError_t occupancy(int threads, int dyn, int* blocks) {
-  cudaError_t err = allow_smem<T, V>();
+  cudaError_t err = allow_smem<T, V, Bwd>();
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, gn_elu_coop<T, V>, threads, dyn);
+  if constexpr (Bwd)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, gn_elu_bwd_coop<T, V>,
+                                                         threads, dyn);
+  else
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, gn_elu_coop<T, V>, threads,
+                                                         dyn);
+}
+
+template <typename T, int V>
+cudaError_t launch_bwd(const void* x, const void* da, int pitch, const void* stats,
+                       const void* scale, const void* bias, void* dx, void* partials,
+                       void* coef, void* blocksums, void* dsb, int batch, int hw, int c,
+                       int groups, int rows, int spi, int grid, int px, int by, int slab_bytes,
+                       int dyn, int affine, cudaStream_t stream) {
+  cudaError_t err = allow_smem<T, V, true>();
+  if (err != cudaSuccess) return err;
+  void* args[] = {&x,        &da,   &pitch, &stats, &scale,  &bias, &dx,  &partials,
+                  &coef,     &blocksums, &dsb, &batch, &hw, &c, &groups, &rows,
+                  &spi,      &slab_bytes, &affine};
+  return cudaLaunchCooperativeKernel((const void*)gn_elu_bwd_coop<T, V>, dim3(grid),
+                                     dim3(px, by), args, (size_t)dyn, stream);
 }
 
 template <typename T, int V>
@@ -551,7 +836,7 @@ cudaError_t launch(const void* x, const void* scale, const void* bias, void* out
                    void* partials, void* stats, int batch, int hw, int c, int groups,
                    int rows, int spi, int grid, int px, int by, int slab_bytes, int dyn,
                    float eps, cudaStream_t stream) {
-  cudaError_t err = allow_smem<T, V>();
+  cudaError_t err = allow_smem<T, V, false>();
   if (err != cudaSuccess) return err;
   void* args[] = {&x, &scale, &bias, &out, &partials, &stats, &batch, &hw, &c,
                   &groups, &rows, &spi, &slab_bytes, &eps};
@@ -579,10 +864,57 @@ extern "C" int gn_elu_device(int* info) {
 // Blocks of threads threads and dyn bytes of dynamic shared memory that one
 // SM holds at once, for the kernel of (dtype, vec).  Returns a cudaError_t.
 extern "C" int gn_elu_occupancy(int dtype, int vec, int threads, int dyn, int* blocks) {
-  if (dtype == 0 && vec == 4) return (int)occupancy<float, 4>(threads, dyn, blocks);
-  if (dtype == 0 && vec == 1) return (int)occupancy<float, 1>(threads, dyn, blocks);
-  if (dtype == 1 && vec == 8) return (int)occupancy<__nv_bfloat16, 8>(threads, dyn, blocks);
-  if (dtype == 1 && vec == 1) return (int)occupancy<__nv_bfloat16, 1>(threads, dyn, blocks);
+  if (dtype == 0 && vec == 4) return (int)occupancy<float, 4, false>(threads, dyn, blocks);
+  if (dtype == 0 && vec == 1) return (int)occupancy<float, 1, false>(threads, dyn, blocks);
+  if (dtype == 1 && vec == 8)
+    return (int)occupancy<__nv_bfloat16, 8, false>(threads, dyn, blocks);
+  if (dtype == 1 && vec == 1)
+    return (int)occupancy<__nv_bfloat16, 1, false>(threads, dyn, blocks);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same for the backward kernel.
+extern "C" int gn_elu_bwd_occupancy(int dtype, int vec, int threads, int dyn, int* blocks) {
+  if (dtype == 0 && vec == 4) return (int)occupancy<float, 4, true>(threads, dyn, blocks);
+  if (dtype == 0 && vec == 1) return (int)occupancy<float, 1, true>(threads, dyn, blocks);
+  if (dtype == 1 && vec == 8) return (int)occupancy<__nv_bfloat16, 8, true>(threads, dyn, blocks);
+  if (dtype == 1 && vec == 1) return (int)occupancy<__nv_bfloat16, 1, true>(threads, dyn, blocks);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward (see gn_elu_bwd_coop).  da: rows `pitch` elements apart
+// (>= C; a multiple of vec, and 16-byte aligned with vec > 1).  work: fp32
+// scratch of B * spi * 2G (slab partials), then B * 2G (m1, m2), then,
+// with affine, grid * 2C (the blocks' running sums).  dsb: fp32 (2, C)
+// out, dbias then dscale, written only with affine.  Returns a cudaError_t.
+extern "C" int gn_elu_backward(const void* x, const void* da, int pitch, const void* stats,
+                               const void* scale, const void* bias, void* dx, void* work,
+                               void* dsb, int batch, int hw, int c, int groups, int rows,
+                               int spi, int grid, int px, int by, int slab_bytes, int dyn,
+                               int affine, int dtype, int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int item = dtype ? 2 : 4;
+  const bool held = grid >= batch * spi;
+  if (batch < 1 || hw < 1 || c > kMaxC || groups < 1 || c % groups != 0 || px * vec != c ||
+      px * by > 1024 || rows < 1 || spi < 1 || (long long)rows * (spi - 1) >= hw ||
+      (long long)rows * spi < hw || grid < 1 || grid > batch * spi || pitch < c ||
+      pitch % vec != 0 ||
+      2 * rows * c * item > (held ? slab_bytes : slab_bytes / 2 / 16 * 16) ||
+      slab_bytes % 16 != 0 ||
+      dyn < slab_bytes + 4 * (red_rows(px, by) * 2 * c + 2 * c + 32) || (affine && !dsb))
+    return (int)cudaErrorInvalidValue;
+  float* partials = static_cast<float*>(work);
+  float* coef = partials + (size_t)batch * spi * groups * 2;
+  float* blocksums = affine ? coef + (size_t)batch * groups * 2 : nullptr;
+#define GN_BWD(T, V)                                                                       \
+  return (int)launch_bwd<T, V>(x, da, pitch, stats, scale, bias, dx, partials, coef,        \
+                               blocksums, dsb, batch, hw, c, groups, rows, spi, grid, px, by, \
+                               slab_bytes, dyn, affine, st)
+  if (dtype == 0 && vec == 4) GN_BWD(float, 4);
+  if (dtype == 0 && vec == 1) GN_BWD(float, 1);
+  if (dtype == 1 && vec == 8) GN_BWD(__nv_bfloat16, 8);
+  if (dtype == 1 && vec == 1) GN_BWD(__nv_bfloat16, 1);
+#undef GN_BWD
   return (int)cudaErrorInvalidValue;
 }
 

@@ -20,14 +20,20 @@ analytic form; in bf16 the two differ by a few bf16 ulps of the output
 
 Gradient: where the input or the affine parameters require grad, the
 kernel runs inside ``_GroupNormELUKernel``, an autograd Function that
-keeps x and the fp32 (B, 2, G) mean and inverse std the kernel writes,
-and whose backward is the JAX package's analytic two-reduce backward in
-plain PyTorch (``ops.groupnorm.gn_elu_backward``; on the TPU that
-backward is XLA, not a Pallas kernel).  Without grad (serving, the
-frozen D-net) the call goes through the registered op
+keeps x and the fp32 (B, 2, G) mean and inverse std the kernel writes.
+Its backward is a second hand-written kernel, one cooperative launch a
+call (``gn_elu_bwd_coop``; the TPU had only XLA's backward): blocks
+stage slabs of x and the cotangent, write per-group sums of the two
+reductions (and, where the affine parameters take a gradient, their
+per-channel sums), meet at a barrier, fold them in a fixed order, meet
+again and write dx, from shared memory where the plan holds the slabs.
+A cotangent that is a channel slice of a channels_last tensor (a
+concat's gradient) is read in place at its row pitch.  Without grad
+(serving, the frozen D-net) the call goes through the registered op
 ``gdn_tpu_torch::group_norm_elu`` (``kernels/ops.py``: the launch on
 the card, so that an exported graph holds it) and nothing is kept.  On
-the CPU every site runs ``group_norm_elu_analytic``.
+the CPU every site runs ``group_norm_elu_analytic`` and its plain
+backward (``ops.groupnorm.gn_elu_backward``).
 
 Split form (``group_norm_elu_rows``), for an image whose rows are
 sharded over a ``"spatial"`` mesh dim: one launch writes each slab's
@@ -88,11 +94,35 @@ def slab_capacity(c: int, groups: int, vec: int, smem_per_sm: int,
     return (per_block - smem_bytes(c, groups, vec, 0)) // 16 * 16
 
 
+def red_rows(px: int, by: int) -> int:
+    """Rows of the split form's and the backward's reduction buffer (csrc's
+    ``red_rows``): one a warp where a warp holds whole rows, else one a
+    threadIdx.y."""
+    return px * by // 32 if px < 32 and 32 % px == 0 and (px * by) % 32 == 0 else by
+
+
+def bwd_smem_bytes(c: int, vec: int, slab_bytes: int) -> int:
+    """Dynamic shared memory of one backward block: the slab space (x's
+    and da's rows), the (red_rows, 2C) fp32 reduction buffer, the 2C fp32
+    running sums and 32 fp32 warp sums."""
+    return slab_bytes + 4 * (red_rows(*block_shape(c, vec)) * 2 * c + 2 * c + 32)
+
+
+def bwd_slab_capacity(c: int, vec: int, smem_per_sm: int, reserved_per_block: int) -> int:
+    """Bytes of slab space a backward block may stage (two tensors' rows),
+    16-byte aligned, so that two blocks fit an SM's shared memory."""
+    per_block = smem_per_sm // _BLOCKS_PER_SM - reserved_per_block
+    return (per_block - bwd_smem_bytes(c, vec, 0)) // 16 * 16
+
+
 def gn_plan(b: int, hw: int, c: int, itemsize: int, resident_blocks: int,
             slab_bytes: int, sms: int = 0) -> GnPlan:
     """Slabs and grid of one call on (b, hw, c) rows of ``itemsize``
     bytes, for a card that holds ``resident_blocks`` blocks at once, each
     with ``slab_bytes`` of slab, on ``sms`` SMs (0: no preference).
+
+    The backward stages x and da: it plans with ``itemsize`` the bytes of
+    both (2 x the element size) and its own slab space.
 
     Held where a block per slab fits: as many slabs an image as one block
     an SM allows where they hold the tensor (on an H100 the small serving
@@ -133,6 +163,10 @@ def load() -> ctypes.CDLL:
         lib.gn_elu_device.restype = ctypes.c_int
         lib.gn_elu_occupancy.argtypes = [i, i, i, i, p]
         lib.gn_elu_occupancy.restype = ctypes.c_int
+        lib.gn_elu_bwd_occupancy.argtypes = [i, i, i, i, p]
+        lib.gn_elu_bwd_occupancy.restype = ctypes.c_int
+        lib.gn_elu_backward.argtypes = [p, p, i] + [p] * 6 + [i] * 14 + [p]
+        lib.gn_elu_backward.restype = ctypes.c_int
         lib.gn_rows_unroll.restype = ctypes.c_int
         if lib.gn_rows_unroll() != ROWS_UNROLL:
             raise RuntimeError(f"the built split form unrolls {lib.gn_rows_unroll()} rows, "
@@ -147,9 +181,10 @@ def load() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(device: int, dtype: int, vec: int, c: int, groups: int):
+def _resident(device: int, dtype: int, vec: int, c: int, groups: int, bwd: bool = False):
     """(SMs, resident blocks, slab bytes, dynamic shared memory) of the
-    kernel for (dtype, vec, C, G) on the current device, queried once."""
+    forward kernel (``bwd``: the backward) for (dtype, vec, C, G) on the
+    current device, queried once."""
     lib = load()
     info = (ctypes.c_int * 5)()
     err = lib.gn_elu_device(info)
@@ -158,14 +193,20 @@ def _resident(device: int, dtype: int, vec: int, c: int, groups: int):
     sms, smem_sm, reserved, _, coop = info
     if not coop:
         raise RuntimeError("the card does not take cooperative launches")
-    slab = slab_capacity(c, groups, vec, smem_sm, reserved)
-    dyn = smem_bytes(c, groups, vec, slab)
+    if bwd:
+        slab = bwd_slab_capacity(c, vec, smem_sm, reserved)
+        dyn = bwd_smem_bytes(c, vec, slab)
+        occupancy = lib.gn_elu_bwd_occupancy
+    else:
+        slab = slab_capacity(c, groups, vec, smem_sm, reserved)
+        dyn = smem_bytes(c, groups, vec, slab)
+        occupancy = lib.gn_elu_occupancy
     px, by = block_shape(c, vec)
     blocks = ctypes.c_int(0)
-    err = lib.gn_elu_occupancy(dtype, vec, px * by, dyn, ctypes.byref(blocks))
+    err = occupancy(dtype, vec, px * by, dyn, ctypes.byref(blocks))
     if err != 0 or blocks.value < 1:
         raise RuntimeError(
-            f"gn_elu_occupancy failed: cudaError {err}, {blocks.value} blocks an SM")
+            f"{occupancy.__name__} failed: cudaError {err}, {blocks.value} blocks an SM")
     return sms, sms * blocks.value, slab, dyn
 
 
@@ -176,20 +217,23 @@ def _vec(x: torch.Tensor) -> int:
     return 1 if x.shape[1] % vec or x.data_ptr() % 16 else vec
 
 
-def _config(x: torch.Tensor, groups: int):
-    """(vec, plan, slab bytes, dynamic shared memory) of the kernel for
+def _config(x: torch.Tensor, groups: int, bwd: bool = False):
+    """(vec, plan, slab bytes, dynamic shared memory) of the forward
+    kernel (``bwd``: the backward, which stages x's and da's rows) for
     CUDA x (B, C, H, W) in channels_last: 16-byte loads where C and the
     pointer allow, else the scalar route (vec 1)."""
     b, c, h, w = x.shape
     vec = _vec(x)
     sms, resident, slab, dyn = _resident(x.device.index or 0, _DTYPES[x.dtype], vec, c,
-                                         groups)
-    return vec, gn_plan(b, h * w, c, x.element_size(), resident, slab, sms), slab, dyn
+                                         groups, bwd)
+    row = x.element_size() * (2 if bwd else 1)
+    return vec, gn_plan(b, h * w, c, row, resident, slab, sms), slab, dyn
 
 
-def plan_for(x: torch.Tensor, groups: int) -> GnPlan:
-    """The plan the kernel takes for CUDA x (B, C, H, W) in channels_last."""
-    return _config(x, groups)[1]
+def plan_for(x: torch.Tensor, groups: int, bwd: bool = False) -> GnPlan:
+    """The plan the kernel (``bwd``: the backward kernel) takes for CUDA x
+    (B, C, H, W) in channels_last."""
+    return _config(x, groups, bwd)[1]
 
 
 def _check(x, scale, bias, groups):
@@ -237,8 +281,52 @@ def _launch(x, scale, bias, groups, eps):
     return out, stats
 
 
+def row_pitch(t: torch.Tensor) -> Optional[int]:
+    """Elements between consecutive NHWC rows of t (B, C, H, W) where its
+    channels are unit-stride and its rows evenly spaced, at least C apart
+    (a channels_last tensor, or a channel slice of one); else None."""
+    b, c, h, w = t.shape
+    st = t.stride()
+    p = st[3] if w > 1 else st[2] if h > 1 else st[0] if b > 1 else c
+    ok = (p >= c and (c == 1 or st[1] == 1) and (w == 1 or st[3] == p)
+          and (h == 1 or st[2] == w * p) and (b == 1 or st[0] == h * w * p))
+    return p if ok else None
+
+
+def _launch_bwd(da, x, stats, scale, bias, groups, affine):
+    """Run the backward kernel on channels_last CUDA x, its cotangent da
+    and the forward's fp32 (B, 2, G) statistics -> (dx in x's dtype,
+    channels_last; fp32 dscale and dbias, None without ``affine``)."""
+    b, c, h, w = x.shape
+    vec, plan, slab, dyn = _config(x, groups, bwd=True)
+    pitch = row_pitch(da)
+    if pitch is None or pitch % vec or (vec > 1 and da.data_ptr() % 16):
+        da = da.clone(memory_format=torch.channels_last)
+        pitch = c
+    scale = scale.detach().float().contiguous()
+    bias = bias.detach().float().contiguous()
+    px, by = block_shape(c, vec)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    spi = plan.slabs_per_image
+    # slab partials, then m1 and m2 a group, then the blocks' running sums
+    work = torch.empty((b * spi + b) * 2 * groups + (plan.grid * 2 * c if affine else 0),
+                       dtype=torch.float32, device=x.device)
+    dsb = torch.empty((2, c), dtype=torch.float32, device=x.device) if affine else None
+    err = load().gn_elu_backward(
+        x.data_ptr(), da.data_ptr(), pitch, stats.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), dx.data_ptr(), work.data_ptr(), dsb.data_ptr() if affine else None,
+        b, h * w, c, groups, plan.rows, spi, plan.grid, px, by, slab, dyn, int(affine),
+        _DTYPES[x.dtype], vec, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"gn_elu_backward failed: cudaError {err}")
+    group_norm_elu.backward_launches += 1
+    return (dx, dsb[1], dsb[0]) if affine else (dx, None, None)
+
+
 class _GroupNormELUKernel(torch.autograd.Function):
-    """Kernel forward, analytic plain-PyTorch backward."""
+    """Kernel forward, kernel backward (the affine gradients only where
+    scale or bias needs one)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, groups, eps):
@@ -250,21 +338,27 @@ class _GroupNormELUKernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, da):
         x, stats, scale, bias = ctx.saved_tensors
-        dy, dscale, dbias = backward_from_stats(da, x, stats, scale, bias, ctx.groups)
-        return dy, dscale, dbias, None, None
+        need_x, need_scale, need_bias = ctx.needs_input_grad[:3]
+        dx, dscale, dbias = _launch_bwd(da, x, stats, scale, bias, ctx.groups,
+                                        need_scale or need_bias)
+        return (dx if need_x else None, dscale.to(scale.dtype) if need_scale else None,
+                dbias.to(bias.dtype) if need_bias else None, None, None)
 
 
 def backward_from_stats(da, x, stats, scale, bias, groups, ax=None, rows=None):
     """(dx, dscale, dbias) of GroupNorm+ELU from x and the kernel's fp32
-    (B, 2, G) mean and inverse std, expanded per channel by one op.
-    ``ax``: x holds this rank's rows of the image (``rows`` of them in
-    all) on that spatial axis."""
-    dt = x.dtype
+    (B, 2, G) mean and inverse std, expanded per channel by one op, in
+    plain PyTorch: the split form's backward.  The elementwise math is
+    fp32, as the backward kernel's, and dx is cast once to x's dtype, so
+    a rank's bf16 gradients round where one process's do.  ``ax``: x
+    holds this rank's rows of the image (``rows`` of them in all) on
+    that spatial axis."""
     st = stats.repeat_interleave(x.shape[1] // groups, dim=2)  # (B, 2, C)
     mean_c, inv_c = st[:, 0], st[:, 1]
-    yn = (x - mean_c.to(dt)[:, :, None, None]) * inv_c.to(dt)[:, :, None, None]
-    dy, dscale, dbias = gn_elu_backward(da, yn, inv_c, scale, bias, groups, ax=ax, rows=rows)
-    return dy, dscale.to(scale.dtype), dbias.to(bias.dtype)
+    yn = (x.float() - mean_c[:, :, None, None]) * inv_c[:, :, None, None]
+    dy, dscale, dbias = gn_elu_backward(da.float(), yn, inv_c, scale, bias, groups, ax=ax,
+                                        rows=rows)
+    return dy.to(x.dtype), dscale.to(scale.dtype), dbias.to(bias.dtype)
 
 
 ROWS_UNROLL = 4  # rows a thread loads at once in the split form (csrc's kRowsUnroll)
@@ -465,3 +559,4 @@ def group_norm_elu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 group_norm_elu.launches = 0
+group_norm_elu.backward_launches = 0

@@ -13,8 +13,8 @@ compute dtype.  The card's smoke check holds the kernel against it.
 
 ``group_norm_elu_analytic`` is the same forward with the JAX package's
 hand-written two-reduce backward (``gn_elu_backward``); the CPU path of
-every GN site runs it, and the kernel's autograd Function reuses its
-backward.
+every GN site runs it, and the split form's autograd Function
+(``kernels/groupnorm.py``) reuses its backward.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """The work counts behind the bounds that ``chip_smoke.py`` reports for the
 fused conv kernels (``conv_work``), the GroupNorm+ELU kernel (``gn_work``)
-and the fused loss (``loss_work``), held to hand arithmetic on the CPU.
+and its backward (``gn_bwd_work``) and the fused loss (``loss_work``), held
+to hand arithmetic on the CPU.
 
 A bound is the larger of the flops at the card's peak and the bytes at
 its memory rate, so each count must hold every byte the function must
@@ -72,6 +73,33 @@ def test_gn_work_at_the_largest_serving_site():
     assert flops == 8 * 8 * 32 * 128 * 416  # GN_FLOPS_PER_ELEM a element
     assert chip_smoke.bound_ms(flops, nbytes) == pytest.approx(54_526_208 / 3.35e9)
     assert chip_smoke.bound_ms(flops, nbytes) == pytest.approx(0.0163, abs=5e-5)
+
+
+@pytest.mark.parametrize("site", [(128, 32, 128, 416), (128, 16, 128, 416), (96, 32, 228, 304)])
+def test_gn_bwd_work_at_the_training_sites(site):
+    """The backward at the stage-2 cells' largest sites, bf16: x and da
+    read once and dx written once, the fp32 scale and bias read and their
+    gradients written; bytes bound it (22 operations an element)."""
+    flops, nbytes = chip_smoke.gn_bwd_work(site, 2)
+    b, c, h, w = site
+    x = b * c * h * w * 2
+    assert nbytes == 3 * x + 4 * c * 4
+    assert flops == 22 * b * c * h * w  # GN_BWD_FLOPS_PER_ELEM an element
+    assert chip_smoke.bound_ms(flops, nbytes) == pytest.approx(nbytes / 3.35e9)
+
+
+def test_gn_bwd_bound_over_a_kitti_step():
+    """The 21 sites of the KITTI G-net at B=128, bf16: 852 M elements,
+    3 passes of bytes, 1.526 ms at 3.35 TB/s."""
+    from gdn_tpu_torch.config import kitti_config
+
+    sites = chip_smoke.gn_sites(kitti_config().model)
+    numel = sum(128 * c * h * w for c, h, w in sites)
+    assert numel == 851_968_000  # 6.656 M an image
+    total = sum(chip_smoke.bound_ms(*chip_smoke.gn_bwd_work((128, c, h, w), 2))
+                for c, h, w in sites)
+    assert total == pytest.approx(3 * 2 * numel / 3.35e9, rel=1e-5)
+    assert total == pytest.approx(1.526, abs=5e-4)
 
 
 def test_loss_work_at_the_training_batch():
